@@ -1,0 +1,134 @@
+"""The SimCLR/SupCon train step on one device.
+
+The step of ``simclr_pytorch_distributed_tpu/train/supcon_step.py``
+(reference hot loop ``main_supcon.py:242-351``), eagerly:
+
+- both views forward as ONE batch, flattened view-major (rows
+  ``[v1 of all samples; v2 of all samples]``), so they share one BN batch;
+- feature-norm statistics of the UNNORMALIZED embeddings, the SEC EMA
+  (update-then-use, seeded with the first batch) and the linearly ramped
+  SEC / l2reg terms (``main_supcon.py:298-317``);
+- L2 normalization after the (logical) gather;
+- the contrastive term, dense (``ops/losses.py``) or fused
+  (``ops/fused_loss.py``, the CUDA kernels on the card);
+- the loss divided by ``grad_div`` before backward: the reference's DDP
+  averages gradients over its ``--ngpu`` ranks, each of which backpropagates
+  through its own rows only, so the applied gradient is ``1/ngpu`` of the
+  global one; weight decay is not scaled.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import fused_supcon_loss
+from simclr_pytorch_distributed_tpu_torch.ops.losses import supcon_loss
+from simclr_pytorch_distributed_tpu_torch.train.state import TrainState
+
+# the loss's fixed final-scale denominator, whatever the temperature
+# (reference losses.py:90)
+BASE_TEMPERATURE = 0.07
+
+METRIC_KEYS = (
+    "learning_rate", "loss", "loss_l2reg", "loss_sec",
+    "norm_mean", "norm_var", "record_norm_mean",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SupConStepConfig:
+    """Static step configuration (the reference argparse flags)."""
+
+    method: str = "SimCLR"  # {SimCLR, SupCon}
+    temperature: float = 0.5
+    sec: bool = False
+    sec_wei: float = 0.0
+    l2reg: bool = False
+    l2reg_wei: float = 0.0
+    norm_momentum: float = 1.0
+    epochs: int = 1000  # the aux ramps run over epochs * steps_per_epoch
+    steps_per_epoch: int = 1
+    grad_div: float = 2.0
+    loss_impl: str = "dense"  # 'dense' or 'fused'; resolved from 'auto' upstream
+
+
+def two_view_forward(model: torch.nn.Module, images: torch.Tensor) -> torch.Tensor:
+    """``[B, 2, H, W, C]`` images -> ``[2B, D]`` projections, view-major."""
+    b = images.shape[0]
+    flat = images.transpose(0, 1).reshape((2 * b,) + tuple(images.shape[2:]))
+    return model(flat)
+
+
+def contrastive_loss_terms(
+    cfg: SupConStepConfig, n_fea: torch.Tensor, labels: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """The contrastive term over the normalized view-major ``[2B, D]`` rows;
+    ``labels`` for SupCon, ``None`` for SimCLR."""
+    b = n_fea.shape[0] // 2
+    n_features = torch.stack([n_fea[:b], n_fea[b:]], dim=1)
+    if cfg.loss_impl == "fused":
+        loss_fn = fused_supcon_loss
+    elif cfg.loss_impl == "dense":
+        loss_fn = supcon_loss
+    else:
+        raise ValueError(f"loss_impl must be 'dense' or 'fused', got {cfg.loss_impl!r}")
+    return loss_fn(
+        n_features, labels, temperature=cfg.temperature, base_temperature=BASE_TEMPERATURE
+    )
+
+
+def train_step(
+    state: TrainState, cfg: SupConStepConfig, images: torch.Tensor, labels: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """One update of ``state`` on two-crop ``images`` ``[B, 2, H, W, C]``.
+
+    Returns the step's metrics (:data:`METRIC_KEYS`) as 0-dim tensors on the
+    device; nothing here waits for the device.
+    """
+    if cfg.method not in ("SupCon", "SimCLR"):
+        raise ValueError(f"contrastive method not supported: {cfg.method}")
+    state.model.train()
+    feats = two_view_forward(state.model, images).to(torch.float32)
+
+    norms = torch.linalg.norm(feats, dim=1)
+    norm_mean = norms.mean()
+    norm_var = torch.square(norms - norm_mean).mean()
+    norm_mean_sg = norm_mean.detach()
+    if state.step == 0 or state.record_norm_mean is None:
+        record = norm_mean_sg
+    else:
+        record = (1.0 - cfg.norm_momentum) * state.record_norm_mean + (
+            cfg.norm_momentum * norm_mean_sg
+        )
+    loss_sec = torch.square(norms - record).mean()
+    loss_l2reg = torch.square(norms).mean()
+
+    n_fea = feats / torch.linalg.norm(feats, dim=1, keepdim=True)
+    contrastive = contrastive_loss_terms(
+        cfg, n_fea, labels if cfg.method == "SupCon" else None
+    )
+    ramp = state.step / (cfg.epochs * cfg.steps_per_epoch)
+    loss = contrastive
+    if cfg.sec:
+        loss = loss + cfg.sec_wei * ramp * loss_sec
+    if cfg.l2reg:
+        loss = loss + cfg.l2reg_wei * ramp * loss_l2reg
+
+    lr = state.set_learning_rate()
+    state.optimizer.zero_grad(set_to_none=True)
+    (loss / cfg.grad_div).backward()
+    state.optimizer.step()
+    state.step += 1
+    state.record_norm_mean = record
+    return {
+        "learning_rate": torch.tensor(lr),
+        "loss": loss.detach(),
+        "loss_l2reg": loss_l2reg.detach(),
+        "loss_sec": loss_sec.detach(),
+        "norm_mean": norm_mean_sg,
+        "norm_var": norm_var.detach(),
+        "record_norm_mean": record,
+    }

@@ -1,0 +1,166 @@
+"""Weight bridge between a JAX-style ``{'params', 'batch_stats'}`` tree of
+numpy arrays and this package's ``SupConResNet`` state dict.
+
+The port's module names are the reference ``resnet_big.py`` state-dict
+names, so its ``state_dict()`` is the reference layout that the JAX package's
+``utils/torch_convert.py`` reads and writes. This module is the port's own
+copy of that mapping (the port imports nothing of the JAX package):
+
+- conv kernels HWIO <-> OIHW; linear kernels ``[in, out]`` <-> ``[out, in]``;
+- BN ``scale/bias`` <-> ``weight/bias``, ``batch_stats mean/var`` <->
+  ``running_mean/var``; ``num_batches_tracked`` is written as 0 and dropped
+  on the way back (momentum-0.1 BNs never read it);
+- ``encoder/layer{L}_block{i}/Conv_{k-1}`` <-> ``encoder.layer{L}.{i}.conv{k}``,
+  ``shortcut_conv``/``shortcut_bn`` <-> ``shortcut.0``/``shortcut.1``;
+- ``proj_head/fc1|fc2`` <-> ``head.0|head.2`` (mlp), ``proj_head/fc`` <->
+  ``head`` (linear).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _conv_to_torch(w) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1)))
+
+
+def _conv_from_torch(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
+    """``{'params', 'batch_stats'}`` -> the port's ``SupConResNet`` state dict
+    (CPU tensors). Raises on a tree node with no place in that layout."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+
+    def put(key: str, arr) -> None:
+        sd[key] = np.array(arr, dtype=np.float32, order="C")  # a writable copy
+
+    def put_bn(dst: str, p: dict, path: Tuple[str, ...]) -> None:
+        node = stats
+        for name in path:
+            if not isinstance(node, dict) or name not in node:
+                raise ValueError(f"batch_stats has no node '{'/'.join(path)}'")
+            node = node[name]
+        put(f"{dst}.weight", p["scale"])
+        put(f"{dst}.bias", p["bias"])
+        put(f"{dst}.running_mean", node["mean"])
+        put(f"{dst}.running_var", node["var"])
+        sd[f"{dst}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+    def put_linear(dst: str, p: dict) -> None:
+        put(f"{dst}.weight", np.asarray(p["kernel"], np.float32).T)
+        put(f"{dst}.bias", p["bias"])
+
+    for name, sub in params["encoder"].items():
+        if name == "conv1":
+            put("encoder.conv1.weight", _conv_to_torch(sub["kernel"]))
+        elif name == "bn1":
+            put_bn("encoder.bn1", sub, ("encoder", "bn1"))
+        elif m := re.match(r"layer(\d)_block(\d+)$", name):
+            dst = f"encoder.layer{m.group(1)}.{m.group(2)}"
+            for part, leaf in sub.items():
+                if cm := re.match(r"Conv_(\d)$", part):
+                    put(f"{dst}.conv{int(cm.group(1)) + 1}.weight",
+                        _conv_to_torch(leaf["kernel"]))
+                elif re.match(r"bn\d$", part):
+                    put_bn(f"{dst}.{part}", leaf, ("encoder", name, part))
+                elif part == "shortcut_conv":
+                    put(f"{dst}.shortcut.0.weight", _conv_to_torch(leaf["kernel"]))
+                elif part == "shortcut_bn":
+                    put_bn(f"{dst}.shortcut.1", leaf, ("encoder", name, part))
+                else:
+                    raise ValueError(f"cannot place encoder/{name}/{part}")
+        else:
+            raise ValueError(f"cannot place encoder/{name}")
+
+    head = params["proj_head"]
+    if "fc1" in head:
+        put_linear("head.0", head["fc1"])
+        put_linear("head.2", head["fc2"])
+    elif "fc" in head:
+        put_linear("head", head["fc"])
+    else:
+        raise ValueError(f"unrecognized proj_head tree: {sorted(head)}")
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def _set(tree: dict, path: Tuple[str, ...], value: np.ndarray) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def state_dict_to_variables(state_dict) -> dict:
+    """The inverse of :func:`variables_to_state_dict`: a ``SupConResNet``
+    state dict (tensors or arrays, ``'module.'`` prefixes allowed) ->
+    ``{'params', 'batch_stats'}`` of numpy arrays. Raises on any key it
+    does not consume. The arrays are copies: a later in-place update of the
+    model does not reach them."""
+    sd = {}
+    for k, v in state_dict.items():
+        key = k[len("module."):] if k.startswith("module.") else k
+        arr = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        sd[key] = arr.copy()
+    params: dict = {}
+    stats: dict = {}
+    consumed = set()
+
+    def take(key: str) -> np.ndarray:
+        consumed.add(key)
+        return np.asarray(sd[key], np.float32)
+
+    def bn(src: str, dst: Tuple[str, ...]) -> None:
+        _set(params, dst + ("scale",), take(f"{src}.weight"))
+        _set(params, dst + ("bias",), take(f"{src}.bias"))
+        _set(stats, dst + ("mean",), take(f"{src}.running_mean"))
+        _set(stats, dst + ("var",), take(f"{src}.running_var"))
+        consumed.add(f"{src}.num_batches_tracked")
+
+    def linear(src: str, dst: Tuple[str, ...]) -> None:
+        _set(params, dst + ("kernel",), np.ascontiguousarray(take(f"{src}.weight").T))
+        _set(params, dst + ("bias",), take(f"{src}.bias"))
+
+    for key in sd:
+        if key in consumed:
+            continue
+        if key == "encoder.conv1.weight":
+            _set(params, ("encoder", "conv1", "kernel"), _conv_from_torch(take(key)))
+        elif key.startswith("encoder.bn1."):
+            bn("encoder.bn1", ("encoder", "bn1"))
+        elif m := re.match(r"encoder\.layer(\d)\.(\d+)\.(conv|bn)(\d)\.", key):
+            layer, block, kind, idx = m.groups()
+            scope = ("encoder", f"layer{layer}_block{block}")
+            src = f"encoder.layer{layer}.{block}.{kind}{idx}"
+            if kind == "conv":
+                _set(params, scope + (f"Conv_{int(idx) - 1}", "kernel"),
+                     _conv_from_torch(take(f"{src}.weight")))
+            else:
+                bn(src, scope + (f"bn{idx}",))
+        elif m := re.match(r"encoder\.layer(\d)\.(\d+)\.shortcut\.(\d)\.", key):
+            layer, block, idx = m.groups()
+            scope = ("encoder", f"layer{layer}_block{block}")
+            src = f"encoder.layer{layer}.{block}.shortcut.{idx}"
+            if idx == "0":
+                _set(params, scope + ("shortcut_conv", "kernel"),
+                     _conv_from_torch(take(f"{src}.weight")))
+            else:
+                bn(src, scope + ("shortcut_bn",))
+        elif key.startswith("head.0."):
+            linear("head.0", ("proj_head", "fc1"))
+        elif key.startswith("head.2."):
+            linear("head.2", ("proj_head", "fc2"))
+        elif key in ("head.weight", "head.bias"):
+            linear("head", ("proj_head", "fc"))
+
+    leftover = set(sd) - consumed
+    if leftover:
+        raise ValueError(f"unmapped state-dict keys: {sorted(leftover)[:8]}")
+    return {"params": params, "batch_stats": stats}

@@ -1,0 +1,80 @@
+"""The port stands alone: no JAX, no Flax/Optax, nothing of the JAX package.
+
+Every module of ``simclr_pytorch_distributed_tpu_torch`` and
+``chip_smoke.py`` is parsed with ``ast`` and must import none of
+``jax``/``flax``/``optax`` nor ``simclr_pytorch_distributed_tpu``; and the
+package's modules must import in a fresh interpreter where ``import jax``
+fails.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "simclr_pytorch_distributed_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "simclr_pytorch_distributed_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _sources():
+    return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_no_forbidden_imports():
+    offenders = [
+        f"{path.relative_to(REPO)}:{line}: {name}"
+        for path in _sources()
+        for line, name in _imported_modules(path)
+        if _forbidden(name)
+    ]
+    assert not offenders, offenders
+    assert len(_sources()) > 15  # the scan saw the package
+
+
+def test_forbidden_import_is_detected(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text(
+        "import jax.numpy as jnp\nfrom simclr_pytorch_distributed_tpu.ops import losses\n"
+    )
+    assert [name for _, name in _imported_modules(bad) if _forbidden(name)] == [
+        "jax.numpy", "simclr_pytorch_distributed_tpu.ops",
+    ]
+    assert not _forbidden("simclr_pytorch_distributed_tpu_torch.ops")
+
+
+def test_package_imports_with_jax_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PACKAGE.rglob("*.py")
+    )
+    code = (
+        "import sys, importlib\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'simclr_pytorch_distributed_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('imported', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout

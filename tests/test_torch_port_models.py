@@ -1,0 +1,119 @@
+"""The port's ResNet/SupConResNet against the JAX package's, on one set of
+weights.
+
+The port's seeded init, with its BN affine parameters and running
+statistics perturbed by seeded numpy draws, moves to the JAX model through
+the port's ``utils/convert.py``. Both then run the same NHWC batch in train
+mode (projection, encoder features, and the BN running buffers after the
+step) and in eval mode. Tolerances are those of the JAX package's own
+transplant test (``tests/test_torch_parity.py:283,313``): rtol 1e-3 /
+atol 1e-4, and atol 2e-4 for rn50, whose 50 layers sum in a different order
+on the two sides.
+
+One widening, rn50 in train mode only: at 8x8 px and batch 4, layer4 runs
+at 1x1 px, so each of its BNs normalizes over 4 values, and dividing by the
+standard deviation of 4 values amplifies fp32 rounding. Against a float64
+run of the same weights and batch, the port's fp32 encoder features are off
+by up to 4.8e-3 and the JAX package's by up to 9.8e-3, on features of
+magnitude up to 8.1 (both errors come from the conditioning, not from
+either side's arithmetic). The train-mode pin there is atol 2e-3 times the
+largest reference magnitude (about 1.6e-2); eval mode, which normalizes
+with running statistics, keeps atol 2e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch import nn
+
+from simclr_pytorch_distributed_tpu.models import SupConResNet as JaxSupConResNet
+from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+from simclr_pytorch_distributed_tpu_torch.utils.convert import (
+    state_dict_to_variables,
+    variables_to_state_dict,
+)
+
+CASES = [
+    # (model, head, size, batch, atol, train-mode atol as a share of max|ref|)
+    ("resnet10", "mlp", 8, 8, 1e-4, 0.0),
+    ("resnet18", "linear", 8, 8, 1e-4, 0.0),
+    ("resnet50", "mlp", 8, 4, 2e-4, 2e-3),
+]
+
+
+def _perturbed_port_model(model_name, head, feat_dim, seed):
+    torch.manual_seed(seed)
+    model = SupConResNet(model_name, head, feat_dim)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)))
+                m.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, c).astype(np.float32)))
+                m.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, c).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)))
+    return model
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+@pytest.fixture(scope="module", params=CASES, ids=[c[0] for c in CASES])
+def case(request):
+    model_name, head, size, batch, atol, train_share = request.param
+    port = _perturbed_port_model(model_name, head, 32, seed=batch + size)
+    variables = state_dict_to_variables(port.state_dict())
+    jax_model = JaxSupConResNet(model_name=model_name, head=head, feat_dim=32)
+    x = np.random.default_rng(1).standard_normal((batch, size, size, 3)).astype(np.float32)
+    return port, jax_model, variables, x, atol, train_share
+
+
+def _train_atol(atol, share, ref):
+    return max(atol, share * float(np.abs(np.asarray(ref)).max()))
+
+
+def test_train_forward_and_running_stats(case):
+    port, jax_model, variables, x, atol, share = case
+    port.load_state_dict(variables_to_state_dict(variables), strict=True)
+    (proj_j, feat_j), mutated = jax_model.apply(
+        variables, x, train=True, mutable=["batch_stats"],
+        method=JaxSupConResNet.forward_with_features,
+    )
+    port.train()
+    with torch.no_grad():
+        proj_p, feat_p = port.forward_with_features(torch.from_numpy(x))
+    np.testing.assert_allclose(
+        feat_p.numpy(), np.asarray(feat_j), rtol=1e-3, atol=_train_atol(atol, share, feat_j)
+    )
+    np.testing.assert_allclose(
+        proj_p.numpy(), np.asarray(proj_j), rtol=1e-3, atol=_train_atol(atol, share, proj_j)
+    )
+
+    stats_p = dict(_leaves(state_dict_to_variables(port.state_dict())["batch_stats"]))
+    stats_j = dict(_leaves(mutated["batch_stats"]))
+    assert stats_p.keys() == stats_j.keys()
+    for path, ref in stats_j.items():
+        np.testing.assert_allclose(
+            stats_p[path], ref, rtol=1e-3, atol=_train_atol(atol, share, ref),
+            err_msg="/".join(path),
+        )
+
+
+def test_eval_forward(case):
+    port, jax_model, variables, x, atol, _ = case
+    port.load_state_dict(variables_to_state_dict(variables), strict=True)
+    out_j = jax_model.apply(variables, x, train=False)
+    feat_j = jax_model.apply(variables, x, train=False, method=JaxSupConResNet.encode)
+    port.eval()
+    with torch.no_grad():
+        out_p = port(torch.from_numpy(x))
+        feat_p = port.encode(torch.from_numpy(x))
+    np.testing.assert_allclose(feat_p.numpy(), np.asarray(feat_j), rtol=1e-3, atol=atol)
+    np.testing.assert_allclose(out_p.numpy(), np.asarray(out_j), rtol=1e-3, atol=atol)
+
