@@ -3,17 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version on the card, drives the port's pretraining entry point
-(``train.supcon.main``) for one epoch of SimCLR on ResNet-50 at the published
-recipe's width (batch 256, 32 px, two crops, so the loss sees N = 512 rows),
-checks that the run went through the kernels, and times kernels and train
-steps with CUDA events. Phases: device, build, kernel_parity, train, timing.
-Any failure raises and the script exits non-zero.
+Builds the port's CUDA kernels from this checkout (one nvcc per source, all
+started together), holds each against its plain PyTorch version on the card
+(the loss pair at N = 512 and 74 rows; the stem and Bottleneck pairs at the
+recipe's sites and at a ragged shape), drives the port's pretraining entry
+point (``train.supcon.main``) for one epoch of SimCLR on ResNet-50 at the
+published recipe's width (batch 256, 32 px, two crops, so the encoder and
+the loss see 512 rows) with ``--conv_impl fused --loss_impl fused``, checks
+that the run went through every kernel and that all 17 conv sites fused,
+compares one step of the fused conv path with the eager one, and times
+kernels and train steps with CUDA events. Phases: device, build,
+kernel_parity, train, timing. Any failure raises and the script exits
+non-zero.
 
-The last two lines of standard output are one JSON object per kernel
-(``{"kernels": [...]}``: launches on the main path, error against the plain
-version, times, and the least time the card could take) and then
+The last lines of standard output are the card's name and power limit, one
+JSON object with an entry per kernel (``{"kernels": [...]}``: launches on
+the main path, error against the plain version, times, and the least time
+the card could take) and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result. TF32 is off throughout, so every number is
 fp32.
@@ -21,6 +27,7 @@ fp32.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import json
 import math
@@ -42,6 +49,32 @@ PEAK_BYTES_PER_S = 3.35e12
 
 N_ROWS, DIM = 512, 128  # the recipe's loss shape: 2 x 256 views, feat_dim 128
 TEMP, BASE_TEMP = 0.5, 0.07
+EPS = 1e-5
+SOURCES = ("fused_supcon_loss", "fused_conv_bn")
+PALLAS_CONV = "simclr_pytorch_distributed_tpu/ops/pallas_conv.py"
+
+# Conv kernel parity pins. Forward values and moments, and everything at
+# the ragged shapes: the JAX package's elementwise pins against the plain
+# fp32 form (tests/test_pallas_conv.py:46-47; moments with the 2.5e-6
+# BN-statistics pin). Gradients at the recipe's sites go against the plain
+# form run in float64, because there the plain fp32 form is no oracle:
+# with 10^7-10^8 ReLU inputs per call, a few lie within fp32 rounding of
+# zero, and a flipped mask moves single gradient entries by up to 20% of
+# their tensor's max, in the plain fp32 form as in the kernel (PERF.md,
+# Findings). So, at the recipe's sites, per gradient tensor in relative L2
+# norm against float64: with the main path's inputs, at most GRAD_REL_L2;
+# with inputs whose BN shifts keep the ReLU inputs away from zero, at most
+# GRAD_VS_PLAIN times the plain fp32 form's own error (floor
+# GRAD_L2_FLOOR, for sums that cancel to ~0 when every ReLU passes).
+VAL_RTOL, VAL_ATOL = 3e-5, 3e-5
+STAT_RTOL, STAT_ATOL = 3e-5, 2.5e-6
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
+GRAD_REL_L2 = 1e-2
+GRAD_VS_PLAIN, GRAD_L2_FLOOR = 4.0, 1e-5
+# The BN-beta shift of the margin inputs: with normalized pre-activations
+# and gammas of 1 +- 0.2, a ReLU input lies within fp32 rounding of zero
+# with odds under 1e-11 per element, against ~1e-7 unshifted.
+MARGIN = 8.0
 
 
 def phase(name):
@@ -130,6 +163,272 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def rand(shape, gen, dev, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+
+def stem_inputs(n, h, w, dev, seed, margin=0.0):
+    """x, the HWIO kernel, gamma and beta; ``margin`` shifts beta, so the
+    ReLU inputs sit away from zero."""
+    g = torch.Generator().manual_seed(seed)
+    return (rand((n, h, w, 3), g, dev), rand((3, 3, 3, 64), g, dev, 0.3),
+            rand((64,), g, dev, 0.2, 1.0), rand((64,), g, dev, 0.1, margin))
+
+
+def bottleneck_inputs(n, h, w, cin, p, stride, dev, seed, margin=0.0):
+    """x, the three main kernels with their BN affines (Kaiming-scale
+    weights, gammas near 1), and the shortcut triple or None. ``margin``
+    shifts the BN betas before each ReLU; in a projection block the two
+    biases that meet in the last ReLU take 5/8 of it each (that ReLU's
+    input is the sum of two normalized terms, so its spread is wider)."""
+    g = torch.Generator().manual_seed(seed)
+    c4 = 4 * p
+    proj = stride != 1 or cin != c4
+    last = 0.625 * margin if proj else margin
+    args = (rand((n, h, w, cin), g, dev),
+            rand((cin, p), g, dev, (2 / p) ** 0.5), rand((p,), g, dev, 0.2, 1.0),
+            rand((p,), g, dev, 0.1, margin),
+            rand((3, 3, p, p), g, dev, (2 / (9 * p)) ** 0.5), rand((p,), g, dev, 0.2, 1.0),
+            rand((p,), g, dev, 0.1, margin),
+            rand((p, c4), g, dev, (2 / c4) ** 0.5), rand((c4,), g, dev, 0.2, 1.0),
+            rand((c4,), g, dev, 0.1, last))
+    short = None
+    if proj:
+        short = (rand((cin, c4), g, dev, (2 / c4) ** 0.5), rand((c4,), g, dev, 0.2, 1.0),
+                 rand((c4,), g, dev, 0.1, last))
+    return args, short
+
+
+def elem(rtol, atol):
+    return ("elem", rtol, atol)
+
+
+def rel_l2(got, ref):
+    """``||got - ref|| / ||ref||`` in float64."""
+    ref = ref.double()
+    return ((got.double() - ref).norm() / ref.norm()).item()
+
+
+class Parity:
+    """Collects every compared tensor's error, prints one line per case, and
+    raises at the end if any tensor broke its pin (so one run shows all).
+    A pin is ``("elem", rtol, atol)`` (elementwise against ``ref``), or,
+    with ``ref`` an ``(exact, plain)`` pair, ``("l2", bound)`` (relative L2
+    error against ``exact`` at most ``bound``) or ``("l2_vs", factor,
+    floor)`` (at most ``factor`` times plain's own, and at least
+    ``floor``); those lines print plain's error beside the kernel's.
+    ``max_abs`` keeps each kernel's largest elementwise-pinned error."""
+
+    def __init__(self):
+        self.failures = []
+        self.max_abs = {}
+
+    def case(self, kernel, label, pairs):
+        parts = []
+        for name, got, ref, pin in pairs:
+            if got is None:
+                continue
+            if pin[0] == "elem":
+                diff = (got - ref).abs()
+                err, scale = diff.max().item(), ref.abs().max().item()
+                ok = (diff - (pin[2] + pin[1] * ref.abs())).max().item() <= 0.0
+                parts.append(f"{name} {err:.2e}/{scale:.2e}")
+                self.max_abs[kernel] = max(self.max_abs.get(kernel, 0.0), err)
+            else:
+                exact, plain = ref
+                err, scale = rel_l2(got, exact), exact.abs().max().item()
+                plain_err = rel_l2(plain, exact)
+                bound = pin[1] if pin[0] == "l2" else max(pin[1] * plain_err, pin[2])
+                ok = err <= bound
+                parts.append(f"{name} relL2 {err:.2e} (plain {plain_err:.2e})")
+            if not ok:
+                self.failures.append(f"{kernel} {label} {name}: {pin} err {err:.3e} "
+                                     f"max|ref| {scale:.3e}")
+        print(f"{kernel} {label}: " + ", ".join(parts), flush=True)
+
+    def raise_if_failed(self):
+        if self.failures:
+            raise AssertionError("kernel parity failed:\n" + "\n".join(self.failures))
+
+
+def _f64(args):
+    return [None if a is None else tuple(t.double() for t in a) if isinstance(a, tuple)
+            else a.double() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+RECIPE_BOTTLENECKS = (
+    ("layer1_block0 proj s1 [512,32,32,64] P=64", (512, 32, 32, 64, 64, 1)),
+    ("layer1_block1 identity [512,32,32,256] P=64", (512, 32, 32, 256, 64, 1)),
+    ("layer2_block0 proj s2 [512,32,32,256] P=128", (512, 32, 32, 256, 128, 2)),
+)
+# ragged rows (360 and 90 a call, not multiples of the 128-row tile),
+# channel counts that leave a ragged last 64-channel tile (160) or are no
+# multiple of 4 (10, 40: the kernels' scalar load paths)
+RAGGED_BOTTLENECKS = (
+    ("ragged proj s2 [6,10,6,24] P=40", (6, 10, 6, 24, 40, 2)),
+    ("ragged identity [6,10,6,40] P=10", (6, 10, 6, 40, 10, 1)),
+)
+BOT_OUT = ("out", "m1", "v1", "m2", "v2", "m3", "v3", "m_sc", "v_sc")
+BOT_GRADS = ("dx", "dk1", "dg1", "db1", "dk2", "dg2", "db2", "dk3", "dg3", "db3",
+             "dk_sc", "dg_sc", "db_sc")
+
+
+def conv_parity(dev, parity):
+    """The stem and Bottleneck kernels against their plain forms, forward
+    (value, moments) and backward (every gradient), at the recipe's sites
+    (main-path inputs, and inputs with ReLU margin) and at ragged shapes."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+    g = torch.Generator().manual_seed(7)
+    stem_cases = [("recipe [512,32,32,3]", (512, 32, 32), 0.0),
+                  ("recipe [512,32,32,3] margin", (512, 32, 32), MARGIN),
+                  ("ragged [6,10,6,3]", (6, 10, 6), 0.0)]
+    for label, (n, h, w), margin in stem_cases:
+        recipe = n == 512
+        x, k, gam, bet = stem_inputs(n, h, w, dev, seed=1, margin=margin)
+        got = fc.stem_fwd(x, k, gam, bet, EPS)
+        ref = fc.stem_fwd_reference(x, k, gam, bet, EPS)
+        parity.case("fused_stem_fwd", label, [
+            ("out", got[0], ref[0], elem(VAL_RTOL, VAL_ATOL)),
+            ("mean", got[1], ref[1], elem(STAT_RTOL, STAT_ATOL)),
+            ("var", got[2], ref[2], elem(STAT_RTOL, STAT_ATOL))])
+        gout = rand(tuple(ref[0].shape), g, dev)
+        need_dx = not recipe  # the main path needs no dx of the images
+        bargs = (x, k, gam, bet, ref[1], ref[2], gout, EPS)
+        got = fc.stem_bwd(*bargs, need_dx=need_dx)
+        plain = fc.stem_bwd_reference(*bargs, need_dx=need_dx)
+        refs, pin = plain, elem(GRAD_RTOL, GRAD_ATOL)
+        if recipe:
+            exact = fc.stem_bwd_reference(*_f64(bargs), need_dx=need_dx)
+            refs = list(zip(exact, plain))
+            pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
+        parity.case("fused_stem_bwd", label, [
+            (name, a, b, pin) for name, a, b in zip(("dx", "dk", "dgamma", "dbeta"), got, refs)])
+    cases = [(label, geo, 0.0) for label, geo in RECIPE_BOTTLENECKS]
+    cases += [(label + " margin", geo, MARGIN) for label, geo in RECIPE_BOTTLENECKS]
+    cases += [(label, geo, 0.0) for label, geo in RAGGED_BOTTLENECKS]
+    for label, geo, margin in cases:
+        recipe = geo[0] == 512
+        args, short = bottleneck_inputs(*geo, dev, seed=2, margin=margin)
+        stride = geo[5]
+        got = fc.bottleneck_fwd(*args, short, stride, EPS)
+        ref = fc.bottleneck_fwd_reference(*args, short, stride, EPS)
+        parity.case("fused_bottleneck_fwd", label, [
+            (name, a, b, elem(VAL_RTOL, VAL_ATOL) if name == "out" else elem(STAT_RTOL, STAT_ATOL))
+            for name, a, b in zip(BOT_OUT, got, ref)])
+        gout = rand(tuple(ref[0].shape), g, dev)
+        short_b = short + tuple(ref[7:9]) if short is not None else None
+        bargs = (*args, short_b, *ref[1:7], gout, stride, EPS)
+        got = fc.bottleneck_bwd(*bargs)
+        plain = fc.bottleneck_bwd_reference(*bargs)
+        refs, pin = plain, elem(GRAD_RTOL, GRAD_ATOL)
+        if recipe:
+            exact = fc.bottleneck_bwd_reference(*_f64(bargs))
+            refs = list(zip(exact, plain))
+            pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
+        parity.case("fused_bottleneck_bwd", label, [
+            (name, a, b, pin) for name, a, b in zip(BOT_GRADS, got, refs)])
+        del args, short, got, ref, refs, plain, gout, bargs
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def bottleneck_sites(rows=512, size=32):
+    """The recipe's 16 Bottleneck sites as ``(name, (n, h, w, cin, P, stride))``."""
+    from simclr_pytorch_distributed_tpu_torch.models.resnet import fused_site_plan
+    return [(s["name"], (rows, s["h"], s["w"], s["in_channels"], s["width"], s["stride"]))
+            for s in fused_site_plan("resnet50", rows, size) if s["kind"] == "bottleneck"]
+
+
+def bottleneck_work(n, h, w, cin, p, stride):
+    """``(fwd_flops, bwd_flops, fwd_bytes, bwd_bytes)`` of one Bottleneck
+    call: 2 FLOPs per multiply-add of the four convs; the backward
+    recomputes the forward convs (its inputs are x, the weights and the
+    moments), then takes the data and weight gradients, so 3x. Bytes:
+    each input read once, each output written once, fp32."""
+    ho, wo = h // stride, w // stride
+    m1, m2, c4 = n * h * w, n * ho * wo, 4 * p
+    proj = stride != 1 or cin != c4
+    fwd = 2 * (m1 * cin * p + m2 * 9 * p * p + m2 * p * c4 + (m2 * cin * c4 if proj else 0))
+    weights = cin * p + 9 * p * p + p * c4 + (cin * c4 if proj else 0)
+    rows = 2 * p + 2 * p + 2 * c4 + (2 * c4 if proj else 0)  # gammas, betas
+    moments = rows
+    fwd_bytes = 4 * (m1 * cin + weights + rows + m2 * c4 + moments)
+    bwd_bytes = 4 * (m1 * cin + weights + rows + moments + m2 * c4  # inputs
+                     + m1 * cin + weights + rows)                   # dx, dW, dgamma/dbeta
+    return fwd, 3 * fwd, fwd_bytes, bwd_bytes
+
+
+def conv_timing(dev, where):
+    """CUDA-event times (ms) of the conv kernels at the recipe's sites,
+    beside their plain forms and, as context, the eager module chain each
+    replaces (cuDNN conv + BatchNorm2d + ReLU, forward and forward+backward).
+    Bottleneck sites that share a geometry share one measurement."""
+    from torch import nn
+    from simclr_pytorch_distributed_tpu_torch.models.resnet import Bottleneck
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+    reps = dict(reps=2, rounds=3, warmup=1)
+    res = {}
+    x, k, g, b = stem_inputs(512, 32, 32, dev, seed=3)
+    y, m, v = fc.stem_fwd(x, k, g, b, EPS)
+    gout = torch.randn_like(y)
+    conv = nn.Conv2d(3, 64, 3, 1, 1, bias=False).to(dev, memory_format=torch.channels_last)
+    bn = nn.BatchNorm2d(64).to(dev)
+    xe, ge = x.permute(0, 3, 1, 2), gout.permute(0, 3, 1, 2)
+    stem = {
+        "fwd": cuda_time_ms(lambda: fc.stem_fwd(x, k, g, b, EPS), **reps),
+        "fwd_plain": cuda_time_ms(lambda: fc.stem_fwd_reference(x, k, g, b, EPS), **reps),
+        "bwd": cuda_time_ms(
+            lambda: fc.stem_bwd(x, k, g, b, m, v, gout, EPS, need_dx=False), **reps),
+        "bwd_plain": cuda_time_ms(
+            lambda: fc.stem_bwd_reference(x, k, g, b, m, v, gout, EPS, need_dx=False), **reps),
+        "eager_fwd": cuda_time_ms(lambda: torch.relu(bn(conv(xe))), **reps),
+        "eager_fwd_bwd": cuda_time_ms(lambda: torch.relu(bn(conv(xe))).backward(ge), **reps),
+    }
+    res["stem"] = stem
+    print(f"stem [512,32,32,3]->64 ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stem.items())
+          + f" {where}", flush=True)
+    del x, y, gout, xe, ge
+    per_geo = {}
+    for name, geo in bottleneck_sites():
+        if geo in per_geo:
+            continue
+        n, h, w, cin, p, stride = geo
+        args, short = bottleneck_inputs(*geo, dev, seed=4)
+        r = fc.bottleneck_fwd(*args, short, stride, EPS)
+        gout = torch.randn_like(r[0])
+        short_b = short + tuple(r[7:9]) if short is not None else None
+        bwd_args = (*args, short_b, *r[1:7], gout, stride, EPS)
+        blk = Bottleneck(cin, p, stride).to(dev, memory_format=torch.channels_last).train()
+        xe = args[0].permute(0, 3, 1, 2).detach().requires_grad_()
+        ge = gout.permute(0, 3, 1, 2)
+        per_geo[geo] = {
+            "fwd": cuda_time_ms(lambda: fc.bottleneck_fwd(*args, short, stride, EPS), **reps),
+            "fwd_plain": cuda_time_ms(
+                lambda: fc.bottleneck_fwd_reference(*args, short, stride, EPS), **reps),
+            "bwd": cuda_time_ms(lambda: fc.bottleneck_bwd(*bwd_args), **reps),
+            "bwd_plain": cuda_time_ms(lambda: fc.bottleneck_bwd_reference(*bwd_args), **reps),
+            "eager_fwd": cuda_time_ms(lambda: blk(xe), **reps),
+            "eager_fwd_bwd": cuda_time_ms(lambda: blk(xe).backward(ge), **reps),
+        }
+        del args, short, r, gout, short_b, bwd_args, blk, xe, ge
+        torch.cuda.empty_cache()
+    sites = []
+    for name, geo in bottleneck_sites():
+        fwd_f, bwd_f, fwd_b, bwd_b = bottleneck_work(*geo)
+        sites.append({"site": name, "geometry": list(geo), **per_geo[geo],
+                      "bound_fwd": bound(fwd_f, fwd_b), "bound_bwd": bound(bwd_f, bwd_b)})
+        print(f"bottleneck {name} {geo} ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in per_geo[geo].items())
+              + f"; bound fwd {sites[-1]['bound_fwd'][0]:.3f} bwd {sites[-1]['bound_bwd'][0]:.3f}"
+              + f" {where}", flush=True)
+    res["bottleneck_sites"] = sites
+    keys = ("fwd", "fwd_plain", "bwd", "bwd_plain", "eager_fwd", "eager_fwd_bwd")
+    res["bottleneck"] = {key: sum(s[key] for s in sites) for key in keys}
+    print(f"bottleneck, sum over the 16 sites (one step) ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res["bottleneck"].items()) + f" {where}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing to test",
@@ -137,7 +436,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
-    from simclr_pytorch_distributed_tpu_torch.ops import fused_loss, native
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv, fused_loss, native
     from simclr_pytorch_distributed_tpu_torch.ops.augment import AugmentConfig, two_crop_batch
     from simclr_pytorch_distributed_tpu_torch.ops.losses import supcon_loss
     from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
@@ -166,9 +465,12 @@ def main() -> int:
     # -- build -------------------------------------------------------------
     t0 = phase("build")
     tb = time.time()
-    lib_path = native.build("fused_supcon_loss")
-    print(f"built {os.path.relpath(lib_path, REPO)} in {time.time() - tb:.2f} s")
-    print(lib_path.with_suffix(".log").read_text().strip())
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(native.build, SOURCES)))
+    print(f"built {len(built)} libraries in parallel in {time.time() - tb:.2f} s")
+    for name, lib_path in built.items():
+        print(f"{os.path.relpath(lib_path, REPO)} (ptxas: registers, shared memory, spills):")
+        print(lib_path.with_suffix(".log").read_text().strip())
     done("build", t0)
 
     # -- kernel_parity -----------------------------------------------------
@@ -204,6 +506,13 @@ def main() -> int:
             raise AssertionError(f"case {case}: dF off: {d_abs} > 1e-5 * {d_scale}")
         errors[(case, "dF")] = d_abs
     print("bounds: cnt exact; loss_row, lse rtol 1e-5; dF atol 1e-5 x max|dF|")
+    parity = Parity()
+    conv_parity(dev, parity)
+    print(f"conv bounds: out rtol {VAL_RTOL} atol {VAL_ATOL}; moments rtol {STAT_RTOL} "
+          f"atol {STAT_ATOL}; ragged gradients rtol {GRAD_RTOL} atol {GRAD_ATOL}; recipe "
+          f"gradients vs float64, relative L2: <= {GRAD_REL_L2} (main-path inputs), <= "
+          f"{GRAD_VS_PLAIN} x the plain fp32 form's, floor {GRAD_L2_FLOOR} (margin inputs)")
+    parity.raise_if_failed()
     done("kernel_parity", t0)
 
     # -- train: the main path, through the port's entry point ---------------
@@ -214,23 +523,40 @@ def main() -> int:
         "--device", "cuda", "--dataset", "synthetic", "--model", "resnet50",
         "--batch_size", str(batch_size), "--size", "32", "--epochs", "1",
         "--method", "SimCLR", "--temp", str(TEMP), "--learning_rate", "0.5",
-        "--cosine", "--loss_impl", "fused", "--print_freq", "1", "--save_freq", "1",
-        "--workdir", workdir,
+        "--cosine", "--loss_impl", "fused", "--conv_impl", "fused", "--print_freq", "1",
+        "--save_freq", "1", "--workdir", workdir,
     ]
-    fused_loss.fwd_launches = 0
-    fused_loss.bwd_launches = 0
+    counters = (
+        (fused_loss, "fwd_launches"), (fused_loss, "bwd_launches"),
+        (fused_conv, "stem_fwd_launches"), (fused_conv, "stem_bwd_launches"),
+        (fused_conv, "bottleneck_fwd_launches"), (fused_conv, "bottleneck_bwd_launches"),
+    )
+    for mod, name in counters:
+        setattr(mod, name, 0)
     result = supcon.main(argv)
-    launches = {"fwd": fused_loss.fwd_launches, "bwd": fused_loss.bwd_launches}
+    main_path = {name: getattr(mod, name) for mod, name in counters}
+    launches = {"fwd": main_path["fwd_launches"], "bwd": main_path["bwd_launches"]}
     losses = [h["loss"] for h in result.history]
     print(f"losses {losses}")
-    print(f"kernel launches in the run: fwd {launches['fwd']} bwd {launches['bwd']}")
+    print(f"kernel launches in the run: {main_path}")
     if len(losses) != 7 or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"expected 7 finite losses, got {losses}")
-    if launches != {"fwd": 7, "bwd": 7}:
-        raise AssertionError(f"expected 7 launches of each kernel, got {launches}")
+    expected = {"fwd_launches": 7, "bwd_launches": 7, "stem_fwd_launches": 7,
+                "stem_bwd_launches": 7, "bottleneck_fwd_launches": 16 * 7,
+                "bottleneck_bwd_launches": 16 * 7}
+    if main_path != expected:
+        raise AssertionError(f"expected launches {expected}, got {main_path}")
     last = os.path.join(result.save_folder, "last.pth")
     if not os.path.isfile(last):
         raise AssertionError(f"{last} was not written")
+    with open(os.path.join(result.save_folder, "log-ing")) as fh:
+        banner = [line for line in fh if "[conv_impl]" in line]
+    print(f"banner: {banner[0].strip() if banner else None}")
+    if len(banner) != 1 or banner[0].count("[bottleneck]") != 16 or "stem 3->64@32x32" not in banner[0]:
+        raise AssertionError(f"the [conv_impl] banner does not list all 17 sites: {banner}")
+    eager_argv = list(argv)
+    eager_argv[eager_argv.index("--conv_impl") + 1] = "eager"
+    eager_result = supcon.main(eager_argv)
 
     # one step, dense against fused, from one seeded init on one batch
     data, _ = synthetic_dataset()
@@ -264,6 +590,27 @@ def main() -> int:
     )
     print(f"after that step, max |param or BN buffer difference| dense vs fused: "
           f"{param_diff:.3e} (reported, not bounded: cuDNN's backward sums in its own order)")
+
+    # one step, eager against fused conv, from one seeded init on one batch
+    conv_loss, conv_state = {}, {}
+    for impl in ("eager", "fused"):
+        m = copy.deepcopy(model)
+        m.encoder.set_conv_impl(impl)
+        st = TrainState(model=m, optimizer=make_optimizer(m), schedule=lambda s: 0.5)
+        cfg = SupConStepConfig(temperature=TEMP, loss_impl="fused", epochs=1, steps_per_epoch=7)
+        conv_loss[impl] = train_step(st, cfg, views, labels)["loss"].item()
+        conv_state[impl] = m.state_dict()
+    rel = abs(conv_loss["fused"] - conv_loss["eager"]) / abs(conv_loss["eager"])
+    print(f"one step conv eager {conv_loss['eager']!r} fused {conv_loss['fused']!r} "
+          f"rel diff {rel:.3e} (bound 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"eager and fused conv step losses differ by {rel}")
+    worst = max(
+        ((conv_state["fused"][k] - v).abs().max().item(), k)
+        for k, v in conv_state["eager"].items() if v.is_floating_point()
+    )
+    print(f"after that step, max |param or BN buffer difference| eager vs fused conv: "
+          f"{worst[0]:.3e} at {worst[1]} (reported, not bounded)")
     done("train", t0)
 
     # -- timing ------------------------------------------------------------
@@ -285,20 +632,26 @@ def main() -> int:
     aug_ms = cuda_time_ms(lambda: two_crop_batch(gen, images, aug_cfg), reps=5, rounds=3, warmup=2)
     step_times = [h["step_time"] for h in result.history[2:7]]
     step_ms = statistics.median(step_times) * 1e3
+    eager_times = [h["step_time"] for h in eager_result.history[2:7]]
+    eager_step_ms = statistics.median(eager_times) * 1e3
     step_flops = 3 * forward_flops(model, 32, dev) * 2 * batch_size
     where = f"on {card}"
     print(f"fused fwd kernel {fwd_ms * 1e3:.2f} us, plain {fwd_plain_ms * 1e3:.2f} us {where}")
     print(f"fused bwd kernel {bwd_ms * 1e3:.2f} us, plain {bwd_plain_ms * 1e3:.2f} us {where}")
     print(f"dense supcon_loss forward (several PyTorch calls; context, not a yardstick) "
           f"{dense_ms * 1e3:.2f} us {where}")
-    print(f"train step (resnet50, batch {batch_size}, 32 px, fp32) median of steps 3-7 "
-          f"{step_ms:.2f} ms = {batch_size / step_ms * 1e3:.1f} imgs/s; "
+    print(f"train step (resnet50, batch {batch_size}, 32 px, fp32, --conv_impl fused) "
+          f"median of steps 3-7 {step_ms:.2f} ms = {batch_size / step_ms * 1e3:.1f} imgs/s; "
           f"all steps ms {[round(t * 1e3, 2) for t in step_times]} {where}")
+    print(f"train step (same, --conv_impl eager) median of steps 3-7 {eager_step_ms:.2f} ms = "
+          f"{batch_size / eager_step_ms * 1e3:.1f} imgs/s; "
+          f"all steps ms {[round(t * 1e3, 2) for t in eager_times]} {where}")
     print(f"two-crop augmentation of the {batch_size}-image batch {aug_ms:.3f} ms {where}")
     print(f"train step model FLOPs (3 x forward of convs and linears, {2 * batch_size} views) "
           f"{step_flops / 1e9:.1f} GFLOP -> {step_flops / step_ms / 1e9:.2f} TFLOP/s = "
           f"{step_flops / step_ms * 1e3 / PEAK_FP32_FLOPS * 100:.1f}% of the fp32 non-tensor "
           f"peak {where}")
+    conv_ms = conv_timing(dev, where)
     done("timing", t0)
 
     # each input read once, each output written once: features, ids and
@@ -326,6 +679,42 @@ def main() -> int:
             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
         },
     ]
+    # the stem at the recipe shape: fwd reads x and writes out; its main-
+    # path backward takes no dx, so it recomputes the conv and takes dW
+    m_rows = 2 * batch_size * 32 * 32
+    stem_fwd_flops = 2 * m_rows * 27 * 64
+    small = 4 * (27 * 64 + 4 * 64)  # kernel, gamma, beta, moments
+    stem_bounds = {
+        "fwd": bound(stem_fwd_flops, 4 * m_rows * (3 + 64) + small),
+        "bwd": bound(2 * stem_fwd_flops, 4 * m_rows * (3 + 64) + small + 4 * (27 * 64 + 2 * 64)),
+    }
+    bot_bounds = {
+        d: sum(site[f"bound_{d}"][0] for site in conv_ms["bottleneck_sites"])
+        for d in ("fwd", "bwd")
+    }
+    bot_by = {
+        d: max(("operations", "bytes"), key=lambda by: sum(
+            site[f"bound_{d}"][0] for site in conv_ms["bottleneck_sites"]
+            if site[f"bound_{d}"][1] == by))
+        for d in ("fwd", "bwd")
+    }
+    print("bottleneck per-site list: " + json.dumps(conv_ms["bottleneck_sites"]))
+    conv_source = "simclr_pytorch_distributed_tpu_torch/csrc/fused_conv_bn.cu"
+    for name, line, key, bnd in (
+        ("fused_stem_fwd", 401, "stem_fwd_launches", stem_bounds["fwd"]),
+        ("fused_stem_bwd", 443, "stem_bwd_launches", stem_bounds["bwd"]),
+        ("fused_bottleneck_fwd", 1289, "bottleneck_fwd_launches", (bot_bounds["fwd"], bot_by["fwd"])),
+        ("fused_bottleneck_bwd", 1408, "bottleneck_bwd_launches", (bot_bounds["bwd"], bot_by["bwd"])),
+    ):
+        block, direction = name.split("_")[1], name.split("_")[2]
+        times = conv_ms[block]
+        kernels.append({
+            "name": name, "route": "cuda", "source": conv_source,
+            "replaces": f"{PALLAS_CONV}:{line}", "launches": main_path[key],
+            "max_abs_err": parity.max_abs[name],
+            "ms": times[direction], "plain_ms": times[f"{direction}_plain"],
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -7,8 +7,9 @@ auto-warmup when ``batch_size > 256`` (``:120-121``), the closed-form
 ``warmup_to`` (``:124-131``) and the timestamped save folder (``:133-142``).
 
 Flags the port does not implement yet are absent, so argparse rejects them.
-Added here: ``--device {cuda,cpu}`` (default ``cuda``) and ``--loss_impl
-{dense,fused,auto}``.
+Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
+{dense,fused,auto}`` and ``--conv_impl {eager,fused,auto}`` (the JAX
+package's ``--conv_impl {xla,pallas,auto}``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ class SupConConfig:
     seed: int = 0
     workdir: str = "./work_space"
     loss_impl: str = "auto"
+    conv_impl: str = "auto"
     device: str = "cuda"
     # derived (finalize_supcon)
     warm_epochs: int = 10
@@ -120,6 +122,11 @@ def supcon_parser() -> argparse.ArgumentParser:
                    choices=["auto", "dense", "fused"],
                    help="contrastive loss: the fused CUDA kernels, the dense "
                         "PyTorch form, or auto (fused on cuda, dense on cpu)")
+    p.add_argument("--conv_impl", type=str, default=d.conv_impl,
+                   choices=["auto", "eager", "fused"],
+                   help="encoder conv path in train mode: the fused conv+BN CUDA "
+                        "kernels for the stem and Bottlenecks, eager cuDNN convs "
+                        "and BatchNorm2d, or auto (fused on cuda, eager on cpu)")
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
     return p
 

@@ -1,0 +1,1009 @@
+// Fused conv + train-mode BatchNorm (+ ReLU, + residual) for the CIFAR
+// ResNet stem and the ResNet-50 Bottleneck, forward and backward, for
+// Hopper (sm_90a), with a plain C interface bound through ctypes
+// (ops/native.py builds this file, ops/fused_conv.py wraps it).
+//
+// What each entry point replaces, in
+// simclr_pytorch_distributed_tpu/ops/pallas_conv.py:
+//   stem_fwd        <- _stem_fwd_kernel :401 (reached through _stem_call :492)
+//   stem_bwd        <- _stem_bwd_kernel :443 (_stem_bwd_call :527)
+//   bottleneck_fwd  <- _bot_fwd_kernel :1289 (_bot_call :1565)
+//   bottleneck_bwd  <- _bot_bwd_kernel :1408 (_bot_bwd_call :1627)
+//
+// Semantics are the Pallas ops': NHWC activations, HWIO 3x3 kernels and
+// [Cin, Cout] 1x1 kernels, fp32 throughout. Train-mode BN normalizes with
+// the batch mean and the biased batch variance; the entry points return
+// those moments and never touch running statistics. The backward is the
+// standard train-mode BN backward (dbeta = sum dp, dgamma = sum dp * yhat,
+// dy = rstd * gamma * (dp - dbeta / n - yhat * dgamma / n)), with the
+// moments treated as ancillary outputs whose cotangents are dropped.
+// Bottleneck: BN1 counts over the input grid, BN2/BN3/shortcut BN over the
+// output grid; the shortcut BN's bias gradient is the same sum of dz as
+// BN3's (both biases add straight into z).
+//
+// Design: phases become kernels. The Pallas kernels walk a sequential
+// phase-major grid (phases, batch tiles) and carry BN sums from tile to
+// tile in VMEM scratch. CTAs on Hopper run in no order, so each entry point
+// is a sequence of kernels on the caller's stream:
+//   - conv_gemm_kernel: an implicit-GEMM convolution (kernel 1 or 3,
+//     stride 1 or 2, forward or transposed gather) with an optional
+//     BN+ReLU prologue on its input, an optional residual add, and an
+//     optional statistics epilogue that writes each CTA's per-channel tile
+//     mean and centred sum of squares to a [tiles, C] partial buffer;
+//   - bn_finalize_kernel: combines the partials in a fixed order, in fp64,
+//     around a per-channel shift (the first tile's mean), so the variance
+//     suffers no E[y^2] - E[y]^2 cancellation and repeated runs are
+//     bitwise identical; then folds gamma/beta into scale/shift;
+//   - bn_apply_kernel: the normalize (+ residual) (+ ReLU) pass;
+//   - conv_wgrad_kernel + split_reduce_kernel: the weight gradient as a
+//     GEMM over rows split across CTAs, with a fixed-order fp64 combine;
+//   - bn_bwd_sums_kernel + sum_partials_kernel, bn_bwd_apply_kernel: the
+//     elementwise BN backward and its per-channel sums.
+// There are no atomics anywhere, so every output is deterministic.
+//
+// Stage, not recompute, inside a call: a call keeps its pre-BN
+// intermediates (y1, y2, y3, yS) in a workspace the wrapper allocates with
+// torch.empty and frees on return. Across forward -> backward the op's
+// contract is the Pallas one: only x, the weights and the O(C) moments are
+// saved, so the backward recomputes the forward convolutions once (one
+// extra forward's FLOPs) and then stages its own intermediates. The Pallas
+// kernels recompute every conv in every phase because VMEM cannot hold a
+// batch of activations; HBM can, and re-running a conv costs far more
+// FLOPs on CUDA cores than writing and reading its output once.
+//
+// What bounds it on the H100. Fp32 FMA on the CUDA cores (no TF32, no
+// tensor cores, no fast-math), so the convolutions are bound by the
+// 67 TFLOP/s non-tensor fp32 rate: a recipe-shape Bottleneck forward is
+// ~83 GFLOP against ~3 GB of activations. The stem and the elementwise BN
+// passes are bound by bytes. The design answers the first with a
+// shared-memory tiled GEMM (128 x 64 output tile per CTA, each thread an
+// 8 x 4 register micro-tile, 16-deep K chunks, 16-byte loads where the
+// channel counts allow); the second it leaves for later work: each BN
+// pass is one read and one write of its tensor.
+//
+// Shared memory is static (under 17 KB per CTA) and independent of the
+// geometry, so the Hopper admission gate (ops/fused_conv.py supports_*)
+// needs only the geometric rules and the 32-bit row-index range.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+// conv_gemm_kernel tile: BM output rows x BN output channels, BK deep
+constexpr int BM = 128, BN = 64, BK = 16, TM = 8, TN = 4;
+// conv_wgrad_kernel tile: WK weight rows x WN channels, WM-row chunks
+constexpr int WK = 64, WN = 64, WM = 16;
+// rows per CTA of the per-channel elementwise kernels (block 32 x 8)
+constexpr int EW_ROWS = 128;
+constexpr int WAVES = 4 * 132;  // CTAs the weight-gradient split aims for
+
+struct ConvGeom {
+  int n, hi, wi, cin;  // the tensor the gather reads
+  int ho, wo, cout;    // the GEMM's row grid (n * ho * wo rows) and columns
+  int ks, stride, pad;
+};
+
+// The source pixel of GEMM row (n, oh, ow) at kernel offset (kh, kw).
+// Forward: the conv reads padded input stride * o + d, i.e. unpadded
+// stride * o - pad + d. Transposed (data gradient): the rows are the
+// forward conv's input grid, the source is dy, and a row takes dy[o]
+// where stride * o - pad + kh == its index; at stride 2 that is the
+// zero-dilated dy of the Pallas backward without building it.
+template <bool TRANS>
+__device__ __forceinline__ bool src_pixel(const ConvGeom& g, int oh, int ow,
+                                          int kh, int kw, int& ih, int& iw) {
+  if (!TRANS) {
+    ih = oh * g.stride - g.pad + kh;
+    iw = ow * g.stride - g.pad + kw;
+  } else {
+    int th = oh + g.pad - kh, tw = ow + g.pad - kw;
+    if (th < 0 || tw < 0) return false;
+    if (g.stride == 2) {
+      if ((th & 1) || (tw & 1)) return false;
+      th >>= 1;
+      tw >>= 1;
+    }
+    ih = th;
+    iw = tw;
+  }
+  return ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi;
+}
+
+__device__ __forceinline__ float bn_relu(float v, const float* sc,
+                                         const float* sh, int c) {
+  return fmaxf(fmaf(v, sc[c], sh[c]), 0.f);
+}
+
+// Four consecutive GEMM-K entries k .. k+3 of row (n, oh, ow): the im2col
+// value, through the optional BN+ReLU prologue; zero outside the image or
+// past K. With cin % 4 == 0 the four share one pixel: one 16-byte load.
+template <bool TRANS>
+__device__ __forceinline__ float4 load_a4(const float* src, const ConvGeom& g,
+                                          const float* psc, const float* psh,
+                                          bool row_ok, int n, int oh, int ow,
+                                          int k, int K, bool vec) {
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (row_ok) {
+    if (vec) {
+      if (k < K) {
+        const int ci = k % g.cin, t = k / g.cin;
+        const int kw = t % g.ks, kh = t / g.ks;
+        int ih, iw;
+        if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw)) {
+          const float4 q = *reinterpret_cast<const float4*>(
+              src + (((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci);
+          v[0] = q.x;
+          v[1] = q.y;
+          v[2] = q.z;
+          v[3] = q.w;
+          if (psc) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] = bn_relu(v[e], psc, psh, ci + e);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = k + e;
+        if (kk >= K) break;
+        const int ci = kk % g.cin, t = kk / g.cin;
+        const int kw = t % g.ks, kh = t / g.ks;
+        int ih, iw;
+        if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw)) {
+          float s = src[(((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci];
+          v[e] = psc ? bn_relu(s, psc, psh, ci) : s;
+        }
+      }
+    }
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// out[m, c] = sum_k A[m, k] * wt[k, c] (+ residual[m, c]), with A the
+// implicit im2col matrix of src. Optional statistics of out per CTA tile:
+// part_mean[blockIdx.x, c] and part_m2[blockIdx.x, c] (centred on the
+// tile mean, over the tile's valid rows). residual may alias out.
+template <bool TRANS>
+__global__ void __launch_bounds__(THREADS) conv_gemm_kernel(
+    const float* __restrict__ src, const float* __restrict__ wt,
+    const float* __restrict__ psc, const float* __restrict__ psh,
+    const float* residual, float* out, float* __restrict__ part_mean,
+    float* __restrict__ part_m2, ConvGeom g) {
+  __shared__ float As[BK][BM + 4];
+  __shared__ __align__(16) float Bs[BK][BN + 4];
+  __shared__ float red[16][BN + 1];
+  __shared__ float tmean[BN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int M = g.n * g.ho * g.wo;
+  const int K = g.ks * g.ks * g.cin;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+
+  // A loader: one row, eight consecutive k
+  const int ar = tid >> 1, ak = (tid & 1) * 8;
+  const int am = m0 + ar;
+  const bool arow = am < M;
+  int an = 0, aoh = 0, aow = 0;
+  if (arow) {
+    const int hw = g.ho * g.wo;
+    an = am / hw;
+    const int r = am - an * hw;
+    aoh = r / g.wo;
+    aow = r - aoh * g.wo;
+  }
+  // B loader: one k, four consecutive channels
+  const int bk = tid >> 4, bc = (tid & 15) * 4;
+  const bool vec = (g.cin % 4) == 0;
+  const bool bvec = (g.cout % 4) == 0;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int q = 0; q < 8; q += 4) {
+      const float4 a = load_a4<TRANS>(src, g, psc, psh, arow, an, aoh, aow,
+                                      k0 + ak + q, K, vec);
+      As[ak + q + 0][ar] = a.x;
+      As[ak + q + 1][ar] = a.y;
+      As[ak + q + 2][ar] = a.z;
+      As[ak + q + 3][ar] = a.w;
+    }
+    {
+      const int k = k0 + bk, c = n0 + bc;
+      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < K) {
+        const float* row = wt + (size_t)k * g.cout;
+        if (bvec) {
+          if (c < g.cout) b = *reinterpret_cast<const float4*>(row + c);
+        } else {
+          if (c + 0 < g.cout) b.x = row[c + 0];
+          if (c + 1 < g.cout) b.y = row[c + 1];
+          if (c + 2 < g.cout) b.z = row[c + 2];
+          if (c + 3 < g.cout) b.w = row[c + 3];
+        }
+      }
+      *reinterpret_cast<float4*>(&Bs[bk][bc]) = b;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + tx + 16 * j;
+      if (c >= g.cout) continue;
+      const size_t o = (size_t)m * g.cout + c;
+      float v = acc[i][j];
+      if (residual) v += residual[o];
+      out[o] = v;
+    }
+  }
+
+  if (part_mean) {
+    const int rows = min(BM, M - m0);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        if (m0 + ty + 16 * i < M) s += acc[i][j];
+      red[ty][tx + 16 * j] = s;
+    }
+    __syncthreads();
+    if (tid < BN) {
+      float s = 0.f;
+      for (int t = 0; t < 16; ++t) s += red[t][tid];
+      tmean[tid] = s / (float)rows;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float mu = tmean[tx + 16 * j];
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        if (m0 + ty + 16 * i < M) {
+          const float d = acc[i][j] - mu;
+          q = fmaf(d, d, q);
+        }
+      red[ty][tx + 16 * j] = q;
+    }
+    __syncthreads();
+    if (tid < BN && n0 + tid < g.cout) {
+      float q = 0.f;
+      for (int t = 0; t < 16; ++t) q += red[t][tid];
+      const size_t o = (size_t)blockIdx.x * g.cout + n0 + tid;
+      part_mean[o] = tmean[tid];
+      part_m2[o] = q;
+    }
+  }
+}
+
+// part[z, k, c] = sum over rows m of split z of A[m, k] * dy[m, c]: the
+// weight gradient, A the (prologued) im2col of src in forward gather.
+__global__ void __launch_bounds__(THREADS) conv_wgrad_kernel(
+    const float* __restrict__ src, const float* __restrict__ psc,
+    const float* __restrict__ psh, const float* __restrict__ dy,
+    float* __restrict__ part, ConvGeom g, int m_per) {
+  __shared__ __align__(16) float As[WM][WK + 4];
+  __shared__ __align__(16) float Ds[WM][WN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int M = g.n * g.ho * g.wo;
+  const int K = g.ks * g.ks * g.cin;
+  const int k0 = blockIdx.x * WK, c0 = blockIdx.y * WN;
+  const int mb = blockIdx.z * m_per;
+  const int me = min(M, mb + m_per);
+  const int lm = tid / 16, lk = (tid % 16) * 4;
+  const bool vec = (g.cin % 4) == 0;
+  const bool dvec = (g.cout % 4) == 0;
+  const int hw = g.ho * g.wo;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int m0 = mb; m0 < me; m0 += WM) {
+    const int m = m0 + lm;
+    const bool ok = m < me;
+    int n = 0, oh = 0, ow = 0;
+    if (ok) {
+      n = m / hw;
+      const int r = m - n * hw;
+      oh = r / g.wo;
+      ow = r - oh * g.wo;
+    }
+    *reinterpret_cast<float4*>(&As[lm][lk]) =
+        load_a4<false>(src, g, psc, psh, ok, n, oh, ow, k0 + lk, K, vec);
+    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok) {
+      const int c = c0 + lk;
+      const float* row = dy + (size_t)m * g.cout;
+      if (dvec) {
+        if (c < g.cout) d = *reinterpret_cast<const float4*>(row + c);
+      } else {
+        if (c + 0 < g.cout) d.x = row[c + 0];
+        if (c + 1 < g.cout) d.y = row[c + 1];
+        if (c + 2 < g.cout) d.z = row[c + 2];
+        if (c + 3 < g.cout) d.w = row[c + 3];
+      }
+    }
+    *reinterpret_cast<float4*>(&Ds[lm][lk]) = d;
+    __syncthreads();
+#pragma unroll
+    for (int mm = 0; mm < WM; ++mm) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[mm][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Ds[mm][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty + 16 * i;
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c < g.cout) part[((size_t)blockIdx.z * K + k) * g.cout + c] = acc[i][j];
+    }
+  }
+}
+
+// out[i] = sum over z of part[z, i], in order, in fp64.
+__global__ void split_reduce_kernel(const float* __restrict__ part, int splits,
+                                    long long count, float* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < count; i += (long long)gridDim.x * blockDim.x) {
+    double s = 0.0;
+    for (int z = 0; z < splits; ++z) s += part[z * count + i];
+    out[i] = (float)s;
+  }
+}
+
+__device__ __forceinline__ void fold(float m, float v, float gamma, float beta,
+                                     float eps, float& rs, float& sc,
+                                     float& sh) {
+  rs = 1.0f / sqrtf(v + eps);
+  sc = gamma * rs;
+  sh = beta - m * sc;
+}
+
+// Batch moments from conv_gemm_kernel's tile partials (tile t holds
+// min(BM, rows - t * BM) rows), combined around the shift K = the first
+// tile's mean:  sum (y - K) = sum_t n_t (mean_t - K),
+// sum (y - K)^2 = sum_t [m2_t + n_t (mean_t - K)^2],  in fp64 and in a
+// fixed order. Block (32 channels x 32 lanes).
+__global__ void bn_finalize_kernel(const float* __restrict__ pm,
+                                   const float* __restrict__ pq, int tiles,
+                                   int rows, int C,
+                                   const float* __restrict__ gamma,
+                                   const float* __restrict__ beta, float eps,
+                                   float* __restrict__ mean,
+                                   float* __restrict__ var,
+                                   float* __restrict__ rstd,
+                                   float* __restrict__ scale,
+                                   float* __restrict__ shift) {
+  __shared__ double s1[32][33], s2[32][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * 32 + tx;
+  double a = 0.0, b = 0.0, shiftk = 0.0;
+  if (c < C) {
+    shiftk = pm[c];
+    for (int t = ty; t < tiles; t += 32) {
+      const double nb = (double)min(BM, rows - t * BM);
+      const double d = (double)pm[(size_t)t * C + c] - shiftk;
+      a += nb * d;
+      b += (double)pq[(size_t)t * C + c] + nb * d * d;
+    }
+  }
+  s1[ty][tx] = a;
+  s2[ty][tx] = b;
+  __syncthreads();
+  if (ty == 0 && c < C) {
+    double sa = 0.0, sb = 0.0;
+    for (int t = 0; t < 32; ++t) {
+      sa += s1[t][tx];
+      sb += s2[t][tx];
+    }
+    const double mu = sa / rows;
+    double v = sb / rows - mu * mu;
+    if (v < 0.0) v = 0.0;
+    const float mf = (float)(shiftk + mu), vf = (float)v;
+    mean[c] = mf;
+    var[c] = vf;
+    float rs, sc, sh;
+    fold(mf, vf, gamma[c], beta[c], eps, rs, sc, sh);
+    rstd[c] = rs;
+    scale[c] = sc;
+    shift[c] = sh;
+  }
+}
+
+// rstd / scale / shift from saved moments (the backward's recompute).
+__global__ void bn_fold_kernel(const float* __restrict__ mean,
+                               const float* __restrict__ var,
+                               const float* __restrict__ gamma,
+                               const float* __restrict__ beta, float eps,
+                               int C, float* __restrict__ rstd,
+                               float* __restrict__ scale,
+                               float* __restrict__ shift) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float rs, sc, sh;
+  fold(mean[c], var[c], gamma[c], beta[c], eps, rs, sc, sh);
+  rstd[c] = rs;
+  scale[c] = sc;
+  shift[c] = sh;
+}
+
+// out = [relu](y * sc + sh [+ r * rsc + rsh | + r]); out may alias y.
+__global__ void bn_apply_kernel(const float* y, const float* __restrict__ sc,
+                                const float* __restrict__ sh, const float* r,
+                                const float* __restrict__ rsc,
+                                const float* __restrict__ rsh, float* out,
+                                long long total, int C, int relu) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % C);
+    float v = fmaf(y[i], sc[c], sh[c]);
+    if (r) v += rsc ? fmaf(r[i], rsc[c], rsh[c]) : r[i];
+    out[i] = relu ? fmaxf(v, 0.f) : v;
+  }
+}
+
+// dp = g where the ReLU passed (mask > 0, or yhat * gamma + beta > 0 when
+// mask is null), else 0; per-CTA partial sums of dp and dp * yhat with
+// yhat = (y - mean) * rstd. dp_out (may be null) may alias g.
+// Block (32 channels x 8 row lanes), EW_ROWS rows per CTA.
+__global__ void bn_bwd_sums_kernel(const float* g, const float* mask,
+                                   const float* __restrict__ y,
+                                   const float* __restrict__ mean,
+                                   const float* __restrict__ rstd,
+                                   const float* __restrict__ gamma,
+                                   const float* __restrict__ beta, float* dp_out,
+                                   float* __restrict__ part_a,
+                                   float* __restrict__ part_b, int M, int C) {
+  __shared__ float ra[8][33], rb[8][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.y * 32 + tx;
+  float sa = 0.f, sb = 0.f;
+  if (c < C) {
+    const float mu = mean[c], rs = rstd[c];
+    const float ga = gamma ? gamma[c] : 0.f, be = beta ? beta[c] : 0.f;
+    const int r0 = blockIdx.x * EW_ROWS;
+    for (int r = ty; r < EW_ROWS; r += 8) {
+      const int row = r0 + r;
+      if (row >= M) break;
+      const size_t i = (size_t)row * C + c;
+      const float yh = (y[i] - mu) * rs;
+      const bool on = mask ? mask[i] > 0.f : fmaf(yh, ga, be) > 0.f;
+      const float dp = on ? g[i] : 0.f;
+      if (dp_out) dp_out[i] = dp;
+      sa += dp;
+      sb = fmaf(dp, yh, sb);
+    }
+  }
+  ra[ty][tx] = sa;
+  rb[ty][tx] = sb;
+  __syncthreads();
+  if (ty == 0 && c < C) {
+    float a = 0.f, b = 0.f;
+    for (int t = 0; t < 8; ++t) {
+      a += ra[t][tx];
+      b += rb[t][tx];
+    }
+    part_a[(size_t)blockIdx.x * C + c] = a;
+    part_b[(size_t)blockIdx.x * C + c] = b;
+  }
+}
+
+// out_a[c] = sum_t pa[t, c], out_b[c] = sum_t pb[t, c]: fp64, fixed order.
+__global__ void sum_partials_kernel(const float* __restrict__ pa,
+                                    const float* __restrict__ pb, int blocks,
+                                    int C, float* __restrict__ out_a,
+                                    float* __restrict__ out_b) {
+  __shared__ double s1[32][33], s2[32][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * 32 + tx;
+  double a = 0.0, b = 0.0;
+  if (c < C) {
+    for (int t = ty; t < blocks; t += 32) {
+      a += pa[(size_t)t * C + c];
+      b += pb[(size_t)t * C + c];
+    }
+  }
+  s1[ty][tx] = a;
+  s2[ty][tx] = b;
+  __syncthreads();
+  if (ty == 0 && c < C) {
+    double sa = 0.0, sb = 0.0;
+    for (int t = 0; t < 32; ++t) {
+      sa += s1[t][tx];
+      sb += s2[t][tx];
+    }
+    out_a[c] = (float)sa;
+    out_b[c] = (float)sb;
+  }
+}
+
+// dy = rstd * gamma * (dp - sum_dp / count - yhat * sum_dpyh / count);
+// dy may alias dp or y.
+__global__ void bn_bwd_apply_kernel(const float* dp, const float* y,
+                                    const float* __restrict__ mean,
+                                    const float* __restrict__ rstd,
+                                    const float* __restrict__ gamma,
+                                    const float* __restrict__ sum_dp,
+                                    const float* __restrict__ sum_dpyh,
+                                    float count, float* dy, long long total,
+                                    int C) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % C);
+    const float rs = rstd[c];
+    const float yh = (y[i] - mean[c]) * rs;
+    dy[i] = rs * gamma[c] *
+            (dp[i] - sum_dp[c] / count - yh * sum_dpyh[c] / count);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side: workspace carving and the launch sequences.
+// ---------------------------------------------------------------------------
+
+#define CHECK(expr)                                 \
+  do {                                              \
+    const cudaError_t e_ = (expr);                  \
+    if (e_ != cudaSuccess) return e_;                   \
+  } while (0)
+
+// Carves 256-byte aligned float buffers out of one workspace. With a null
+// base it only counts, so the same code sizes the workspace and uses it.
+struct Arena {
+  char* base;
+  size_t off = 0;
+  float* take(size_t count) {
+    float* p = base ? reinterpret_cast<float*>(base + off) : nullptr;
+    off += (count * sizeof(float) + 255) & ~size_t(255);
+    return p;
+  }
+};
+
+inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+inline int elementwise_grid(long long total) {
+  const long long g = (total + THREADS - 1) / THREADS;
+  return (int)(g < 8 * 132 * 8 ? g : 8 * 132 * 8);
+}
+
+ConvGeom geom(int n, int hi, int wi, int cin, int ho, int wo, int cout, int ks,
+              int stride, int pad) {
+  ConvGeom g;
+  g.n = n; g.hi = hi; g.wi = wi; g.cin = cin;
+  g.ho = ho; g.wo = wo; g.cout = cout;
+  g.ks = ks; g.stride = stride; g.pad = pad;
+  return g;
+}
+
+inline int conv_tiles(const ConvGeom& g) { return cdiv((long long)g.n * g.ho * g.wo, BM); }
+
+// Per-BN scratch: statistics partials (forward) or backward sums partials,
+// and the folded rows.
+struct BnScratch {
+  float *pa, *pb, *rstd, *scale, *shift;
+};
+
+BnScratch bn_scratch(Arena& ar, int rows, int C) {
+  const int parts = cdiv(rows, BM) > cdiv(rows, EW_ROWS) ? cdiv(rows, BM)
+                                                         : cdiv(rows, EW_ROWS);
+  BnScratch s;
+  s.pa = ar.take((size_t)parts * C);
+  s.pb = ar.take((size_t)parts * C);
+  s.rstd = ar.take(C);
+  s.scale = ar.take(C);
+  s.shift = ar.take(C);
+  return s;
+}
+
+cudaError_t conv(bool trans, const float* src, const float* wt, const float* psc,
+         const float* psh, const float* residual, float* out, BnScratch* stats,
+         const ConvGeom& g, cudaStream_t st) {
+  const dim3 grid(conv_tiles(g), cdiv(g.cout, BN));
+  float* pm = stats ? stats->pa : nullptr;
+  float* pq = stats ? stats->pb : nullptr;
+  if (trans)
+    conv_gemm_kernel<true><<<grid, THREADS, 0, st>>>(src, wt, psc, psh,
+                                                     residual, out, pm, pq, g);
+  else
+    conv_gemm_kernel<false><<<grid, THREADS, 0, st>>>(src, wt, psc, psh,
+                                                      residual, out, pm, pq, g);
+  return cudaGetLastError();
+}
+
+cudaError_t finalize(const BnScratch& s, const ConvGeom& g, const float* gamma,
+             const float* beta, float eps, float* mean, float* var,
+             cudaStream_t st) {
+  const int rows = g.n * g.ho * g.wo;
+  bn_finalize_kernel<<<cdiv(g.cout, 32), dim3(32, 32), 0, st>>>(
+      s.pa, s.pb, conv_tiles(g), rows, g.cout, gamma, beta, eps, mean, var,
+      s.rstd, s.scale, s.shift);
+  return cudaGetLastError();
+}
+
+cudaError_t fold_saved(const BnScratch& s, const float* mean, const float* var,
+               const float* gamma, const float* beta, float eps, int C,
+               cudaStream_t st) {
+  bn_fold_kernel<<<cdiv(C, 128), 128, 0, st>>>(mean, var, gamma, beta, eps, C,
+                                               s.rstd, s.scale, s.shift);
+  return cudaGetLastError();
+}
+
+cudaError_t apply(const float* y, const float* sc, const float* sh, const float* r,
+          const float* rsc, const float* rsh, float* out, long long rows, int C,
+          bool relu, cudaStream_t st) {
+  const long long total = rows * C;
+  bn_apply_kernel<<<elementwise_grid(total), THREADS, 0, st>>>(
+      y, sc, sh, r, rsc, rsh, out, total, C, relu ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// Backward sums of one BN: dp (into dp_out unless null) and the two
+// per-channel sums into sum_dp / sum_dpyh.
+cudaError_t bwd_sums(const float* g, const float* mask, const float* y,
+             const float* mean, const BnScratch& s, const float* gamma,
+             const float* beta, float* dp_out, float* sum_dp, float* sum_dpyh,
+             int rows, int C, cudaStream_t st) {
+  const int blocks = cdiv(rows, EW_ROWS);
+  bn_bwd_sums_kernel<<<dim3(blocks, cdiv(C, 32)), dim3(32, 8), 0, st>>>(
+      g, mask, y, mean, s.rstd, gamma, beta, dp_out, s.pa, s.pb, rows, C);
+  CHECK(cudaGetLastError());
+  sum_partials_kernel<<<cdiv(C, 32), dim3(32, 32), 0, st>>>(
+      s.pa, s.pb, blocks, C, sum_dp, sum_dpyh);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_apply(const float* dp, const float* y, const float* mean,
+              const BnScratch& s, const float* gamma, const float* sum_dp,
+              const float* sum_dpyh, float* dy, long long rows, int C,
+              cudaStream_t st) {
+  const long long total = rows * C;
+  bn_bwd_apply_kernel<<<elementwise_grid(total), THREADS, 0, st>>>(
+      dp, y, mean, s.rstd, gamma, sum_dp, sum_dpyh, (float)rows, dy, total, C);
+  return cudaGetLastError();
+}
+
+// Rows of the weight-gradient GEMM per split: enough splits to fill about
+// WAVES CTAs, each split a whole number of WM-row chunks.
+int wgrad_rows_per_split(const ConvGeom& g) {
+  const long long M = (long long)g.n * g.ho * g.wo;
+  const int K = g.ks * g.ks * g.cin;
+  const int ctas = cdiv(K, WK) * cdiv(g.cout, WN);
+  const int chunks = cdiv(M, WM);
+  int splits = cdiv(WAVES, ctas);
+  if (splits > chunks) splits = chunks;
+  if (splits < 1) splits = 1;
+  return cdiv(chunks, splits) * WM;
+}
+
+size_t wgrad_scratch(const ConvGeom& g) {
+  const long long M = (long long)g.n * g.ho * g.wo;
+  return (size_t)cdiv(M, wgrad_rows_per_split(g)) * g.ks * g.ks * g.cin * g.cout;
+}
+
+cudaError_t wgrad(const float* src, const float* psc, const float* psh, const float* dy,
+          float* part, float* dw, const ConvGeom& g, cudaStream_t st) {
+  const long long M = (long long)g.n * g.ho * g.wo;
+  const int K = g.ks * g.ks * g.cin;
+  const int m_per = wgrad_rows_per_split(g);
+  const int splits = cdiv(M, m_per);
+  conv_wgrad_kernel<<<dim3(cdiv(K, WK), cdiv(g.cout, WN), splits), THREADS, 0,
+                      st>>>(src, psc, psh, dy, part, g, m_per);
+  CHECK(cudaGetLastError());
+  const long long count = (long long)K * g.cout;
+  split_reduce_kernel<<<elementwise_grid(count), THREADS, 0, st>>>(
+      part, splits, count, dw);
+  return cudaGetLastError();
+}
+
+inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
+
+}  // namespace
+
+extern "C" {
+
+// One argument block for both stem entry points; fields an entry point
+// does not use are null. HWIO kernel k [3, 3, cin, cout]; kt is k with its
+// channel axes swapped, [3, 3, cout, cin] (made by the caller).
+struct StemArgs {
+  const float* x;      // [n, h, w, cin]
+  const float* k;
+  const float* kt;     // backward, when dx is wanted
+  const float* gamma;  // [cout]
+  const float* beta;
+  const float* gout;   // backward: [n, h, w, cout]
+  float* out;          // forward: [n, h, w, cout]
+  float* mean;         // forward writes, backward reads: [cout]
+  float* var;
+  float* dx;           // backward outputs (dx may be null)
+  float* dk;
+  float* dgamma;
+  float* dbeta;
+  int n, h, w, cin, cout;
+  float eps;
+};
+
+// Each entry point: with ws null, writes the workspace bytes it needs to
+// *ws_bytes and launches nothing; otherwise launches its kernels on the
+// caller's stream, does not synchronise, and returns the first
+// cudaGetLastError() that is not cudaSuccess (0 when all launched).
+
+int stem_fwd(const StemArgs* a, void* ws, size_t* ws_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ConvGeom g = geom(a->n, a->h, a->w, a->cin, a->h, a->w, a->cout, 3, 1, 1);
+  const int rows = a->n * a->h * a->w;
+  Arena ar{static_cast<char*>(ws)};
+  BnScratch s = bn_scratch(ar, rows, a->cout);
+  if (!ws) {
+    *ws_bytes = ar.off;
+    return 0;
+  }
+  CHECK(conv(false, a->x, a->k, nullptr, nullptr, nullptr, a->out, &s, g, st));
+  CHECK(finalize(s, g, a->gamma, a->beta, a->eps, a->mean, a->var, st));
+  return static_cast<int>(apply(a->out, s.scale, s.shift, nullptr, nullptr,
+                                nullptr, a->out, rows, a->cout, true, st));
+}
+
+int stem_bwd(const StemArgs* a, void* ws, size_t* ws_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ConvGeom g = geom(a->n, a->h, a->w, a->cin, a->h, a->w, a->cout, 3, 1, 1);
+  const int rows = a->n * a->h * a->w;
+  Arena ar{static_cast<char*>(ws)};
+  BnScratch s = bn_scratch(ar, rows, a->cout);
+  float* y = ar.take((size_t)rows * a->cout);
+  float* dp = ar.take((size_t)rows * a->cout);
+  float* part = ar.take(wgrad_scratch(g));
+  if (!ws) {
+    *ws_bytes = ar.off;
+    return 0;
+  }
+  CHECK(fold_saved(s, a->mean, a->var, a->gamma, a->beta, a->eps, a->cout, st));
+  CHECK(conv(false, a->x, a->k, nullptr, nullptr, nullptr, y, nullptr, g, st));
+  CHECK(bwd_sums(a->gout, nullptr, y, a->mean, s, a->gamma, a->beta, dp,
+                              a->dbeta, a->dgamma, rows, a->cout, st));
+  CHECK(bwd_apply(dp, y, a->mean, s, a->gamma, a->dbeta, a->dgamma, dp,
+                               rows, a->cout, st));
+  CHECK(wgrad(a->x, nullptr, nullptr, dp, part, a->dk, g, st));
+  if (a->dx) {
+    // transposed gather over dy [n, h, w, cout] with kt [3, 3, cout, cin]
+    const ConvGeom gt = geom(a->n, a->h, a->w, a->cout, a->h, a->w, a->cin, 3, 1, 1);
+    CHECK(conv(true, dp, a->kt, nullptr, nullptr, nullptr, a->dx, nullptr, gt, st));
+  }
+  return 0;
+}
+
+// One argument block for both Bottleneck entry points. Kernels: k1
+// [cin, P], k2 HWIO [3, 3, P, P], k3 [P, 4P], ks [cin, 4P] (projection
+// only); the backward also takes k1t [P, cin], k2t [3, 3, P, P] (k2 with
+// its channel axes swapped), k3t [4P, P], kst [4P, cin]. The moments are
+// written by the forward and read by the backward. proj selects the
+// 1x1/stride conv + BN shortcut; without it the shortcut is x itself
+// (stride 1, cin == 4P).
+struct BotArgs {
+  const float* x;  // [n, hi, wi, cin]
+  const float* k1;
+  const float* k2;
+  const float* k3;
+  const float* ks;
+  const float* k1t;
+  const float* k2t;
+  const float* k3t;
+  const float* kst;
+  const float* g1;
+  const float* b1;
+  const float* g2;
+  const float* b2;
+  const float* g3;
+  const float* b3;
+  const float* gs;
+  const float* bs;
+  const float* gout;  // backward: [n, ho, wo, 4P]
+  float* out;         // forward: [n, ho, wo, 4P]
+  float* m1;
+  float* v1;
+  float* m2;
+  float* v2;
+  float* m3;
+  float* v3;
+  float* ms;
+  float* vs;
+  float* dx;
+  float* dk1;
+  float* dk2;
+  float* dk3;
+  float* dks;
+  float* dg1;
+  float* db1;
+  float* dg2;
+  float* db2;
+  float* dg3;
+  float* db3;
+  float* dgs;
+  float* dbs;
+  int n, hi, wi, cin, planes, stride, proj;
+  float eps;
+};
+
+struct BotGeoms {
+  ConvGeom c1, c2, c3, cs;  // forward convs
+  int rows1, rows2, P, C4;
+};
+
+static BotGeoms bot_geoms(const BotArgs* a) {
+  BotGeoms b;
+  const int s = a->stride, ho = a->hi / s, wo = a->wi / s;
+  b.P = a->planes;
+  b.C4 = 4 * a->planes;
+  b.c1 = geom(a->n, a->hi, a->wi, a->cin, a->hi, a->wi, b.P, 1, 1, 0);
+  b.c2 = geom(a->n, a->hi, a->wi, b.P, ho, wo, b.P, 3, s, 1);
+  b.c3 = geom(a->n, ho, wo, b.P, ho, wo, b.C4, 1, 1, 0);
+  b.cs = geom(a->n, a->hi, a->wi, a->cin, ho, wo, b.C4, 1, s, 0);
+  b.rows1 = a->n * a->hi * a->wi;
+  b.rows2 = a->n * ho * wo;
+  return b;
+}
+
+int bottleneck_fwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BotGeoms b = bot_geoms(a);
+  Arena ar{static_cast<char*>(ws)};
+  float* y1 = ar.take((size_t)b.rows1 * b.P);
+  float* y2 = ar.take((size_t)b.rows2 * b.P);
+  float* ys = a->proj ? ar.take((size_t)b.rows2 * b.C4) : nullptr;
+  BnScratch s1 = bn_scratch(ar, b.rows1, b.P);
+  BnScratch s2 = bn_scratch(ar, b.rows2, b.P);
+  BnScratch s3 = bn_scratch(ar, b.rows2, b.C4);
+  BnScratch ss = bn_scratch(ar, b.rows2, b.C4);
+  if (!ws) {
+    *ws_bytes = ar.off;
+    return 0;
+  }
+  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, nullptr, y1, &s1, b.c1, st));
+  CHECK(finalize(s1, b.c1, a->g1, a->b1, a->eps, a->m1, a->v1, st));
+  if (a->proj) {
+    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, &ss, b.cs, st));
+    CHECK(finalize(ss, b.cs, a->gs, a->bs, a->eps, a->ms, a->vs, st));
+  }
+  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, &s2, b.c2, st));
+  CHECK(finalize(s2, b.c2, a->g2, a->b2, a->eps, a->m2, a->v2, st));
+  // y3 is staged in out and normalized in place
+  CHECK(conv(false, y2, a->k3, s2.scale, s2.shift, nullptr, a->out, &s3, b.c3, st));
+  CHECK(finalize(s3, b.c3, a->g3, a->b3, a->eps, a->m3, a->v3, st));
+  if (a->proj)
+    return static_cast<int>(apply(a->out, s3.scale, s3.shift, ys, ss.scale,
+                                  ss.shift, a->out, b.rows2, b.C4, true, st));
+  return static_cast<int>(apply(a->out, s3.scale, s3.shift, a->x, nullptr,
+                                nullptr, a->out, b.rows2, b.C4, true, st));
+}
+
+int bottleneck_bwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BotGeoms b = bot_geoms(a);
+  const int P = b.P, C4 = b.C4;
+  Arena ar{static_cast<char*>(ws)};
+  float* y1 = ar.take((size_t)b.rows1 * P);
+  float* y2 = ar.take((size_t)b.rows2 * P);
+  float* y3 = ar.take((size_t)b.rows2 * C4);
+  float* ys = a->proj ? ar.take((size_t)b.rows2 * C4) : nullptr;
+  float* z = ar.take((size_t)b.rows2 * C4);
+  float* da2 = ar.take((size_t)b.rows2 * P);
+  float* da1 = ar.take((size_t)b.rows1 * P);
+  float* tmp = ar.take(C4);
+  BnScratch s1 = bn_scratch(ar, b.rows1, P);
+  BnScratch s2 = bn_scratch(ar, b.rows2, P);
+  BnScratch s3 = bn_scratch(ar, b.rows2, C4);
+  BnScratch ss = bn_scratch(ar, b.rows2, C4);
+  size_t wpart = max_sz(max_sz(wgrad_scratch(b.c1), wgrad_scratch(b.c2)),
+                        wgrad_scratch(b.c3));
+  if (a->proj) wpart = max_sz(wpart, wgrad_scratch(b.cs));
+  float* part = ar.take(wpart);
+  if (!ws) {
+    *ws_bytes = ar.off;
+    return 0;
+  }
+  // recompute the forward from the saved moments
+  CHECK(fold_saved(s1, a->m1, a->v1, a->g1, a->b1, a->eps, P, st));
+  CHECK(fold_saved(s2, a->m2, a->v2, a->g2, a->b2, a->eps, P, st));
+  CHECK(fold_saved(s3, a->m3, a->v3, a->g3, a->b3, a->eps, C4, st));
+  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, nullptr, y1, nullptr, b.c1, st));
+  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, nullptr, b.c2, st));
+  CHECK(conv(false, y2, a->k3, s2.scale, s2.shift, nullptr, y3, nullptr, b.c3, st));
+  if (a->proj) {
+    CHECK(fold_saved(ss, a->ms, a->vs, a->gs, a->bs, a->eps, C4, st));
+    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, nullptr, b.cs, st));
+    CHECK(apply(y3, s3.scale, s3.shift, ys, ss.scale, ss.shift, z,
+                             b.rows2, C4, true, st));
+    // the shortcut BN: sum dz * yhatS (its sum dz is BN3's)
+    CHECK(bwd_sums(a->gout, z, ys, a->ms, ss, nullptr, nullptr, nullptr,
+                                tmp, a->dgs, b.rows2, C4, st));
+  } else {
+    CHECK(apply(y3, s3.scale, s3.shift, a->x, nullptr, nullptr, z,
+                             b.rows2, C4, true, st));
+  }
+  // stage 3: dz = gout * (z > 0), in place over z
+  CHECK(bwd_sums(a->gout, z, y3, a->m3, s3, nullptr, nullptr, z, a->db3,
+                              a->dg3, b.rows2, C4, st));
+  CHECK(bwd_apply(z, y3, a->m3, s3, a->g3, a->db3, a->dg3, y3, b.rows2,
+                               C4, st));  // dy3 over y3
+  CHECK(wgrad(y2, s2.scale, s2.shift, y3, part, a->dk3, b.c3, st));
+  if (a->proj) {
+    CHECK(cudaMemcpyAsync(a->dbs, a->db3, sizeof(float) * C4,
+                          cudaMemcpyDeviceToDevice, st));
+    CHECK(bwd_apply(z, ys, a->ms, ss, a->gs, a->db3, a->dgs, ys, b.rows2,
+                                 C4, st));  // dyS over yS
+    CHECK(wgrad(a->x, nullptr, nullptr, ys, part, a->dks, b.cs, st));
+  }
+  // stage 2: da2 = dy3 k3^T, then its BN backward in place
+  const ConvGeom g3t = geom(a->n, b.c3.ho, b.c3.wo, C4, b.c3.ho, b.c3.wo, P, 1, 1, 0);
+  CHECK(conv(false, y3, a->k3t, nullptr, nullptr, nullptr, da2, nullptr, g3t, st));
+  CHECK(bwd_sums(da2, nullptr, y2, a->m2, s2, a->g2, a->b2, da2, a->db2,
+                              a->dg2, b.rows2, P, st));
+  CHECK(bwd_apply(da2, y2, a->m2, s2, a->g2, a->db2, a->dg2, da2, b.rows2,
+                               P, st));  // dy2 over da2
+  CHECK(wgrad(y1, s1.scale, s1.shift, da2, part, a->dk2, b.c2, st));
+  // stage 1: da1 = the transposed 3x3/s of dy2
+  const ConvGeom g2t = geom(a->n, b.c2.ho, b.c2.wo, P, a->hi, a->wi, P, 3, a->stride, 1);
+  CHECK(conv(true, da2, a->k2t, nullptr, nullptr, nullptr, da1, nullptr, g2t, st));
+  CHECK(bwd_sums(da1, nullptr, y1, a->m1, s1, a->g1, a->b1, da1, a->db1,
+                              a->dg1, b.rows1, P, st));
+  CHECK(bwd_apply(da1, y1, a->m1, s1, a->g1, a->db1, a->dg1, da1, b.rows1,
+                               P, st));  // dy1 over da1
+  CHECK(wgrad(a->x, nullptr, nullptr, da1, part, a->dk1, b.c1, st));
+  // dx = dy1 k1^T + the shortcut's share
+  const ConvGeom g1t = geom(a->n, a->hi, a->wi, P, a->hi, a->wi, a->cin, 1, 1, 0);
+  if (a->proj) {
+    const ConvGeom gst = geom(a->n, b.cs.ho, b.cs.wo, C4, a->hi, a->wi, a->cin, 1,
+                              a->stride, 0);
+    CHECK(conv(true, ys, a->kst, nullptr, nullptr, nullptr, a->dx, nullptr,
+                            gst, st));
+    CHECK(conv(false, da1, a->k1t, nullptr, nullptr, a->dx, a->dx, nullptr,
+                            g1t, st));
+  } else {
+    CHECK(conv(false, da1, a->k1t, nullptr, nullptr, z, a->dx, nullptr, g1t,
+                            st));
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -23,14 +23,28 @@ over one whole-batch group.
 Inputs are NHWC, as in the JAX package; ``ResNet.forward`` permutes them
 once to NCHW, which on an NHWC-contiguous tensor is a ``channels_last`` view
 and no copy.
+
+``conv_impl`` (``ResNet.set_conv_impl``): ``"eager"`` runs the cuDNN convs
+and ``nn.BatchNorm2d``; ``"fused"`` routes train-mode forwards of the stem
+and of every Bottleneck that the ``supports_*`` gates admit through the
+fused conv+BN kernels of ``ops/fused_conv.py`` (the JAX package's
+``conv_impl="pallas"``, ``models/resnet.py:176-224, 303-328``). The
+``nn.Conv2d``/``nn.BatchNorm2d`` modules stay the owners of the parameters
+and running buffers, so ``state_dict()`` does not depend on the path; eval
+mode, BasicBlocks and sites the gates reject stay eager.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple, Type, Union
+from typing import Callable, Dict, List, Sequence, Tuple, Type, Union
 
 import torch
 from torch import nn
+
+from simclr_pytorch_distributed_tpu_torch.models.norm import apply_running_update
+from simclr_pytorch_distributed_tpu_torch.ops import fused_conv
+
+CONV_IMPLS = ("eager", "fused")
 
 
 class BasicBlock(nn.Module):
@@ -66,12 +80,49 @@ class Bottleneck(nn.Module):
         self.conv3 = nn.Conv2d(planes, planes * self.expansion, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(planes * self.expansion)
         self.shortcut = _shortcut(in_planes, planes * self.expansion, stride)
+        self.stride = stride
+        self.conv_impl = "eager"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, cin, h, w = x.shape
+        if (
+            self.conv_impl == "fused"
+            and self.training
+            and fused_conv.supports_bottleneck(
+                n, h, w, self.conv2.in_channels, stride=self.stride, in_channels=cin
+            )
+        ):
+            return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         out = torch.relu(self.bn1(self.conv1(x)))
         out = torch.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         return torch.relu(out + self.shortcut(x))
+
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC train-mode forward through ``fused_bottleneck_block``, then
+        the running updates: BN1 over the input grid, the rest over the
+        output grid."""
+        p, cin = self.conv1.out_channels, self.conv1.in_channels
+        shortcut = None
+        if len(self.shortcut):
+            conv_s, bn_s = self.shortcut
+            shortcut = (conv_s.weight.reshape(4 * p, cin).t(), bn_s.weight, bn_s.bias)
+        r = fused_conv.fused_bottleneck_block(
+            x,
+            self.conv1.weight.reshape(p, cin).t(), self.bn1.weight, self.bn1.bias,
+            self.conv2.weight.permute(2, 3, 1, 0), self.bn2.weight, self.bn2.bias,
+            self.conv3.weight.reshape(4 * p, p).t(), self.bn3.weight, self.bn3.bias,
+            shortcut, stride=self.stride, eps=self.bn1.eps,
+        )
+        n, h, w, _ = x.shape
+        count1 = n * h * w
+        count2 = n * (h // self.stride) * (w // self.stride)
+        apply_running_update(self.bn1, r[1], r[2], count1)
+        apply_running_update(self.bn2, r[3], r[4], count2)
+        apply_running_update(self.bn3, r[5], r[6], count2)
+        if shortcut is not None:
+            apply_running_update(self.shortcut[1], r[7], r[8], count2)
+        return r[0]
 
 
 def _shortcut(in_planes: int, out_planes: int, stride: int) -> nn.Sequential:
@@ -105,10 +156,35 @@ class ResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
+        self.conv_impl = "eager"
+
+    def set_conv_impl(self, conv_impl: str) -> "ResNet":
+        """Route train-mode forwards through ``conv_impl`` ('eager' or
+        'fused'), for the stem and every Bottleneck."""
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
+        self.conv_impl = conv_impl
+        for m in self.modules():
+            if isinstance(m, Bottleneck):
+                m.conv_impl = conv_impl
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
-        x = torch.relu(self.bn1(self.conv1(x)))
+        n, h, w, cin = x.shape
+        if (
+            self.conv_impl == "fused"
+            and self.training
+            and fused_conv.supports_stem(n, h, w, cin, self.conv1.out_channels)
+        ):
+            out, m, v = fused_conv.fused_conv_bn_relu(
+                x, self.conv1.weight.permute(2, 3, 1, 0), self.bn1.weight, self.bn1.bias,
+                eps=self.bn1.eps,
+            )
+            apply_running_update(self.bn1, m, v, n * h * w)
+            x = out.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
+        else:
+            x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
+            x = torch.relu(self.bn1(self.conv1(x)))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         return x.mean(dim=(2, 3))
 
@@ -143,3 +219,52 @@ MODEL_DICT: Dict[str, Tuple[Callable[[], ResNet], int]] = {
     "resnet50": (resnet50, 2048),
     "resnet101": (resnet101, 2048),
 }
+
+
+def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
+    """The per-site geometry walk for ``--conv_impl fused`` (the JAX
+    package's ``fused_site_plan``, ``models/resnet.py:400-469``).
+
+    It follows ``ResNet.forward``'s stage loop and asks the same
+    ``ops/fused_conv.supports_*`` gates the modules ask at run time, so the
+    resolution banner and the modules agree on which sites fuse. ``h``/``w``
+    are each block's INPUT dims; a stride-2 site's output is ``ceil(h/2)``
+    ((1, 1) padding), which the even-dims rule makes exact where a stride-2
+    site is admitted. ``rows`` is the encoder's batch (``2 * batch_size``
+    for the two-crop step). One dict per site: ``name``, ``kind``
+    ('stem'|'basic'|'proj'|'bottleneck'), ``h``, ``w``, ``in_channels``,
+    ``width``, ``stride``, ``admitted``, ``desc``. BasicBlock sites have no
+    kernel in the port yet and are never admitted.
+    """
+    ctor, _ = MODEL_DICT[model]
+    mod = ctor()
+    h = w = size
+    sites = [{
+        "name": "stem", "kind": "stem", "h": h, "w": w, "in_channels": 3,
+        "width": 64, "stride": 1,
+        "admitted": fused_conv.supports_stem(rows, h, w, 3, 64),
+        "desc": f"stem 3->64@{h}x{w}",
+    }]
+    in_c = 64
+    for stage, (width, stage_stride) in enumerate(zip((64, 128, 256, 512), (1, 2, 2, 2)), 1):
+        for block, module in enumerate(getattr(mod, f"layer{stage}")):
+            stride = stage_stride if block == 0 else 1
+            name = f"layer{stage}_block{block}"
+            if isinstance(module, Bottleneck):
+                kind = "bottleneck"
+                admitted = fused_conv.supports_bottleneck(
+                    rows, h, w, width, stride=stride, in_channels=in_c
+                )
+            else:
+                kind = "basic" if (stride == 1 and in_c == width) else "proj"
+                admitted = False
+            out_c = width * module.expansion
+            sites.append({
+                "name": name, "kind": kind, "h": h, "w": w, "in_channels": in_c,
+                "width": width, "stride": stride, "admitted": admitted,
+                "desc": f"{name}[{kind}] {in_c}->{out_c}@{h}x{w}/s{stride}",
+            })
+            if stride != 1:
+                h, w = (h + 1) // 2, (w + 1) // 2
+            in_c = out_c
+    return sites

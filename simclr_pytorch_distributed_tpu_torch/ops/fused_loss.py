@@ -47,28 +47,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for all-CPU inputs, False for all-CUDA inputs, else raise."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
-    raise ValueError(
-        f"fused loss inputs must all lie on the CPU or on one CUDA device, "
-        f"got {sorted(str(t.device) for t in tensors)}"
-    )
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
-            f"(contiguous={t.is_contiguous()})"
-        )
-
-
 def _check_inputs(frow, fcol, idr, idc, grow, gcol) -> Tuple[int, int, int]:
     if frow.dim() != 2 or fcol.dim() != 2 or frow.shape[1] != fcol.shape[1]:
         raise ValueError(
@@ -79,18 +57,13 @@ def _check_inputs(frow, fcol, idr, idc, grow, gcol) -> Tuple[int, int, int]:
     nc = fcol.shape[0]
     if nr < 1 or nc < 2 or d < 1:
         raise ValueError(f"fused loss needs nr >= 1, nc >= 2, D >= 1; got {nr}, {nc}, {d}")
-    _check("frow", frow, torch.float32, (nr, d))
-    _check("fcol", fcol, torch.float32, (nc, d))
-    _check("idr", idr, torch.int32, (nr,))
-    _check("idc", idc, torch.int32, (nc,))
-    _check("grow", grow, torch.int32, (nr,))
-    _check("gcol", gcol, torch.int32, (nc,))
+    native.check_tensor("frow", frow, torch.float32, (nr, d))
+    native.check_tensor("fcol", fcol, torch.float32, (nc, d))
+    native.check_tensor("idr", idr, torch.int32, (nr,))
+    native.check_tensor("idc", idc, torch.int32, (nc,))
+    native.check_tensor("grow", grow, torch.int32, (nr,))
+    native.check_tensor("gcol", gcol, torch.int32, (nc,))
     return nr, nc, d
-
-
-def _raise_on_error(code: int, kernel: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError_t {code}")
 
 
 def fused_rows_reference(frow, fcol, idr, idc, grow, gcol, temperature, base_temperature):
@@ -125,7 +98,7 @@ def fused_rows(frow, fcol, idr, idc, grow, gcol, temperature, base_temperature):
     columns ``fcol`` (``frow is fcol`` on one device). Launches
     ``supcon_fwd_kernel`` for CUDA tensors."""
     global fwd_launches
-    if _on_cpu(frow, fcol, idr, idc, grow, gcol):
+    if native.on_cpu(frow, fcol, idr, idc, grow, gcol):
         return fused_rows_reference(
             frow, fcol, idr, idc, grow, gcol, temperature, base_temperature
         )
@@ -139,7 +112,7 @@ def fused_rows(frow, fcol, idr, idc, grow, gcol, temperature, base_temperature):
         loss_row.data_ptr(), lse.data_ptr(), cnt.data_ptr(),
         nr, nc, d, 1.0 / temperature, temperature / base_temperature, stream,
     )
-    _raise_on_error(code, "supcon_fwd_kernel")
+    native.raise_on_error(code, "supcon_fwd_kernel")
     fwd_launches += 1
     return loss_row, lse, cnt
 
@@ -150,12 +123,12 @@ def fused_bwd(frow, fcol, idr, idc, grow, gcol, lse_r, lse_c, cnt_r, cnt_c, temp
     rows and for the columns."""
     global bwd_launches
     tensors = (frow, fcol, idr, idc, grow, gcol, lse_r, lse_c, cnt_r, cnt_c)
-    if _on_cpu(*tensors):
+    if native.on_cpu(*tensors):
         return fused_bwd_reference(*tensors, temperature, coeff)
     nr, nc, d = _check_inputs(frow, fcol, idr, idc, grow, gcol)
     for name, t, n in (("lse_r", lse_r, nr), ("lse_c", lse_c, nc),
                        ("cnt_r", cnt_r, nr), ("cnt_c", cnt_c, nc)):
-        _check(name, t, torch.float32, (n,))
+        native.check_tensor(name, t, torch.float32, (n,))
     lib = _library()
     dfeat = torch.empty((nr, d), dtype=torch.float32, device=frow.device)
     stream = torch.cuda.current_stream(frow.device).cuda_stream
@@ -163,7 +136,7 @@ def fused_bwd(frow, fcol, idr, idc, grow, gcol, lse_r, lse_c, cnt_r, cnt_c, temp
         *(t.data_ptr() for t in tensors), dfeat.data_ptr(),
         nr, nc, d, 1.0 / temperature, coeff, stream,
     )
-    _raise_on_error(code, "supcon_bwd_kernel")
+    native.raise_on_error(code, "supcon_bwd_kernel")
     bwd_launches += 1
     return dfeat
 

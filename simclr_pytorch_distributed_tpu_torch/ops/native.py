@@ -9,7 +9,10 @@ compiler's output (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``<library>.log``.
 
 There is no fallback: without ``nvcc`` the build raises, and a caller with a
-CUDA tensor gets that error rather than some other implementation.
+CUDA tensor gets that error rather than some other implementation. The
+wrappers share the dispatch and argument checks below: all-CPU inputs take
+a plain PyTorch form, all-CUDA inputs on one device launch a kernel, and
+anything else raises.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -98,3 +104,34 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
     The caller declares ``argtypes``/``restype`` of the functions it uses."""
     return ctypes.CDLL(str(build(name)))
+
+
+def on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    """True for all-CPU inputs, False for all-CUDA inputs on one device,
+    else raise (``None`` entries are skipped)."""
+    present = [t for t in tensors if t is not None]
+    kinds = {t.device.type for t in present}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in present}) == 1:
+        return False
+    raise ValueError(
+        f"kernel inputs must all lie on the CPU or on one CUDA device, "
+        f"got {sorted(str(t.device) for t in present)}"
+    )
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int]) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+            f"(contiguous={t.is_contiguous()})"
+        )
+
+
+def raise_on_error(code: int, kernel: str) -> None:
+    """Raise if a launch returned a ``cudaError_t`` other than 0."""
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {code}")

@@ -26,6 +26,7 @@ from simclr_pytorch_distributed_tpu_torch import config as config_lib
 from simclr_pytorch_distributed_tpu_torch.data.cifar import load_dataset
 from simclr_pytorch_distributed_tpu_torch.data.pipeline import EpochLoader
 from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+from simclr_pytorch_distributed_tpu_torch.models.resnet import fused_site_plan
 from simclr_pytorch_distributed_tpu_torch.ops.augment import (
     DATASET_STATS,
     AugmentConfig,
@@ -73,6 +74,58 @@ def resolve_loss_impl_reasoned(loss_impl: str, device: torch.device) -> tuple:
     )
 
 
+def conv_fused_sites(model: str, rows: int, size: int) -> List[str]:
+    """Descriptions of the sites ``--conv_impl fused`` runs through the
+    fused kernels at this geometry (``models/resnet.fused_site_plan``)."""
+    return [site["desc"] for site in fused_site_plan(model, rows, size) if site["admitted"]]
+
+
+def resolve_conv_impl(
+    conv_impl: str, model: str, batch_size: int, size: int, device: torch.device
+) -> tuple:
+    """``(resolved_impl, reason)`` for ``--conv_impl``, the JAX package's
+    ladder (``train/supcon.py:197-268``) on the port's devices.
+
+    'auto' is the fused conv+BN kernels on CUDA (the reason lists the
+    admitted sites; with none it degrades to eager and says so) and eager
+    on the CPU. Explicit 'fused' is honoured on any device (on the CPU the
+    kernels' plain PyTorch forms run) and raises where it could only be a
+    silent no-op: a geometry with no admitted site. Sites the per-site
+    gates reject stay eager; the banner lists the ones that fuse.
+    """
+    if conv_impl == "eager":
+        return "eager", "explicit request: cuDNN convs and nn.BatchNorm2d"
+    rows = 2 * batch_size
+    sites = conv_fused_sites(model, rows, size)
+    if conv_impl == "fused":
+        if not sites:
+            raise ValueError(
+                f"--conv_impl fused admits no site for {model} at [{rows},{size},{size}] "
+                "(ops/fused_conv.supports_*); use auto or eager"
+            )
+        where = (
+            "on cpu the kernels' plain PyTorch forms run"
+            if device.type == "cpu" else "hand-written sm_90a kernels"
+        )
+        return "fused", f"explicit request ({where}); fused sites: {', '.join(sites)}"
+    if conv_impl != "auto":
+        raise ValueError(f"conv_impl must be 'eager', 'fused' or 'auto', got {conv_impl!r}")
+    if device.type != "cuda":
+        return "eager", (
+            f"{device.type} device: the fused conv kernels run on CUDA only, so "
+            "eager convs"
+        )
+    if not sites:
+        return "eager", (
+            f"no admitted geometry for {model} at [{rows},{size},{size}] "
+            "(ops/fused_conv.supports_*)"
+        )
+    return "fused", (
+        "CUDA device: hand-written sm_90a kernels (ops/fused_conv.py); "
+        f"fused sites: {', '.join(sites)}"
+    )
+
+
 def make_augment_config(cfg: config_lib.SupConConfig) -> AugmentConfig:
     if cfg.dataset in DATASET_STATS:
         mean, std = DATASET_STATS[cfg.dataset]
@@ -83,10 +136,18 @@ def make_augment_config(cfg: config_lib.SupConConfig) -> AugmentConfig:
 
 def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.device):
     """``(TrainState, SupConStepConfig)``: the model from ``cfg.seed``
-    (built on the CPU, so an init is the same on every device), SGD, the
-    schedule, and the step configuration with the resolved loss path."""
+    (built on the CPU, so an init is the same on every device) with the
+    resolved conv path, SGD, the schedule, and the step configuration with
+    the resolved loss path."""
+    conv_impl, conv_reason = resolve_conv_impl(
+        cfg.conv_impl, cfg.model, cfg.batch_size, cfg.size, device
+    )
+    logging.info(
+        "%s",
+        config_lib.impl_resolution_banner("conv_impl", cfg.conv_impl, conv_impl, conv_reason),
+    )
     torch.manual_seed(cfg.seed)
-    model = SupConResNet(cfg.model, cfg.head, cfg.feat_dim)
+    model = SupConResNet(cfg.model, cfg.head, cfg.feat_dim, conv_impl=conv_impl)
     model = model.to(device=device, memory_format=torch.channels_last)
     grad_div = config_lib.resolve_ngpu(cfg.ngpu, 1)
     if grad_div != 1:
