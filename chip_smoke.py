@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source, all
 started together), holds each against its plain PyTorch version on the card
-(the loss pair at N = 512 and 74 rows; the stem and Bottleneck pairs at the
-recipe's sites and at a ragged shape), drives the port's pretraining entry
+(the loss pair at N = 512 and 74 rows; the stem and Bottleneck pairs at
+every distinct geometry of the recipe's 17 conv sites and at ragged
+shapes), drives the port's pretraining entry
 point (``train.supcon.main``) for one epoch of SimCLR on ResNet-50 at the
 published recipe's width (batch 256, 32 px, two crops, so the encoder and
 the loss see 512 rows) with ``--conv_impl fused --loss_impl fused``, checks
 that the run went through every kernel and that all 17 conv sites fused,
-compares one step of the fused conv path with the eager one, and times
+compares one step of the fused conv path with the eager one (the loss, each
+parameter's update and the BN buffers, beside a float64 run), and times
 kernels and train steps with CUDA events. Phases: device, build,
 kernel_parity, train, timing. Any failure raises and the script exits
 non-zero.
@@ -65,7 +67,9 @@ PALLAS_CONV = "simclr_pytorch_distributed_tpu/ops/pallas_conv.py"
 # norm against float64: with the main path's inputs, at most GRAD_REL_L2;
 # with inputs whose BN shifts keep the ReLU inputs away from zero, at most
 # GRAD_VS_PLAIN times the plain fp32 form's own error (floor
-# GRAD_L2_FLOOR, for sums that cancel to ~0 when every ReLU passes).
+# GRAD_L2_FLOOR). With margin inputs db2 is left out: every ReLU passes,
+# so db2 = sum(dy3 @ k3^T) sums a BN backward's output, which is zero per
+# channel, and its relative error measures rounding over a zero (PERF.md).
 VAL_RTOL, VAL_ATOL = 3e-5, 3e-5
 STAT_RTOL, STAT_ATOL = 3e-5, 2.5e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
@@ -75,6 +79,15 @@ GRAD_VS_PLAIN, GRAD_L2_FLOOR = 4.0, 1e-5
 # and gammas of 1 +- 0.2, a ReLU input lies within fp32 rounding of zero
 # with odds under 1e-11 per element, against ~1e-7 unshifted.
 MARGIN = 8.0
+# The eager-vs-fused train step on the card: each parameter's update, in
+# relative L2 against the eager update, at most STEP_UPDATE_REL_L2; BN
+# buffers elementwise at STEP_BUF_TOL, as the CPU test
+# test_one_step_fused_matches_eager pins them. At this init the fp32 step
+# itself is ill-conditioned: each fp32 path's update is up to ~2e-2 from a
+# float64 step (the run prints it), so two fp32 paths may differ by the
+# sum, ~4e-2 (PERF.md, Findings).
+STEP_UPDATE_REL_L2 = 5e-2
+STEP_BUF_TOL = 1e-4
 
 
 def phase(name):
@@ -217,11 +230,14 @@ class Parity:
     error against ``exact`` at most ``bound``) or ``("l2_vs", factor,
     floor)`` (at most ``factor`` times plain's own, and at least
     ``floor``); those lines print plain's error beside the kernel's.
-    ``max_abs`` keeps each kernel's largest elementwise-pinned error."""
+    ``max_abs`` keeps each kernel's largest elementwise error (against
+    ``exact`` for the L2 pins), ``max_rel_l2`` its largest relative L2
+    error under an L2 pin."""
 
     def __init__(self):
         self.failures = []
         self.max_abs = {}
+        self.max_rel_l2 = {}
 
     def case(self, kernel, label, pairs):
         parts = []
@@ -240,7 +256,11 @@ class Parity:
                 plain_err = rel_l2(plain, exact)
                 bound = pin[1] if pin[0] == "l2" else max(pin[1] * plain_err, pin[2])
                 ok = err <= bound
-                parts.append(f"{name} relL2 {err:.2e} (plain {plain_err:.2e})")
+                abs_err = (got.double() - exact).abs().max().item()
+                parts.append(f"{name} relL2 {err:.2e} (plain {plain_err:.2e}) "
+                             f"abs {abs_err:.2e}/{scale:.2e}")
+                self.max_abs[kernel] = max(self.max_abs.get(kernel, 0.0), abs_err)
+                self.max_rel_l2[kernel] = max(self.max_rel_l2.get(kernel, 0.0), err)
             if not ok:
                 self.failures.append(f"{kernel} {label} {name}: {pin} err {err:.3e} "
                                      f"max|ref| {scale:.3e}")
@@ -256,11 +276,6 @@ def _f64(args):
             else a.double() if isinstance(a, torch.Tensor) else a for a in args]
 
 
-RECIPE_BOTTLENECKS = (
-    ("layer1_block0 proj s1 [512,32,32,64] P=64", (512, 32, 32, 64, 64, 1)),
-    ("layer1_block1 identity [512,32,32,256] P=64", (512, 32, 32, 256, 64, 1)),
-    ("layer2_block0 proj s2 [512,32,32,256] P=128", (512, 32, 32, 256, 128, 2)),
-)
 # ragged rows (360 and 90 a call, not multiples of the 128-row tile),
 # channel counts that leave a ragged last 64-channel tile (160) or are no
 # multiple of 4 (10, 40: the kernels' scalar load paths)
@@ -273,10 +288,21 @@ BOT_GRADS = ("dx", "dk1", "dg1", "db1", "dk2", "dg2", "db2", "dk3", "dg3", "db3"
              "dk_sc", "dg_sc", "db_sc")
 
 
+def recipe_bottlenecks():
+    """The distinct geometries of the recipe's 16 Bottleneck sites, each
+    labelled with the sites that share it."""
+    names = {}
+    for name, geo in bottleneck_sites():
+        names.setdefault(geo, []).append(name)
+    return [(f"{'/'.join(sites)} {'proj' if g[3] != 4 * g[4] or g[5] != 1 else 'identity'} "
+             f"s{g[5]} [{g[0]},{g[1]},{g[2]},{g[3]}] P={g[4]}", g) for g, sites in names.items()]
+
+
 def conv_parity(dev, parity):
     """The stem and Bottleneck kernels against their plain forms, forward
-    (value, moments) and backward (every gradient), at the recipe's sites
-    (main-path inputs, and inputs with ReLU margin) and at ragged shapes."""
+    (value, moments) and backward (every gradient), at every distinct
+    geometry of the recipe's sites (main-path inputs, and inputs with ReLU
+    margin) and at ragged shapes."""
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     g = torch.Generator().manual_seed(7)
     stem_cases = [("recipe [512,32,32,3]", (512, 32, 32), 0.0),
@@ -303,8 +329,9 @@ def conv_parity(dev, parity):
             pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
         parity.case("fused_stem_bwd", label, [
             (name, a, b, pin) for name, a, b in zip(("dx", "dk", "dgamma", "dbeta"), got, refs)])
-    cases = [(label, geo, 0.0) for label, geo in RECIPE_BOTTLENECKS]
-    cases += [(label + " margin", geo, MARGIN) for label, geo in RECIPE_BOTTLENECKS]
+    recipe_geos = recipe_bottlenecks()
+    cases = [(label, geo, 0.0) for label, geo in recipe_geos]
+    cases += [(label + " margin", geo, MARGIN) for label, geo in recipe_geos]
     cases += [(label, geo, 0.0) for label, geo in RAGGED_BOTTLENECKS]
     for label, geo, margin in cases:
         recipe = geo[0] == 512
@@ -326,7 +353,8 @@ def conv_parity(dev, parity):
             refs = list(zip(exact, plain))
             pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
         parity.case("fused_bottleneck_bwd", label, [
-            (name, a, b, pin) for name, a, b in zip(BOT_GRADS, got, refs)])
+            (name, a, b, pin) for name, a, b in zip(BOT_GRADS, got, refs)
+            if not (margin and name == "db2")])
         del args, short, got, ref, refs, plain, gout, bargs
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -427,6 +455,72 @@ def conv_timing(dev, where):
     print(f"bottleneck, sum over the 16 sites (one step) ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in res["bottleneck"].items()) + f" {where}")
     return res
+
+
+def step_check(model, views, labels):
+    """One train step from one init on one batch, eager against fused conv
+    (both fp32, fused loss), beside the eager step in float64 (dense loss)
+    as the yardstick of fp32 noise. Binds the loss (rel 1e-4), each
+    parameter's update in relative L2 (``STEP_UPDATE_REL_L2``) and the BN
+    buffers (``STEP_BUF_TOL``); prints the float64 readings."""
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        SupConStepConfig,
+        train_step,
+    )
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = {k for k, _ in model.named_parameters()}
+    losses, states = {}, {}
+    for impl, dtype, loss_impl in (("eager", torch.float32, "fused"),
+                                   ("fused", torch.float32, "fused"),
+                                   ("eager64", torch.float64, "dense")):
+        m = copy.deepcopy(model).to(dtype)
+        m.encoder.set_conv_impl(impl[:5])
+        st = TrainState(model=m, optimizer=make_optimizer(m), schedule=lambda s: 0.5)
+        cfg = SupConStepConfig(temperature=TEMP, loss_impl=loss_impl, epochs=1, steps_per_epoch=7)
+        losses[impl] = train_step(st, cfg, views.to(dtype), labels)["loss"].item()
+        states[impl] = {k: v.double() if v.is_floating_point() else v
+                        for k, v in m.state_dict().items()}
+        del m, st
+        torch.cuda.empty_cache()
+    rel = abs(losses["fused"] - losses["eager"]) / abs(losses["eager"])
+    print(f"one step conv eager {losses['eager']!r} fused {losses['fused']!r} "
+          f"rel diff {rel:.3e} (bound 1e-4); float64 eager {losses['eager64']!r}")
+    failures = []
+    if not rel <= 1e-4:
+        failures.append(f"eager and fused conv step losses differ by {rel}")
+
+    def update_err(impl, ref, key):
+        upd = ref[key] - init[key].double()
+        return ((states[impl][key] - init[key].double() - upd).norm() / upd.norm()).item()
+
+    worst = {}
+    for impl, ref in (("fused", "eager"), ("fused", "eager64"), ("eager", "eager64")):
+        errs = [(update_err(impl, states[ref], key), key) for key in states[ref] if key in params]
+        worst[(impl, ref)] = max(errs)
+        print(f"step update relative L2, {impl} vs {ref}: worst {max(errs)[0]:.3e} at "
+              f"{max(errs)[1]}, median {statistics.median(e for e, _ in errs):.3e} "
+              f"over {len(errs)} parameters")
+    if not worst[("fused", "eager")][0] <= STEP_UPDATE_REL_L2:
+        failures.append(f"fused vs eager update relative L2 {worst[('fused', 'eager')]} "
+                        f"> {STEP_UPDATE_REL_L2}")
+    buf_worst = (0.0, None)
+    for key, ref in states["eager"].items():
+        if key in params:
+            continue
+        got = states["fused"][key]
+        if not ref.is_floating_point():
+            if not torch.equal(got, ref):
+                failures.append(f"buffer {key}: {got} != {ref}")
+            continue
+        excess = ((got - ref).abs() - STEP_BUF_TOL * (1 + ref.abs())).max().item()
+        buf_worst = max(buf_worst, ((got - ref).abs().max().item(), key))
+        if excess > 0:
+            failures.append(f"buffer {key} off by more than rtol/atol {STEP_BUF_TOL}")
+    print(f"BN buffers after the step, fused vs eager: max abs diff {buf_worst[0]:.3e} at "
+          f"{buf_worst[1]} (bound rtol/atol {STEP_BUF_TOL})")
+    if failures:
+        raise AssertionError("eager-vs-fused step:\n" + "\n".join(failures))
 
 
 def main() -> int:
@@ -591,26 +685,8 @@ def main() -> int:
     print(f"after that step, max |param or BN buffer difference| dense vs fused: "
           f"{param_diff:.3e} (reported, not bounded: cuDNN's backward sums in its own order)")
 
-    # one step, eager against fused conv, from one seeded init on one batch
-    conv_loss, conv_state = {}, {}
-    for impl in ("eager", "fused"):
-        m = copy.deepcopy(model)
-        m.encoder.set_conv_impl(impl)
-        st = TrainState(model=m, optimizer=make_optimizer(m), schedule=lambda s: 0.5)
-        cfg = SupConStepConfig(temperature=TEMP, loss_impl="fused", epochs=1, steps_per_epoch=7)
-        conv_loss[impl] = train_step(st, cfg, views, labels)["loss"].item()
-        conv_state[impl] = m.state_dict()
-    rel = abs(conv_loss["fused"] - conv_loss["eager"]) / abs(conv_loss["eager"])
-    print(f"one step conv eager {conv_loss['eager']!r} fused {conv_loss['fused']!r} "
-          f"rel diff {rel:.3e} (bound 1e-4)")
-    if not rel <= 1e-4:
-        raise AssertionError(f"eager and fused conv step losses differ by {rel}")
-    worst = max(
-        ((conv_state["fused"][k] - v).abs().max().item(), k)
-        for k, v in conv_state["eager"].items() if v.is_floating_point()
-    )
-    print(f"after that step, max |param or BN buffer difference| eager vs fused conv: "
-          f"{worst[0]:.3e} at {worst[1]} (reported, not bounded)")
+    del stepped
+    step_check(model, views, labels)
     done("train", t0)
 
     # -- timing ------------------------------------------------------------
@@ -708,13 +784,16 @@ def main() -> int:
     ):
         block, direction = name.split("_")[1], name.split("_")[2]
         times = conv_ms[block]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": conv_source,
             "replaces": f"{PALLAS_CONV}:{line}", "launches": main_path[key],
             "max_abs_err": parity.max_abs[name],
             "ms": times[direction], "plain_ms": times[f"{direction}_plain"],
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-        })
+        }
+        if name in parity.max_rel_l2:  # the backward at the recipe's sites, vs float64
+            entry["max_rel_l2"] = parity.max_rel_l2[name]
+        kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -40,7 +40,8 @@ from simclr_pytorch_distributed_tpu_torch.utils.convert import (  # noqa: E402
 
 def port_model(conv_impl: str, seed: int = 3) -> SupConResNet:
     torch.manual_seed(seed)
-    model = SupConResNet("resnet50", "mlp", 16, conv_impl=conv_impl)
+    model = SupConResNet("resnet50", "mlp", 16)
+    model.encoder.set_conv_impl(conv_impl)
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for m in model.modules():

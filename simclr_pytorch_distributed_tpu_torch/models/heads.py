@@ -30,14 +30,13 @@ def projection_head(head: str, dim_in: int, feat_dim: int) -> nn.Module:
 
 class SupConResNet(nn.Module):
     """Backbone + projection head; NHWC images in, ``[N, feat_dim]`` out.
-    ``conv_impl`` is the encoder's train-mode conv path
-    (``ResNet.set_conv_impl``)."""
+    The encoder's train-mode conv path is set on it
+    (``model.encoder.set_conv_impl``)."""
 
-    def __init__(self, model_name: str = "resnet50", head: str = "mlp", feat_dim: int = 128,
-                 conv_impl: str = "eager"):
+    def __init__(self, model_name: str = "resnet50", head: str = "mlp", feat_dim: int = 128):
         super().__init__()
         model_fn, dim_in = MODEL_DICT[model_name]
-        self.encoder = model_fn().set_conv_impl(conv_impl)
+        self.encoder = model_fn()
         self.head = projection_head(head, dim_in, feat_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -24,11 +24,13 @@ Inputs are NHWC, as in the JAX package; ``ResNet.forward`` permutes them
 once to NCHW, which on an NHWC-contiguous tensor is a ``channels_last`` view
 and no copy.
 
-``conv_impl`` (``ResNet.set_conv_impl``): ``"eager"`` runs the cuDNN convs
-and ``nn.BatchNorm2d``; ``"fused"`` routes train-mode forwards of the stem
-and of every Bottleneck that the ``supports_*`` gates admit through the
-fused conv+BN kernels of ``ops/fused_conv.py`` (the JAX package's
-``conv_impl="pallas"``, ``models/resnet.py:176-224, 303-328``). The
+``conv_impl`` (``ResNet.set_conv_impl``, the one place it is set):
+``"eager"`` runs the cuDNN convs and ``nn.BatchNorm2d``; ``"fused"`` routes
+train-mode forwards of the stem and of every Bottleneck that the
+``supports_*`` gates admit through the fused conv+BN kernels of
+``ops/fused_conv.py`` (the JAX package's
+``conv_impl="pallas"``, ``models/resnet.py:176-224, 303-328``); the encoder
+passes the choice down to its blocks as ``forward``'s ``fused`` argument. The
 ``nn.Conv2d``/``nn.BatchNorm2d`` modules stay the owners of the parameters
 and running buffers, so ``state_dict()`` does not depend on the path; eval
 mode, BasicBlocks and sites the gates reject stay eager.
@@ -60,7 +62,8 @@ class BasicBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(planes)
         self.shortcut = _shortcut(in_planes, planes * self.expansion, stride)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        """``fused`` is ignored: BasicBlocks have no fused kernel in the port yet."""
         out = torch.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         return torch.relu(out + self.shortcut(x))
@@ -81,12 +84,13 @@ class Bottleneck(nn.Module):
         self.bn3 = nn.BatchNorm2d(planes * self.expansion)
         self.shortcut = _shortcut(in_planes, planes * self.expansion, stride)
         self.stride = stride
-        self.conv_impl = "eager"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        """``fused``: run a train-mode forward through the fused kernels
+        where ``supports_bottleneck`` admits this geometry."""
         n, cin, h, w = x.shape
         if (
-            self.conv_impl == "fused"
+            fused
             and self.training
             and fused_conv.supports_bottleneck(
                 n, h, w, self.conv2.in_channels, stride=self.stride, in_channels=cin
@@ -164,9 +168,6 @@ class ResNet(nn.Module):
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
         self.conv_impl = conv_impl
-        for m in self.modules():
-            if isinstance(m, Bottleneck):
-                m.conv_impl = conv_impl
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -185,30 +186,42 @@ class ResNet(nn.Module):
         else:
             x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
             x = torch.relu(self.bn1(self.conv1(x)))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        fused = self.conv_impl == "fused"
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                x = block(x, fused)
         return x.mean(dim=(2, 3))
 
 
+# name -> (block, blocks per stage); resnet10, one BasicBlock per stage, is
+# the JAX package's smoke-test extension, not in the reference model_dict
+STAGE_PLANS: Dict[str, Tuple[Block, Tuple[int, ...]]] = {
+    "resnet10": (BasicBlock, (1, 1, 1, 1)),
+    "resnet18": (BasicBlock, (2, 2, 2, 2)),
+    "resnet34": (BasicBlock, (3, 4, 6, 3)),
+    "resnet50": (Bottleneck, (3, 4, 6, 3)),
+    "resnet101": (Bottleneck, (3, 4, 23, 3)),
+}
+
+
 def resnet10() -> ResNet:
-    """One BasicBlock per stage: the JAX package's smoke-test extension,
-    not in the reference model_dict."""
-    return ResNet(BasicBlock, (1, 1, 1, 1))
+    return ResNet(*STAGE_PLANS["resnet10"])
 
 
 def resnet18() -> ResNet:
-    return ResNet(BasicBlock, (2, 2, 2, 2))
+    return ResNet(*STAGE_PLANS["resnet18"])
 
 
 def resnet34() -> ResNet:
-    return ResNet(BasicBlock, (3, 4, 6, 3))
+    return ResNet(*STAGE_PLANS["resnet34"])
 
 
 def resnet50() -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 6, 3))
+    return ResNet(*STAGE_PLANS["resnet50"])
 
 
 def resnet101() -> ResNet:
-    return ResNet(Bottleneck, (3, 4, 23, 3))
+    return ResNet(*STAGE_PLANS["resnet101"])
 
 
 # name -> (constructor, feature dim); reference model_dict resnet_big.py:137-142
@@ -225,7 +238,8 @@ def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
     """The per-site geometry walk for ``--conv_impl fused`` (the JAX
     package's ``fused_site_plan``, ``models/resnet.py:400-469``).
 
-    It follows ``ResNet.forward``'s stage loop and asks the same
+    It walks ``STAGE_PLANS`` as ``ResNet.__init__`` does, building no
+    model, and asks the same
     ``ops/fused_conv.supports_*`` gates the modules ask at run time, so the
     resolution banner and the modules agree on which sites fuse. ``h``/``w``
     are each block's INPUT dims; a stride-2 site's output is ``ceil(h/2)``
@@ -236,8 +250,7 @@ def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
     ``width``, ``stride``, ``admitted``, ``desc``. BasicBlock sites have no
     kernel in the port yet and are never admitted.
     """
-    ctor, _ = MODEL_DICT[model]
-    mod = ctor()
+    block_cls, stage_sizes = STAGE_PLANS[model]
     h = w = size
     sites = [{
         "name": "stem", "kind": "stem", "h": h, "w": w, "in_channels": 3,
@@ -247,10 +260,10 @@ def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
     }]
     in_c = 64
     for stage, (width, stage_stride) in enumerate(zip((64, 128, 256, 512), (1, 2, 2, 2)), 1):
-        for block, module in enumerate(getattr(mod, f"layer{stage}")):
+        for block in range(stage_sizes[stage - 1]):
             stride = stage_stride if block == 0 else 1
             name = f"layer{stage}_block{block}"
-            if isinstance(module, Bottleneck):
+            if block_cls is Bottleneck:
                 kind = "bottleneck"
                 admitted = fused_conv.supports_bottleneck(
                     rows, h, w, width, stride=stride, in_channels=in_c
@@ -258,7 +271,7 @@ def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
             else:
                 kind = "basic" if (stride == 1 and in_c == width) else "proj"
                 admitted = False
-            out_c = width * module.expansion
+            out_c = width * block_cls.expansion
             sites.append({
                 "name": name, "kind": kind, "h": h, "w": w, "in_channels": in_c,
                 "width": width, "stride": stride, "admitted": admitted,

@@ -18,7 +18,9 @@ of ``pallas_conv.py``. The caller applies the running-stat update
 dropped, as in the Pallas ops' custom VJPs, and the backward keeps only
 ``x``, the weights and the moments (it recomputes the convolutions).
 
-Dispatch: tensors on the CPU take the plain PyTorch forms below, forward and
+Dispatch: each entry point first raises unless its ``supports_*`` gate
+admits the geometry (on either device); then tensors on the CPU take the
+plain PyTorch forms below, forward and
 backward (the backward form spells out the Pallas backward's algebra, not
 autograd through the plain forward); CUDA tensors launch the kernels or
 raise; any other device raises. There is no fallback from a kernel to a
@@ -131,6 +133,13 @@ def supports_stem(n: int, h: int, w: int, cin: int, cout: int) -> bool:
     return n * h * w * max(cin, cout) <= _MAX_ELEMENTS
 
 
+def _admit_stem(x, k):
+    """Raise unless ``supports_stem`` admits ``x`` and ``k`` (both devices)."""
+    n, h, w, cin = x.shape
+    if not supports_stem(n, h, w, cin, k.shape[3]):
+        raise ValueError(f"fused stem does not admit [{n},{h},{w},{cin}]->{k.shape[3]}")
+
+
 def supports_bottleneck(n: int, h: int, w: int, planes: int, *,
                         stride: int = 1, in_channels: int) -> bool:
     """True if the fused Bottleneck kernels admit this geometry. ``h``/``w``
@@ -143,6 +152,15 @@ def supports_bottleneck(n: int, h: int, w: int, planes: int, *,
     if stride == 2 and (h % 2 or w % 2):
         return False
     return n * h * w * max(in_channels, 4 * planes) <= _MAX_ELEMENTS
+
+
+def _admit_bottleneck(x, k2, stride):
+    """Raise unless ``supports_bottleneck`` admits ``x`` (both devices)."""
+    n, h, w, cin = x.shape
+    p = k2.shape[2]
+    if not supports_bottleneck(n, h, w, p, stride=stride, in_channels=cin):
+        raise ValueError(f"fused bottleneck does not admit [{n},{h},{w},{cin}] "
+                         f"planes={p}/s{stride}")
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +339,7 @@ def stem_fwd(x, k, g, b, eps):
     """``(out, mean, var_biased)`` of the stem; launches ``stem_fwd`` for
     CUDA tensors."""
     global stem_fwd_launches
+    _admit_stem(x, k)
     if native.on_cpu(x, k, g, b):
         return stem_fwd_reference(x, k, g, b, eps)
     n, h, w, cin = x.shape
@@ -341,6 +360,7 @@ def stem_bwd(x, k, g, b, m, v, gout, eps, need_dx=True):
     """``(dx or None, dk, dgamma, dbeta)`` of the stem; launches
     ``stem_bwd`` for CUDA tensors."""
     global stem_bwd_launches
+    _admit_stem(x, k)
     if native.on_cpu(x, k, g, b, m, v, gout):
         return stem_bwd_reference(x, k, g, b, m, v, gout, eps, need_dx)
     n, h, w, cin = x.shape
@@ -367,8 +387,6 @@ def _check_stem(x, k, g, b, n, h, w, cin, cout):
     if x.dim() != 4 or k.dim() != 4 or k.shape[:3] != (3, 3, cin):
         raise ValueError(f"stem: x [n,h,w,cin] and k [3,3,cin,cout], got "
                          f"{tuple(x.shape)} and {tuple(k.shape)}")
-    if not supports_stem(n, h, w, cin, cout):
-        raise ValueError(f"fused stem does not admit [{n},{h},{w},{cin}]->{cout}")
     _check("x", x, (n, h, w, cin))
     _check("k", k, (3, 3, cin, cout))
     _check("gamma", g, (cout,))
@@ -382,9 +400,6 @@ def _bot_shapes(x, k2):
 
 def _check_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride):
     n, hi, wi, cin, p = _bot_shapes(x, k2)
-    if not supports_bottleneck(n, hi, wi, p, stride=stride, in_channels=cin):
-        raise ValueError(f"fused bottleneck does not admit [{n},{hi},{wi},{cin}] "
-                         f"planes={p}/s{stride}")
     for name, t, shape in (
         ("x", x, (n, hi, wi, cin)), ("k1", k1, (cin, p)), ("k2", k2, (3, 3, p, p)),
         ("k3", k3, (p, 4 * p)), ("g1", g1, (p,)), ("b1", b1, (p,)),
@@ -401,6 +416,7 @@ def bottleneck_fwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, eps):
     """Bottleneck forward (see :func:`bottleneck_fwd_reference`); launches
     ``bottleneck_fwd`` for CUDA tensors."""
     global bottleneck_fwd_launches
+    _admit_bottleneck(x, k2, stride)
     tensors = (x, k1, g1, b1, k2, g2, b2, k3, g3, b3) + tuple(short or ())
     if native.on_cpu(*tensors):
         return bottleneck_fwd_reference(x, k1, g1, b1, k2, g2, b2, k3, g3, b3,
@@ -433,6 +449,7 @@ def bottleneck_bwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short,
     """Bottleneck backward (see :func:`bottleneck_bwd_reference`); launches
     ``bottleneck_bwd`` for CUDA tensors."""
     global bottleneck_bwd_launches
+    _admit_bottleneck(x, k2, stride)
     tensors = (x, k1, g1, b1, k2, g2, b2, k3, g3, b3, m1, v1, m2, v2, m3, v3,
                gout) + tuple(short or ())
     if native.on_cpu(*tensors):
@@ -540,9 +557,6 @@ def fused_conv_bn_relu(x, kernel, scale, bias, eps=1e-5):
     batch_mean, batch_var_biased)``; the caller applies the running-stat
     update. Gradients flow to all four inputs; the moments carry none.
     """
-    n, h, w, cin = x.shape
-    if not supports_stem(n, h, w, cin, kernel.shape[3]):
-        raise ValueError(f"fused stem does not admit [{n},{h},{w},{cin}]->{kernel.shape[3]}")
     return FusedStem.apply(
         x.contiguous(), kernel.contiguous(), scale.contiguous(), bias.contiguous(), float(eps)
     )
@@ -559,11 +573,7 @@ def fused_bottleneck_block(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, shortcut=None,
     with biased variances; BN1 counts over the input grid, the others over
     the output grid.
     """
-    n, h, w, cin = x.shape
-    p = k2.shape[2]
-    if not supports_bottleneck(n, h, w, p, stride=stride, in_channels=cin):
-        raise ValueError(f"fused bottleneck does not admit [{n},{h},{w},{cin}] "
-                         f"planes={p}/s{stride}")
+    cin, p = x.shape[3], k2.shape[2]
     if (stride != 1 or cin != 4 * p) != (shortcut is not None):
         raise ValueError("bottleneck shortcut params must be given exactly when "
                          "stride != 1 or in_channels != 4*planes")

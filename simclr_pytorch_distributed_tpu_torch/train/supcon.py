@@ -147,7 +147,8 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
         config_lib.impl_resolution_banner("conv_impl", cfg.conv_impl, conv_impl, conv_reason),
     )
     torch.manual_seed(cfg.seed)
-    model = SupConResNet(cfg.model, cfg.head, cfg.feat_dim, conv_impl=conv_impl)
+    model = SupConResNet(cfg.model, cfg.head, cfg.feat_dim)
+    model.encoder.set_conv_impl(conv_impl)
     model = model.to(device=device, memory_format=torch.channels_last)
     grad_div = config_lib.resolve_ngpu(cfg.ngpu, 1)
     if grad_div != 1:

@@ -274,7 +274,8 @@ def test_apply_running_update_matches_batchnorm2d():
 
 def _perturbed_port_model(model_name, conv_impl, seed):
     torch.manual_seed(seed)
-    model = SupConResNet(model_name, "mlp", 16, conv_impl=conv_impl)
+    model = SupConResNet(model_name, "mlp", 16)
+    model.encoder.set_conv_impl(conv_impl)
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for m in model.modules():
