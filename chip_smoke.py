@@ -5,16 +5,18 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source, all
 started together), holds each against its plain PyTorch version on the card
-(the loss pair at N = 512 and 74 rows; the stem and Bottleneck pairs at
-every distinct geometry of the recipe's 17 conv sites and at ragged
-shapes), drives the port's pretraining entry
-point (``train.supcon.main``) for one epoch of SimCLR on ResNet-50 at the
-published recipe's width (batch 256, 32 px, two crops, so the encoder and
-the loss see 512 rows) with ``--conv_impl fused --loss_impl fused``, checks
-that the run went through every kernel and that all 17 conv sites fused,
-compares one step of the fused conv path with the eager one (the loss, each
-parameter's update and the BN buffers, beside a float64 run), and times
-kernels and train steps with CUDA events. Phases: device, build,
+(the loss pair at N = 512 and 74 rows; the stem, Bottleneck, BasicBlock and
+projection-block pairs at every distinct geometry of the ResNet-50 and
+ResNet-18 recipe sites and at ragged shapes), drives the port's pretraining
+entry point (``train.supcon.main``) for one epoch of SimCLR at the published
+recipe's width (batch 256, 32 px, two crops, so the encoder and the loss see
+512 rows) with ``--conv_impl fused --loss_impl fused`` on two paths,
+ResNet-50 (17 conv sites: the stem and 16 Bottlenecks) and ResNet-18 (9:
+the stem, 5 identity and 3 projection BasicBlocks), checks that each run
+went through every kernel of its path and that all its sites fused,
+compares one step of each model's fused conv path with its eager one (the
+loss, each parameter's update and the BN buffers, beside a float64 run),
+and times kernels and train steps with CUDA events. Phases: device, build,
 kernel_parity, train, timing. Any failure raises and the script exits
 non-zero.
 
@@ -67,9 +69,14 @@ PALLAS_CONV = "simclr_pytorch_distributed_tpu/ops/pallas_conv.py"
 # norm against float64: with the main path's inputs, at most GRAD_REL_L2;
 # with inputs whose BN shifts keep the ReLU inputs away from zero, at most
 # GRAD_VS_PLAIN times the plain fp32 form's own error (floor
-# GRAD_L2_FLOOR). With margin inputs db2 is left out: every ReLU passes,
-# so db2 = sum(dy3 @ k3^T) sums a BN backward's output, which is zero per
-# channel, and its relative error measures rounding over a zero (PERF.md).
+# GRAD_L2_FLOOR). With margin inputs the Bottleneck's db2 is left out:
+# every ReLU passes, so db2 = sum(dy3 @ k3^T) sums a BN backward's output,
+# which is zero per channel, and its relative error measures rounding over
+# a zero (PERF.md). MARGIN_EXEMPT names such gradients per kernel. The
+# BasicBlocks' db1 = sum(conv3x3^T(dy2)) is no such zero and stays pinned:
+# each tap's sum of dy2 over the grid is zero but for the one-pixel border
+# strip that tap shifts out, so db1 keeps the border terms, a part of its
+# size that grows as the grid shrinks (PERF.md, Findings).
 VAL_RTOL, VAL_ATOL = 3e-5, 3e-5
 STAT_RTOL, STAT_ATOL = 3e-5, 2.5e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
@@ -88,6 +95,10 @@ MARGIN = 8.0
 # sum, ~4e-2 (PERF.md, Findings).
 STEP_UPDATE_REL_L2 = 5e-2
 STEP_BUF_TOL = 1e-4
+MARGIN_EXEMPT = {"fused_bottleneck_bwd": ("db2",)}
+# the fused_conv launch counters, one per entry point
+CONV_COUNTERS = tuple(f"{kind}_{d}_launches" for kind in ("stem", "basic", "proj", "bottleneck")
+                      for d in ("fwd", "bwd"))
 
 
 def phase(name):
@@ -212,6 +223,26 @@ def bottleneck_inputs(n, h, w, cin, p, stride, dev, seed, margin=0.0):
     return args, short
 
 
+def block_inputs(n, h, w, cin, c, stride, dev, seed, margin=0.0):
+    """x and the BasicBlock's two 3x3 kernels with their BN affines
+    (Kaiming-scale weights, gammas near 1), and the shortcut triple
+    (projection geometries) or None. ``margin`` shifts the BN betas before
+    each ReLU as in :func:`bottleneck_inputs`."""
+    g = torch.Generator().manual_seed(seed)
+    proj = stride != 1 or cin != c
+    last = 0.625 * margin if proj else margin
+    args = (rand((n, h, w, cin), g, dev),
+            rand((3, 3, cin, c), g, dev, (2 / (9 * c)) ** 0.5), rand((c,), g, dev, 0.2, 1.0),
+            rand((c,), g, dev, 0.1, margin),
+            rand((3, 3, c, c), g, dev, (2 / (9 * c)) ** 0.5), rand((c,), g, dev, 0.2, 1.0),
+            rand((c,), g, dev, 0.1, last))
+    short = None
+    if proj:
+        short = (rand((cin, c), g, dev, (2 / c) ** 0.5), rand((c,), g, dev, 0.2, 1.0),
+                 rand((c,), g, dev, 0.1, last))
+    return args, short
+
+
 def elem(rtol, atol):
     return ("elem", rtol, atol)
 
@@ -283,26 +314,108 @@ RAGGED_BOTTLENECKS = (
     ("ragged proj s2 [6,10,6,24] P=40", (6, 10, 6, 24, 40, 2)),
     ("ragged identity [6,10,6,40] P=10", (6, 10, 6, 40, 10, 1)),
 )
+# odd h/w at stride 1, cin != c at stride 1, channel counts no multiple of
+# 4 (10, 6) or leaving a ragged 64-channel tile (72), and row counts that
+# leave a partial 128-row tile (378, 360, 315, 75, 48)
+RAGGED_BLOCKS = (
+    ("ragged identity [6,9,7,10]", (6, 9, 7, 10, 10, 1)),
+    ("ragged identity [6,10,6,72]", (6, 10, 6, 72, 72, 1)),
+    ("ragged proj s1 [5,7,9,12]->20", (5, 7, 9, 12, 20, 1)),
+    ("ragged proj s2 [5,10,6,24]->40", (5, 10, 6, 24, 40, 2)),
+    ("ragged proj s2 [3,8,8,6]->10", (3, 8, 8, 6, 10, 2)),
+)
 BOT_OUT = ("out", "m1", "v1", "m2", "v2", "m3", "v3", "m_sc", "v_sc")
 BOT_GRADS = ("dx", "dk1", "dg1", "db1", "dk2", "dg2", "db2", "dk3", "dg3", "db3",
              "dk_sc", "dg_sc", "db_sc")
+BLOCK_OUT = ("out", "m1", "v1", "m2", "v2", "m_sc", "v_sc")
+BASIC_GRADS = ("dx", "dk1", "dk2", "dg1", "db1", "dg2", "db2")
+PROJ_GRADS = ("dx", "dk1", "dk2", "dk_sc", "dg1", "db1", "dg2", "db2", "dg_sc", "db_sc")
 
 
-def recipe_bottlenecks():
-    """The distinct geometries of the recipe's 16 Bottleneck sites, each
-    labelled with the sites that share it."""
+def model_sites(model, rows=512, size=32):
+    """The recipe's block sites of ``model`` as ``(name, kind, (n, h, w,
+    cin, width, stride))``, kind 'bottleneck', 'basic' or 'proj'."""
+    from simclr_pytorch_distributed_tpu_torch.models.resnet import fused_site_plan
+    return [(s["name"], s["kind"], (rows, s["h"], s["w"], s["in_channels"], s["width"],
+                                    s["stride"]))
+            for s in fused_site_plan(model, rows, size) if s["kind"] != "stem"]
+
+
+def site_calls(fc, family, geo, dev, seed, margin=0.0):
+    """One block call at ``geo``: ``(x, kind, fwd, bwd)`` with ``fwd`` the
+    ``(kernel, plain)`` forward calls and ``bwd(moments, gout)`` giving
+    ``(args, kernel, plain, gradient names)`` of the backward. ``family``
+    is 'bottleneck' or 'block' (a BasicBlock: identity or projection, as
+    the geometry says)."""
+    stride = geo[5]
+    if family == "bottleneck":
+        args, short = bottleneck_inputs(*geo, dev, seed=seed, margin=margin)
+        fwd = (lambda: fc.bottleneck_fwd(*args, short, stride, EPS),
+               lambda: fc.bottleneck_fwd_reference(*args, short, stride, EPS))
+
+        def bwd(moments, gout):
+            short_b = short + tuple(moments[6:8]) if short is not None else None
+            bargs = (*args, short_b, *moments[:6], gout, stride, EPS)
+            return bargs, fc.bottleneck_bwd, fc.bottleneck_bwd_reference, BOT_GRADS
+        return args[0], "bottleneck", fwd, bwd
+    args, short = block_inputs(*geo, dev, seed=seed, margin=margin)
+    if short is None:
+        fwd = (lambda: fc.basic_fwd(*args, EPS), lambda: fc.basic_block_fwd_reference(*args, EPS))
+
+        def bwd(moments, gout):
+            bargs = (*args, *moments, gout, EPS)
+            return bargs, fc.basic_bwd, fc.basic_block_bwd_reference, BASIC_GRADS
+        return args[0], "basic", fwd, bwd
+    fwd = (lambda: fc.proj_fwd(*args, *short, stride, EPS),
+           lambda: fc.proj_block_fwd_reference(*args, *short, stride, EPS))
+
+    def bwd(moments, gout):
+        bargs = (*args, *short, *moments, gout, stride, EPS)
+        return bargs, fc.proj_bwd, fc.proj_block_bwd_reference, PROJ_GRADS
+    return args[0], "proj", fwd, bwd
+
+
+def block_parity(dev, parity, family, sites, ragged, seed, gen):
+    """One family's block kernels against their plain forms, forward
+    (value, moments) and backward (every gradient), at every distinct
+    geometry of ``sites`` (main-path inputs, and inputs with ReLU margin)
+    and at the ``ragged`` shapes. ``gen`` draws the output gradients."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     names = {}
-    for name, geo in bottleneck_sites():
+    for name, _, geo in sites:
         names.setdefault(geo, []).append(name)
-    return [(f"{'/'.join(sites)} {'proj' if g[3] != 4 * g[4] or g[5] != 1 else 'identity'} "
-             f"s{g[5]} [{g[0]},{g[1]},{g[2]},{g[3]}] P={g[4]}", g) for g, sites in names.items()]
+    recipe = [(f"{'/'.join(n)} [{g[0]},{g[1]},{g[2]},{g[3]}] width {g[4]} s{g[5]}", g)
+              for g, n in names.items()]
+    cases = [(label, geo, 0.0) for label, geo in recipe]
+    cases += [(label + " margin", geo, MARGIN) for label, geo in recipe]
+    cases += [(label, geo, 0.0) for label, geo in ragged]
+    for label, geo, margin in cases:
+        _, kind, fwd, bwd = site_calls(fc, family, geo, dev, seed, margin)
+        got, ref = fwd[0](), fwd[1]()
+        out_names = BOT_OUT if kind == "bottleneck" else BLOCK_OUT
+        parity.case(f"fused_{kind}_fwd", label, [
+            (name, a, b, elem(VAL_RTOL, VAL_ATOL) if name == "out" else elem(STAT_RTOL, STAT_ATOL))
+            for name, a, b in zip(out_names, got, ref)])
+        gout = rand(tuple(ref[0].shape), gen, dev)
+        bargs, kernel, plain_fn, grad_names = bwd(ref[1:], gout)
+        got, plain = kernel(*bargs), plain_fn(*bargs)
+        refs, pin = plain, elem(GRAD_RTOL, GRAD_ATOL)
+        if geo[0] == 512:  # a recipe site
+            exact = plain_fn(*_f64(bargs))
+            refs = list(zip(exact, plain))
+            pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
+        exempt = MARGIN_EXEMPT.get(f"fused_{kind}_bwd", ()) if margin else ()
+        parity.case(f"fused_{kind}_bwd", label, [
+            (name, a, b, pin) for name, a, b in zip(grad_names, got, refs) if name not in exempt])
+        del fwd, bwd, got, ref, refs, plain, gout, bargs
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
 
 
 def conv_parity(dev, parity):
-    """The stem and Bottleneck kernels against their plain forms, forward
-    (value, moments) and backward (every gradient), at every distinct
-    geometry of the recipe's sites (main-path inputs, and inputs with ReLU
-    margin) and at ragged shapes."""
+    """The stem, Bottleneck, BasicBlock and projection-block kernels
+    against their plain forms at every distinct geometry of the ResNet-50
+    and ResNet-18 recipe's sites and at ragged shapes."""
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     g = torch.Generator().manual_seed(7)
     stem_cases = [("recipe [512,32,32,3]", (512, 32, 32), 0.0),
@@ -329,42 +442,9 @@ def conv_parity(dev, parity):
             pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
         parity.case("fused_stem_bwd", label, [
             (name, a, b, pin) for name, a, b in zip(("dx", "dk", "dgamma", "dbeta"), got, refs)])
-    recipe_geos = recipe_bottlenecks()
-    cases = [(label, geo, 0.0) for label, geo in recipe_geos]
-    cases += [(label + " margin", geo, MARGIN) for label, geo in recipe_geos]
-    cases += [(label, geo, 0.0) for label, geo in RAGGED_BOTTLENECKS]
-    for label, geo, margin in cases:
-        recipe = geo[0] == 512
-        args, short = bottleneck_inputs(*geo, dev, seed=2, margin=margin)
-        stride = geo[5]
-        got = fc.bottleneck_fwd(*args, short, stride, EPS)
-        ref = fc.bottleneck_fwd_reference(*args, short, stride, EPS)
-        parity.case("fused_bottleneck_fwd", label, [
-            (name, a, b, elem(VAL_RTOL, VAL_ATOL) if name == "out" else elem(STAT_RTOL, STAT_ATOL))
-            for name, a, b in zip(BOT_OUT, got, ref)])
-        gout = rand(tuple(ref[0].shape), g, dev)
-        short_b = short + tuple(ref[7:9]) if short is not None else None
-        bargs = (*args, short_b, *ref[1:7], gout, stride, EPS)
-        got = fc.bottleneck_bwd(*bargs)
-        plain = fc.bottleneck_bwd_reference(*bargs)
-        refs, pin = plain, elem(GRAD_RTOL, GRAD_ATOL)
-        if recipe:
-            exact = fc.bottleneck_bwd_reference(*_f64(bargs))
-            refs = list(zip(exact, plain))
-            pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
-        parity.case("fused_bottleneck_bwd", label, [
-            (name, a, b, pin) for name, a, b in zip(BOT_GRADS, got, refs)
-            if not (margin and name == "db2")])
-        del args, short, got, ref, refs, plain, gout, bargs
-        torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-
-
-def bottleneck_sites(rows=512, size=32):
-    """The recipe's 16 Bottleneck sites as ``(name, (n, h, w, cin, P, stride))``."""
-    from simclr_pytorch_distributed_tpu_torch.models.resnet import fused_site_plan
-    return [(s["name"], (rows, s["h"], s["w"], s["in_channels"], s["width"], s["stride"]))
-            for s in fused_site_plan("resnet50", rows, size) if s["kind"] == "bottleneck"]
+    block_parity(dev, parity, "bottleneck", model_sites("resnet50"), RAGGED_BOTTLENECKS, 2, g)
+    block_parity(dev, parity, "block", model_sites("resnet18"), RAGGED_BLOCKS, 5,
+                 torch.Generator().manual_seed(9))
 
 
 def bottleneck_work(n, h, w, cin, p, stride):
@@ -386,16 +466,29 @@ def bottleneck_work(n, h, w, cin, p, stride):
     return fwd, 3 * fwd, fwd_bytes, bwd_bytes
 
 
-def conv_timing(dev, where):
-    """CUDA-event times (ms) of the conv kernels at the recipe's sites,
-    beside their plain forms and, as context, the eager module chain each
-    replaces (cuDNN conv + BatchNorm2d + ReLU, forward and forward+backward).
-    Bottleneck sites that share a geometry share one measurement."""
+def block_work(n, h, w, cin, c, stride):
+    """``(fwd_flops, bwd_flops, fwd_bytes, bwd_bytes)`` of one BasicBlock
+    call, counted as :func:`bottleneck_work` counts: the two 3x3 convs and
+    the 1x1/s shortcut (projection), the backward 3x."""
+    m = n * (h // stride) * (w // stride)
+    proj = stride != 1 or cin != c
+    weights = 9 * cin * c + 9 * c * c + (cin * c if proj else 0)
+    fwd = 2 * m * weights
+    rows = (6 if proj else 4) * c  # gammas, betas
+    moments = rows
+    fwd_bytes = 4 * (n * h * w * cin + weights + rows + m * c + moments)
+    bwd_bytes = 4 * (n * h * w * cin + weights + rows + moments + m * c  # inputs
+                     + n * h * w * cin + weights + rows)                 # dx, dW, dgamma/dbeta
+    return fwd, 3 * fwd, fwd_bytes, bwd_bytes
+
+
+def stem_timing(dev, where):
+    """CUDA-event times (ms) of the stem kernels at the recipe's shape,
+    beside their plain forms and, as context, the eager chain they replace
+    (cuDNN conv + BatchNorm2d + ReLU, forward and forward+backward)."""
     from torch import nn
-    from simclr_pytorch_distributed_tpu_torch.models.resnet import Bottleneck
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     reps = dict(reps=2, rounds=3, warmup=1)
-    res = {}
     x, k, g, b = stem_inputs(512, 32, 32, dev, seed=3)
     y, m, v = fc.stem_fwd(x, k, g, b, EPS)
     gout = torch.randn_like(y)
@@ -412,53 +505,120 @@ def conv_timing(dev, where):
         "eager_fwd": cuda_time_ms(lambda: torch.relu(bn(conv(xe))), **reps),
         "eager_fwd_bwd": cuda_time_ms(lambda: torch.relu(bn(conv(xe))).backward(ge), **reps),
     }
-    res["stem"] = stem
     print(f"stem [512,32,32,3]->64 ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stem.items())
           + f" {where}", flush=True)
-    del x, y, gout, xe, ge
+    return stem
+
+
+def sites_timing(dev, where, family, sites, seed):
+    """CUDA-event times (ms) of one family's block kernels at each of
+    ``sites``, beside their plain forms and, as context, the eager module
+    each replaces (``Bottleneck`` or ``BasicBlock``: cuDNN convs +
+    BatchNorm2d + ReLU, forward and forward+backward). Sites that share a
+    geometry share one measurement. Returns the per-site list and, per
+    kind, the sums over its sites (one step's worth)."""
+    from simclr_pytorch_distributed_tpu_torch.models.resnet import BasicBlock, Bottleneck
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+    module, work = (Bottleneck, bottleneck_work) if family == "bottleneck" else (BasicBlock,
+                                                                                  block_work)
+    reps = dict(reps=2, rounds=3, warmup=1)
     per_geo = {}
-    for name, geo in bottleneck_sites():
+    for _, _, geo in sites:
         if geo in per_geo:
             continue
-        n, h, w, cin, p, stride = geo
-        args, short = bottleneck_inputs(*geo, dev, seed=4)
-        r = fc.bottleneck_fwd(*args, short, stride, EPS)
+        x, _, fwd, bwd = site_calls(fc, family, geo, dev, seed)
+        r = fwd[0]()
         gout = torch.randn_like(r[0])
-        short_b = short + tuple(r[7:9]) if short is not None else None
-        bwd_args = (*args, short_b, *r[1:7], gout, stride, EPS)
-        blk = Bottleneck(cin, p, stride).to(dev, memory_format=torch.channels_last).train()
-        xe = args[0].permute(0, 3, 1, 2).detach().requires_grad_()
+        bargs, kernel, plain_fn, _ = bwd(r[1:], gout)
+        blk = module(*geo[3:]).to(dev, memory_format=torch.channels_last).train()
+        xe = x.permute(0, 3, 1, 2).detach().requires_grad_()
         ge = gout.permute(0, 3, 1, 2)
         per_geo[geo] = {
-            "fwd": cuda_time_ms(lambda: fc.bottleneck_fwd(*args, short, stride, EPS), **reps),
-            "fwd_plain": cuda_time_ms(
-                lambda: fc.bottleneck_fwd_reference(*args, short, stride, EPS), **reps),
-            "bwd": cuda_time_ms(lambda: fc.bottleneck_bwd(*bwd_args), **reps),
-            "bwd_plain": cuda_time_ms(lambda: fc.bottleneck_bwd_reference(*bwd_args), **reps),
+            "fwd": cuda_time_ms(fwd[0], **reps),
+            "fwd_plain": cuda_time_ms(fwd[1], **reps),
+            "bwd": cuda_time_ms(lambda: kernel(*bargs), **reps),
+            "bwd_plain": cuda_time_ms(lambda: plain_fn(*bargs), **reps),
             "eager_fwd": cuda_time_ms(lambda: blk(xe), **reps),
             "eager_fwd_bwd": cuda_time_ms(lambda: blk(xe).backward(ge), **reps),
         }
-        del args, short, r, gout, short_b, bwd_args, blk, xe, ge
+        del x, fwd, bwd, r, gout, bargs, blk, xe, ge
         torch.cuda.empty_cache()
-    sites = []
-    for name, geo in bottleneck_sites():
-        fwd_f, bwd_f, fwd_b, bwd_b = bottleneck_work(*geo)
-        sites.append({"site": name, "geometry": list(geo), **per_geo[geo],
-                      "bound_fwd": bound(fwd_f, fwd_b), "bound_bwd": bound(bwd_f, bwd_b)})
-        print(f"bottleneck {name} {geo} ms: "
+    res = {"sites": []}
+    for name, kind, geo in sites:
+        fwd_f, bwd_f, fwd_b, bwd_b = work(*geo)
+        res["sites"].append({"site": name, "kind": kind, "geometry": list(geo), **per_geo[geo],
+                             "bound_fwd": bound(fwd_f, fwd_b), "bound_bwd": bound(bwd_f, bwd_b)})
+        site = res["sites"][-1]
+        print(f"{kind} {name} {geo} ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in per_geo[geo].items())
-              + f"; bound fwd {sites[-1]['bound_fwd'][0]:.3f} bwd {sites[-1]['bound_bwd'][0]:.3f}"
+              + f"; bound fwd {site['bound_fwd'][0]:.3f} bwd {site['bound_bwd'][0]:.3f}"
               + f" {where}", flush=True)
-    res["bottleneck_sites"] = sites
     keys = ("fwd", "fwd_plain", "bwd", "bwd_plain", "eager_fwd", "eager_fwd_bwd")
-    res["bottleneck"] = {key: sum(s[key] for s in sites) for key in keys}
-    print(f"bottleneck, sum over the 16 sites (one step) ms: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in res["bottleneck"].items()) + f" {where}")
+    for kind in sorted({site["kind"] for site in res["sites"]}):
+        mine = [site for site in res["sites"] if site["kind"] == kind]
+        res[kind] = {key: sum(site[key] for site in mine) for key in keys}
+        print(f"{kind}, sum over the {len(mine)} sites (one step) ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in res[kind].items()) + f" {where}")
     return res
 
 
-def step_check(model, views, labels):
-    """One train step from one init on one batch, eager against fused conv
+def summed_bound(sites, direction):
+    """``(ms, by)``: the sum of the sites' bounds, and the kind that bounds
+    the larger share of it."""
+    total = sum(site[f"bound_{direction}"][0] for site in sites)
+    by = max(("operations", "bytes"), key=lambda kind: sum(
+        site[f"bound_{direction}"][0] for site in sites if site[f"bound_{direction}"][1] == kind))
+    return total, by
+
+
+def train_epochs(model, workdir, expected, banner_sites):
+    """One 7-step epoch of ``model`` at the recipe's width through
+    ``train.supcon.main`` with ``--conv_impl fused --loss_impl fused``, the
+    launch counters set to 0 just before it and read just after, then the
+    same epoch with ``--conv_impl eager``. Raises unless the fused run
+    launched exactly ``expected``, wrote its checkpoint, and printed one
+    ``[conv_impl]`` banner listing the stem and ``banner_sites`` (kind ->
+    count). Returns ``(fused_result, eager_result, launches)``."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv, fused_loss
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    argv = [
+        "--device", "cuda", "--dataset", "synthetic", "--model", model,
+        "--batch_size", "256", "--size", "32", "--epochs", "1",
+        "--method", "SimCLR", "--temp", str(TEMP), "--learning_rate", "0.5",
+        "--cosine", "--loss_impl", "fused", "--conv_impl", "fused", "--print_freq", "1",
+        "--save_freq", "1", "--workdir", workdir,
+    ]
+    counters = [(fused_loss, "fwd_launches"), (fused_loss, "bwd_launches")]
+    counters += [(fused_conv, name) for name in CONV_COUNTERS]
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    result = supcon.main(argv)
+    launches = {name: getattr(mod, name) for mod, name in counters}
+    losses = [h["loss"] for h in result.history]
+    print(f"{model} losses {losses}")
+    print(f"{model} kernel launches in the run: {launches}")
+    if len(losses) != 7 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{model}: expected 7 finite losses, got {losses}")
+    if launches != expected:
+        raise AssertionError(f"{model}: expected launches {expected}, got {launches}")
+    last = os.path.join(result.save_folder, "last.pth")
+    if not os.path.isfile(last):
+        raise AssertionError(f"{last} was not written")
+    with open(os.path.join(result.save_folder, "log-ing")) as fh:
+        banner = [line for line in fh if "[conv_impl]" in line]
+    print(f"{model} banner: {banner[0].strip() if banner else None}")
+    if (len(banner) != 1 or "stem 3->64@32x32" not in banner[0]
+            or any(banner[0].count(f"[{kind}]") != k for kind, k in banner_sites.items())):
+        raise AssertionError(f"{model}: the [conv_impl] banner does not list the stem and "
+                             f"{banner_sites}: {banner}")
+    eager_argv = list(argv)
+    eager_argv[eager_argv.index("--conv_impl") + 1] = "eager"
+    return result, supcon.main(eager_argv), launches
+
+
+def step_check(name, model, views, labels):
+    """One train step of ``model`` (called ``name`` in the printout) from
+    one init on one batch, eager against fused conv
     (both fp32, fused loss), beside the eager step in float64 (dense loss)
     as the yardstick of fp32 noise. Binds the loss (rel 1e-4), each
     parameter's update in relative L2 (``STEP_UPDATE_REL_L2``) and the BN
@@ -484,7 +644,7 @@ def step_check(model, views, labels):
         del m, st
         torch.cuda.empty_cache()
     rel = abs(losses["fused"] - losses["eager"]) / abs(losses["eager"])
-    print(f"one step conv eager {losses['eager']!r} fused {losses['fused']!r} "
+    print(f"{name} one step conv eager {losses['eager']!r} fused {losses['fused']!r} "
           f"rel diff {rel:.3e} (bound 1e-4); float64 eager {losses['eager64']!r}")
     failures = []
     if not rel <= 1e-4:
@@ -498,7 +658,7 @@ def step_check(model, views, labels):
     for impl, ref in (("fused", "eager"), ("fused", "eager64"), ("eager", "eager64")):
         errs = [(update_err(impl, states[ref], key), key) for key in states[ref] if key in params]
         worst[(impl, ref)] = max(errs)
-        print(f"step update relative L2, {impl} vs {ref}: worst {max(errs)[0]:.3e} at "
+        print(f"{name} step update relative L2, {impl} vs {ref}: worst {max(errs)[0]:.3e} at "
               f"{max(errs)[1]}, median {statistics.median(e for e, _ in errs):.3e} "
               f"over {len(errs)} parameters")
     if not worst[("fused", "eager")][0] <= STEP_UPDATE_REL_L2:
@@ -517,10 +677,10 @@ def step_check(model, views, labels):
         buf_worst = max(buf_worst, ((got - ref).abs().max().item(), key))
         if excess > 0:
             failures.append(f"buffer {key} off by more than rtol/atol {STEP_BUF_TOL}")
-    print(f"BN buffers after the step, fused vs eager: max abs diff {buf_worst[0]:.3e} at "
+    print(f"{name} BN buffers after the step, fused vs eager: max abs diff {buf_worst[0]:.3e} at "
           f"{buf_worst[1]} (bound rtol/atol {STEP_BUF_TOL})")
     if failures:
-        raise AssertionError("eager-vs-fused step:\n" + "\n".join(failures))
+        raise AssertionError(f"{name} eager-vs-fused step:\n" + "\n".join(failures))
 
 
 def main() -> int:
@@ -530,11 +690,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
-    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv, fused_loss, native
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_loss, native
     from simclr_pytorch_distributed_tpu_torch.ops.augment import AugmentConfig, two_crop_batch
     from simclr_pytorch_distributed_tpu_torch.ops.losses import supcon_loss
     from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
-    from simclr_pytorch_distributed_tpu_torch.train import supcon
     from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
     from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
         SupConStepConfig,
@@ -599,6 +758,7 @@ def main() -> int:
         if not d_abs <= 1e-5 * d_scale:
             raise AssertionError(f"case {case}: dF off: {d_abs} > 1e-5 * {d_scale}")
         errors[(case, "dF")] = d_abs
+        errors[(case, "dF_rel_l2")] = rel_l2(d_got, d_ref)
     print("bounds: cnt exact; loss_row, lse rtol 1e-5; dF atol 1e-5 x max|dF|")
     parity = Parity()
     conv_parity(dev, parity)
@@ -609,48 +769,22 @@ def main() -> int:
     parity.raise_if_failed()
     done("kernel_parity", t0)
 
-    # -- train: the main path, through the port's entry point ---------------
+    # -- train: each main path, through the port's entry point --------------
     t0 = phase("train")
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     batch_size = 256
-    argv = [
-        "--device", "cuda", "--dataset", "synthetic", "--model", "resnet50",
-        "--batch_size", str(batch_size), "--size", "32", "--epochs", "1",
-        "--method", "SimCLR", "--temp", str(TEMP), "--learning_rate", "0.5",
-        "--cosine", "--loss_impl", "fused", "--conv_impl", "fused", "--print_freq", "1",
-        "--save_freq", "1", "--workdir", workdir,
-    ]
-    counters = (
-        (fused_loss, "fwd_launches"), (fused_loss, "bwd_launches"),
-        (fused_conv, "stem_fwd_launches"), (fused_conv, "stem_bwd_launches"),
-        (fused_conv, "bottleneck_fwd_launches"), (fused_conv, "bottleneck_bwd_launches"),
-    )
-    for mod, name in counters:
-        setattr(mod, name, 0)
-    result = supcon.main(argv)
-    main_path = {name: getattr(mod, name) for mod, name in counters}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    rn50_expected = {name: 0 for name in ("fwd_launches", "bwd_launches") + CONV_COUNTERS}
+    rn50_expected.update(fwd_launches=7, bwd_launches=7, stem_fwd_launches=7,
+                         stem_bwd_launches=7, bottleneck_fwd_launches=16 * 7,
+                         bottleneck_bwd_launches=16 * 7)
+    result, eager_result, main_path = train_epochs(
+        "resnet50", workdir, rn50_expected, {"bottleneck": 16})
+    rn18_expected = dict(rn50_expected, bottleneck_fwd_launches=0, bottleneck_bwd_launches=0,
+                         basic_fwd_launches=5 * 7, basic_bwd_launches=5 * 7,
+                         proj_fwd_launches=3 * 7, proj_bwd_launches=3 * 7)
+    rn18_result, rn18_eager_result, rn18_path = train_epochs(
+        "resnet18", workdir, rn18_expected, {"basic": 5, "proj": 3})
     launches = {"fwd": main_path["fwd_launches"], "bwd": main_path["bwd_launches"]}
-    losses = [h["loss"] for h in result.history]
-    print(f"losses {losses}")
-    print(f"kernel launches in the run: {main_path}")
-    if len(losses) != 7 or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"expected 7 finite losses, got {losses}")
-    expected = {"fwd_launches": 7, "bwd_launches": 7, "stem_fwd_launches": 7,
-                "stem_bwd_launches": 7, "bottleneck_fwd_launches": 16 * 7,
-                "bottleneck_bwd_launches": 16 * 7}
-    if main_path != expected:
-        raise AssertionError(f"expected launches {expected}, got {main_path}")
-    last = os.path.join(result.save_folder, "last.pth")
-    if not os.path.isfile(last):
-        raise AssertionError(f"{last} was not written")
-    with open(os.path.join(result.save_folder, "log-ing")) as fh:
-        banner = [line for line in fh if "[conv_impl]" in line]
-    print(f"banner: {banner[0].strip() if banner else None}")
-    if len(banner) != 1 or banner[0].count("[bottleneck]") != 16 or "stem 3->64@32x32" not in banner[0]:
-        raise AssertionError(f"the [conv_impl] banner does not list all 17 sites: {banner}")
-    eager_argv = list(argv)
-    eager_argv[eager_argv.index("--conv_impl") + 1] = "eager"
-    eager_result = supcon.main(eager_argv)
 
     # one step, dense against fused, from one seeded init on one batch
     data, _ = synthetic_dataset()
@@ -686,7 +820,10 @@ def main() -> int:
           f"{param_diff:.3e} (reported, not bounded: cuDNN's backward sums in its own order)")
 
     del stepped
-    step_check(model, views, labels)
+    step_check("resnet50", model, views, labels)
+    torch.manual_seed(0)
+    rn18 = SupConResNet("resnet18").to(dev, memory_format=torch.channels_last)
+    step_check("resnet18", rn18, views, labels)
     done("train", t0)
 
     # -- timing ------------------------------------------------------------
@@ -706,28 +843,31 @@ def main() -> int:
     )
     aug_cfg = AugmentConfig(mean=(0.5,) * 3, std=(0.25,) * 3)
     aug_ms = cuda_time_ms(lambda: two_crop_batch(gen, images, aug_cfg), reps=5, rounds=3, warmup=2)
-    step_times = [h["step_time"] for h in result.history[2:7]]
-    step_ms = statistics.median(step_times) * 1e3
-    eager_times = [h["step_time"] for h in eager_result.history[2:7]]
-    eager_step_ms = statistics.median(eager_times) * 1e3
-    step_flops = 3 * forward_flops(model, 32, dev) * 2 * batch_size
     where = f"on {card}"
     print(f"fused fwd kernel {fwd_ms * 1e3:.2f} us, plain {fwd_plain_ms * 1e3:.2f} us {where}")
     print(f"fused bwd kernel {bwd_ms * 1e3:.2f} us, plain {bwd_plain_ms * 1e3:.2f} us {where}")
     print(f"dense supcon_loss forward (several PyTorch calls; context, not a yardstick) "
           f"{dense_ms * 1e3:.2f} us {where}")
-    print(f"train step (resnet50, batch {batch_size}, 32 px, fp32, --conv_impl fused) "
-          f"median of steps 3-7 {step_ms:.2f} ms = {batch_size / step_ms * 1e3:.1f} imgs/s; "
-          f"all steps ms {[round(t * 1e3, 2) for t in step_times]} {where}")
-    print(f"train step (same, --conv_impl eager) median of steps 3-7 {eager_step_ms:.2f} ms = "
-          f"{batch_size / eager_step_ms * 1e3:.1f} imgs/s; "
-          f"all steps ms {[round(t * 1e3, 2) for t in eager_times]} {where}")
+    for name, net, runs in (("resnet50", model, (result, eager_result)),
+                            ("resnet18", rn18, (rn18_result, rn18_eager_result))):
+        step_flops = 3 * forward_flops(net, 32, dev) * 2 * batch_size
+        for impl, run in zip(("fused", "eager"), runs):
+            times = [h["step_time"] for h in run.history[2:7]]
+            ms = statistics.median(times) * 1e3
+            print(f"train step ({name}, batch {batch_size}, 32 px, fp32, --conv_impl {impl}) "
+                  f"median of steps 3-7 {ms:.2f} ms = {batch_size / ms * 1e3:.1f} imgs/s, "
+                  f"{step_flops / ms / 1e9:.2f} TFLOP/s of model FLOPs = "
+                  f"{step_flops / ms * 1e3 / PEAK_FP32_FLOPS * 100:.1f}% of the fp32 "
+                  f"non-tensor peak; all steps ms {[round(t * 1e3, 2) for t in times]} {where}")
+        print(f"{name} train step model FLOPs (3 x forward of convs and linears, "
+              f"{2 * batch_size} views) {step_flops / 1e9:.1f} GFLOP")
     print(f"two-crop augmentation of the {batch_size}-image batch {aug_ms:.3f} ms {where}")
-    print(f"train step model FLOPs (3 x forward of convs and linears, {2 * batch_size} views) "
-          f"{step_flops / 1e9:.1f} GFLOP -> {step_flops / step_ms / 1e9:.2f} TFLOP/s = "
-          f"{step_flops / step_ms * 1e3 / PEAK_FP32_FLOPS * 100:.1f}% of the fp32 non-tensor "
-          f"peak {where}")
-    conv_ms = conv_timing(dev, where)
+    times = {"stem": stem_timing(dev, where)}
+    sites = []
+    for family, model_name, seed in (("bottleneck", "resnet50", 4), ("block", "resnet18", 6)):
+        res = sites_timing(dev, where, family, model_sites(model_name), seed)
+        sites += res.pop("sites")
+        times.update(res)
     done("timing", t0)
 
     # each input read once, each output written once: features, ids and
@@ -751,6 +891,7 @@ def main() -> int:
             "name": "fused_supcon_loss_bwd", "route": "cuda", "source": source,
             "replaces": "simclr_pytorch_distributed_tpu/ops/pallas_loss.py:114",
             "launches": launches["bwd"], "max_abs_err": errors[("a", "dF")],
+            "max_rel_l2": errors[("a", "dF_rel_l2")],
             "ms": bwd_ms, "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
         },
@@ -764,36 +905,28 @@ def main() -> int:
         "fwd": bound(stem_fwd_flops, 4 * m_rows * (3 + 64) + small),
         "bwd": bound(2 * stem_fwd_flops, 4 * m_rows * (3 + 64) + small + 4 * (27 * 64 + 2 * 64)),
     }
-    bot_bounds = {
-        d: sum(site[f"bound_{d}"][0] for site in conv_ms["bottleneck_sites"])
-        for d in ("fwd", "bwd")
-    }
-    bot_by = {
-        d: max(("operations", "bytes"), key=lambda by: sum(
-            site[f"bound_{d}"][0] for site in conv_ms["bottleneck_sites"]
-            if site[f"bound_{d}"][1] == by))
-        for d in ("fwd", "bwd")
-    }
-    print("bottleneck per-site list: " + json.dumps(conv_ms["bottleneck_sites"]))
+    print("per-site list: " + json.dumps(sites))
     conv_source = "simclr_pytorch_distributed_tpu_torch/csrc/fused_conv_bn.cu"
-    for name, line, key, bnd in (
-        ("fused_stem_fwd", 401, "stem_fwd_launches", stem_bounds["fwd"]),
-        ("fused_stem_bwd", 443, "stem_bwd_launches", stem_bounds["bwd"]),
-        ("fused_bottleneck_fwd", 1289, "bottleneck_fwd_launches", (bot_bounds["fwd"], bot_by["fwd"])),
-        ("fused_bottleneck_bwd", 1408, "bottleneck_bwd_launches", (bot_bounds["bwd"], bot_by["bwd"])),
-    ):
-        block, direction = name.split("_")[1], name.split("_")[2]
-        times = conv_ms[block]
-        entry = {
-            "name": name, "route": "cuda", "source": conv_source,
-            "replaces": f"{PALLAS_CONV}:{line}", "launches": main_path[key],
-            "max_abs_err": parity.max_abs[name],
-            "ms": times[direction], "plain_ms": times[f"{direction}_plain"],
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-        }
-        if name in parity.max_rel_l2:  # the backward at the recipe's sites, vs float64
-            entry["max_rel_l2"] = parity.max_rel_l2[name]
-        kernels.append(entry)
+    # (kernel, TPU kernel lines, the run of the path it belongs to); a block
+    # kernel's times and bound are sums over its path's sites, one step's
+    rows = [("stem", 401, 443, main_path), ("basic", 639, 705, rn18_path),
+            ("proj", 930, 1006, rn18_path), ("bottleneck", 1289, 1408, main_path)]
+    for block, fwd_line, bwd_line, path in rows:
+        for direction, line in (("fwd", fwd_line), ("bwd", bwd_line)):
+            name = f"fused_{block}_{direction}"
+            bnd = (stem_bounds[direction] if block == "stem" else summed_bound(
+                [site for site in sites if site["kind"] == block], direction))
+            entry = {
+                "name": name, "route": "cuda", "source": conv_source,
+                "replaces": f"{PALLAS_CONV}:{line}",
+                "launches": path[f"{block}_{direction}_launches"],
+                "max_abs_err": parity.max_abs[name],
+                "ms": times[block][direction], "plain_ms": times[block][f"{direction}_plain"],
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            }
+            if direction == "bwd":  # at the recipe's sites, vs float64
+                entry["max_rel_l2"] = parity.max_rel_l2[name]
+            kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

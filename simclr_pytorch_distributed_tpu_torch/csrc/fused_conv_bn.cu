@@ -1,12 +1,17 @@
 // Fused conv + train-mode BatchNorm (+ ReLU, + residual) for the CIFAR
-// ResNet stem and the ResNet-50 Bottleneck, forward and backward, for
-// Hopper (sm_90a), with a plain C interface bound through ctypes
-// (ops/native.py builds this file, ops/fused_conv.py wraps it).
+// ResNet stem, the ResNet-18/34 BasicBlocks and the ResNet-50 Bottleneck,
+// forward and backward, for Hopper (sm_90a), with a plain C interface bound
+// through ctypes (ops/native.py builds this file, ops/fused_conv.py wraps
+// it).
 //
 // What each entry point replaces, in
 // simclr_pytorch_distributed_tpu/ops/pallas_conv.py:
 //   stem_fwd        <- _stem_fwd_kernel :401 (reached through _stem_call :492)
 //   stem_bwd        <- _stem_bwd_kernel :443 (_stem_bwd_call :527)
+//   basic_fwd       <- _block_fwd_kernel :639 (_block_call :788)
+//   basic_bwd       <- _block_bwd_kernel :705 (_block_bwd_call :817)
+//   proj_fwd        <- _proj_fwd_kernel :930 (_proj_call :1108)
+//   proj_bwd        <- _proj_bwd_kernel :1006 (_proj_bwd_call :1144)
 //   bottleneck_fwd  <- _bot_fwd_kernel :1289 (_bot_call :1565)
 //   bottleneck_bwd  <- _bot_bwd_kernel :1408 (_bot_bwd_call :1627)
 //
@@ -19,7 +24,14 @@
 // moments treated as ancillary outputs whose cotangents are dropped.
 // Bottleneck: BN1 counts over the input grid, BN2/BN3/shortcut BN over the
 // output grid; the shortcut BN's bias gradient is the same sum of dz as
-// BN3's (both biases add straight into z).
+// BN3's (both biases add straight into z). BasicBlocks: every BN counts
+// over the output grid, BN1 of the projection block included (its strided
+// 3x3 comes first), and the shortcut BN's bias gradient is BN2's. The four
+// BasicBlock entry points are compositions of the kernels below and add no
+// device code: the identity block's dx takes dz through the transposed
+// conv's residual epilogue, the projection block's dx adds the transposed
+// 3x3/s gather of dy1 onto the transposed 1x1/s gather of dyS the same
+// way, and its first conv's weight gradient is the stride-2 wgrad over x.
 //
 // Design: phases become kernels. The Pallas kernels walk a sequential
 // phase-major grid (phases, batch tiles) and carry BN sums from tile to
@@ -54,7 +66,8 @@
 // What bounds it on the H100. Fp32 FMA on the CUDA cores (no TF32, no
 // tensor cores, no fast-math), so the convolutions are bound by the
 // 67 TFLOP/s non-tensor fp32 rate: a recipe-shape Bottleneck forward is
-// ~83 GFLOP against ~3 GB of activations. The stem and the elementwise BN
+// ~83 GFLOP against ~3 GB of activations, a recipe-shape ResNet-18 block
+// 60-77 GFLOP. The stem and the elementwise BN
 // passes are bound by bytes. The design answers the first with a
 // shared-memory tiled GEMM (128 x 64 output tile per CTA, each thread an
 // 8 x 4 register micro-tile, 16-deep K chunks, 16-byte loads where the
@@ -1004,6 +1017,181 @@ int bottleneck_bwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
                             st));
   }
   return 0;
+}
+
+
+// One argument block for the four BasicBlock entry points; the entry point
+// decides the shortcut (basic_*: x itself, stride 1, cin == c; proj_*: the
+// 1x1/stride conv + BN). Kernels: k1 HWIO [3, 3, cin, c], k2 [3, 3, c, c],
+// ks [cin, c] (projection only); the backward also takes k1t [3, 3, c, cin]
+// and k2t [3, 3, c, c] (the channel axes swapped) and kst [c, cin]. The
+// moments are written by the forward and read by the backward.
+struct BlockArgs {
+  const float* x;  // [n, hi, wi, cin]
+  const float* k1;
+  const float* k2;
+  const float* ks;
+  const float* k1t;
+  const float* k2t;
+  const float* kst;
+  const float* g1;
+  const float* b1;
+  const float* g2;
+  const float* b2;
+  const float* gs;
+  const float* bs;
+  const float* gout;  // backward: [n, ho, wo, c]
+  float* out;         // forward: [n, ho, wo, c]
+  float* m1;
+  float* v1;
+  float* m2;
+  float* v2;
+  float* ms;
+  float* vs;
+  float* dx;
+  float* dk1;
+  float* dk2;
+  float* dks;
+  float* dg1;
+  float* db1;
+  float* dg2;
+  float* db2;
+  float* dgs;
+  float* dbs;
+  int n, hi, wi, cin, c, stride;
+  float eps;
+};
+
+struct BlockGeoms {
+  ConvGeom c1, c2, cs;  // forward convs
+  int rows;             // n * ho * wo: every BN of the block counts over it
+};
+
+static BlockGeoms block_geoms(const BlockArgs* a) {
+  BlockGeoms b;
+  const int s = a->stride, ho = a->hi / s, wo = a->wi / s;
+  b.c1 = geom(a->n, a->hi, a->wi, a->cin, ho, wo, a->c, 3, s, 1);
+  b.c2 = geom(a->n, ho, wo, a->c, ho, wo, a->c, 3, 1, 1);
+  b.cs = geom(a->n, a->hi, a->wi, a->cin, ho, wo, a->c, 1, s, 0);
+  b.rows = a->n * ho * wo;
+  return b;
+}
+
+static int block_fwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
+                     cudaStream_t st) {
+  const BlockGeoms b = block_geoms(a);
+  const int C = a->c;
+  Arena ar{static_cast<char*>(ws)};
+  float* y1 = ar.take((size_t)b.rows * C);
+  float* ys = proj ? ar.take((size_t)b.rows * C) : nullptr;
+  BnScratch s1 = bn_scratch(ar, b.rows, C);
+  BnScratch s2 = bn_scratch(ar, b.rows, C);
+  BnScratch ss = bn_scratch(ar, b.rows, C);
+  if (!ws) {
+    *ws_bytes = ar.off;
+    return 0;
+  }
+  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, nullptr, y1, &s1, b.c1, st));
+  CHECK(finalize(s1, b.c1, a->g1, a->b1, a->eps, a->m1, a->v1, st));
+  if (proj) {
+    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, &ss, b.cs, st));
+    CHECK(finalize(ss, b.cs, a->gs, a->bs, a->eps, a->ms, a->vs, st));
+  }
+  // y2 is staged in out and normalized in place
+  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, a->out, &s2, b.c2, st));
+  CHECK(finalize(s2, b.c2, a->g2, a->b2, a->eps, a->m2, a->v2, st));
+  if (proj)
+    return static_cast<int>(apply(a->out, s2.scale, s2.shift, ys, ss.scale,
+                                  ss.shift, a->out, b.rows, C, true, st));
+  return static_cast<int>(apply(a->out, s2.scale, s2.shift, a->x, nullptr,
+                                nullptr, a->out, b.rows, C, true, st));
+}
+
+static int block_bwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
+                     cudaStream_t st) {
+  const BlockGeoms b = block_geoms(a);
+  const int C = a->c, rows = b.rows;
+  Arena ar{static_cast<char*>(ws)};
+  float* y1 = ar.take((size_t)rows * C);
+  float* y2 = ar.take((size_t)rows * C);
+  float* ys = proj ? ar.take((size_t)rows * C) : nullptr;
+  float* z = ar.take((size_t)rows * C);
+  float* da1 = ar.take((size_t)rows * C);
+  float* tmp = ar.take(C);
+  BnScratch s1 = bn_scratch(ar, rows, C);
+  BnScratch s2 = bn_scratch(ar, rows, C);
+  BnScratch ss = bn_scratch(ar, rows, C);
+  size_t wpart = max_sz(wgrad_scratch(b.c1), wgrad_scratch(b.c2));
+  if (proj) wpart = max_sz(wpart, wgrad_scratch(b.cs));
+  float* part = ar.take(wpart);
+  if (!ws) {
+    *ws_bytes = ar.off;
+    return 0;
+  }
+  // recompute the forward from the saved moments
+  CHECK(fold_saved(s1, a->m1, a->v1, a->g1, a->b1, a->eps, C, st));
+  CHECK(fold_saved(s2, a->m2, a->v2, a->g2, a->b2, a->eps, C, st));
+  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, nullptr, y1, nullptr, b.c1, st));
+  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, nullptr, b.c2, st));
+  if (proj) {
+    CHECK(fold_saved(ss, a->ms, a->vs, a->gs, a->bs, a->eps, C, st));
+    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, nullptr, b.cs, st));
+    CHECK(apply(y2, s2.scale, s2.shift, ys, ss.scale, ss.shift, z, rows, C, true, st));
+    // the shortcut BN: sum dz * yhatS (its sum dz is BN2's)
+    CHECK(bwd_sums(a->gout, z, ys, a->ms, ss, nullptr, nullptr, nullptr, tmp,
+                   a->dgs, rows, C, st));
+  } else {
+    CHECK(apply(y2, s2.scale, s2.shift, a->x, nullptr, nullptr, z, rows, C, true, st));
+  }
+  // stage 2: dz = gout * (z > 0), in place over z, then dy2 over y2
+  CHECK(bwd_sums(a->gout, z, y2, a->m2, s2, nullptr, nullptr, z, a->db2, a->dg2,
+                 rows, C, st));
+  CHECK(bwd_apply(z, y2, a->m2, s2, a->g2, a->db2, a->dg2, y2, rows, C, st));
+  CHECK(wgrad(y1, s1.scale, s1.shift, y2, part, a->dk2, b.c2, st));
+  if (proj) {
+    CHECK(cudaMemcpyAsync(a->dbs, a->db2, sizeof(float) * C,
+                          cudaMemcpyDeviceToDevice, st));
+    CHECK(bwd_apply(z, ys, a->ms, ss, a->gs, a->db2, a->dgs, ys, rows, C,
+                    st));  // dyS over yS
+    CHECK(wgrad(a->x, nullptr, nullptr, ys, part, a->dks, b.cs, st));
+  }
+  // stage 1: da1 = the transposed 3x3 of dy2, then its BN backward in place
+  const ConvGeom g2t = geom(a->n, b.c2.ho, b.c2.wo, C, b.c2.ho, b.c2.wo, C, 3, 1, 1);
+  CHECK(conv(true, y2, a->k2t, nullptr, nullptr, nullptr, da1, nullptr, g2t, st));
+  CHECK(bwd_sums(da1, nullptr, y1, a->m1, s1, a->g1, a->b1, da1, a->db1, a->dg1,
+                 rows, C, st));
+  CHECK(bwd_apply(da1, y1, a->m1, s1, a->g1, a->db1, a->dg1, da1, rows, C,
+                  st));  // dy1 over da1
+  CHECK(wgrad(a->x, nullptr, nullptr, da1, part, a->dk1, b.c1, st));
+  // dx = the transposed 3x3/s of dy1, plus dz (identity) or the transposed
+  // 1x1/s of dyS (projection) through the residual epilogue
+  const ConvGeom g1t = geom(a->n, b.c1.ho, b.c1.wo, C, a->hi, a->wi, a->cin, 3,
+                            a->stride, 1);
+  if (proj) {
+    const ConvGeom gst = geom(a->n, b.cs.ho, b.cs.wo, C, a->hi, a->wi, a->cin, 1,
+                              a->stride, 0);
+    CHECK(conv(true, ys, a->kst, nullptr, nullptr, nullptr, a->dx, nullptr, gst, st));
+    CHECK(conv(true, da1, a->k1t, nullptr, nullptr, a->dx, a->dx, nullptr, g1t, st));
+  } else {
+    CHECK(conv(true, da1, a->k1t, nullptr, nullptr, z, a->dx, nullptr, g1t, st));
+  }
+  return 0;
+}
+
+int basic_fwd(const BlockArgs* a, void* ws, size_t* ws_bytes, void* stream) {
+  return block_fwd(a, false, ws, ws_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int basic_bwd(const BlockArgs* a, void* ws, size_t* ws_bytes, void* stream) {
+  return block_bwd(a, false, ws, ws_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int proj_fwd(const BlockArgs* a, void* ws, size_t* ws_bytes, void* stream) {
+  return block_fwd(a, true, ws, ws_bytes, static_cast<cudaStream_t>(stream));
+}
+
+int proj_bwd(const BlockArgs* a, void* ws, size_t* ws_bytes, void* stream) {
+  return block_bwd(a, true, ws, ws_bytes, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

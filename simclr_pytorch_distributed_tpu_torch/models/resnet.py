@@ -26,14 +26,14 @@ and no copy.
 
 ``conv_impl`` (``ResNet.set_conv_impl``, the one place it is set):
 ``"eager"`` runs the cuDNN convs and ``nn.BatchNorm2d``; ``"fused"`` routes
-train-mode forwards of the stem and of every Bottleneck that the
-``supports_*`` gates admit through the fused conv+BN kernels of
-``ops/fused_conv.py`` (the JAX package's
-``conv_impl="pallas"``, ``models/resnet.py:176-224, 303-328``); the encoder
-passes the choice down to its blocks as ``forward``'s ``fused`` argument. The
-``nn.Conv2d``/``nn.BatchNorm2d`` modules stay the owners of the parameters
-and running buffers, so ``state_dict()`` does not depend on the path; eval
-mode, BasicBlocks and sites the gates reject stay eager.
+train-mode forwards of the stem and of every BasicBlock (identity or
+projection) and Bottleneck that the ``supports_*`` gates admit through the
+fused conv+BN kernels of ``ops/fused_conv.py`` (the JAX package's
+``conv_impl="pallas"``, ``models/resnet.py:94-134, 176-224, 303-328``); the
+encoder passes the choice down to its blocks as ``forward``'s ``fused``
+argument. The ``nn.Conv2d``/``nn.BatchNorm2d`` modules stay the owners of the
+parameters and running buffers, so ``state_dict()`` does not depend on the
+path; eval mode and sites the gates reject stay eager.
 """
 
 from __future__ import annotations
@@ -61,12 +61,49 @@ class BasicBlock(nn.Module):
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = nn.BatchNorm2d(planes)
         self.shortcut = _shortcut(in_planes, planes * self.expansion, stride)
+        self.stride = stride
 
     def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
-        """``fused`` is ignored: BasicBlocks have no fused kernel in the port yet."""
+        """``fused``: run a train-mode forward through the fused kernels
+        where ``supports_block`` admits this geometry."""
+        n, cin, h, w = x.shape
+        if (
+            fused
+            and self.training
+            and fused_conv.supports_block(
+                n, h, w, self.conv1.out_channels, stride=self.stride, in_channels=cin
+            )
+        ):
+            return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         out = torch.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         return torch.relu(out + self.shortcut(x))
+
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC train-mode forward through ``fused_basic_block`` (identity
+        shortcut) or ``fused_projection_block``, then the running updates,
+        every BN over the output grid."""
+        c, cin = self.conv1.out_channels, self.conv1.in_channels
+        main = (
+            x,
+            self.conv1.weight.permute(2, 3, 1, 0), self.bn1.weight, self.bn1.bias,
+            self.conv2.weight.permute(2, 3, 1, 0), self.bn2.weight, self.bn2.bias,
+        )
+        if len(self.shortcut):
+            conv_s, bn_s = self.shortcut
+            r = fused_conv.fused_projection_block(
+                *main, conv_s.weight.reshape(c, cin).t(), bn_s.weight, bn_s.bias,
+                stride=self.stride, eps=self.bn1.eps,
+            )
+        else:
+            r = fused_conv.fused_basic_block(*main, eps=self.bn1.eps)
+        n, h, w, _ = x.shape
+        count = n * (h // self.stride) * (w // self.stride)
+        apply_running_update(self.bn1, r[1], r[2], count)
+        apply_running_update(self.bn2, r[3], r[4], count)
+        if len(self.shortcut):
+            apply_running_update(self.shortcut[1], r[5], r[6], count)
+        return r[0]
 
 
 class Bottleneck(nn.Module):
@@ -164,7 +201,7 @@ class ResNet(nn.Module):
 
     def set_conv_impl(self, conv_impl: str) -> "ResNet":
         """Route train-mode forwards through ``conv_impl`` ('eager' or
-        'fused'), for the stem and every Bottleneck."""
+        'fused'), for the stem and every block."""
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
         self.conv_impl = conv_impl
@@ -247,8 +284,7 @@ def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
     site is admitted. ``rows`` is the encoder's batch (``2 * batch_size``
     for the two-crop step). One dict per site: ``name``, ``kind``
     ('stem'|'basic'|'proj'|'bottleneck'), ``h``, ``w``, ``in_channels``,
-    ``width``, ``stride``, ``admitted``, ``desc``. BasicBlock sites have no
-    kernel in the port yet and are never admitted.
+    ``width``, ``stride``, ``admitted``, ``desc``.
     """
     block_cls, stage_sizes = STAGE_PLANS[model]
     h = w = size
@@ -270,7 +306,9 @@ def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
                 )
             else:
                 kind = "basic" if (stride == 1 and in_c == width) else "proj"
-                admitted = False
+                admitted = fused_conv.supports_block(
+                    rows, h, w, width, stride=stride, in_channels=in_c
+                )
             out_c = width * block_cls.expansion
             sites.append({
                 "name": name, "kind": kind, "h": h, "w": w, "in_channels": in_c,

@@ -5,6 +5,12 @@ their plain forms, the port's counterpart of the JAX package's
 - :func:`fused_conv_bn_relu`: the ResNet stem, ``relu(bn_train(conv3x3_s1(x)))``;
   ``stem_fwd``/``stem_bwd`` in ``csrc/fused_conv_bn.cu`` replace
   ``_stem_fwd_kernel``/``_stem_bwd_kernel``.
+- :func:`fused_basic_block`: the identity BasicBlock of ResNet-10/18/34,
+  ``relu(bn2(conv3x3(relu(bn1(conv3x3(x, k1))), k2)) + x)``;
+  ``basic_fwd``/``basic_bwd`` replace ``_block_fwd_kernel``/``_block_bwd_kernel``.
+- :func:`fused_projection_block`: the projection BasicBlock (strided first
+  3x3 and a 1x1/s conv + BN shortcut); ``proj_fwd``/``proj_bwd`` replace
+  ``_proj_fwd_kernel``/``_proj_bwd_kernel``.
 - :func:`fused_bottleneck_block`: the ResNet-50 Bottleneck (1x1 -> BN ->
   ReLU -> 3x3/s -> BN -> ReLU -> 1x1 (x4) -> BN, plus the identity or the
   1x1/s conv + BN shortcut, add, ReLU); ``bottleneck_fwd``/``bottleneck_bwd``
@@ -24,9 +30,9 @@ plain PyTorch forms below, forward and
 backward (the backward form spells out the Pallas backward's algebra, not
 autograd through the plain forward); CUDA tensors launch the kernels or
 raise; any other device raises. There is no fallback from a kernel to a
-plain form. ``stem_fwd_launches``, ``stem_bwd_launches``,
-``bottleneck_fwd_launches`` and ``bottleneck_bwd_launches`` count entry-point
-calls on the card, one per call however many CUDA kernels the call runs.
+plain form. The ``*_launches`` counters (stem, basic, proj and bottleneck,
+forward and backward) count entry-point calls on the card, one per call
+however many CUDA kernels the call runs.
 """
 
 from __future__ import annotations
@@ -42,6 +48,10 @@ from simclr_pytorch_distributed_tpu_torch.ops import native
 
 stem_fwd_launches = 0
 stem_bwd_launches = 0
+basic_fwd_launches = 0
+basic_bwd_launches = 0
+proj_fwd_launches = 0
+proj_bwd_launches = 0
 bottleneck_fwd_launches = 0
 bottleneck_bwd_launches = 0
 
@@ -77,7 +87,21 @@ class BotArgs(ctypes.Structure):
     )] + [("eps", ctypes.c_float)]
 
 
-_ENTRY_POINTS = ("stem_fwd", "stem_bwd", "bottleneck_fwd", "bottleneck_bwd")
+class BlockArgs(ctypes.Structure):
+    """Mirror of ``BlockArgs`` in ``csrc/fused_conv_bn.cu``."""
+
+    _fields_ = [(name, _P) for name in (
+        "x", "k1", "k2", "ks", "k1t", "k2t", "kst",
+        "g1", "b1", "g2", "b2", "gs", "bs", "gout", "out",
+        "m1", "v1", "m2", "v2", "ms", "vs",
+        "dx", "dk1", "dk2", "dks", "dg1", "db1", "dg2", "db2", "dgs", "dbs",
+    )] + [(name, ctypes.c_int) for name in ("n", "hi", "wi", "cin", "c", "stride")] + [
+        ("eps", ctypes.c_float),
+    ]
+
+
+_ENTRY_POINTS = ("stem_fwd", "stem_bwd", "basic_fwd", "basic_bwd", "proj_fwd", "proj_bwd",
+                 "bottleneck_fwd", "bottleneck_bwd")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -138,6 +162,36 @@ def _admit_stem(x, k):
     n, h, w, cin = x.shape
     if not supports_stem(n, h, w, cin, k.shape[3]):
         raise ValueError(f"fused stem does not admit [{n},{h},{w},{cin}]->{k.shape[3]}")
+
+
+def supports_block(n: int, h: int, w: int, c: int, *, stride: int = 1,
+                   in_channels: Optional[int] = None) -> bool:
+    """True if the fused BasicBlock kernels admit this geometry: the
+    identity kernels at stride 1 with ``in_channels == c`` (the default),
+    the projection kernels otherwise. ``h``/``w`` are the block's INPUT
+    spatial dims; stride 2 needs them even (the transposed-conv backward
+    assumes ``ho == h // 2`` exactly)."""
+    cin = c if in_channels is None else in_channels
+    if stride not in (1, 2):
+        return False
+    if min(n, h, w, c, cin) < 1:
+        return False
+    if stride == 2 and (h % 2 or w % 2):
+        return False
+    return n * h * w * max(cin, c) <= _MAX_ELEMENTS
+
+
+def _admit_block(x, k1, stride, proj):
+    """Raise unless ``supports_block`` admits ``x`` and the geometry is the
+    kernels' kind (identity: stride 1 and ``cin == c``), on both devices."""
+    n, h, w, cin = x.shape
+    c = k1.shape[3]
+    if not supports_block(n, h, w, c, stride=stride, in_channels=cin):
+        raise ValueError(f"fused BasicBlock does not admit [{n},{h},{w},{cin}]->{c}/s{stride}")
+    if proj == (stride == 1 and cin == c):
+        raise ValueError(f"[{n},{h},{w},{cin}]->{c}/s{stride} is "
+                         f"{'an identity' if proj else 'a projection'} geometry; the "
+                         f"{'projection' if proj else 'identity'} BasicBlock kernels do not take it")
 
 
 def supports_bottleneck(n: int, h: int, w: int, planes: int, *,
@@ -330,6 +384,85 @@ def bottleneck_bwd_reference(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short,
     return (dx,) + grads + (dks, dgs, dbs)
 
 
+def _block_fwd_reference(x, k1, g1, b1, k2, g2, b2, short, stride, eps):
+    """The BasicBlock forward, ``short`` ``(ks, gs, bs)`` or ``None``."""
+    y1 = _conv(x, k1, stride)
+    m1, v1 = _moments(y1)
+    _, s1, t1 = _fold(m1, v1, g1, b1, eps)
+    y2 = _conv(torch.relu(y1 * s1 + t1), k2)
+    m2, v2 = _moments(y2)
+    _, s2, t2 = _fold(m2, v2, g2, b2, eps)
+    if short is None:
+        return (torch.relu(y2 * s2 + t2 + x), m1, v1, m2, v2)
+    ks, gs, bs = short
+    ys = _conv(x, ks, stride)
+    ms, vs = _moments(ys)
+    _, ss, ts = _fold(ms, vs, gs, bs, eps)
+    return (torch.relu(y2 * s2 + t2 + (ys * ss + ts)), m1, v1, m2, v2, ms, vs)
+
+
+def _block_bwd_reference(x, k1, g1, b1, k2, g2, b2, short, m1, v1, m2, v2, gout,
+                         stride, eps):
+    """The BasicBlock backward, ``short`` ``(ks, gs, bs, mS, vS)`` or
+    ``None``. Every BN counts over the output grid."""
+    n, hi, wi, _ = x.shape
+    ho, wo = hi // stride, wi // stride
+    count = n * ho * wo
+    rs1, rs2 = torch.rsqrt(v1 + eps), torch.rsqrt(v2 + eps)
+    yh1 = (_conv(x, k1, stride) - m1) * rs1
+    p1 = yh1 * g1 + b1
+    a1 = torch.relu(p1)
+    yh2 = (_conv(a1, k2) - m2) * rs2
+    z = yh2 * g2 + b2
+    if short is not None:
+        ks, gs, bs, ms, vs = short
+        rss = torch.rsqrt(vs + eps)
+        yhs = (_conv(x, ks, stride) - ms) * rss
+        z = z + yhs * gs + bs
+    else:
+        z = z + x
+    dz = gout * (z > 0)
+    dy2, dg2, db2 = _bn_bwd(dz, yh2, rs2, g2, count)
+    dk2 = _conv_dw(a1, dy2, k2.shape, 1)
+    dp1 = _conv_dx(dy2, k2, 1, ho, wo) * (p1 > 0)
+    dy1, dg1, db1 = _bn_bwd(dp1, yh1, rs1, g1, count)
+    dk1 = _conv_dw(x, dy1, k1.shape, stride)
+    dx = _conv_dx(dy1, k1, stride, hi, wi)
+    if short is None:
+        return (dx + dz, dk1, dk2, dg1, db1, dg2, db2)
+    dys, dgs, dbs = _bn_bwd(dz, yhs, rss, gs, count)
+    dks = _conv_dw(x, dys, ks.shape, stride)
+    dx = dx + _conv_dx(dys, ks, stride, hi, wi)
+    return (dx, dk1, dk2, dks, dg1, db1, dg2, db2, dgs, dbs)
+
+
+def basic_block_fwd_reference(x, k1, g1, b1, k2, g2, b2, eps):
+    """Plain form of ``basic_fwd`` (``pallas_conv.py:639-702``):
+    ``(out, m1, v1, m2, v2)``."""
+    return _block_fwd_reference(x, k1, g1, b1, k2, g2, b2, None, 1, eps)
+
+
+def basic_block_bwd_reference(x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout, eps):
+    """Plain form of ``basic_bwd`` (``pallas_conv.py:705-785``):
+    ``(dx, dk1, dk2, dg1, db1, dg2, db2)`` with ``dx = dz + conv1ᵀ(dy1)``."""
+    return _block_bwd_reference(x, k1, g1, b1, k2, g2, b2, None, m1, v1, m2, v2, gout,
+                                1, eps)
+
+
+def proj_block_fwd_reference(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps):
+    """Plain form of ``proj_fwd`` (``pallas_conv.py:930-1003``):
+    ``(out, m1, v1, m2, v2, mS, vS)``; ``ks`` is ``[cin, c]``."""
+    return _block_fwd_reference(x, k1, g1, b1, k2, g2, b2, (ks, gs, bs), stride, eps)
+
+
+def proj_block_bwd_reference(x, k1, g1, b1, k2, g2, b2, ks, gs, bs,
+                             m1, v1, m2, v2, ms, vs, gout, stride, eps):
+    """Plain form of ``proj_bwd`` (``pallas_conv.py:1006-1105``):
+    ``(dx, dk1, dk2, dks, dg1, db1, dg2, db2, dgS, dbS)``, ``dbS == db2``."""
+    return _block_bwd_reference(x, k1, g1, b1, k2, g2, b2, (ks, gs, bs, ms, vs),
+                                m1, v1, m2, v2, gout, stride, eps)
+
+
 # ---------------------------------------------------------------------------
 # Entry points: plain form on the CPU, kernels on the card.
 # ---------------------------------------------------------------------------
@@ -496,6 +629,120 @@ def bottleneck_bwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short,
     return (dx,) + grads + (dks, wide[2], wide[3])
 
 
+def _block_tensors(x, k1, k2, short):
+    """Check the BasicBlock operands for a launch; ``(n, hi, wi, cin, c)``."""
+    n, hi, wi, cin = x.shape
+    c = k1.shape[3]
+    _check("x", x, (n, hi, wi, cin))
+    _check("k1", k1, (3, 3, cin, c))
+    _check("k2", k2, (3, 3, c, c))
+    for name, t in zip(("ks", "gs", "bs", "ms", "vs"), short or ()):
+        _check(name, t, (cin, c) if name == "ks" else (c,))
+    return n, hi, wi, cin, c
+
+
+def _block_fwd(name, x, k1, g1, b1, k2, g2, b2, short, stride, eps):
+    """Launch ``basic_fwd`` (``short`` None) or ``proj_fwd``."""
+    n, hi, wi, cin, c = _block_tensors(x, k1, k2, short)
+    for label, t in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2)):
+        _check(label, t, (c,))
+    dev = x.device
+    out = torch.empty((n, hi // stride, wi // stride, c), dtype=torch.float32, device=dev)
+    moments = torch.empty((6 if short else 4, c), dtype=torch.float32, device=dev)
+    ks, gs, bs = short or (None, None, None)
+    args = BlockArgs(
+        x=_ptr(x), k1=_ptr(k1), k2=_ptr(k2), ks=_ptr(ks), g1=_ptr(g1), b1=_ptr(b1),
+        g2=_ptr(g2), b2=_ptr(b2), gs=_ptr(gs), bs=_ptr(bs), out=_ptr(out),
+        m1=_ptr(moments[0]), v1=_ptr(moments[1]), m2=_ptr(moments[2]), v2=_ptr(moments[3]),
+        ms=_ptr(moments[4]) if short else None, vs=_ptr(moments[5]) if short else None,
+        n=n, hi=hi, wi=wi, cin=cin, c=c, stride=stride, eps=eps,
+    )
+    _run_entry(_library(), name, args, dev, _stream(dev))
+    return (out,) + tuple(moments.unbind(0))
+
+
+def _block_bwd(name, x, k1, g1, b1, k2, g2, b2, short, m1, v1, m2, v2, gout, stride, eps):
+    """Launch ``basic_bwd`` (``short`` None) or ``proj_bwd``."""
+    n, hi, wi, cin, c = _block_tensors(x, k1, k2, short)
+    for label, t in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2), ("m1", m1),
+                     ("v1", v1), ("m2", m2), ("v2", v2)):
+        _check(label, t, (c,))
+    _check("gout", gout, (n, hi // stride, wi // stride, c))
+    dev = x.device
+    ks, gs, bs, ms, vs = short or (None,) * 5
+    dx, dk1, dk2 = torch.empty_like(x), torch.empty_like(k1), torch.empty_like(k2)
+    dks = torch.empty_like(ks) if short else None
+    rows = torch.empty((6 if short else 4, c), dtype=torch.float32, device=dev)
+    # the data-gradient weights, channel axes swapped (made here, O(C^2))
+    k1t, k2t = k1.permute(0, 1, 3, 2).contiguous(), k2.permute(0, 1, 3, 2).contiguous()
+    kst = ks.T.contiguous() if short else None
+    args = BlockArgs(
+        x=_ptr(x), k1=_ptr(k1), k2=_ptr(k2), ks=_ptr(ks), k1t=_ptr(k1t), k2t=_ptr(k2t),
+        kst=_ptr(kst), g1=_ptr(g1), b1=_ptr(b1), g2=_ptr(g2), b2=_ptr(b2), gs=_ptr(gs),
+        bs=_ptr(bs), gout=_ptr(gout), m1=_ptr(m1), v1=_ptr(v1), m2=_ptr(m2), v2=_ptr(v2),
+        ms=_ptr(ms), vs=_ptr(vs), dx=_ptr(dx), dk1=_ptr(dk1), dk2=_ptr(dk2), dks=_ptr(dks),
+        dg1=_ptr(rows[0]), db1=_ptr(rows[1]), dg2=_ptr(rows[2]), db2=_ptr(rows[3]),
+        dgs=_ptr(rows[4]) if short else None, dbs=_ptr(rows[5]) if short else None,
+        n=n, hi=hi, wi=wi, cin=cin, c=c, stride=stride, eps=eps,
+    )
+    _run_entry(_library(), name, args, dev, _stream(dev))
+    if not short:
+        return (dx, dk1, dk2) + tuple(rows.unbind(0))
+    return (dx, dk1, dk2, dks) + tuple(rows.unbind(0))
+
+
+def basic_fwd(x, k1, g1, b1, k2, g2, b2, eps):
+    """Identity BasicBlock forward (see :func:`basic_block_fwd_reference`);
+    launches ``basic_fwd`` for CUDA tensors."""
+    global basic_fwd_launches
+    _admit_block(x, k1, 1, proj=False)
+    if native.on_cpu(x, k1, g1, b1, k2, g2, b2):
+        return basic_block_fwd_reference(x, k1, g1, b1, k2, g2, b2, eps)
+    res = _block_fwd("basic_fwd", x, k1, g1, b1, k2, g2, b2, None, 1, eps)
+    basic_fwd_launches += 1
+    return res
+
+
+def basic_bwd(x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout, eps):
+    """Identity BasicBlock backward (see :func:`basic_block_bwd_reference`);
+    launches ``basic_bwd`` for CUDA tensors."""
+    global basic_bwd_launches
+    _admit_block(x, k1, 1, proj=False)
+    if native.on_cpu(x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout):
+        return basic_block_bwd_reference(x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout, eps)
+    res = _block_bwd("basic_bwd", x, k1, g1, b1, k2, g2, b2, None, m1, v1, m2, v2, gout, 1,
+                     eps)
+    basic_bwd_launches += 1
+    return res
+
+
+def proj_fwd(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps):
+    """Projection BasicBlock forward (see :func:`proj_block_fwd_reference`);
+    launches ``proj_fwd`` for CUDA tensors."""
+    global proj_fwd_launches
+    _admit_block(x, k1, stride, proj=True)
+    if native.on_cpu(x, k1, g1, b1, k2, g2, b2, ks, gs, bs):
+        return proj_block_fwd_reference(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps)
+    res = _block_fwd("proj_fwd", x, k1, g1, b1, k2, g2, b2, (ks, gs, bs), stride, eps)
+    proj_fwd_launches += 1
+    return res
+
+
+def proj_bwd(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, m1, v1, m2, v2, ms, vs, gout,
+             stride, eps):
+    """Projection BasicBlock backward (see :func:`proj_block_bwd_reference`);
+    launches ``proj_bwd`` for CUDA tensors."""
+    global proj_bwd_launches
+    _admit_block(x, k1, stride, proj=True)
+    if native.on_cpu(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, m1, v1, m2, v2, ms, vs, gout):
+        return proj_block_bwd_reference(x, k1, g1, b1, k2, g2, b2, ks, gs, bs,
+                                        m1, v1, m2, v2, ms, vs, gout, stride, eps)
+    res = _block_bwd("proj_bwd", x, k1, g1, b1, k2, g2, b2, (ks, gs, bs, ms, vs),
+                     m1, v1, m2, v2, gout, stride, eps)
+    proj_bwd_launches += 1
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Autograd functions and the public ops.
 # ---------------------------------------------------------------------------
@@ -550,6 +797,45 @@ class FusedBottleneck(torch.autograd.Function):
         return grads + (None, None)
 
 
+class FusedBasicBlock(torch.autograd.Function):
+    """``(out, m1, v1, m2, v2)`` of the fused identity BasicBlock; the
+    backward is ``basic_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, k1, g1, b1, k2, g2, b2, eps):
+        res = basic_fwd(x, k1, g1, b1, k2, g2, b2, eps)
+        ctx.save_for_backward(x, k1, g1, b1, k2, g2, b2, *res[1:])
+        ctx.eps = eps
+        ctx.mark_non_differentiable(*res[1:])
+        return res
+
+    @staticmethod
+    def backward(ctx, gout, *_moment_grads):
+        x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2 = ctx.saved_tensors
+        dx, dk1, dk2, dg1, db1, dg2, db2 = basic_bwd(
+            x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout.contiguous(), ctx.eps)
+        return dx, dk1, dg1, db1, dk2, dg2, db2, None
+
+
+class FusedProjectionBlock(torch.autograd.Function):
+    """``(out, m1, v1, m2, v2, mS, vS)`` of the fused projection BasicBlock;
+    the backward is ``proj_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps):
+        res = proj_fwd(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps)
+        ctx.save_for_backward(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, *res[1:])
+        ctx.stride, ctx.eps = stride, eps
+        ctx.mark_non_differentiable(*res[1:])
+        return res
+
+    @staticmethod
+    def backward(ctx, gout, *_moment_grads):
+        dx, dk1, dk2, dks, dg1, db1, dg2, db2, dgs, dbs = proj_bwd(
+            *ctx.saved_tensors, gout.contiguous(), ctx.stride, ctx.eps)
+        return dx, dk1, dg1, db1, dk2, dg2, db2, dks, dgs, dbs, None, None
+
+
 def fused_conv_bn_relu(x, kernel, scale, bias, eps=1e-5):
     """Fused stem: ``relu(bn_train(conv3x3_s1(x, kernel)))``.
 
@@ -584,4 +870,38 @@ def fused_bottleneck_block(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, shortcut=None,
         c(g2), c(b2), k3.reshape(p, 4 * p).contiguous(), c(g3), c(b3),
         None if ks is None else ks.reshape(cin, 4 * p).contiguous(), c(gs), c(bs),
         int(stride), float(eps),
+    )
+
+
+def fused_basic_block(x, k1, g1, b1, k2, g2, b2, eps=1e-5):
+    """Fused identity BasicBlock, train mode:
+    ``relu(bn2(conv3x3(relu(bn1(conv3x3(x, k1))), k2)) + x)``.
+
+    ``x`` NHWC ``[n, h, w, c]``, ``k1``/``k2`` HWIO ``[3, 3, c, c]``.
+    Returns ``(out, m1, v1, m2, v2)`` with biased variances, both BNs over
+    ``n * h * w``; the caller applies the running-stat updates.
+    """
+    c = lambda t: t.contiguous()  # noqa: E731
+    return FusedBasicBlock.apply(c(x), c(k1), c(g1), c(b1), c(k2), c(g2), c(b2), float(eps))
+
+
+def fused_projection_block(x, k1, g1, b1, k2, g2, b2, kernel_sc, scale_sc, bias_sc, *,
+                           stride: int = 1, eps: float = 1e-5):
+    """Fused projection-shortcut BasicBlock, train mode:
+    ``relu(bn2(conv3x3(relu(bn1(conv3x3_s(x, k1))), k2)) + bn_sc(conv1x1_s(x, k_sc)))``.
+
+    ``k1`` HWIO ``[3, 3, cin, c]``, ``k2`` ``[3, 3, c, c]``, ``kernel_sc``
+    ``(1, 1, cin, c)`` or ``(cin, c)``. Returns ``(out, m1, v1, m2, v2,
+    m_sc, v_sc)`` with biased variances, all three BNs over the OUTPUT grid.
+    An identity geometry (stride 1, ``cin == c``) raises: that is
+    :func:`fused_basic_block`'s.
+    """
+    cin, c = x.shape[3], k1.shape[3]
+    if stride == 1 and cin == c:
+        raise ValueError("projection block requires stride 2 or a channel change; "
+                         "use fused_basic_block for identity-shortcut sites")
+    t = lambda a: a.contiguous()  # noqa: E731
+    return FusedProjectionBlock.apply(
+        t(x), t(k1), t(g1), t(b1), t(k2), t(g2), t(b2), kernel_sc.reshape(cin, c).contiguous(),
+        t(scale_sc), t(bias_sc), int(stride), float(eps),
     )

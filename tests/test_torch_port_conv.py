@@ -425,8 +425,15 @@ def test_fused_site_plan_recipe_geometry():
         "layer2_block0", "layer3_block0", "layer4_block0"]
     assert sites[-1]["desc"] == "layer4_block2[bottleneck] 2048->2048@4x4/s1"
     rn18 = fused_site_plan("resnet18", 512, 32)
-    assert [s["admitted"] for s in rn18] == [True] + [False] * 8
-    assert {s["kind"] for s in rn18[1:]} == {"basic", "proj"}
+    assert len(rn18) == 9 and all(s["admitted"] for s in rn18)
+    assert [s["kind"] for s in rn18] == ["stem"] + ["basic", "basic"] + ["proj", "basic"] * 3
+    assert [s["desc"] for s in rn18] == [
+        "stem 3->64@32x32",
+        "layer1_block0[basic] 64->64@32x32/s1", "layer1_block1[basic] 64->64@32x32/s1",
+        "layer2_block0[proj] 64->128@32x32/s2", "layer2_block1[basic] 128->128@16x16/s1",
+        "layer3_block0[proj] 128->256@16x16/s2", "layer3_block1[basic] 256->256@8x8/s1",
+        "layer4_block0[proj] 256->512@8x8/s2", "layer4_block1[basic] 512->512@4x4/s1",
+    ]
 
 
 def test_resolve_conv_impl_ladder():
@@ -454,7 +461,9 @@ def test_parser_and_build_banner(caplog):
         state, _ = supcon.build(cfg, 1, torch.device("cpu"))
     lines = [r.getMessage() for r in caplog.records if r.getMessage().startswith("[conv_impl]")]
     assert lines == ["[conv_impl] 'fused': explicit request (on cpu the kernels' plain "
-                     "PyTorch forms run); fused sites: stem 3->64@8x8"]
+                     "PyTorch forms run); fused sites: stem 3->64@8x8, "
+                     "layer1_block0[basic] 64->64@8x8/s1, layer2_block0[proj] 64->128@8x8/s2, "
+                     "layer3_block0[proj] 128->256@4x4/s2, layer4_block0[proj] 256->512@2x2/s2"]
     assert state.model.encoder.conv_impl == "fused"
     with pytest.raises(SystemExit):
         config_lib.parse_supcon(["--conv_impl", "pallas"])
