@@ -7,26 +7,30 @@ Builds the port's CUDA kernels from this checkout (one nvcc per source, all
 started together), holds each against its plain PyTorch version on the card
 (the loss pair at N = 512 and 74 rows; the stem, Bottleneck, BasicBlock and
 projection-block pairs at every distinct geometry of the ResNet-50 and
-ResNet-18 recipe sites and at ragged shapes), drives the port's pretraining
-entry point (``train.supcon.main``) for one epoch of SimCLR at the published
-recipe's width (batch 256, 32 px, two crops, so the encoder and the loss see
-512 rows) with ``--conv_impl fused --loss_impl fused`` on two paths,
-ResNet-50 (17 conv sites: the stem and 16 Bottlenecks) and ResNet-18 (9:
-the stem, 5 identity and 3 projection BasicBlocks), checks that each run
-went through every kernel of its path and that all its sites fused,
-compares one step of each model's fused conv path with its eager one (the
-loss, each parameter's update and the BN buffers, beside a float64 run),
-and times kernels and train steps with CUDA events. Phases: device, build,
-kernel_parity, train, timing. Any failure raises and the script exits
-non-zero.
+ResNet-18 recipe sites and at ragged shapes, in fp32 and, for the conv
+kernels, in bf16 against both their bf16 and their fp32 plain forms),
+drives the port's pretraining entry point (``train.supcon.main``) for one
+epoch of SimCLR at the published recipe's width (batch 256, 32 px, two
+crops, so the encoder and the loss see 512 rows) with ``--conv_impl fused
+--loss_impl fused`` on four paths, ResNet-50 (17 conv sites: the stem and
+16 Bottlenecks) and ResNet-18 (9: the stem, 5 identity and 3 projection
+BasicBlocks), each in fp32 and under ``--bf16``, checks that each run went
+through every kernel of its path (and of its dtype) and that all its sites
+fused, compares one step of each model's fused conv path with its eager
+one (fp32: the loss, each parameter's update and the BN buffers, beside a
+float64 run; bf16: the eager and the fused bf16 step each against the fp32
+eager step), and times kernels and train steps with CUDA events. Phases:
+device, build, kernel_parity, train, timing. Any failure raises and the
+script exits non-zero.
 
 The last lines of standard output are the card's name and power limit, one
 JSON object with an entry per kernel (``{"kernels": [...]}``: launches on
 the main path, error against the plain version, times, and the least time
 the card could take) and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
-non-zero and prints no result. TF32 is off throughout, so every number is
-fp32.
+non-zero and prints no result. TF32 is off throughout, so every fp32
+number is full fp32; the bf16 kernels and the bf16 eager chains multiply
+bf16 operands with fp32 accumulation.
 """
 
 from __future__ import annotations
@@ -47,8 +51,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 N_ROWS, DIM = 512, 128  # the recipe's loss shape: 2 x 256 views, feat_dim 128
@@ -95,10 +100,26 @@ MARGIN = 8.0
 # sum, ~4e-2 (PERF.md, Findings).
 STEP_UPDATE_REL_L2 = 5e-2
 STEP_BUF_TOL = 1e-4
-MARGIN_EXEMPT = {"fused_bottleneck_bwd": ("db2",)}
-# the fused_conv launch counters, one per entry point
+MARGIN_EXEMPT = {"fused_bottleneck_bwd": ("db2",), "fused_bottleneck_bwd_bf16": ("db2",)}
+# the fused_conv launch counters, one per entry point and compute dtype
 CONV_COUNTERS = tuple(f"{kind}_{d}_launches" for kind in ("stem", "basic", "proj", "bottleneck")
                       for d in ("fwd", "bwd"))
+BF16_COUNTERS = tuple(name.replace("_launches", "_bf16_launches") for name in CONV_COUNTERS)
+# bf16 conv kernel pins: the JAX package's round-19 bounds for its bf16
+# kernels against the fp32 reference (tests/test_pallas_conv.py:49-77),
+# applied to each bf16 kernel against its bf16 plain form and against the
+# fp32 plain form. Values: max |a - b| / max |b| and cosine; gradients
+# (every dW, dx, dgamma, dbeta): cosine and max |a - b| / max |b|; BN
+# moments: max |a - b| / max |b|.
+BF16_VAL_SCALED, BF16_VAL_COS = 2e-2, 0.9999
+BF16_GRAD_COS, BF16_GRAD_SCALED = 0.95, 0.5
+BF16_STATS_SCALED = 2e-2
+# The bf16 step check (step_check_bf16): at this init no bf16 step tracks
+# the fp32 step's update per parameter (PERF.md, Findings: the cuDNN eager bf16
+# step reads median cosine 0.29 on rn50), so the fused bf16 step's median
+# relative L2 distance from the fp32 update is held to this multiple of
+# the eager bf16 step's.
+STEP_BF16_VS_EAGER = 1.25
 
 
 def phase(name):
@@ -181,8 +202,8 @@ def forward_flops(model, size, device) -> int:
     return total
 
 
-def bound(flops, nbytes):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -324,6 +345,9 @@ RAGGED_BLOCKS = (
     ("ragged proj s2 [5,10,6,24]->40", (5, 10, 6, 24, 40, 2)),
     ("ragged proj s2 [3,8,8,6]->10", (3, 8, 8, 6, 10, 2)),
 )
+STEM_CASES = (("recipe [512,32,32,3]", (512, 32, 32), 0.0),
+              ("recipe [512,32,32,3] margin", (512, 32, 32), MARGIN),
+              ("ragged [6,10,6,3]", (6, 10, 6), 0.0))
 BOT_OUT = ("out", "m1", "v1", "m2", "v2", "m3", "v3", "m_sc", "v_sc")
 BOT_GRADS = ("dx", "dk1", "dg1", "db1", "dk2", "dg2", "db2", "dk3", "dg3", "db3",
              "dk_sc", "dg_sc", "db_sc")
@@ -341,15 +365,25 @@ def model_sites(model, rows=512, size=32):
             for s in fused_site_plan(model, rows, size) if s["kind"] != "stem"]
 
 
-def site_calls(fc, family, geo, dev, seed, margin=0.0):
+def in_dtype(tensors, slots, dtype):
+    """``tensors`` with the entries at ``slots`` (x and the conv kernels) in
+    the compute dtype ``dtype``; None stays None."""
+    if tensors is None:
+        return None
+    return tuple(t.to(dtype) if i in slots else t for i, t in enumerate(tensors))
+
+
+def site_calls(fc, family, geo, dev, seed, margin=0.0, dtype=torch.float32):
     """One block call at ``geo``: ``(x, kind, fwd, bwd)`` with ``fwd`` the
     ``(kernel, plain)`` forward calls and ``bwd(moments, gout)`` giving
     ``(args, kernel, plain, gradient names)`` of the backward. ``family``
     is 'bottleneck' or 'block' (a BasicBlock: identity or projection, as
-    the geometry says)."""
+    the geometry says). ``dtype`` is the compute dtype: x and the kernels
+    are drawn in fp32 and cast to it."""
     stride = geo[5]
     if family == "bottleneck":
         args, short = bottleneck_inputs(*geo, dev, seed=seed, margin=margin)
+        args, short = in_dtype(args, (0, 1, 4, 7), dtype), in_dtype(short, (0,), dtype)
         fwd = (lambda: fc.bottleneck_fwd(*args, short, stride, EPS),
                lambda: fc.bottleneck_fwd_reference(*args, short, stride, EPS))
 
@@ -359,6 +393,7 @@ def site_calls(fc, family, geo, dev, seed, margin=0.0):
             return bargs, fc.bottleneck_bwd, fc.bottleneck_bwd_reference, BOT_GRADS
         return args[0], "bottleneck", fwd, bwd
     args, short = block_inputs(*geo, dev, seed=seed, margin=margin)
+    args, short = in_dtype(args, (0, 1, 4), dtype), in_dtype(short, (0,), dtype)
     if short is None:
         fwd = (lambda: fc.basic_fwd(*args, EPS), lambda: fc.basic_block_fwd_reference(*args, EPS))
 
@@ -375,12 +410,10 @@ def site_calls(fc, family, geo, dev, seed, margin=0.0):
     return args[0], "proj", fwd, bwd
 
 
-def block_parity(dev, parity, family, sites, ragged, seed, gen):
-    """One family's block kernels against their plain forms, forward
-    (value, moments) and backward (every gradient), at every distinct
-    geometry of ``sites`` (main-path inputs, and inputs with ReLU margin)
-    and at the ``ragged`` shapes. ``gen`` draws the output gradients."""
-    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+def parity_cases(sites, ragged):
+    """``(label, geometry, margin)``: every distinct geometry of ``sites``
+    with main-path inputs, then with ReLU-margin inputs, then the
+    ``ragged`` shapes."""
     names = {}
     for name, _, geo in sites:
         names.setdefault(geo, []).append(name)
@@ -388,8 +421,16 @@ def block_parity(dev, parity, family, sites, ragged, seed, gen):
               for g, n in names.items()]
     cases = [(label, geo, 0.0) for label, geo in recipe]
     cases += [(label + " margin", geo, MARGIN) for label, geo in recipe]
-    cases += [(label, geo, 0.0) for label, geo in ragged]
-    for label, geo, margin in cases:
+    return cases + [(label, geo, 0.0) for label, geo in ragged]
+
+
+def block_parity(dev, parity, family, sites, ragged, seed, gen):
+    """One family's block kernels against their plain forms, forward
+    (value, moments) and backward (every gradient), at every distinct
+    geometry of ``sites`` (main-path inputs, and inputs with ReLU margin)
+    and at the ``ragged`` shapes. ``gen`` draws the output gradients."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+    for label, geo, margin in parity_cases(sites, ragged):
         _, kind, fwd, bwd = site_calls(fc, family, geo, dev, seed, margin)
         got, ref = fwd[0](), fwd[1]()
         out_names = BOT_OUT if kind == "bottleneck" else BLOCK_OUT
@@ -418,10 +459,7 @@ def conv_parity(dev, parity):
     and ResNet-18 recipe's sites and at ragged shapes."""
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     g = torch.Generator().manual_seed(7)
-    stem_cases = [("recipe [512,32,32,3]", (512, 32, 32), 0.0),
-                  ("recipe [512,32,32,3] margin", (512, 32, 32), MARGIN),
-                  ("ragged [6,10,6,3]", (6, 10, 6), 0.0)]
-    for label, (n, h, w), margin in stem_cases:
+    for label, (n, h, w), margin in STEM_CASES:
         recipe = n == 512
         x, k, gam, bet = stem_inputs(n, h, w, dev, seed=1, margin=margin)
         got = fc.stem_fwd(x, k, gam, bet, EPS)
@@ -447,12 +485,140 @@ def conv_parity(dev, parity):
                  torch.Generator().manual_seed(9))
 
 
-def bottleneck_work(n, h, w, cin, p, stride):
+def bf16_measure(got, ref):
+    """``(max |got - ref| / max |ref|, cosine)`` in float64."""
+    a, b = got.double().flatten(), ref.double().flatten()
+    scaled = ((a - b).abs().max() / (b.abs().max() + 1e-30)).item()
+    cos = (a @ b / (a.norm() * b.norm() + 1e-30)).item()
+    return scaled, cos
+
+
+def bf16_ok(kind, scaled, cos):
+    """The round-19 pin of a tensor of ``kind`` 'value', 'stats' or 'grad'."""
+    if kind == "value":
+        return scaled <= BF16_VAL_SCALED and cos >= BF16_VAL_COS
+    if kind == "stats":
+        return scaled <= BF16_STATS_SCALED
+    return cos >= BF16_GRAD_COS and scaled <= BF16_GRAD_SCALED
+
+
+class Bf16Parity:
+    """The bf16 kernels against a plain form (``yardstick`` 'bf16': the
+    bf16 plain form on the same inputs; 'fp32': the fp32 plain form on the
+    fp32 inputs they were cast from) under the round-19 pins. Prints one
+    line per case and yardstick, raises at the end if any tensor broke its
+    pin. ``max_abs``/``max_rel_l2`` keep each kernel's largest elementwise
+    and relative L2 error against its bf16 plain form; ``worst`` the worst
+    scaled error and cosine per (kernel, yardstick, kind)."""
+
+    def __init__(self):
+        self.failures, self.excused = [], []
+        self.max_abs, self.max_rel_l2, self.worst = {}, {}, {}
+
+    def case(self, kernel, label, yardstick, pairs, plain=None):
+        """``pairs``: ``(name, got, ref, kind)``. With ``plain`` (the bf16
+        plain form's tensors, aligned with ``pairs``: the fp32 yardstick),
+        each half of a gradient's pin (the cosine, the scaled max error)
+        that the bf16 plain form itself breaks against ``ref`` is excused
+        for the kernel: printed beside the plain form's reading and
+        counted, not pinned."""
+        parts = []
+        for i, (name, got, ref, kind) in enumerate(pairs):
+            if got is None:
+                continue
+            scaled, cos = bf16_measure(got, ref)
+            parts.append(f"{name} {scaled:.2e}" + ("" if kind == "stats" else f" cos {cos:.6f}"))
+            if plain is not None and kind == "grad" and not bf16_ok(kind, scaled, cos):
+                p_scaled, p_cos = bf16_measure(plain[i], ref)
+                cos_ok = cos >= BF16_GRAD_COS or p_cos < BF16_GRAD_COS
+                scaled_ok = scaled <= BF16_GRAD_SCALED or p_scaled > BF16_GRAD_SCALED
+                if cos_ok and scaled_ok:
+                    parts[-1] += f" (bf16 plain {p_scaled:.2e} cos {p_cos:.6f}: excused)"
+                    self.excused.append(f"{kernel} {label} {name}: kernel {scaled:.3e} cos "
+                                        f"{cos:.6f}, bf16 plain {p_scaled:.3e} cos {p_cos:.6f}")
+                    continue
+            key = (kernel, yardstick, kind)
+            worst = self.worst.get(key, (0.0, 1.0))
+            self.worst[key] = (max(worst[0], scaled), min(worst[1], cos))
+            if yardstick == "bf16":
+                err = (got.double() - ref.double()).abs().max().item()
+                self.max_abs[kernel] = max(self.max_abs.get(kernel, 0.0), err)
+                self.max_rel_l2[kernel] = max(self.max_rel_l2.get(kernel, 0.0), rel_l2(got, ref))
+            if not bf16_ok(kind, scaled, cos):
+                self.failures.append(f"{kernel} {label} vs {yardstick} plain {name} ({kind}): "
+                                     f"scaled {scaled:.3e} cos {cos:.6f}")
+        print(f"{kernel} {label} vs {yardstick} plain: " + ", ".join(parts), flush=True)
+
+    def raise_if_failed(self):
+        if self.failures:
+            raise AssertionError("bf16 kernel parity failed:\n" + "\n".join(self.failures))
+
+
+def bf16_parity(dev, parity):
+    """The eight bf16 entry points against their bf16 plain forms and
+    against the fp32 plain forms, at the cases :func:`conv_parity` runs
+    (every distinct rn50 and rn18 recipe geometry with main-path and with
+    ReLU-margin inputs, and the ragged shapes). x and the kernels are drawn
+    in fp32 and cast to bf16 for the kernel and the bf16 plain form; the
+    upstream gradient is drawn in bf16 and widened for the fp32 form; each
+    backward takes the moments of its own yardstick's forward."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(17)
+    for label, (n, h, w), margin in STEM_CASES:
+        x, k, gam, bet = stem_inputs(n, h, w, dev, seed=1, margin=margin)
+        xb, kb = x.to(bf16), k.to(bf16)
+        got = fc.stem_fwd(xb, kb, gam, bet, EPS)
+        r16 = fc.stem_fwd_reference(xb, kb, gam, bet, EPS)
+        r32 = fc.stem_fwd_reference(x, k, gam, bet, EPS)
+        for yard, ref in (("bf16", r16), ("fp32", r32)):
+            parity.case("fused_stem_fwd_bf16", label, yard, [
+                (name, a, b, kind) for name, a, b, kind in
+                zip(("out", "mean", "var"), got, ref, ("value", "stats", "stats"))])
+        gout = rand(tuple(got[0].shape), gen, dev).to(bf16)
+        need_dx = n != 512  # the main path needs no dx of the images
+        got = fc.stem_bwd(xb, kb, gam, bet, r16[1], r16[2], gout, EPS, need_dx=need_dx)
+        g16 = fc.stem_bwd_reference(xb, kb, gam, bet, r16[1], r16[2], gout, EPS, need_dx=need_dx)
+        g32 = fc.stem_bwd_reference(x, k, gam, bet, r32[1], r32[2], gout.float(), EPS,
+                                    need_dx=need_dx)
+        for yard, ref in (("bf16", g16), ("fp32", g32)):
+            parity.case("fused_stem_bwd_bf16", label, yard, [
+                (name, a, b, "grad") for name, a, b in zip(("dx", "dk", "dgamma", "dbeta"), got, ref)],
+                g16 if yard == "fp32" else None)
+    for family, model, ragged, seed in (("bottleneck", "resnet50", RAGGED_BOTTLENECKS, 2),
+                                        ("block", "resnet18", RAGGED_BLOCKS, 5)):
+        for label, geo, margin in parity_cases(model_sites(model), ragged):
+            _, kind, fwd, bwd = site_calls(fc, family, geo, dev, seed, margin, bf16)
+            _, _, fwd32, bwd32 = site_calls(fc, family, geo, dev, seed, margin)
+            got, r16, r32 = fwd[0](), fwd[1](), fwd32[1]()
+            out_names = BOT_OUT if kind == "bottleneck" else BLOCK_OUT
+            for yard, ref in (("bf16", r16), ("fp32", r32)):
+                parity.case(f"fused_{kind}_fwd_bf16", label, yard, [
+                    (name, a, b, "value" if name == "out" else "stats")
+                    for name, a, b in zip(out_names, got, ref)])
+            gout = rand(tuple(r16[0].shape), gen, dev).to(bf16)
+            bargs, kernel, plain_fn, grad_names = bwd(r16[1:], gout)
+            bargs32 = bwd32(r32[1:], gout.float())[0]
+            got, g16, g32 = kernel(*bargs), plain_fn(*bargs), plain_fn(*bargs32)
+            exempt = MARGIN_EXEMPT.get(f"fused_{kind}_bwd_bf16", ()) if margin else ()
+            keep = [i for i in range(len(got)) if grad_names[i] not in exempt]
+            for yard, ref in (("bf16", g16), ("fp32", g32)):
+                excuse = [g16[i] for i in keep] if yard == "fp32" else None
+                parity.case(f"fused_{kind}_bwd_bf16", label, yard, [
+                    (grad_names[i], got[i], ref[i], "grad") for i in keep], excuse)
+            del fwd, bwd, fwd32, bwd32, got, r16, r32, g16, g32, gout, bargs, bargs32
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def bottleneck_work(n, h, w, cin, p, stride, act=4):
     """``(fwd_flops, bwd_flops, fwd_bytes, bwd_bytes)`` of one Bottleneck
     call: 2 FLOPs per multiply-add of the four convs; the backward
     recomputes the forward convs (its inputs are x, the weights and the
     moments), then takes the data and weight gradients, so 3x. Bytes:
-    each input read once, each output written once, fp32."""
+    each input read once, each output written once; activations, kernels
+    and their gradients ``act`` bytes an element (4 fp32, 2 bf16), the
+    per-channel rows 4."""
     ho, wo = h // stride, w // stride
     m1, m2, c4 = n * h * w, n * ho * wo, 4 * p
     proj = stride != 1 or cin != c4
@@ -460,13 +626,13 @@ def bottleneck_work(n, h, w, cin, p, stride):
     weights = cin * p + 9 * p * p + p * c4 + (cin * c4 if proj else 0)
     rows = 2 * p + 2 * p + 2 * c4 + (2 * c4 if proj else 0)  # gammas, betas
     moments = rows
-    fwd_bytes = 4 * (m1 * cin + weights + rows + m2 * c4 + moments)
-    bwd_bytes = 4 * (m1 * cin + weights + rows + moments + m2 * c4  # inputs
-                     + m1 * cin + weights + rows)                   # dx, dW, dgamma/dbeta
+    fwd_bytes = act * (m1 * cin + weights + m2 * c4) + 4 * (rows + moments)
+    bwd_bytes = (act * (m1 * cin + weights + m2 * c4) + 4 * (rows + moments)  # inputs
+                 + act * (m1 * cin + weights) + 4 * rows)                  # dx, dW, dgamma/dbeta
     return fwd, 3 * fwd, fwd_bytes, bwd_bytes
 
 
-def block_work(n, h, w, cin, c, stride):
+def block_work(n, h, w, cin, c, stride, act=4):
     """``(fwd_flops, bwd_flops, fwd_bytes, bwd_bytes)`` of one BasicBlock
     call, counted as :func:`bottleneck_work` counts: the two 3x3 convs and
     the 1x1/s shortcut (projection), the backward 3x."""
@@ -476,25 +642,35 @@ def block_work(n, h, w, cin, c, stride):
     fwd = 2 * m * weights
     rows = (6 if proj else 4) * c  # gammas, betas
     moments = rows
-    fwd_bytes = 4 * (n * h * w * cin + weights + rows + m * c + moments)
-    bwd_bytes = 4 * (n * h * w * cin + weights + rows + moments + m * c  # inputs
-                     + n * h * w * cin + weights + rows)                 # dx, dW, dgamma/dbeta
+    fwd_bytes = act * (n * h * w * cin + weights + m * c) + 4 * (rows + moments)
+    bwd_bytes = (act * (n * h * w * cin + weights + m * c) + 4 * (rows + moments)  # inputs
+                 + act * (n * h * w * cin + weights) + 4 * rows)  # dx, dW, dgamma/dbeta
     return fwd, 3 * fwd, fwd_bytes, bwd_bytes
 
 
-def stem_timing(dev, where):
-    """CUDA-event times (ms) of the stem kernels at the recipe's shape,
+def stem_timing(dev, where, dtype=torch.float32):
+    """CUDA-event times (ms) of the stem kernels at the recipe's shape in
+    compute dtype ``dtype``,
     beside their plain forms and, as context, the eager chain they replace
     (cuDNN conv + BatchNorm2d + ReLU, forward and forward+backward)."""
     from torch import nn
+    from simclr_pytorch_distributed_tpu_torch.models.norm import batch_norm
+    from simclr_pytorch_distributed_tpu_torch.models.resnet import conv as conv_of
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     reps = dict(reps=2, rounds=3, warmup=1)
     x, k, g, b = stem_inputs(512, 32, 32, dev, seed=3)
+    x, k = x.to(dtype), k.to(dtype)
     y, m, v = fc.stem_fwd(x, k, g, b, EPS)
     gout = torch.randn_like(y)
-    conv = nn.Conv2d(3, 64, 3, 1, 1, bias=False).to(dev, memory_format=torch.channels_last)
+    conv_m = nn.Conv2d(3, 64, 3, 1, 1, bias=False).to(dev, memory_format=torch.channels_last)
     bn = nn.BatchNorm2d(64).to(dev)
     xe, ge = x.permute(0, 3, 1, 2), gout.permute(0, 3, 1, 2)
+
+    def conv(t):
+        return conv_m(t) if dtype == torch.float32 else conv_of(conv_m, t)
+
+    def bn_(t):
+        return bn(t) if dtype == torch.float32 else batch_norm(bn, t)
     stem = {
         "fwd": cuda_time_ms(lambda: fc.stem_fwd(x, k, g, b, EPS), **reps),
         "fwd_plain": cuda_time_ms(lambda: fc.stem_fwd_reference(x, k, g, b, EPS), **reps),
@@ -502,19 +678,22 @@ def stem_timing(dev, where):
             lambda: fc.stem_bwd(x, k, g, b, m, v, gout, EPS, need_dx=False), **reps),
         "bwd_plain": cuda_time_ms(
             lambda: fc.stem_bwd_reference(x, k, g, b, m, v, gout, EPS, need_dx=False), **reps),
-        "eager_fwd": cuda_time_ms(lambda: torch.relu(bn(conv(xe))), **reps),
-        "eager_fwd_bwd": cuda_time_ms(lambda: torch.relu(bn(conv(xe))).backward(ge), **reps),
+        "eager_fwd": cuda_time_ms(lambda: torch.relu(bn_(conv(xe))), **reps),
+        "eager_fwd_bwd": cuda_time_ms(lambda: torch.relu(bn_(conv(xe))).backward(ge), **reps),
     }
-    print(f"stem [512,32,32,3]->64 ms: " + ", ".join(f"{k} {v:.3f}" for k, v in stem.items())
-          + f" {where}", flush=True)
+    tag = "" if dtype == torch.float32 else " bf16"
+    print(f"stem{tag} [512,32,32,3]->64 ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stem.items()) + f" {where}", flush=True)
     return stem
 
 
-def sites_timing(dev, where, family, sites, seed):
+def sites_timing(dev, where, family, sites, seed, dtype=torch.float32):
     """CUDA-event times (ms) of one family's block kernels at each of
-    ``sites``, beside their plain forms and, as context, the eager module
+    ``sites`` in compute dtype ``dtype``, beside their plain forms and, as
+    context, the eager module
     each replaces (``Bottleneck`` or ``BasicBlock``: cuDNN convs +
-    BatchNorm2d + ReLU, forward and forward+backward). Sites that share a
+    BatchNorm2d + ReLU, forward and forward+backward; under bf16 on a bf16
+    input, the weights cast per forward). Sites that share a
     geometry share one measurement. Returns the per-site list and, per
     kind, the sums over its sites (one step's worth)."""
     from simclr_pytorch_distributed_tpu_torch.models.resnet import BasicBlock, Bottleneck
@@ -526,7 +705,7 @@ def sites_timing(dev, where, family, sites, seed):
     for _, _, geo in sites:
         if geo in per_geo:
             continue
-        x, _, fwd, bwd = site_calls(fc, family, geo, dev, seed)
+        x, _, fwd, bwd = site_calls(fc, family, geo, dev, seed, dtype=dtype)
         r = fwd[0]()
         gout = torch.randn_like(r[0])
         bargs, kernel, plain_fn, _ = bwd(r[1:], gout)
@@ -544,12 +723,15 @@ def sites_timing(dev, where, family, sites, seed):
         del x, fwd, bwd, r, gout, bargs, blk, xe, ge
         torch.cuda.empty_cache()
     res = {"sites": []}
+    bf16 = dtype == torch.bfloat16
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
     for name, kind, geo in sites:
-        fwd_f, bwd_f, fwd_b, bwd_b = work(*geo)
+        fwd_f, bwd_f, fwd_b, bwd_b = work(*geo, act=2 if bf16 else 4)
         res["sites"].append({"site": name, "kind": kind, "geometry": list(geo), **per_geo[geo],
-                             "bound_fwd": bound(fwd_f, fwd_b), "bound_bwd": bound(bwd_f, bwd_b)})
+                             "bound_fwd": bound(fwd_f, fwd_b, peak),
+                             "bound_bwd": bound(bwd_f, bwd_b, peak)})
         site = res["sites"][-1]
-        print(f"{kind} {name} {geo} ms: "
+        print(f"{kind}{' bf16' if bf16 else ''} {name} {geo} ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in per_geo[geo].items())
               + f"; bound fwd {site['bound_fwd'][0]:.3f} bwd {site['bound_bwd'][0]:.3f}"
               + f" {where}", flush=True)
@@ -557,7 +739,7 @@ def sites_timing(dev, where, family, sites, seed):
     for kind in sorted({site["kind"] for site in res["sites"]}):
         mine = [site for site in res["sites"] if site["kind"] == kind]
         res[kind] = {key: sum(site[key] for site in mine) for key in keys}
-        print(f"{kind}, sum over the {len(mine)} sites (one step) ms: "
+        print(f"{kind}{' bf16' if bf16 else ''}, sum over the {len(mine)} sites (one step) ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in res[kind].items()) + f" {where}")
     return res
 
@@ -571,14 +753,16 @@ def summed_bound(sites, direction):
     return total, by
 
 
-def train_epochs(model, workdir, expected, banner_sites):
+def train_epochs(model, workdir, expected, banner_sites, bf16=False):
     """One 7-step epoch of ``model`` at the recipe's width through
-    ``train.supcon.main`` with ``--conv_impl fused --loss_impl fused``, the
+    ``train.supcon.main`` with ``--conv_impl fused --loss_impl fused`` (and
+    ``--bf16`` with ``bf16``), the
     launch counters set to 0 just before it and read just after, then the
     same epoch with ``--conv_impl eager``. Raises unless the fused run
     launched exactly ``expected``, wrote its checkpoint, and printed one
     ``[conv_impl]`` banner listing the stem and ``banner_sites`` (kind ->
-    count). Returns ``(fused_result, eager_result, launches)``."""
+    count), and under ``bf16`` naming ``compute dtype bf16``. Returns
+    ``(fused_result, eager_result, launches)``."""
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv, fused_loss
     from simclr_pytorch_distributed_tpu_torch.train import supcon
     argv = [
@@ -586,10 +770,14 @@ def train_epochs(model, workdir, expected, banner_sites):
         "--batch_size", "256", "--size", "32", "--epochs", "1",
         "--method", "SimCLR", "--temp", str(TEMP), "--learning_rate", "0.5",
         "--cosine", "--loss_impl", "fused", "--conv_impl", "fused", "--print_freq", "1",
-        "--save_freq", "1", "--workdir", workdir,
-    ]
+        "--save_freq", "1",
+        # a directory of its own: the run folder is named by the model and
+        # the minute, not the dtype, so two runs in one minute would share it
+        "--workdir", tempfile.mkdtemp(prefix=f"{model}_", dir=workdir),
+    ] + (["--bf16"] if bf16 else [])
+    model = f"{model}{' bf16' if bf16 else ''}"
     counters = [(fused_loss, "fwd_launches"), (fused_loss, "bwd_launches")]
-    counters += [(fused_conv, name) for name in CONV_COUNTERS]
+    counters += [(fused_conv, name) for name in CONV_COUNTERS + BF16_COUNTERS]
     for mod, name in counters:
         setattr(mod, name, 0)
     result = supcon.main(argv)
@@ -608,6 +796,7 @@ def train_epochs(model, workdir, expected, banner_sites):
         banner = [line for line in fh if "[conv_impl]" in line]
     print(f"{model} banner: {banner[0].strip() if banner else None}")
     if (len(banner) != 1 or "stem 3->64@32x32" not in banner[0]
+            or bf16 != ("compute dtype bf16" in banner[0])
             or any(banner[0].count(f"[{kind}]") != k for kind, k in banner_sites.items())):
         raise AssertionError(f"{model}: the [conv_impl] banner does not list the stem and "
                              f"{banner_sites}: {banner}")
@@ -681,6 +870,109 @@ def step_check(name, model, views, labels):
           f"{buf_worst[1]} (bound rtol/atol {STEP_BUF_TOL})")
     if failures:
         raise AssertionError(f"{name} eager-vs-fused step:\n" + "\n".join(failures))
+
+
+def step_check_bf16(name, model, views, labels):
+    """One train step of ``model`` from one init on one batch under
+    ``--bf16``, eager and fused conv (fused loss), each against the fp32
+    eager step. Both bf16 paths: the loss (relative, at the values' scaled
+    pin) and the BN buffers (scaled max error at the statistics pin;
+    ``num_batches_tracked`` exactly). The fused path's update, per
+    parameter, against the fp32 update at the gradient pins (cosine and
+    scaled max error), on every parameter where the eager bf16 step
+    (cuDNN, the yardstick of what bf16 rounding does to this step) meets
+    them; elsewhere the pin is not attainable in bf16 and is counted as
+    excused. Over all parameters the fused path's median relative L2
+    distance from the fp32 update is at most ``STEP_BF16_VS_EAGER`` times
+    the eager bf16 path's.
+    The two bf16 paths round at other points (eager rounds each conv's
+    output before BN, fused keeps the pre-BN y in fp32), so neither is
+    held against the other. The fused bf16 step must launch the bf16 conv
+    kernels and no fp32 one."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        SupConStepConfig,
+        train_step,
+    )
+    init = {k: v.detach().clone().double() for k, v in model.state_dict().items()}
+    params = sorted(k for k, _ in model.named_parameters())
+    losses, states = {}, {}
+    for tag, impl, dtype in (("fp32 eager", "eager", torch.float32),
+                             ("bf16 eager", "eager", torch.bfloat16),
+                             ("bf16 fused", "fused", torch.bfloat16)):
+        m = copy.deepcopy(model)
+        m.encoder.set_conv_impl(impl).set_compute_dtype(dtype)
+        st = TrainState(model=m, optimizer=make_optimizer(m), schedule=lambda s: 0.5)
+        cfg = SupConStepConfig(temperature=TEMP, loss_impl="fused", epochs=1, steps_per_epoch=7)
+        before = {c: getattr(fused_conv, c) for c in CONV_COUNTERS + BF16_COUNTERS}
+        losses[tag] = train_step(st, cfg, views, labels)["loss"].item()
+        ran = {c for c in before if getattr(fused_conv, c) != before[c]}
+        kinds = ("stem", "bottleneck") if name == "resnet50" else ("stem", "basic", "proj")
+        want = {c for c in BF16_COUNTERS if c.split("_")[0] in kinds}
+        if ran != (want if impl == "fused" else set()):
+            raise AssertionError(f"{name} {tag} step launched {sorted(ran)}")
+        states[tag] = {k: v.double() if v.is_floating_point() else v
+                       for k, v in m.state_dict().items()}
+        del m, st
+        torch.cuda.empty_cache()
+    ref = states["fp32 eager"]
+    failures, upd = [], {}
+    for tag in ("bf16 eager", "bf16 fused"):
+        rel = abs(losses[tag] - losses["fp32 eager"]) / abs(losses["fp32 eager"])
+        print(f"{name} one step loss {tag} {losses[tag]!r} vs fp32 eager "
+              f"{losses['fp32 eager']!r}: rel diff {rel:.3e} (bound {BF16_VAL_SCALED})")
+        if not rel <= BF16_VAL_SCALED:
+            failures.append(f"{tag} loss rel diff {rel}")
+        upd[tag] = {}
+        for key in params:
+            got, want_u = states[tag][key] - init[key], ref[key] - init[key]
+            upd[tag][key] = bf16_measure(got, want_u) + (rel_l2(got, want_u),)
+        cosines = [upd[tag][k][1] for k in params]
+        worst = min(params, key=lambda k: upd[tag][k][1])
+        widest = max(params, key=lambda k: upd[tag][k][0])
+        print(f"{name} step update, {tag} vs fp32 eager over {len(params)} parameters: "
+              f"cosine lowest {upd[tag][worst][1]:.6f} at {worst}, median "
+              f"{statistics.median(cosines):.6f}; scaled max error largest "
+              f"{upd[tag][widest][0]:.3e} at {widest}; relative L2 median "
+              f"{statistics.median(upd[tag][k][2] for k in params):.3e}")
+        buf_worst = (0.0, None)
+        for key, r in ref.items():
+            if key in params:
+                continue
+            got = states[tag][key]
+            if not r.is_floating_point():
+                if not torch.equal(got, r):
+                    failures.append(f"{tag} buffer {key}: {got} != {r}")
+                continue
+            scaled, _ = bf16_measure(got, r)
+            buf_worst = max(buf_worst, (scaled, key))
+            if not bf16_ok("stats", scaled, 1.0):
+                failures.append(f"{tag} buffer {key}: scaled {scaled:.3e}")
+        print(f"{name} BN buffers after the step, {tag} vs fp32 eager: largest scaled max error "
+              f"{buf_worst[0]:.3e} at {buf_worst[1]} (bound {BF16_STATS_SCALED})")
+    excused = 0
+    for key in params:
+        scaled, cos, _ = upd["bf16 fused"][key]
+        e_scaled, e_cos, _ = upd["bf16 eager"][key]
+        if not bf16_ok("grad", e_scaled, e_cos):
+            excused += 1
+            continue
+        if bf16_ok("grad", scaled, cos):
+            continue
+        failures.append(f"bf16 fused update {key}: scaled {scaled:.3e} cos {cos:.6f} (bf16 "
+                        f"eager {e_scaled:.3e} cos {e_cos:.6f})")
+    med = {tag: statistics.median(upd[tag][k][2] for k in params) for tag in upd}
+    print(f"{name} bf16 fused update pins (cos >= {BF16_GRAD_COS}, scaled <= "
+          f"{BF16_GRAD_SCALED}) against fp32: {excused} of {len(params)} parameters excused "
+          f"where the bf16 eager step breaks them too; median relative L2 fused "
+          f"{med['bf16 fused']:.3e} vs eager {med['bf16 eager']:.3e} (bound "
+          f"{STEP_BF16_VS_EAGER} x eager)")
+    if not med["bf16 fused"] <= STEP_BF16_VS_EAGER * med["bf16 eager"]:
+        failures.append(f"median update relative L2: fused {med['bf16 fused']} > "
+                        f"{STEP_BF16_VS_EAGER} x eager {med['bf16 eager']}")
+    if failures:
+        raise AssertionError(f"{name} bf16 step check:\n" + "\n".join(failures))
 
 
 def main() -> int:
@@ -767,13 +1059,28 @@ def main() -> int:
           f"gradients vs float64, relative L2: <= {GRAD_REL_L2} (main-path inputs), <= "
           f"{GRAD_VS_PLAIN} x the plain fp32 form's, floor {GRAD_L2_FLOOR} (margin inputs)")
     parity.raise_if_failed()
+    parity16 = Bf16Parity()
+    bf16_parity(dev, parity16)
+    print(f"bf16 conv bounds (against the bf16 and the fp32 plain forms): values scaled max "
+          f"<= {BF16_VAL_SCALED} and cosine >= {BF16_VAL_COS}; gradients cosine >= "
+          f"{BF16_GRAD_COS} and scaled max <= {BF16_GRAD_SCALED}; moments scaled max <= "
+          f"{BF16_STATS_SCALED}")
+    for (kernel, yard, pin), (scaled, cos) in sorted(parity16.worst.items()):
+        print(f"bf16 worst {kernel} vs {yard} plain, {pin}: scaled {scaled:.3e}"
+              + ("" if pin == "stats" else f", cosine {cos:.6f}"))
+    print(f"bf16 gradient pins against fp32 excused because the bf16 plain form breaks them "
+          f"too: {len(parity16.excused)}")
+    for line in parity16.excused:
+        print(f"  excused: {line}")
+    parity16.raise_if_failed()
     done("kernel_parity", t0)
 
     # -- train: each main path, through the port's entry point --------------
     t0 = phase("train")
     batch_size = 256
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
-    rn50_expected = {name: 0 for name in ("fwd_launches", "bwd_launches") + CONV_COUNTERS}
+    rn50_expected = {name: 0 for name in ("fwd_launches", "bwd_launches") + CONV_COUNTERS
+                     + BF16_COUNTERS}
     rn50_expected.update(fwd_launches=7, bwd_launches=7, stem_fwd_launches=7,
                          stem_bwd_launches=7, bottleneck_fwd_launches=16 * 7,
                          bottleneck_bwd_launches=16 * 7)
@@ -824,6 +1131,25 @@ def main() -> int:
     torch.manual_seed(0)
     rn18 = SupConResNet("resnet18").to(dev, memory_format=torch.channels_last)
     step_check("resnet18", rn18, views, labels)
+
+    # -- the same two paths under --bf16 -----------------------------------
+    rn50_bf16_expected = dict(rn50_expected, stem_fwd_launches=0, stem_bwd_launches=0,
+                              bottleneck_fwd_launches=0, bottleneck_bwd_launches=0,
+                              stem_fwd_bf16_launches=7, stem_bwd_bf16_launches=7,
+                              bottleneck_fwd_bf16_launches=16 * 7,
+                              bottleneck_bwd_bf16_launches=16 * 7)
+    bf16_runs = {"resnet50": train_epochs("resnet50", workdir, rn50_bf16_expected,
+                                          {"bottleneck": 16}, bf16=True)}
+    rn18_bf16_expected = dict(rn18_expected, stem_fwd_launches=0, stem_bwd_launches=0,
+                              basic_fwd_launches=0, basic_bwd_launches=0,
+                              proj_fwd_launches=0, proj_bwd_launches=0,
+                              stem_fwd_bf16_launches=7, stem_bwd_bf16_launches=7,
+                              basic_fwd_bf16_launches=5 * 7, basic_bwd_bf16_launches=5 * 7,
+                              proj_fwd_bf16_launches=3 * 7, proj_bwd_bf16_launches=3 * 7)
+    bf16_runs["resnet18"] = train_epochs("resnet18", workdir, rn18_bf16_expected,
+                                         {"basic": 5, "proj": 3}, bf16=True)
+    step_check_bf16("resnet50", model, views, labels)
+    step_check_bf16("resnet18", rn18, views, labels)
     done("train", t0)
 
     # -- timing ------------------------------------------------------------
@@ -861,6 +1187,14 @@ def main() -> int:
                   f"non-tensor peak; all steps ms {[round(t * 1e3, 2) for t in times]} {where}")
         print(f"{name} train step model FLOPs (3 x forward of convs and linears, "
               f"{2 * batch_size} views) {step_flops / 1e9:.1f} GFLOP")
+        for impl, run in zip(("fused", "eager"), bf16_runs[name][:2]):
+            times = [h["step_time"] for h in run.history[2:7]]
+            ms = statistics.median(times) * 1e3
+            print(f"train step ({name}, batch {batch_size}, 32 px, --bf16, --conv_impl {impl}) "
+                  f"median of steps 3-7 {ms:.2f} ms = {batch_size / ms * 1e3:.1f} imgs/s, "
+                  f"{step_flops / ms / 1e9:.2f} TFLOP/s of model FLOPs = "
+                  f"{step_flops / ms * 1e3 / PEAK_BF16_FLOPS * 100:.2f}% of the bf16 "
+                  f"tensor-core peak; all steps ms {[round(t * 1e3, 2) for t in times]} {where}")
     print(f"two-crop augmentation of the {batch_size}-image batch {aug_ms:.3f} ms {where}")
     times = {"stem": stem_timing(dev, where)}
     sites = []
@@ -868,6 +1202,12 @@ def main() -> int:
         res = sites_timing(dev, where, family, model_sites(model_name), seed)
         sites += res.pop("sites")
         times.update(res)
+    times16 = {"stem": stem_timing(dev, where, torch.bfloat16)}
+    sites16 = []
+    for family, model_name, seed in (("bottleneck", "resnet50", 4), ("block", "resnet18", 6)):
+        res = sites_timing(dev, where, family, model_sites(model_name), seed, torch.bfloat16)
+        sites16 += res.pop("sites")
+        times16.update(res)
     done("timing", t0)
 
     # each input read once, each output written once: features, ids and
@@ -905,7 +1245,14 @@ def main() -> int:
         "fwd": bound(stem_fwd_flops, 4 * m_rows * (3 + 64) + small),
         "bwd": bound(2 * stem_fwd_flops, 4 * m_rows * (3 + 64) + small + 4 * (27 * 64 + 2 * 64)),
     }
+    stem16_bounds = {
+        "fwd": bound(stem_fwd_flops, 2 * m_rows * (3 + 64) + 2 * 27 * 64 + 4 * 4 * 64,
+                     PEAK_BF16_FLOPS),
+        "bwd": bound(2 * stem_fwd_flops, 2 * m_rows * (3 + 64) + 2 * 27 * 64 + 4 * 4 * 64
+                     + 2 * 27 * 64 + 4 * 2 * 64, PEAK_BF16_FLOPS),
+    }
     print("per-site list: " + json.dumps(sites))
+    print("per-site list, bf16: " + json.dumps(sites16))
     conv_source = "simclr_pytorch_distributed_tpu_torch/csrc/fused_conv_bn.cu"
     # (kernel, TPU kernel lines, the run of the path it belongs to); a block
     # kernel's times and bound are sums over its path's sites, one step's
@@ -927,6 +1274,25 @@ def main() -> int:
             if direction == "bwd":  # at the recipe's sites, vs float64
                 entry["max_rel_l2"] = parity.max_rel_l2[name]
             kernels.append(entry)
+    # the bf16 entry points: errors against their bf16 plain forms over
+    # every parity case, times and bounds (bf16 peak, 2-byte activations)
+    # of the bf16 path's run
+    for block, fwd_line, bwd_line, model_name in (
+            ("stem", 401, 443, "resnet50"), ("basic", 639, 705, "resnet18"),
+            ("proj", 930, 1006, "resnet18"), ("bottleneck", 1289, 1408, "resnet50")):
+        for direction, line in (("fwd", fwd_line), ("bwd", bwd_line)):
+            name = f"fused_{block}_{direction}_bf16"
+            bnd = (stem16_bounds[direction] if block == "stem" else summed_bound(
+                [site for site in sites16 if site["kind"] == block], direction))
+            kernels.append({
+                "name": name, "route": "cuda", "source": conv_source,
+                "replaces": f"{PALLAS_CONV}:{line}",
+                "launches": bf16_runs[model_name][2][f"{block}_{direction}_bf16_launches"],
+                "max_abs_err": parity16.max_abs[name], "max_rel_l2": parity16.max_rel_l2[name],
+                "ms": times16[block][direction],
+                "plain_ms": times16[block][f"{direction}_plain"],
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

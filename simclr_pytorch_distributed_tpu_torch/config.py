@@ -9,7 +9,9 @@ auto-warmup when ``batch_size > 256`` (``:120-121``), the closed-form
 Flags the port does not implement yet are absent, so argparse rejects them.
 Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
 {dense,fused,auto}`` and ``--conv_impl {eager,fused,auto}`` (the JAX
-package's ``--conv_impl {xla,pallas,auto}``).
+package's ``--conv_impl {xla,pallas,auto}``). ``--bf16`` is the JAX
+package's (``config.py:85, 348``): bf16 activations and conv/linear
+operands with fp32 accumulation, fp32 parameters, BN statistics and loss.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ class SupConConfig:
     loss_impl: str = "auto"
     conv_impl: str = "auto"
     device: str = "cuda"
+    bf16: bool = False
     # derived (finalize_supcon)
     warm_epochs: int = 10
     warmup_from: float = 0.01
@@ -128,6 +131,9 @@ def supcon_parser() -> argparse.ArgumentParser:
                         "kernels for the stem and Bottlenecks, eager cuDNN convs "
                         "and BatchNorm2d, or auto (fused on cuda, eager on cpu)")
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute: activations and conv/linear operands in bf16 with "
+                        "fp32 accumulation; parameters, BN statistics and the loss fp32")
     return p
 
 

@@ -77,11 +77,42 @@
 // Shared memory is static (under 17 KB per CTA) and independent of the
 // geometry, so the Hopper admission gate (ops/fused_conv.py supports_*)
 // needs only the geometric rules and the 32-bit row-index range.
+//
+// bf16 compute (the *_bf16 entry points, the Pallas kernels run with a
+// bf16 compute dtype). x, the kernels, the upstream gradient, out, dx and
+// every dW are bf16; the moments, gamma/beta and their gradients stay
+// fp32. Every convolution rounds its operands to bf16 and multiplies them
+// on the tensor cores with fp32 accumulation (mma.sync m16n8k16), in two
+// kernels of their own: conv_gemm_bf16_kernel (the implicit GEMM, same
+// gathers, prologue and epilogues as conv_gemm_kernel) and
+// conv_wgrad_bf16_kernel (the row-split weight gradient). The rounding
+// points are the Pallas kernels': the BN+ReLU prologue runs in fp32 on the
+// fp32 staged y and rounds its result (the _fill_pad cast), a cotangent is
+// rounded where it enters a product (as the Pallas backward casts dy
+// before each transposed product and each dW accumulation), and the
+// pre-BN y, the BN statistics, the residual adds and every BN backward
+// stay fp32 (the Pallas kernels never round them). dW is rounded once,
+// after the fp64 combine of its fp32 partials. The staged buffers are the
+// fp32 path's, plus fp32 buffers where that path stages in place in an
+// output that is bf16 here (y of the last conv, and the shortcut's share
+// of the projection blocks' dx). The elementwise kernels are templates
+// over the types they read and write; their fp32 instances are the fp32
+// path's code. Each *_bf16 entry point replaces the same Pallas kernel as
+// its fp32 twin, run with a bf16 compute dtype. What bounds them: the
+// convolutions by operations at the dense bf16 tensor-core rate (989
+// TFLOP/s: a recipe-shape Bottleneck forward in ~0.1 ms), the BN passes by
+// bytes. This first version answers neither: each 32-deep chunk is
+// gathered by the loading threads and stored through shared memory with
+// no pipelining and no wgmma/TMA, and the BN passes are the fp32 path's,
+// so it runs far from both bounds (PERF.md has the times).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -94,11 +125,31 @@ constexpr int WK = 64, WN = 64, WM = 16;
 constexpr int EW_ROWS = 128;
 constexpr int WAVES = 4 * 132;  // CTAs the weight-gradient split aims for
 
+// bf16 tiles (conv_gemm_bf16_kernel, conv_wgrad_bf16_kernel): the same
+// 128 x 64 output tile, 32-deep K chunks; weight gradient 64 x 64 per
+// CTA over 32-row chunks. Shared-memory rows hold HLD bf16 (the chunk plus
+// 8 of padding: 80 bytes, so the fragment loads of a warp hit 32 distinct
+// banks).
+constexpr int HBK = 32, HWM = 32, HLD = 40;
+static_assert(BM == 128 && BN == 64, "the bf16 conv tile is 128 x 64");
+
+using bf16 = __nv_bfloat16;
+
 struct ConvGeom {
   int n, hi, wi, cin;  // the tensor the gather reads
   int ho, wo, cout;    // the GEMM's row grid (n * ho * wo rows) and columns
   int ks, stride, pad;
 };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 
 // The source pixel of GEMM row (n, oh, ow) at kernel offset (kh, kw).
 // Forward: the conv reads padded input stride * o + d, i.e. unpadded
@@ -395,14 +446,364 @@ __global__ void __launch_bounds__(THREADS) conv_wgrad_kernel(
   }
 }
 
-// out[i] = sum over z of part[z, i], in order, in fp64.
+// ---------------------------------------------------------------------------
+// bf16 operands on the tensor cores.
+// ---------------------------------------------------------------------------
+
+// d += a * b over one 16 x 8 x 16 tile: bf16 operands, fp32 accumulators.
+// Fragments (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4): a holds
+// A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b holds
+// B[2t..2t+1][g], B[2t+8..2t+9][g]; d holds D[g][2t..2t+1], D[g+8][2t..].
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats rounded to bf16 in one 32-bit word, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Eight consecutive GEMM-K entries k .. k+7 of row (n, oh, ow), as floats
+// after the optional BN+ReLU prologue: load_a4 twice for an fp32 source.
+template <bool TRANS>
+__device__ __forceinline__ void load_a8(const float* src, const ConvGeom& g,
+                                        const float* psc, const float* psh,
+                                        bool row_ok, int n, int oh, int ow,
+                                        int k, int K, float (&v)[8]) {
+  const bool vec = (g.cin % 4) == 0;
+  const float4 a = load_a4<TRANS>(src, g, psc, psh, row_ok, n, oh, ow, k, K, vec);
+  const float4 b = load_a4<TRANS>(src, g, psc, psh, row_ok, n, oh, ow, k + 4, K, vec);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// The same from a bf16 source: with cin % 8 == 0 the eight share one
+// pixel, one 16-byte load.
+template <bool TRANS>
+__device__ __forceinline__ void load_a8(const bf16* src, const ConvGeom& g,
+                                        const float* psc, const float* psh,
+                                        bool row_ok, int n, int oh, int ow,
+                                        int k, int K, float (&v)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  if (!row_ok) return;
+  if ((g.cin % 8) == 0) {
+    if (k >= K) return;
+    const int ci = k % g.cin, t = k / g.cin;
+    const int kw = t % g.ks, kh = t / g.ks;
+    int ih, iw;
+    if (!src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw)) return;
+    const uint4 q = *reinterpret_cast<const uint4*>(
+        src + (((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci);
+    const bf16* h = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = psc ? bn_relu(to_f(h[e]), psc, psh, ci + e) : to_f(h[e]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int kk = k + e;
+    if (kk >= K) break;
+    const int ci = kk % g.cin, t = kk / g.cin;
+    const int kw = t % g.ks, kh = t / g.ks;
+    int ih, iw;
+    if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw)) {
+      const float s = to_f(src[(((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci]);
+      v[e] = psc ? bn_relu(s, psc, psh, ci) : s;
+    }
+  }
+}
+
+// Eight consecutive columns c .. c+7 of row r of a [rows, cols] matrix
+// (zero past rows_end or cols), as floats.
+__device__ __forceinline__ void load_row8(const bf16* m, int r, int rows_end,
+                                          int c, int cols, float (&v)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  if (r >= rows_end) return;
+  const bf16* row = m + (size_t)r * cols;
+  if ((cols % 8) == 0) {
+    if (c < cols) {
+      const uint4 q = *reinterpret_cast<const uint4*>(row + c);
+      const bf16* h = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = to_f(h[e]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (c + e < cols) v[e] = to_f(row[c + e]);
+}
+
+__device__ __forceinline__ void load_row8(const float* m, int r, int rows_end,
+                                          int c, int cols, float (&v)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  if (r >= rows_end) return;
+  const float* row = m + (size_t)r * cols;
+  if ((cols % 4) == 0) {
+#pragma unroll
+    for (int h = 0; h < 8; h += 4)
+      if (c + h < cols) {
+        const float4 q = *reinterpret_cast<const float4*>(row + c + h);
+        v[h] = q.x; v[h + 1] = q.y; v[h + 2] = q.z; v[h + 3] = q.w;
+      }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (c + e < cols) v[e] = row[c + e];
+}
+
+// conv_gemm_kernel with bf16 operands on the tensor cores: out[m, c] =
+// sum_k bf16(A[m, k]) * wt[k, c] (+ residual[m, c]) with fp32 accumulation,
+// A the implicit im2col matrix of src (bf16 x, or an fp32 staged tensor
+// through the optional BN+ReLU prologue, rounded after it). K is walked in
+// 32-deep chunks, zero past K (the stem's 27). Eight warps, each a 32 x 32
+// quarter-column of the 128 x 64 tile: 2 x 4 mma tiles. The accumulators
+// are staged through shared memory for coalesced stores and for the
+// per-CTA statistics, which are conv_gemm_kernel's (tile mean and centred
+// sum of squares of the fp32 accumulators over the valid rows).
+template <bool TRANS, typename SrcT, typename OutT>
+__global__ void __launch_bounds__(THREADS) conv_gemm_bf16_kernel(
+    const SrcT* __restrict__ src, const bf16* __restrict__ wt,
+    const float* __restrict__ psc, const float* __restrict__ psh,
+    const float* residual, OutT* out, float* __restrict__ part_mean,
+    float* __restrict__ part_m2, ConvGeom g) {
+  // the A and B chunks during the K loop; the fp32 tile after it
+  __shared__ __align__(16) unsigned char smem[BM * (BN + 4) * sizeof(float)];
+  __shared__ float red[4][BN];
+  __shared__ float tmean[BN];
+  bf16 (*As)[HLD] = reinterpret_cast<bf16 (*)[HLD]>(smem);                // [BM][HLD]
+  bf16 (*Bs)[HLD] = reinterpret_cast<bf16 (*)[HLD]>(smem + BM * HLD * 2);  // [BN][HLD], k inner
+  float (*Cs)[BN + 4] = reinterpret_cast<float (*)[BN + 4]>(smem);       // [BM][BN + 4]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int wm = (warp % 4) * 32, wn = (warp / 4) * 32;
+  const int M = g.n * g.ho * g.wo;
+  const int K = g.ks * g.ks * g.cin;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+
+  // A loader: one row, sixteen consecutive k
+  const int ar = tid >> 1, ak = (tid & 1) * 16;
+  const int am = m0 + ar;
+  const bool arow = am < M;
+  int an = 0, aoh = 0, aow = 0;
+  if (arow) {
+    const int hw = g.ho * g.wo;
+    an = am / hw;
+    const int r = am - an * hw;
+    aoh = r / g.wo;
+    aow = r - aoh * g.wo;
+  }
+  // B loader: one k, eight consecutive channels
+  const int bk = tid >> 3, bc = (tid & 7) * 8;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += HBK) {
+#pragma unroll
+    for (int q = 0; q < 16; q += 8) {
+      float v[8];
+      load_a8<TRANS>(src, g, psc, psh, arow, an, aoh, aow, k0 + ak + q, K, v);
+      *reinterpret_cast<uint4*>(&As[ar][ak + q]) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    }
+    {
+      float w[8];
+      load_row8(wt, k0 + bk, K, n0 + bc, g.cout, w);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Bs[bc + j][bk] = __float2bfloat16_rn(w[j]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < HBK; kk += 16) {
+      uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wm + i * 16 + gq;
+        af[i][0] = ld32(&As[r][kk + 2 * tq]);
+        af[i][1] = ld32(&As[r + 8][kk + 2 * tq]);
+        af[i][2] = ld32(&As[r][kk + 2 * tq + 8]);
+        af[i][3] = ld32(&As[r + 8][kk + 2 * tq + 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn + j * 8 + gq;
+        bfr[j][0] = ld32(&Bs[c][kk + 2 * tq]);
+        bfr[j][1] = ld32(&Bs[c][kk + 2 * tq + 8]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = wm + i * 16 + gq, c = wn + j * 8 + 2 * tq;
+      Cs[r][c] = acc[i][j][0];
+      Cs[r][c + 1] = acc[i][j][1];
+      Cs[r + 8][c] = acc[i][j][2];
+      Cs[r + 8][c + 1] = acc[i][j][3];
+    }
+  __syncthreads();
+
+  const int rows = min(BM, M - m0);
+  for (int i = tid; i < BM * BN; i += THREADS) {
+    const int r = i / BN, c = i % BN;
+    if (r >= rows || n0 + c >= g.cout) continue;
+    const size_t o = (size_t)(m0 + r) * g.cout + n0 + c;
+    float v = Cs[r][c];
+    if (residual) v += residual[o];
+    out[o] = from_f<OutT>(v);
+  }
+
+  if (part_mean) {
+    const int c = tid % BN, q = tid / BN;
+    float s = 0.f;
+    for (int r = q; r < rows; r += 4) s += Cs[r][c];
+    red[q][c] = s;
+    __syncthreads();
+    if (tid < BN) tmean[tid] = (red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid]) / (float)rows;
+    __syncthreads();
+    const float mu = tmean[c];
+    float m2 = 0.f;
+    for (int r = q; r < rows; r += 4) {
+      const float d = Cs[r][c] - mu;
+      m2 = fmaf(d, d, m2);
+    }
+    red[q][c] = m2;
+    __syncthreads();
+    if (tid < BN && n0 + tid < g.cout) {
+      const size_t o = (size_t)blockIdx.x * g.cout + n0 + tid;
+      part_mean[o] = tmean[tid];
+      part_m2[o] = red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid];
+    }
+  }
+}
+
+// conv_wgrad_kernel with bf16 operands on the tensor cores: part[z, k, c] =
+// sum over rows m of split z of bf16(A[m, k]) * bf16(dy[m, c]), fp32
+// accumulation; A the (prologued) im2col of src in forward gather, dy the
+// fp32 cotangent rounded as it is loaded. 64 weight rows x 64 channels a
+// CTA over 32-row chunks; eight warps, each 32 rows x 16 channels (2 x 2
+// mma tiles). Both operands are stored transposed (m inner), so the row
+// sum is the mma's K.
+template <typename SrcT>
+__global__ void __launch_bounds__(THREADS) conv_wgrad_bf16_kernel(
+    const SrcT* __restrict__ src, const float* __restrict__ psc,
+    const float* __restrict__ psh, const float* __restrict__ dy,
+    float* __restrict__ part, ConvGeom g, int m_per) {
+  __shared__ __align__(16) bf16 At[WK][HLD];  // [k][m]
+  __shared__ __align__(16) bf16 Dt[WN][HLD];  // [c][m]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int wk = (warp % 2) * 32, wc = (warp / 2) * 16;
+  const int M = g.n * g.ho * g.wo;
+  const int K = g.ks * g.ks * g.cin;
+  const int k0 = blockIdx.x * WK, c0 = blockIdx.y * WN;
+  const int mb = blockIdx.z * m_per;
+  const int me = min(M, mb + m_per);
+  const int lm = tid >> 3, lk = (tid & 7) * 8;
+  const int hw = g.ho * g.wo;
+
+  float acc[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int m0 = mb; m0 < me; m0 += HWM) {
+    const int m = m0 + lm;
+    const bool ok = m < me;
+    int n = 0, oh = 0, ow = 0;
+    if (ok) {
+      n = m / hw;
+      const int r = m - n * hw;
+      oh = r / g.wo;
+      ow = r - oh * g.wo;
+    }
+    float v[8];
+    load_a8<false>(src, g, psc, psh, ok, n, oh, ow, k0 + lk, K, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) At[lk + e][lm] = __float2bfloat16_rn(v[e]);
+    load_row8(dy, m, me, c0 + lk, g.cout, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) Dt[lk + e][lm] = __float2bfloat16_rn(v[e]);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < HWM; kk += 16) {
+      uint32_t af[2][4], bfr[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wk + i * 16 + gq;
+        af[i][0] = ld32(&At[r][kk + 2 * tq]);
+        af[i][1] = ld32(&At[r + 8][kk + 2 * tq]);
+        af[i][2] = ld32(&At[r][kk + 2 * tq + 8]);
+        af[i][3] = ld32(&At[r + 8][kk + 2 * tq + 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = wc + j * 8 + gq;
+        bfr[j][0] = ld32(&Dt[c][kk + 2 * tq]);
+        bfr[j][1] = ld32(&Dt[c][kk + 2 * tq + 8]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + wk + i * 16 + gq + (e >= 2 ? 8 : 0);
+        const int c = c0 + wc + j * 8 + 2 * tq + (e & 1);
+        if (k < K && c < g.cout)
+          part[((size_t)blockIdx.z * K + k) * g.cout + c] = acc[i][j][e];
+      }
+}
+
+// out[i] = sum over z of part[z, i], in order, in fp64, rounded once to OutT.
+template <typename OutT>
 __global__ void split_reduce_kernel(const float* __restrict__ part, int splits,
-                                    long long count, float* __restrict__ out) {
+                                    long long count, OutT* __restrict__ out) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < count; i += (long long)gridDim.x * blockDim.x) {
     double s = 0.0;
     for (int z = 0; z < splits; ++z) s += part[z * count + i];
-    out[i] = (float)s;
+    out[i] = from_f<OutT>((float)s);
   }
 }
 
@@ -482,26 +883,30 @@ __global__ void bn_fold_kernel(const float* __restrict__ mean,
   shift[c] = sh;
 }
 
-// out = [relu](y * sc + sh [+ r * rsc + rsh | + r]); out may alias y.
+// out = [relu](y * sc + sh [+ r * rsc + rsh | + r]), in fp32, stored as
+// OutT; out may alias y (fp32 instance).
+template <typename RT, typename OutT>
 __global__ void bn_apply_kernel(const float* y, const float* __restrict__ sc,
-                                const float* __restrict__ sh, const float* r,
+                                const float* __restrict__ sh, const RT* r,
                                 const float* __restrict__ rsc,
-                                const float* __restrict__ rsh, float* out,
+                                const float* __restrict__ rsh, OutT* out,
                                 long long total, int C, int relu) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     const int c = (int)(i % C);
     float v = fmaf(y[i], sc[c], sh[c]);
-    if (r) v += rsc ? fmaf(r[i], rsc[c], rsh[c]) : r[i];
-    out[i] = relu ? fmaxf(v, 0.f) : v;
+    if (r) v += rsc ? fmaf(to_f(r[i]), rsc[c], rsh[c]) : to_f(r[i]);
+    out[i] = from_f<OutT>(relu ? fmaxf(v, 0.f) : v);
   }
 }
 
 // dp = g where the ReLU passed (mask > 0, or yhat * gamma + beta > 0 when
 // mask is null), else 0; per-CTA partial sums of dp and dp * yhat with
 // yhat = (y - mean) * rstd. dp_out (may be null) may alias g.
-// Block (32 channels x 8 row lanes), EW_ROWS rows per CTA.
-__global__ void bn_bwd_sums_kernel(const float* g, const float* mask,
+// Block (32 channels x 8 row lanes), EW_ROWS rows per CTA. g is the
+// upstream gradient (GT bf16 under bf16 compute) or an fp32 staged one.
+template <typename GT>
+__global__ void bn_bwd_sums_kernel(const GT* g, const float* mask,
                                    const float* __restrict__ y,
                                    const float* __restrict__ mean,
                                    const float* __restrict__ rstd,
@@ -523,7 +928,7 @@ __global__ void bn_bwd_sums_kernel(const float* g, const float* mask,
       const size_t i = (size_t)row * C + c;
       const float yh = (y[i] - mu) * rs;
       const bool on = mask ? mask[i] > 0.f : fmaf(yh, ga, be) > 0.f;
-      const float dp = on ? g[i] : 0.f;
+      const float dp = on ? to_f(g[i]) : 0.f;
       if (dp_out) dp_out[i] = dp;
       sa += dp;
       sb = fmaf(dp, yh, sb);
@@ -614,6 +1019,19 @@ struct Arena {
   }
 };
 
+// Where a sequence stages an fp32 tensor that ends in the output `out`:
+// in out itself under fp32 compute (normalized or summed in place), in a
+// workspace buffer of its own under bf16 compute (out is bf16 there).
+template <typename T>
+float* staged(Arena& ar, T* out, size_t count) {
+  if constexpr (std::is_same<T, float>::value)
+    return out;
+  else
+    return ar.take(count);
+}
+
+constexpr const float* kNone = nullptr;  // an absent fp32 operand
+
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 inline int elementwise_grid(long long total) {
@@ -650,6 +1068,7 @@ BnScratch bn_scratch(Arena& ar, int rows, int C) {
   return s;
 }
 
+// The fp32 convolution (fp32 weights): conv_gemm_kernel.
 cudaError_t conv(bool trans, const float* src, const float* wt, const float* psc,
          const float* psh, const float* residual, float* out, BnScratch* stats,
          const ConvGeom& g, cudaStream_t st) {
@@ -662,6 +1081,24 @@ cudaError_t conv(bool trans, const float* src, const float* wt, const float* psc
   else
     conv_gemm_kernel<false><<<grid, THREADS, 0, st>>>(src, wt, psc, psh,
                                                       residual, out, pm, pq, g);
+  return cudaGetLastError();
+}
+
+// The bf16 convolution (bf16 weights): conv_gemm_bf16_kernel, src bf16 or
+// fp32, out fp32 (staged) or bf16 (an output), residual fp32.
+template <typename SrcT, typename OutT>
+cudaError_t conv(bool trans, const SrcT* src, const bf16* wt, const float* psc,
+                 const float* psh, const float* residual, OutT* out,
+                 BnScratch* stats, const ConvGeom& g, cudaStream_t st) {
+  const dim3 grid(conv_tiles(g), cdiv(g.cout, BN));
+  float* pm = stats ? stats->pa : nullptr;
+  float* pq = stats ? stats->pb : nullptr;
+  if (trans)
+    conv_gemm_bf16_kernel<true, SrcT, OutT><<<grid, THREADS, 0, st>>>(
+        src, wt, psc, psh, residual, out, pm, pq, g);
+  else
+    conv_gemm_bf16_kernel<false, SrcT, OutT><<<grid, THREADS, 0, st>>>(
+        src, wt, psc, psh, residual, out, pm, pq, g);
   return cudaGetLastError();
 }
 
@@ -683,23 +1120,25 @@ cudaError_t fold_saved(const BnScratch& s, const float* mean, const float* var,
   return cudaGetLastError();
 }
 
-cudaError_t apply(const float* y, const float* sc, const float* sh, const float* r,
-          const float* rsc, const float* rsh, float* out, long long rows, int C,
+template <typename RT, typename OutT>
+cudaError_t apply(const float* y, const float* sc, const float* sh, const RT* r,
+          const float* rsc, const float* rsh, OutT* out, long long rows, int C,
           bool relu, cudaStream_t st) {
   const long long total = rows * C;
-  bn_apply_kernel<<<elementwise_grid(total), THREADS, 0, st>>>(
+  bn_apply_kernel<RT, OutT><<<elementwise_grid(total), THREADS, 0, st>>>(
       y, sc, sh, r, rsc, rsh, out, total, C, relu ? 1 : 0);
   return cudaGetLastError();
 }
 
 // Backward sums of one BN: dp (into dp_out unless null) and the two
 // per-channel sums into sum_dp / sum_dpyh.
-cudaError_t bwd_sums(const float* g, const float* mask, const float* y,
+template <typename GT>
+cudaError_t bwd_sums(const GT* g, const float* mask, const float* y,
              const float* mean, const BnScratch& s, const float* gamma,
              const float* beta, float* dp_out, float* sum_dp, float* sum_dpyh,
              int rows, int C, cudaStream_t st) {
   const int blocks = cdiv(rows, EW_ROWS);
-  bn_bwd_sums_kernel<<<dim3(blocks, cdiv(C, 32)), dim3(32, 8), 0, st>>>(
+  bn_bwd_sums_kernel<GT><<<dim3(blocks, cdiv(C, 32)), dim3(32, 8), 0, st>>>(
       g, mask, y, mean, s.rstd, gamma, beta, dp_out, s.pa, s.pb, rows, C);
   CHECK(cudaGetLastError());
   sum_partials_kernel<<<cdiv(C, 32), dim3(32, 32), 0, st>>>(
@@ -718,34 +1157,61 @@ cudaError_t bwd_apply(const float* dp, const float* y, const float* mean,
 }
 
 // Rows of the weight-gradient GEMM per split: enough splits to fill about
-// WAVES CTAs, each split a whole number of WM-row chunks.
-int wgrad_rows_per_split(const ConvGeom& g) {
+// WAVES CTAs, each split a whole number of wm-row chunks (WM under fp32
+// compute, HWM under bf16).
+int wgrad_rows_per_split(const ConvGeom& g, int wm) {
   const long long M = (long long)g.n * g.ho * g.wo;
   const int K = g.ks * g.ks * g.cin;
   const int ctas = cdiv(K, WK) * cdiv(g.cout, WN);
-  const int chunks = cdiv(M, WM);
+  const int chunks = cdiv(M, wm);
   int splits = cdiv(WAVES, ctas);
   if (splits > chunks) splits = chunks;
   if (splits < 1) splits = 1;
-  return cdiv(chunks, splits) * WM;
+  return cdiv(chunks, splits) * wm;
 }
 
+template <typename T>
+constexpr int wgrad_chunk() {
+  return std::is_same<T, float>::value ? WM : HWM;
+}
+
+template <typename T>
 size_t wgrad_scratch(const ConvGeom& g) {
   const long long M = (long long)g.n * g.ho * g.wo;
-  return (size_t)cdiv(M, wgrad_rows_per_split(g)) * g.ks * g.ks * g.cin * g.cout;
+  return (size_t)cdiv(M, wgrad_rows_per_split(g, wgrad_chunk<T>())) * g.ks * g.ks *
+         g.cin * g.cout;
 }
 
+// The fp32 weight gradient: conv_wgrad_kernel, then the fp64 combine.
 cudaError_t wgrad(const float* src, const float* psc, const float* psh, const float* dy,
           float* part, float* dw, const ConvGeom& g, cudaStream_t st) {
   const long long M = (long long)g.n * g.ho * g.wo;
   const int K = g.ks * g.ks * g.cin;
-  const int m_per = wgrad_rows_per_split(g);
+  const int m_per = wgrad_rows_per_split(g, WM);
   const int splits = cdiv(M, m_per);
   conv_wgrad_kernel<<<dim3(cdiv(K, WK), cdiv(g.cout, WN), splits), THREADS, 0,
                       st>>>(src, psc, psh, dy, part, g, m_per);
   CHECK(cudaGetLastError());
   const long long count = (long long)K * g.cout;
-  split_reduce_kernel<<<elementwise_grid(count), THREADS, 0, st>>>(
+  split_reduce_kernel<float><<<elementwise_grid(count), THREADS, 0, st>>>(
+      part, splits, count, dw);
+  return cudaGetLastError();
+}
+
+// The bf16 weight gradient (bf16 dw): conv_wgrad_bf16_kernel, then the
+// same combine, rounded once to bf16.
+template <typename SrcT>
+cudaError_t wgrad(const SrcT* src, const float* psc, const float* psh, const float* dy,
+                  float* part, bf16* dw, const ConvGeom& g, cudaStream_t st) {
+  const long long M = (long long)g.n * g.ho * g.wo;
+  const int K = g.ks * g.ks * g.cin;
+  const int m_per = wgrad_rows_per_split(g, HWM);
+  const int splits = cdiv(M, m_per);
+  conv_wgrad_bf16_kernel<SrcT><<<dim3(cdiv(K, WK), cdiv(g.cout, WN), splits), THREADS,
+                                  0, st>>>(src, psc, psh, dy, part, g, m_per);
+  CHECK(cudaGetLastError());
+  const long long count = (long long)K * g.cout;
+  split_reduce_kernel<bf16><<<elementwise_grid(count), THREADS, 0, st>>>(
       part, splits, count, dw);
   return cudaGetLastError();
 }
@@ -754,23 +1220,30 @@ inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
 
 }  // namespace
 
-extern "C" {
+// ---------------------------------------------------------------------------
+// Argument blocks (T: float or bf16, the compute dtype of x, the kernels,
+// gout, out, dx and the weight gradients; every per-channel row is fp32)
+// and the launch sequences, one template per entry point pair. Outside the
+// anonymous namespace: the C entry points take these types, and would
+// lose their external linkage with them.
+// ---------------------------------------------------------------------------
 
 // One argument block for both stem entry points; fields an entry point
 // does not use are null. HWIO kernel k [3, 3, cin, cout]; kt is k with its
 // channel axes swapped, [3, 3, cout, cin] (made by the caller).
+template <typename T>
 struct StemArgs {
-  const float* x;      // [n, h, w, cin]
-  const float* k;
-  const float* kt;     // backward, when dx is wanted
+  const T* x;          // [n, h, w, cin]
+  const T* k;
+  const T* kt;         // backward, when dx is wanted
   const float* gamma;  // [cout]
   const float* beta;
-  const float* gout;   // backward: [n, h, w, cout]
-  float* out;          // forward: [n, h, w, cout]
+  const T* gout;       // backward: [n, h, w, cout]
+  T* out;              // forward: [n, h, w, cout]
   float* mean;         // forward writes, backward reads: [cout]
   float* var;
-  float* dx;           // backward outputs (dx may be null)
-  float* dk;
+  T* dx;               // backward outputs (dx may be null)
+  T* dk;
   float* dgamma;
   float* dbeta;
   int n, h, w, cin, cout;
@@ -782,31 +1255,32 @@ struct StemArgs {
 // caller's stream, does not synchronise, and returns the first
 // cudaGetLastError() that is not cudaSuccess (0 when all launched).
 
-int stem_fwd(const StemArgs* a, void* ws, size_t* ws_bytes, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+static int stem_fwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
   const ConvGeom g = geom(a->n, a->h, a->w, a->cin, a->h, a->w, a->cout, 3, 1, 1);
   const int rows = a->n * a->h * a->w;
   Arena ar{static_cast<char*>(ws)};
   BnScratch s = bn_scratch(ar, rows, a->cout);
+  float* y = staged(ar, a->out, (size_t)rows * a->cout);
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
   }
-  CHECK(conv(false, a->x, a->k, nullptr, nullptr, nullptr, a->out, &s, g, st));
+  CHECK(conv(false, a->x, a->k, nullptr, nullptr, nullptr, y, &s, g, st));
   CHECK(finalize(s, g, a->gamma, a->beta, a->eps, a->mean, a->var, st));
-  return static_cast<int>(apply(a->out, s.scale, s.shift, nullptr, nullptr,
+  return static_cast<int>(apply(y, s.scale, s.shift, kNone, nullptr,
                                 nullptr, a->out, rows, a->cout, true, st));
 }
 
-int stem_bwd(const StemArgs* a, void* ws, size_t* ws_bytes, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+static int stem_bwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
   const ConvGeom g = geom(a->n, a->h, a->w, a->cin, a->h, a->w, a->cout, 3, 1, 1);
   const int rows = a->n * a->h * a->w;
   Arena ar{static_cast<char*>(ws)};
   BnScratch s = bn_scratch(ar, rows, a->cout);
   float* y = ar.take((size_t)rows * a->cout);
   float* dp = ar.take((size_t)rows * a->cout);
-  float* part = ar.take(wgrad_scratch(g));
+  float* part = ar.take(wgrad_scratch<T>(g));
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
@@ -833,16 +1307,17 @@ int stem_bwd(const StemArgs* a, void* ws, size_t* ws_bytes, void* stream) {
 // written by the forward and read by the backward. proj selects the
 // 1x1/stride conv + BN shortcut; without it the shortcut is x itself
 // (stride 1, cin == 4P).
+template <typename T>
 struct BotArgs {
-  const float* x;  // [n, hi, wi, cin]
-  const float* k1;
-  const float* k2;
-  const float* k3;
-  const float* ks;
-  const float* k1t;
-  const float* k2t;
-  const float* k3t;
-  const float* kst;
+  const T* x;  // [n, hi, wi, cin]
+  const T* k1;
+  const T* k2;
+  const T* k3;
+  const T* ks;
+  const T* k1t;
+  const T* k2t;
+  const T* k3t;
+  const T* kst;
   const float* g1;
   const float* b1;
   const float* g2;
@@ -851,8 +1326,8 @@ struct BotArgs {
   const float* b3;
   const float* gs;
   const float* bs;
-  const float* gout;  // backward: [n, ho, wo, 4P]
-  float* out;         // forward: [n, ho, wo, 4P]
+  const T* gout;  // backward: [n, ho, wo, 4P]
+  T* out;         // forward: [n, ho, wo, 4P]
   float* m1;
   float* v1;
   float* m2;
@@ -861,11 +1336,11 @@ struct BotArgs {
   float* v3;
   float* ms;
   float* vs;
-  float* dx;
-  float* dk1;
-  float* dk2;
-  float* dk3;
-  float* dks;
+  T* dx;
+  T* dk1;
+  T* dk2;
+  T* dk3;
+  T* dks;
   float* dg1;
   float* db1;
   float* dg2;
@@ -883,7 +1358,8 @@ struct BotGeoms {
   int rows1, rows2, P, C4;
 };
 
-static BotGeoms bot_geoms(const BotArgs* a) {
+template <typename T>
+static BotGeoms bot_geoms(const BotArgs<T>* a) {
   BotGeoms b;
   const int s = a->stride, ho = a->hi / s, wo = a->wi / s;
   b.P = a->planes;
@@ -897,8 +1373,8 @@ static BotGeoms bot_geoms(const BotArgs* a) {
   return b;
 }
 
-int bottleneck_fwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+static int bottleneck_fwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
   const BotGeoms b = bot_geoms(a);
   Arena ar{static_cast<char*>(ws)};
   float* y1 = ar.take((size_t)b.rows1 * b.P);
@@ -908,6 +1384,8 @@ int bottleneck_fwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
   BnScratch s2 = bn_scratch(ar, b.rows2, b.P);
   BnScratch s3 = bn_scratch(ar, b.rows2, b.C4);
   BnScratch ss = bn_scratch(ar, b.rows2, b.C4);
+  // y3 is staged in out and normalized in place (fp32)
+  float* y3 = staged(ar, a->out, (size_t)b.rows2 * b.C4);
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
@@ -920,18 +1398,17 @@ int bottleneck_fwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
   }
   CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, &s2, b.c2, st));
   CHECK(finalize(s2, b.c2, a->g2, a->b2, a->eps, a->m2, a->v2, st));
-  // y3 is staged in out and normalized in place
-  CHECK(conv(false, y2, a->k3, s2.scale, s2.shift, nullptr, a->out, &s3, b.c3, st));
+  CHECK(conv(false, y2, a->k3, s2.scale, s2.shift, nullptr, y3, &s3, b.c3, st));
   CHECK(finalize(s3, b.c3, a->g3, a->b3, a->eps, a->m3, a->v3, st));
   if (a->proj)
-    return static_cast<int>(apply(a->out, s3.scale, s3.shift, ys, ss.scale,
+    return static_cast<int>(apply(y3, s3.scale, s3.shift, ys, ss.scale,
                                   ss.shift, a->out, b.rows2, b.C4, true, st));
-  return static_cast<int>(apply(a->out, s3.scale, s3.shift, a->x, nullptr,
+  return static_cast<int>(apply(y3, s3.scale, s3.shift, a->x, nullptr,
                                 nullptr, a->out, b.rows2, b.C4, true, st));
 }
 
-int bottleneck_bwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+static int bottleneck_bwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
   const BotGeoms b = bot_geoms(a);
   const int P = b.P, C4 = b.C4;
   Arena ar{static_cast<char*>(ws)};
@@ -947,10 +1424,12 @@ int bottleneck_bwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
   BnScratch s2 = bn_scratch(ar, b.rows2, P);
   BnScratch s3 = bn_scratch(ar, b.rows2, C4);
   BnScratch ss = bn_scratch(ar, b.rows2, C4);
-  size_t wpart = max_sz(max_sz(wgrad_scratch(b.c1), wgrad_scratch(b.c2)),
-                        wgrad_scratch(b.c3));
-  if (a->proj) wpart = max_sz(wpart, wgrad_scratch(b.cs));
+  size_t wpart = max_sz(max_sz(wgrad_scratch<T>(b.c1), wgrad_scratch<T>(b.c2)),
+                        wgrad_scratch<T>(b.c3));
+  if (a->proj) wpart = max_sz(wpart, wgrad_scratch<T>(b.cs));
   float* part = ar.take(wpart);
+  // the shortcut's share of dx, summed into dx by the last conv's epilogue
+  float* dxs = a->proj ? staged(ar, a->dx, (size_t)b.rows1 * a->cin) : nullptr;
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
@@ -1008,9 +1487,9 @@ int bottleneck_bwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
   if (a->proj) {
     const ConvGeom gst = geom(a->n, b.cs.ho, b.cs.wo, C4, a->hi, a->wi, a->cin, 1,
                               a->stride, 0);
-    CHECK(conv(true, ys, a->kst, nullptr, nullptr, nullptr, a->dx, nullptr,
+    CHECK(conv(true, ys, a->kst, nullptr, nullptr, nullptr, dxs, nullptr,
                             gst, st));
-    CHECK(conv(false, da1, a->k1t, nullptr, nullptr, a->dx, a->dx, nullptr,
+    CHECK(conv(false, da1, a->k1t, nullptr, nullptr, dxs, a->dx, nullptr,
                             g1t, st));
   } else {
     CHECK(conv(false, da1, a->k1t, nullptr, nullptr, z, a->dx, nullptr, g1t,
@@ -1026,32 +1505,33 @@ int bottleneck_bwd(const BotArgs* a, void* ws, size_t* ws_bytes, void* stream) {
 // ks [cin, c] (projection only); the backward also takes k1t [3, 3, c, cin]
 // and k2t [3, 3, c, c] (the channel axes swapped) and kst [c, cin]. The
 // moments are written by the forward and read by the backward.
+template <typename T>
 struct BlockArgs {
-  const float* x;  // [n, hi, wi, cin]
-  const float* k1;
-  const float* k2;
-  const float* ks;
-  const float* k1t;
-  const float* k2t;
-  const float* kst;
+  const T* x;  // [n, hi, wi, cin]
+  const T* k1;
+  const T* k2;
+  const T* ks;
+  const T* k1t;
+  const T* k2t;
+  const T* kst;
   const float* g1;
   const float* b1;
   const float* g2;
   const float* b2;
   const float* gs;
   const float* bs;
-  const float* gout;  // backward: [n, ho, wo, c]
-  float* out;         // forward: [n, ho, wo, c]
+  const T* gout;  // backward: [n, ho, wo, c]
+  T* out;         // forward: [n, ho, wo, c]
   float* m1;
   float* v1;
   float* m2;
   float* v2;
   float* ms;
   float* vs;
-  float* dx;
-  float* dk1;
-  float* dk2;
-  float* dks;
+  T* dx;
+  T* dk1;
+  T* dk2;
+  T* dks;
   float* dg1;
   float* db1;
   float* dg2;
@@ -1067,7 +1547,8 @@ struct BlockGeoms {
   int rows;             // n * ho * wo: every BN of the block counts over it
 };
 
-static BlockGeoms block_geoms(const BlockArgs* a) {
+template <typename T>
+static BlockGeoms block_geoms(const BlockArgs<T>* a) {
   BlockGeoms b;
   const int s = a->stride, ho = a->hi / s, wo = a->wi / s;
   b.c1 = geom(a->n, a->hi, a->wi, a->cin, ho, wo, a->c, 3, s, 1);
@@ -1077,7 +1558,8 @@ static BlockGeoms block_geoms(const BlockArgs* a) {
   return b;
 }
 
-static int block_fwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
+template <typename T>
+static int block_fwd(const BlockArgs<T>* a, bool proj, void* ws, size_t* ws_bytes,
                      cudaStream_t st) {
   const BlockGeoms b = block_geoms(a);
   const int C = a->c;
@@ -1087,6 +1569,8 @@ static int block_fwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
   BnScratch s1 = bn_scratch(ar, b.rows, C);
   BnScratch s2 = bn_scratch(ar, b.rows, C);
   BnScratch ss = bn_scratch(ar, b.rows, C);
+  // y2 is staged in out and normalized in place (fp32)
+  float* y2 = staged(ar, a->out, (size_t)b.rows * C);
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
@@ -1097,17 +1581,17 @@ static int block_fwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
     CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, &ss, b.cs, st));
     CHECK(finalize(ss, b.cs, a->gs, a->bs, a->eps, a->ms, a->vs, st));
   }
-  // y2 is staged in out and normalized in place
-  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, a->out, &s2, b.c2, st));
+  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, &s2, b.c2, st));
   CHECK(finalize(s2, b.c2, a->g2, a->b2, a->eps, a->m2, a->v2, st));
   if (proj)
-    return static_cast<int>(apply(a->out, s2.scale, s2.shift, ys, ss.scale,
-                                  ss.shift, a->out, b.rows, C, true, st));
-  return static_cast<int>(apply(a->out, s2.scale, s2.shift, a->x, nullptr,
+    return static_cast<int>(apply(y2, s2.scale, s2.shift, ys,
+                                  ss.scale, ss.shift, a->out, b.rows, C, true, st));
+  return static_cast<int>(apply(y2, s2.scale, s2.shift, a->x, nullptr,
                                 nullptr, a->out, b.rows, C, true, st));
 }
 
-static int block_bwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
+template <typename T>
+static int block_bwd(const BlockArgs<T>* a, bool proj, void* ws, size_t* ws_bytes,
                      cudaStream_t st) {
   const BlockGeoms b = block_geoms(a);
   const int C = a->c, rows = b.rows;
@@ -1121,9 +1605,11 @@ static int block_bwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
   BnScratch s1 = bn_scratch(ar, rows, C);
   BnScratch s2 = bn_scratch(ar, rows, C);
   BnScratch ss = bn_scratch(ar, rows, C);
-  size_t wpart = max_sz(wgrad_scratch(b.c1), wgrad_scratch(b.c2));
-  if (proj) wpart = max_sz(wpart, wgrad_scratch(b.cs));
+  size_t wpart = max_sz(wgrad_scratch<T>(b.c1), wgrad_scratch<T>(b.c2));
+  if (proj) wpart = max_sz(wpart, wgrad_scratch<T>(b.cs));
   float* part = ar.take(wpart);
+  // the shortcut's share of dx, summed into dx by the last conv's epilogue
+  float* dxs = proj ? staged(ar, a->dx, (size_t)a->n * a->hi * a->wi * a->cin) : nullptr;
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
@@ -1136,7 +1622,8 @@ static int block_bwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
   if (proj) {
     CHECK(fold_saved(ss, a->ms, a->vs, a->gs, a->bs, a->eps, C, st));
     CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, nullptr, b.cs, st));
-    CHECK(apply(y2, s2.scale, s2.shift, ys, ss.scale, ss.shift, z, rows, C, true, st));
+    CHECK(apply(y2, s2.scale, s2.shift, ys, ss.scale, ss.shift,
+                z, rows, C, true, st));
     // the shortcut BN: sum dz * yhatS (its sum dz is BN2's)
     CHECK(bwd_sums(a->gout, z, ys, a->ms, ss, nullptr, nullptr, nullptr, tmp,
                    a->dgs, rows, C, st));
@@ -1170,28 +1657,43 @@ static int block_bwd(const BlockArgs* a, bool proj, void* ws, size_t* ws_bytes,
   if (proj) {
     const ConvGeom gst = geom(a->n, b.cs.ho, b.cs.wo, C, a->hi, a->wi, a->cin, 1,
                               a->stride, 0);
-    CHECK(conv(true, ys, a->kst, nullptr, nullptr, nullptr, a->dx, nullptr, gst, st));
-    CHECK(conv(true, da1, a->k1t, nullptr, nullptr, a->dx, a->dx, nullptr, g1t, st));
+    CHECK(conv(true, ys, a->kst, nullptr, nullptr, nullptr, dxs, nullptr, gst, st));
+    CHECK(conv(true, da1, a->k1t, nullptr, nullptr, dxs, a->dx, nullptr, g1t, st));
   } else {
     CHECK(conv(true, da1, a->k1t, nullptr, nullptr, z, a->dx, nullptr, g1t, st));
   }
   return 0;
 }
 
-int basic_fwd(const BlockArgs* a, void* ws, size_t* ws_bytes, void* stream) {
-  return block_fwd(a, false, ws, ws_bytes, static_cast<cudaStream_t>(stream));
-}
+extern "C" {
 
-int basic_bwd(const BlockArgs* a, void* ws, size_t* ws_bytes, void* stream) {
-  return block_bwd(a, false, ws, ws_bytes, static_cast<cudaStream_t>(stream));
-}
+// The entry points: each fp32 one and its bf16 twin run the same sequence.
+#define ENTRY(name, impl, Args)                                                   \
+  int name(const Args<float>* a, void* ws, size_t* ws_bytes, void* stream) {      \
+    return impl(a, ws, ws_bytes, static_cast<cudaStream_t>(stream));              \
+  }                                                                               \
+  int name##_bf16(const Args<bf16>* a, void* ws, size_t* ws_bytes, void* stream) { \
+    return impl(a, ws, ws_bytes, static_cast<cudaStream_t>(stream));              \
+  }
 
-int proj_fwd(const BlockArgs* a, void* ws, size_t* ws_bytes, void* stream) {
-  return block_fwd(a, true, ws, ws_bytes, static_cast<cudaStream_t>(stream));
-}
+ENTRY(stem_fwd, stem_fwd_impl, StemArgs)
+ENTRY(stem_bwd, stem_bwd_impl, StemArgs)
+ENTRY(bottleneck_fwd, bottleneck_fwd_impl, BotArgs)
+ENTRY(bottleneck_bwd, bottleneck_bwd_impl, BotArgs)
+#undef ENTRY
 
-int proj_bwd(const BlockArgs* a, void* ws, size_t* ws_bytes, void* stream) {
-  return block_bwd(a, true, ws, ws_bytes, static_cast<cudaStream_t>(stream));
-}
+#define BLOCK_ENTRY(name, fn, proj)                                                    \
+  int name(const BlockArgs<float>* a, void* ws, size_t* ws_bytes, void* stream) {      \
+    return fn(a, proj, ws, ws_bytes, static_cast<cudaStream_t>(stream));               \
+  }                                                                                    \
+  int name##_bf16(const BlockArgs<bf16>* a, void* ws, size_t* ws_bytes, void* stream) { \
+    return fn(a, proj, ws, ws_bytes, static_cast<cudaStream_t>(stream));               \
+  }
+
+BLOCK_ENTRY(basic_fwd, block_fwd, false)
+BLOCK_ENTRY(basic_bwd, block_bwd, false)
+BLOCK_ENTRY(proj_fwd, block_fwd, true)
+BLOCK_ENTRY(proj_bwd, block_bwd, true)
+#undef BLOCK_ENTRY
 
 }  // extern "C"

@@ -34,6 +34,17 @@ encoder passes the choice down to its blocks as ``forward``'s ``fused``
 argument. The ``nn.Conv2d``/``nn.BatchNorm2d`` modules stay the owners of the
 parameters and running buffers, so ``state_dict()`` does not depend on the
 path; eval mode and sites the gates reject stay eager.
+
+``compute_dtype`` (``ResNet.set_compute_dtype``, beside ``set_conv_impl``):
+fp32 (the default; the model computes in the dtype of its parameters and
+input) or bf16, the JAX package's ``--bf16`` (``models/resnet.py:297``,
+Flax ``dtype``/``param_dtype``): the input is cast to bf16 at the encoder's
+entry, eager convs cast their fp32 weights to bf16 per forward and return
+bf16, BN runs on bf16 activations with fp32 statistics and buffers
+(``models/norm.batch_norm``), the fused sites take bf16 activations and
+the fp32 weights (the ops cast them), and the pooled features come back in
+fp32. Parameters and buffers stay fp32, so checkpoints move between the
+two dtypes.
 """
 
 from __future__ import annotations
@@ -41,12 +52,22 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Sequence, Tuple, Type, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from simclr_pytorch_distributed_tpu_torch.models.norm import apply_running_update
+from simclr_pytorch_distributed_tpu_torch.models.norm import apply_running_update, batch_norm
 from simclr_pytorch_distributed_tpu_torch.ops import fused_conv
 
 CONV_IMPLS = ("eager", "fused")
+
+
+def conv(module: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``module`` applied to ``x``, its weight cast to ``x.dtype`` when the
+    two differ (an fp32 weight under bf16 compute)."""
+    if module.weight.dtype == x.dtype:
+        return module(x)
+    return F.conv2d(x, module.weight.to(x.dtype), None, module.stride, module.padding,
+                    module.dilation, module.groups)
 
 
 class BasicBlock(nn.Module):
@@ -71,13 +92,14 @@ class BasicBlock(nn.Module):
             fused
             and self.training
             and fused_conv.supports_block(
-                n, h, w, self.conv1.out_channels, stride=self.stride, in_channels=cin
+                n, h, w, self.conv1.out_channels, stride=self.stride, in_channels=cin,
+                dtype=fused_conv.gate_dtype(x),
             )
         ):
             return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return torch.relu(out + self.shortcut(x))
+        out = torch.relu(batch_norm(self.bn1, conv(self.conv1, x)))
+        out = batch_norm(self.bn2, conv(self.conv2, out))
+        return torch.relu(out + _shortcut_forward(self.shortcut, x))
 
     def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC train-mode forward through ``fused_basic_block`` (identity
@@ -130,14 +152,15 @@ class Bottleneck(nn.Module):
             fused
             and self.training
             and fused_conv.supports_bottleneck(
-                n, h, w, self.conv2.in_channels, stride=self.stride, in_channels=cin
+                n, h, w, self.conv2.in_channels, stride=self.stride, in_channels=cin,
+                dtype=fused_conv.gate_dtype(x),
             )
         ):
             return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return torch.relu(out + self.shortcut(x))
+        out = torch.relu(batch_norm(self.bn1, conv(self.conv1, x)))
+        out = torch.relu(batch_norm(self.bn2, conv(self.conv2, out)))
+        out = batch_norm(self.bn3, conv(self.conv3, out))
+        return torch.relu(out + _shortcut_forward(self.shortcut, x))
 
     def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC train-mode forward through ``fused_bottleneck_block``, then
@@ -175,6 +198,14 @@ def _shortcut(in_planes: int, out_planes: int, stride: int) -> nn.Sequential:
     )
 
 
+def _shortcut_forward(shortcut: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """The eager shortcut: ``x`` itself, or its 1x1/s conv + BN."""
+    if not len(shortcut):
+        return x
+    conv_s, bn_s = shortcut
+    return batch_norm(bn_s, conv(conv_s, x))
+
+
 Block = Union[Type[BasicBlock], Type[Bottleneck]]
 
 
@@ -198,6 +229,7 @@ class ResNet(nn.Module):
             if isinstance(m, nn.Conv2d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
         self.conv_impl = "eager"
+        self.compute_dtype = torch.float32
 
     def set_conv_impl(self, conv_impl: str) -> "ResNet":
         """Route train-mode forwards through ``conv_impl`` ('eager' or
@@ -207,12 +239,24 @@ class ResNet(nn.Module):
         self.conv_impl = conv_impl
         return self
 
+    def set_compute_dtype(self, dtype: torch.dtype) -> "ResNet":
+        """Compute in ``dtype`` (fp32 or bf16): activations and conv
+        operands; parameters, buffers and BN statistics stay fp32."""
+        if dtype not in fused_conv.COMPUTE_DTYPES:
+            raise ValueError(f"compute dtype must be one of {fused_conv.COMPUTE_DTYPES}, "
+                             f"got {dtype}")
+        self.compute_dtype = dtype
+        return self
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.bfloat16:
+            x = x.to(torch.bfloat16)
         n, h, w, cin = x.shape
         if (
             self.conv_impl == "fused"
             and self.training
-            and fused_conv.supports_stem(n, h, w, cin, self.conv1.out_channels)
+            and fused_conv.supports_stem(n, h, w, cin, self.conv1.out_channels,
+                                         dtype=fused_conv.gate_dtype(x))
         ):
             out, m, v = fused_conv.fused_conv_bn_relu(
                 x, self.conv1.weight.permute(2, 3, 1, 0), self.bn1.weight, self.bn1.bias,
@@ -222,12 +266,13 @@ class ResNet(nn.Module):
             x = out.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
         else:
             x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
-            x = torch.relu(self.bn1(self.conv1(x)))
+            x = torch.relu(batch_norm(self.bn1, conv(self.conv1, x)))
         fused = self.conv_impl == "fused"
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
                 x = block(x, fused)
-        return x.mean(dim=(2, 3))
+        feats = x.mean(dim=(2, 3))
+        return feats.float() if feats.dtype == torch.bfloat16 else feats
 
 
 # name -> (block, blocks per stage); resnet10, one BasicBlock per stage, is
@@ -271,9 +316,11 @@ MODEL_DICT: Dict[str, Tuple[Callable[[], ResNet], int]] = {
 }
 
 
-def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
-    """The per-site geometry walk for ``--conv_impl fused`` (the JAX
-    package's ``fused_site_plan``, ``models/resnet.py:400-469``).
+def fused_site_plan(model: str, rows: int, size: int,
+                    dtype: torch.dtype = torch.float32) -> List[dict]:
+    """The per-site geometry walk for ``--conv_impl fused`` in compute dtype
+    ``dtype`` (the JAX package's ``fused_site_plan``,
+    ``models/resnet.py:400-469``).
 
     It walks ``STAGE_PLANS`` as ``ResNet.__init__`` does, building no
     model, and asks the same
@@ -291,7 +338,7 @@ def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
     sites = [{
         "name": "stem", "kind": "stem", "h": h, "w": w, "in_channels": 3,
         "width": 64, "stride": 1,
-        "admitted": fused_conv.supports_stem(rows, h, w, 3, 64),
+        "admitted": fused_conv.supports_stem(rows, h, w, 3, 64, dtype=dtype),
         "desc": f"stem 3->64@{h}x{w}",
     }]
     in_c = 64
@@ -302,12 +349,12 @@ def fused_site_plan(model: str, rows: int, size: int) -> List[dict]:
             if block_cls is Bottleneck:
                 kind = "bottleneck"
                 admitted = fused_conv.supports_bottleneck(
-                    rows, h, w, width, stride=stride, in_channels=in_c
+                    rows, h, w, width, stride=stride, in_channels=in_c, dtype=dtype
                 )
             else:
                 kind = "basic" if (stride == 1 and in_c == width) else "proj"
                 admitted = fused_conv.supports_block(
-                    rows, h, w, width, stride=stride, in_channels=in_c
+                    rows, h, w, width, stride=stride, in_channels=in_c, dtype=dtype
                 )
             out_c = width * block_cls.expansion
             sites.append({

@@ -17,21 +17,37 @@ their plain forms, the port's counterpart of the JAX package's
   replace ``_bot_fwd_kernel``/``_bot_bwd_kernel``.
 
 They take the JAX package's layout: NHWC activations, HWIO 3x3 kernels and
-``[Cin, Cout]`` (or ``(1, 1, Cin, Cout)``) 1x1 kernels, all fp32, and return
-the output plus the batch mean and BIASED variance of every BN, in the order
-of ``pallas_conv.py``. The caller applies the running-stat update
+``[Cin, Cout]`` (or ``(1, 1, Cin, Cout)``) 1x1 kernels, and return the output
+plus the batch mean and BIASED variance of every BN, in the order of
+``pallas_conv.py``. The caller applies the running-stat update
 (``models/norm.py``). The moments are ancillary: their cotangents are
 dropped, as in the Pallas ops' custom VJPs, and the backward keeps only
 ``x``, the weights and the moments (it recomputes the convolutions).
+
+Compute dtype: ``x.dtype``, fp32 or bf16, as the Pallas ops infer it
+(``pallas_conv._compute_dtype``). Under bf16 the kernels take bf16 ``x``,
+weights and upstream gradient and return bf16 ``out``, ``dx`` and weight
+gradients; BN parameters, moments and their gradients are fp32 in both.
+The bf16 plain forms round exactly where the Pallas kernels round: operands
+and weights to bf16, products in fp32 on the rounded values (exact, so this
+is fp32 accumulation of bf16 operands), ``a1``/``a2`` to bf16 before the
+next conv, each cotangent before the transposed product and the weight
+gradient it feeds, and ``out``, ``dx`` and every ``dW`` at the end; the
+pre-BN ``y``, the statistics and the BN backward stay fp32. The public ops
+take fp32 weights, hand the kernels copies in the compute dtype and return
+their gradients widened back (the VJP of the JAX wrappers'
+``kernel.astype(cdt)``).
 
 Dispatch: each entry point first raises unless its ``supports_*`` gate
 admits the geometry (on either device); then tensors on the CPU take the
 plain PyTorch forms below, forward and
 backward (the backward form spells out the Pallas backward's algebra, not
-autograd through the plain forward); CUDA tensors launch the kernels or
+autograd through the plain forward; on the CPU they also run in float64,
+the tests' exact yardstick); CUDA tensors launch the kernels or
 raise; any other device raises. There is no fallback from a kernel to a
-plain form. The ``*_launches`` counters (stem, basic, proj and bottleneck,
-forward and backward) count entry-point calls on the card, one per call
+plain form or to another dtype. The ``*_launches`` counters (stem, basic,
+proj and bottleneck, forward and backward, each once for fp32 and once
+with ``_bf16`` for bf16) count entry-point calls on the card, one per call
 however many CUDA kernels the call runs.
 """
 
@@ -54,6 +70,17 @@ proj_fwd_launches = 0
 proj_bwd_launches = 0
 bottleneck_fwd_launches = 0
 bottleneck_bwd_launches = 0
+stem_fwd_bf16_launches = 0
+stem_bwd_bf16_launches = 0
+basic_fwd_bf16_launches = 0
+basic_bwd_bf16_launches = 0
+proj_fwd_bf16_launches = 0
+proj_bwd_bf16_launches = 0
+bottleneck_fwd_bf16_launches = 0
+bottleneck_bwd_bf16_launches = 0
+
+# the kernels' compute dtypes (the Pallas ops' _COMPUTE_DTYPES)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 # Rows, and elements of any one tensor, a call may hold: the kernels index
 # rows with 32-bit integers.
@@ -100,8 +127,11 @@ class BlockArgs(ctypes.Structure):
     ]
 
 
-_ENTRY_POINTS = ("stem_fwd", "stem_bwd", "basic_fwd", "basic_bwd", "proj_fwd", "proj_bwd",
-                 "bottleneck_fwd", "bottleneck_bwd")
+_ENTRY_POINTS = tuple(
+    f"{name}{suffix}" for name in ("stem_fwd", "stem_bwd", "basic_fwd", "basic_bwd", "proj_fwd",
+                                   "proj_bwd", "bottleneck_fwd", "bottleneck_bwd")
+    for suffix in ("", "_bf16")
+)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -130,8 +160,31 @@ def _run_entry(lib: ctypes.CDLL, name: str, args: ctypes.Structure,
     native.raise_on_error(fn(ctypes.byref(args), ws.data_ptr(), None, stream), name)
 
 
-def _check(name: str, t: torch.Tensor, shape: Sequence[int]) -> None:
-    native.check_tensor(name, t, torch.float32, shape)
+def _launch(name: str, cdt: torch.dtype, args: ctypes.Structure, device: torch.device) -> None:
+    """Launch entry point ``name`` (``name_bf16`` under bf16 compute) on
+    ``device``'s current stream and count it."""
+    entry = name if cdt == torch.float32 else f"{name}_bf16"
+    _run_entry(_library(), entry, args, device, _stream(device))
+    globals()[f"{entry}_launches"] += 1
+
+
+def _check(name: str, t: torch.Tensor, shape: Sequence[int],
+           dtype: torch.dtype = torch.float32) -> None:
+    native.check_tensor(name, t, dtype, shape)
+
+
+def _launch_dtype(x: torch.Tensor) -> torch.dtype:
+    """The compute dtype of a launch: ``x.dtype``, which must be fp32 or bf16."""
+    if x.dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"the fused conv kernels compute in {COMPUTE_DTYPES}, got x {x.dtype}")
+    return x.dtype
+
+
+def gate_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype to ask a ``supports_*`` gate about for input ``x``: its
+    compute dtype, or fp32 for the CPU's float64 plain forms. The entry
+    points and the model's sites ask alike."""
+    return torch.float32 if x.dtype == torch.float64 and x.device.type == "cpu" else x.dtype
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -144,15 +197,21 @@ def _stream(device: torch.device) -> int:
 
 # ---------------------------------------------------------------------------
 # Admission gates (Hopper). The kernels' shared memory is static and the
-# same for every geometry (about 17 KB per CTA) and their register use is
-# fixed by the tile, so nothing here depends on a memory budget: the gates
-# hold the geometric rules the kernels rely on and the 32-bit index range.
+# same for every geometry (about 17 KB per CTA under fp32, 36 KB under
+# bf16) and their register use is fixed by the tile, so nothing here
+# depends on a memory budget: the gates hold the geometric rules the
+# kernels rely on and the 32-bit index range, and take the compute dtype
+# as the Pallas gates do only to reject dtypes outside COMPUTE_DTYPES (the
+# Pallas gates' VMEM model admits more sites under bf16; these admit fp32
+# and bf16 alike).
 # ---------------------------------------------------------------------------
 
 
-def supports_stem(n: int, h: int, w: int, cin: int, cout: int) -> bool:
-    """True if the fused stem kernels admit ``[n, h, w, cin] -> cout``."""
-    if min(n, h, w, cin, cout) < 1:
+def supports_stem(n: int, h: int, w: int, cin: int, cout: int,
+                  dtype: torch.dtype = torch.float32) -> bool:
+    """True if the fused stem kernels admit ``[n, h, w, cin] -> cout`` in
+    compute dtype ``dtype``."""
+    if dtype not in COMPUTE_DTYPES or min(n, h, w, cin, cout) < 1:
         return False
     return n * h * w * max(cin, cout) <= _MAX_ELEMENTS
 
@@ -160,19 +219,22 @@ def supports_stem(n: int, h: int, w: int, cin: int, cout: int) -> bool:
 def _admit_stem(x, k):
     """Raise unless ``supports_stem`` admits ``x`` and ``k`` (both devices)."""
     n, h, w, cin = x.shape
-    if not supports_stem(n, h, w, cin, k.shape[3]):
-        raise ValueError(f"fused stem does not admit [{n},{h},{w},{cin}]->{k.shape[3]}")
+    if not supports_stem(n, h, w, cin, k.shape[3], dtype=gate_dtype(x)):
+        raise ValueError(f"fused stem does not admit [{n},{h},{w},{cin}]->{k.shape[3]} "
+                         f"{x.dtype}")
 
 
 def supports_block(n: int, h: int, w: int, c: int, *, stride: int = 1,
-                   in_channels: Optional[int] = None) -> bool:
-    """True if the fused BasicBlock kernels admit this geometry: the
+                   in_channels: Optional[int] = None,
+                   dtype: torch.dtype = torch.float32) -> bool:
+    """True if the fused BasicBlock kernels admit this geometry in compute
+    dtype ``dtype``: the
     identity kernels at stride 1 with ``in_channels == c`` (the default),
     the projection kernels otherwise. ``h``/``w`` are the block's INPUT
     spatial dims; stride 2 needs them even (the transposed-conv backward
     assumes ``ho == h // 2`` exactly)."""
     cin = c if in_channels is None else in_channels
-    if stride not in (1, 2):
+    if dtype not in COMPUTE_DTYPES or stride not in (1, 2):
         return False
     if min(n, h, w, c, cin) < 1:
         return False
@@ -186,8 +248,9 @@ def _admit_block(x, k1, stride, proj):
     kernels' kind (identity: stride 1 and ``cin == c``), on both devices."""
     n, h, w, cin = x.shape
     c = k1.shape[3]
-    if not supports_block(n, h, w, c, stride=stride, in_channels=cin):
-        raise ValueError(f"fused BasicBlock does not admit [{n},{h},{w},{cin}]->{c}/s{stride}")
+    if not supports_block(n, h, w, c, stride=stride, in_channels=cin, dtype=gate_dtype(x)):
+        raise ValueError(f"fused BasicBlock does not admit [{n},{h},{w},{cin}]->{c}/s{stride} "
+                         f"{x.dtype}")
     if proj == (stride == 1 and cin == c):
         raise ValueError(f"[{n},{h},{w},{cin}]->{c}/s{stride} is "
                          f"{'an identity' if proj else 'a projection'} geometry; the "
@@ -195,11 +258,13 @@ def _admit_block(x, k1, stride, proj):
 
 
 def supports_bottleneck(n: int, h: int, w: int, planes: int, *,
-                        stride: int = 1, in_channels: int) -> bool:
-    """True if the fused Bottleneck kernels admit this geometry. ``h``/``w``
+                        stride: int = 1, in_channels: int,
+                        dtype: torch.dtype = torch.float32) -> bool:
+    """True if the fused Bottleneck kernels admit this geometry in compute
+    dtype ``dtype``. ``h``/``w``
     are the block's INPUT spatial dims; stride 2 needs them even (the
     transposed-conv backward assumes ``ho == h // 2`` exactly)."""
-    if stride not in (1, 2):
+    if dtype not in COMPUTE_DTYPES or stride not in (1, 2):
         return False
     if min(n, h, w, planes, in_channels) < 1:
         return False
@@ -212,9 +277,10 @@ def _admit_bottleneck(x, k2, stride):
     """Raise unless ``supports_bottleneck`` admits ``x`` (both devices)."""
     n, h, w, cin = x.shape
     p = k2.shape[2]
-    if not supports_bottleneck(n, h, w, p, stride=stride, in_channels=cin):
+    if not supports_bottleneck(n, h, w, p, stride=stride, in_channels=cin,
+                               dtype=gate_dtype(x)):
         raise ValueError(f"fused bottleneck does not admit [{n},{h},{w},{cin}] "
-                         f"planes={p}/s{stride}")
+                         f"planes={p}/s{stride} {x.dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -296,24 +362,38 @@ def _bn_bwd(dp, yh, rs, g, count):
     return dy, dg, db
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand as fp32 (exact); fp32 and float64 pass through."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _rnd(t: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to bf16 and held in fp32 when the compute dtype ``cdt``
+    is bf16 (a Pallas kernel's cast to its compute dtype); else ``t``."""
+    return t.to(cdt).float() if cdt == torch.bfloat16 else t
+
+
 def stem_fwd_reference(x, k, g, b, eps):
     """Plain form of ``stem_fwd``: ``(out, mean, var_biased)``."""
-    y = _conv(x, k)
+    y = _conv(_wide(x), _wide(k))
     m, v = _moments(y)
     _, s, t = _fold(m, v, g, b, eps)
-    return torch.relu(y * s + t), m, v
+    return torch.relu(y * s + t).to(x.dtype), m, v
 
 
 def stem_bwd_reference(x, k, g, b, m, v, gout, eps, need_dx=True):
     """Plain form of ``stem_bwd`` (``pallas_conv.py:460-489``):
     ``(dx or None, dk, dgamma, dbeta)``."""
+    cdt = x.dtype
     n, h, w, _ = x.shape
+    x, k = _wide(x), _wide(k)
     rs = torch.rsqrt(v + eps)
     yh = (_conv(x, k) - m) * rs
-    dp = gout * (yh * g + b > 0)
+    dp = _wide(gout) * (yh * g + b > 0)
     dy, dg, db = _bn_bwd(dp, yh, rs, g, n * h * w)
-    dk = _conv_dw(x, dy, k.shape, 1)
-    dx = _conv_dx(dy, k, 1, h, w) if need_dx else None
+    dy = _rnd(dy, cdt)
+    dk = _conv_dw(x, dy, k.shape, 1).to(cdt)
+    dx = _conv_dx(dy, k, 1, h, w).to(cdt) if need_dx else None
     return dx, dk, dg, db
 
 
@@ -321,23 +401,25 @@ def bottleneck_fwd_reference(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, strid
     """Plain form of ``bottleneck_fwd`` (``pallas_conv.py:1362-1405``):
     ``(out, m1, v1, m2, v2, m3, v3[, mS, vS])``; ``short`` is
     ``(ks, gs, bs)`` or ``None``."""
+    cdt = x.dtype
+    x, k1, k2, k3 = (_wide(t) for t in (x, k1, k2, k3))
     y1 = _conv(x, k1)
     m1, v1 = _moments(y1)
     _, s1, t1 = _fold(m1, v1, g1, b1, eps)
-    y2 = _conv(torch.relu(y1 * s1 + t1), k2, stride)
+    y2 = _conv(_rnd(torch.relu(y1 * s1 + t1), cdt), k2, stride)
     m2, v2 = _moments(y2)
     _, s2, t2 = _fold(m2, v2, g2, b2, eps)
-    y3 = _conv(torch.relu(y2 * s2 + t2), k3)
+    y3 = _conv(_rnd(torch.relu(y2 * s2 + t2), cdt), k3)
     m3, v3 = _moments(y3)
     _, s3, t3 = _fold(m3, v3, g3, b3, eps)
     if short is None:
-        return (torch.relu(y3 * s3 + t3 + x), m1, v1, m2, v2, m3, v3)
+        return (torch.relu(y3 * s3 + t3 + x).to(cdt), m1, v1, m2, v2, m3, v3)
     ks, gs, bs = short
-    ys = _conv(x, ks, stride)
+    ys = _conv(x, _wide(ks), stride)
     ms, vs = _moments(ys)
     _, ss, ts = _fold(ms, vs, gs, bs, eps)
     out = torch.relu(y3 * s3 + t3 + (ys * ss + ts))
-    return (out, m1, v1, m2, v2, m3, v3, ms, vs)
+    return (out.to(cdt), m1, v1, m2, v2, m3, v3, ms, vs)
 
 
 def bottleneck_bwd_reference(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short,
@@ -345,95 +427,110 @@ def bottleneck_bwd_reference(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short,
     """Plain form of ``bottleneck_bwd`` (``pallas_conv.py:1445-1562``):
     ``(dx, dk1, dg1, db1, dk2, dg2, db2, dk3, dg3, db3[, dks, dgs, dbs])``;
     ``short`` is ``(ks, gs, bs, mS, vS)`` or ``None``."""
+    cdt = x.dtype
     n, hi, wi, _ = x.shape
+    x, k1, k2, k3 = (_wide(t) for t in (x, k1, k2, k3))
     ho, wo = hi // stride, wi // stride
     count1, count2 = n * hi * wi, n * ho * wo
     rs1, rs2, rs3 = (torch.rsqrt(v + eps) for v in (v1, v2, v3))
     y1 = _conv(x, k1)
     yh1 = (y1 - m1) * rs1
     p1 = yh1 * g1 + b1
-    a1 = torch.relu(p1)
+    a1 = _rnd(torch.relu(p1), cdt)
     yh2 = (_conv(a1, k2, stride) - m2) * rs2
     p2 = yh2 * g2 + b2
-    a2 = torch.relu(p2)
+    a2 = _rnd(torch.relu(p2), cdt)
     yh3 = (_conv(a2, k3) - m3) * rs3
     z = yh3 * g3 + b3
     if short is not None:
         ks, gs, bs, ms, vs = short
+        ks = _wide(ks)
         rss = torch.rsqrt(vs + eps)
         yhs = (_conv(x, ks, stride) - ms) * rss
         z = z + yhs * gs + bs
     else:
         z = z + x
-    dz = gout * (z > 0)
+    dz = _wide(gout) * (z > 0)
     dy3, dg3, db3 = _bn_bwd(dz, yh3, rs3, g3, count2)
+    dy3 = _rnd(dy3, cdt)
     dk3 = _conv_dw(a2, dy3, k3.shape, 1)
     dp2 = _conv_dx(dy3, k3, 1, ho, wo) * (p2 > 0)
     dy2, dg2, db2 = _bn_bwd(dp2, yh2, rs2, g2, count2)
+    dy2 = _rnd(dy2, cdt)
     dk2 = _conv_dw(a1, dy2, k2.shape, stride)
     dp1 = _conv_dx(dy2, k2, stride, hi, wi) * (p1 > 0)
     dy1, dg1, db1 = _bn_bwd(dp1, yh1, rs1, g1, count1)
+    dy1 = _rnd(dy1, cdt)
     dk1 = _conv_dw(x, dy1, k1.shape, 1)
     dx = _conv_dx(dy1, k1, 1, hi, wi)
-    grads = (dk1, dg1, db1, dk2, dg2, db2, dk3, dg3, db3)
+    grads = (dk1.to(cdt), dg1, db1, dk2.to(cdt), dg2, db2, dk3.to(cdt), dg3, db3)
     if short is None:
-        return (dx + dz,) + grads
+        return ((dx + dz).to(cdt),) + grads
     dys, dgs, dbs = _bn_bwd(dz, yhs, rss, gs, count2)
+    dys = _rnd(dys, cdt)
     dks = _conv_dw(x, dys, ks.shape, stride)
     dx = dx + _conv_dx(dys, ks, stride, hi, wi)
-    return (dx,) + grads + (dks, dgs, dbs)
+    return (dx.to(cdt),) + grads + (dks.to(cdt), dgs, dbs)
 
 
 def _block_fwd_reference(x, k1, g1, b1, k2, g2, b2, short, stride, eps):
     """The BasicBlock forward, ``short`` ``(ks, gs, bs)`` or ``None``."""
+    cdt = x.dtype
+    x, k1, k2 = _wide(x), _wide(k1), _wide(k2)
     y1 = _conv(x, k1, stride)
     m1, v1 = _moments(y1)
     _, s1, t1 = _fold(m1, v1, g1, b1, eps)
-    y2 = _conv(torch.relu(y1 * s1 + t1), k2)
+    y2 = _conv(_rnd(torch.relu(y1 * s1 + t1), cdt), k2)
     m2, v2 = _moments(y2)
     _, s2, t2 = _fold(m2, v2, g2, b2, eps)
     if short is None:
-        return (torch.relu(y2 * s2 + t2 + x), m1, v1, m2, v2)
+        return (torch.relu(y2 * s2 + t2 + x).to(cdt), m1, v1, m2, v2)
     ks, gs, bs = short
-    ys = _conv(x, ks, stride)
+    ys = _conv(x, _wide(ks), stride)
     ms, vs = _moments(ys)
     _, ss, ts = _fold(ms, vs, gs, bs, eps)
-    return (torch.relu(y2 * s2 + t2 + (ys * ss + ts)), m1, v1, m2, v2, ms, vs)
+    return (torch.relu(y2 * s2 + t2 + (ys * ss + ts)).to(cdt), m1, v1, m2, v2, ms, vs)
 
 
 def _block_bwd_reference(x, k1, g1, b1, k2, g2, b2, short, m1, v1, m2, v2, gout,
                          stride, eps):
     """The BasicBlock backward, ``short`` ``(ks, gs, bs, mS, vS)`` or
     ``None``. Every BN counts over the output grid."""
+    cdt = x.dtype
     n, hi, wi, _ = x.shape
+    x, k1, k2 = _wide(x), _wide(k1), _wide(k2)
     ho, wo = hi // stride, wi // stride
     count = n * ho * wo
     rs1, rs2 = torch.rsqrt(v1 + eps), torch.rsqrt(v2 + eps)
     yh1 = (_conv(x, k1, stride) - m1) * rs1
     p1 = yh1 * g1 + b1
-    a1 = torch.relu(p1)
+    a1 = _rnd(torch.relu(p1), cdt)
     yh2 = (_conv(a1, k2) - m2) * rs2
     z = yh2 * g2 + b2
     if short is not None:
         ks, gs, bs, ms, vs = short
+        ks = _wide(ks)
         rss = torch.rsqrt(vs + eps)
         yhs = (_conv(x, ks, stride) - ms) * rss
         z = z + yhs * gs + bs
     else:
         z = z + x
-    dz = gout * (z > 0)
+    dz = _wide(gout) * (z > 0)
     dy2, dg2, db2 = _bn_bwd(dz, yh2, rs2, g2, count)
+    dy2 = _rnd(dy2, cdt)
     dk2 = _conv_dw(a1, dy2, k2.shape, 1)
     dp1 = _conv_dx(dy2, k2, 1, ho, wo) * (p1 > 0)
     dy1, dg1, db1 = _bn_bwd(dp1, yh1, rs1, g1, count)
+    dy1 = _rnd(dy1, cdt)
     dk1 = _conv_dw(x, dy1, k1.shape, stride)
     dx = _conv_dx(dy1, k1, stride, hi, wi)
     if short is None:
-        return (dx + dz, dk1, dk2, dg1, db1, dg2, db2)
+        return ((dx + dz).to(cdt), dk1.to(cdt), dk2.to(cdt), dg1, db1, dg2, db2)
     dys, dgs, dbs = _bn_bwd(dz, yhs, rss, gs, count)
+    dys = _rnd(dys, cdt)
     dks = _conv_dw(x, dys, ks.shape, stride)
     dx = dx + _conv_dx(dys, ks, stride, hi, wi)
-    return (dx, dk1, dk2, dks, dg1, db1, dg2, db2, dgs, dbs)
+    return (dx.to(cdt), dk1.to(cdt), dk2.to(cdt), dks.to(cdt), dg1, db1, dg2, db2, dgs, dbs)
 
 
 def basic_block_fwd_reference(x, k1, g1, b1, k2, g2, b2, eps):
@@ -469,39 +566,38 @@ def proj_block_bwd_reference(x, k1, g1, b1, k2, g2, b2, ks, gs, bs,
 
 
 def stem_fwd(x, k, g, b, eps):
-    """``(out, mean, var_biased)`` of the stem; launches ``stem_fwd`` for
-    CUDA tensors."""
-    global stem_fwd_launches
+    """``(out, mean, var_biased)`` of the stem; launches ``stem_fwd`` (or
+    ``stem_fwd_bf16``) for CUDA tensors."""
     _admit_stem(x, k)
     if native.on_cpu(x, k, g, b):
         return stem_fwd_reference(x, k, g, b, eps)
     n, h, w, cin = x.shape
     cout = k.shape[3]
-    _check_stem(x, k, g, b, n, h, w, cin, cout)
-    out = torch.empty((n, h, w, cout), dtype=torch.float32, device=x.device)
+    cdt = _launch_dtype(x)
+    _check_stem(x, k, g, b, n, h, w, cin, cout, cdt)
+    out = torch.empty((n, h, w, cout), dtype=cdt, device=x.device)
     m, v = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     args = StemArgs(
         x=_ptr(x), k=_ptr(k), gamma=_ptr(g), beta=_ptr(b), out=_ptr(out),
         mean=_ptr(m), var=_ptr(v), n=n, h=h, w=w, cin=cin, cout=cout, eps=eps,
     )
-    _run_entry(_library(), "stem_fwd", args, x.device, _stream(x.device))
-    stem_fwd_launches += 1
+    _launch("stem_fwd", cdt, args, x.device)
     return out, m, v
 
 
 def stem_bwd(x, k, g, b, m, v, gout, eps, need_dx=True):
     """``(dx or None, dk, dgamma, dbeta)`` of the stem; launches
-    ``stem_bwd`` for CUDA tensors."""
-    global stem_bwd_launches
+    ``stem_bwd`` (or ``stem_bwd_bf16``) for CUDA tensors."""
     _admit_stem(x, k)
     if native.on_cpu(x, k, g, b, m, v, gout):
         return stem_bwd_reference(x, k, g, b, m, v, gout, eps, need_dx)
     n, h, w, cin = x.shape
     cout = k.shape[3]
-    _check_stem(x, k, g, b, n, h, w, cin, cout)
-    for name, t, shape in (("mean", m, (cout,)), ("var", v, (cout,)),
-                           ("gout", gout, (n, h, w, cout))):
+    cdt = _launch_dtype(x)
+    _check_stem(x, k, g, b, n, h, w, cin, cout, cdt)
+    for name, t, shape in (("mean", m, (cout,)), ("var", v, (cout,))):
         _check(name, t, shape)
+    _check("gout", gout, (n, h, w, cout), cdt)
     kt = k.permute(0, 1, 3, 2).contiguous() if need_dx else None
     dx = torch.empty_like(x) if need_dx else None
     dk = torch.empty_like(k)
@@ -511,17 +607,16 @@ def stem_bwd(x, k, g, b, m, v, gout, eps, need_dx=True):
         gout=_ptr(gout), mean=_ptr(m), var=_ptr(v), dx=_ptr(dx), dk=_ptr(dk),
         dgamma=_ptr(dg), dbeta=_ptr(db), n=n, h=h, w=w, cin=cin, cout=cout, eps=eps,
     )
-    _run_entry(_library(), "stem_bwd", args, x.device, _stream(x.device))
-    stem_bwd_launches += 1
+    _launch("stem_bwd", cdt, args, x.device)
     return dx, dk, dg, db
 
 
-def _check_stem(x, k, g, b, n, h, w, cin, cout):
+def _check_stem(x, k, g, b, n, h, w, cin, cout, cdt):
     if x.dim() != 4 or k.dim() != 4 or k.shape[:3] != (3, 3, cin):
         raise ValueError(f"stem: x [n,h,w,cin] and k [3,3,cin,cout], got "
                          f"{tuple(x.shape)} and {tuple(k.shape)}")
-    _check("x", x, (n, h, w, cin))
-    _check("k", k, (3, 3, cin, cout))
+    _check("x", x, (n, h, w, cin), cdt)
+    _check("k", k, (3, 3, cin, cout), cdt)
     _check("gamma", g, (cout,))
     _check("beta", b, (cout,))
 
@@ -531,33 +626,37 @@ def _bot_shapes(x, k2):
     return n, hi, wi, cin, k2.shape[2]
 
 
-def _check_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride):
+def _check_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, cdt):
     n, hi, wi, cin, p = _bot_shapes(x, k2)
     for name, t, shape in (
         ("x", x, (n, hi, wi, cin)), ("k1", k1, (cin, p)), ("k2", k2, (3, 3, p, p)),
-        ("k3", k3, (p, 4 * p)), ("g1", g1, (p,)), ("b1", b1, (p,)),
+        ("k3", k3, (p, 4 * p)),
+    ):
+        _check(name, t, shape, cdt)
+    for name, t, shape in (
+        ("g1", g1, (p,)), ("b1", b1, (p,)),
         ("g2", g2, (p,)), ("b2", b2, (p,)), ("g3", g3, (4 * p,)), ("b3", b3, (4 * p,)),
     ):
         _check(name, t, shape)
     if short is not None:
         for name, t, shape in zip(("ks", "gs", "bs", "ms", "vs"), short,
                                   ((cin, 4 * p),) + ((4 * p,),) * 4):
-            _check(name, t, shape)
+            _check(name, t, shape, cdt if name == "ks" else torch.float32)
 
 
 def bottleneck_fwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, eps):
     """Bottleneck forward (see :func:`bottleneck_fwd_reference`); launches
-    ``bottleneck_fwd`` for CUDA tensors."""
-    global bottleneck_fwd_launches
+    ``bottleneck_fwd`` (or ``bottleneck_fwd_bf16``) for CUDA tensors."""
     _admit_bottleneck(x, k2, stride)
     tensors = (x, k1, g1, b1, k2, g2, b2, k3, g3, b3) + tuple(short or ())
     if native.on_cpu(*tensors):
         return bottleneck_fwd_reference(x, k1, g1, b1, k2, g2, b2, k3, g3, b3,
                                         short, stride, eps)
-    _check_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride)
+    cdt = _launch_dtype(x)
+    _check_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, cdt)
     n, hi, wi, cin, p = _bot_shapes(x, k2)
     dev = x.device
-    out = torch.empty((n, hi // stride, wi // stride, 4 * p), dtype=torch.float32, device=dev)
+    out = torch.empty((n, hi // stride, wi // stride, 4 * p), dtype=cdt, device=dev)
     m1, v1, m2, v2 = torch.empty((4, p), dtype=torch.float32, device=dev)
     wide = torch.empty((4 if short is not None else 2, 4 * p), dtype=torch.float32, device=dev)
     ks, gs, bs = short if short is not None else (None, None, None)
@@ -572,28 +671,27 @@ def bottleneck_fwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, eps):
         n=n, hi=hi, wi=wi, cin=cin, planes=p, stride=stride,
         proj=int(short is not None), eps=eps,
     )
-    _run_entry(_library(), "bottleneck_fwd", args, dev, _stream(dev))
-    bottleneck_fwd_launches += 1
+    _launch("bottleneck_fwd", cdt, args, dev)
     return (out, m1, v1, m2, v2) + tuple(wide.unbind(0))
 
 
 def bottleneck_bwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short,
                    m1, v1, m2, v2, m3, v3, gout, stride, eps):
     """Bottleneck backward (see :func:`bottleneck_bwd_reference`); launches
-    ``bottleneck_bwd`` for CUDA tensors."""
-    global bottleneck_bwd_launches
+    ``bottleneck_bwd`` (or ``bottleneck_bwd_bf16``) for CUDA tensors."""
     _admit_bottleneck(x, k2, stride)
     tensors = (x, k1, g1, b1, k2, g2, b2, k3, g3, b3, m1, v1, m2, v2, m3, v3,
                gout) + tuple(short or ())
     if native.on_cpu(*tensors):
         return bottleneck_bwd_reference(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short,
                                         m1, v1, m2, v2, m3, v3, gout, stride, eps)
-    _check_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride)
+    cdt = _launch_dtype(x)
+    _check_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, cdt)
     n, hi, wi, cin, p = _bot_shapes(x, k2)
     for name, t, shape in (("m1", m1, (p,)), ("v1", v1, (p,)), ("m2", m2, (p,)),
-                           ("v2", v2, (p,)), ("m3", m3, (4 * p,)), ("v3", v3, (4 * p,)),
-                           ("gout", gout, (n, hi // stride, wi // stride, 4 * p))):
+                           ("v2", v2, (p,)), ("m3", m3, (4 * p,)), ("v3", v3, (4 * p,))):
         _check(name, t, shape)
+    _check("gout", gout, (n, hi // stride, wi // stride, 4 * p), cdt)
     dev = x.device
     proj = short is not None
     ks, gs, bs, ms, vs = short if proj else (None,) * 5
@@ -621,33 +719,37 @@ def bottleneck_bwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short,
     }
     for name, t in transposed.items():
         setattr(args, name, _ptr(t))
-    _run_entry(_library(), "bottleneck_bwd", args, dev, _stream(dev))
-    bottleneck_bwd_launches += 1
+    _launch("bottleneck_bwd", cdt, args, dev)
     grads = (dk1, dg1, db1, dk2, dg2, db2, dk3, wide[0], wide[1])
     if not proj:
         return (dx,) + grads
     return (dx,) + grads + (dks, wide[2], wide[3])
 
 
-def _block_tensors(x, k1, k2, short):
+def _block_tensors(x, k1, k2, short, cdt):
     """Check the BasicBlock operands for a launch; ``(n, hi, wi, cin, c)``."""
     n, hi, wi, cin = x.shape
     c = k1.shape[3]
-    _check("x", x, (n, hi, wi, cin))
-    _check("k1", k1, (3, 3, cin, c))
-    _check("k2", k2, (3, 3, c, c))
+    _check("x", x, (n, hi, wi, cin), cdt)
+    _check("k1", k1, (3, 3, cin, c), cdt)
+    _check("k2", k2, (3, 3, c, c), cdt)
     for name, t in zip(("ks", "gs", "bs", "ms", "vs"), short or ()):
-        _check(name, t, (cin, c) if name == "ks" else (c,))
+        if name == "ks":
+            _check(name, t, (cin, c), cdt)
+        else:
+            _check(name, t, (c,))
     return n, hi, wi, cin, c
 
 
 def _block_fwd(name, x, k1, g1, b1, k2, g2, b2, short, stride, eps):
-    """Launch ``basic_fwd`` (``short`` None) or ``proj_fwd``."""
-    n, hi, wi, cin, c = _block_tensors(x, k1, k2, short)
+    """Launch ``basic_fwd`` (``short`` None) or ``proj_fwd``, or their bf16
+    twins."""
+    cdt = _launch_dtype(x)
+    n, hi, wi, cin, c = _block_tensors(x, k1, k2, short, cdt)
     for label, t in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2)):
         _check(label, t, (c,))
     dev = x.device
-    out = torch.empty((n, hi // stride, wi // stride, c), dtype=torch.float32, device=dev)
+    out = torch.empty((n, hi // stride, wi // stride, c), dtype=cdt, device=dev)
     moments = torch.empty((6 if short else 4, c), dtype=torch.float32, device=dev)
     ks, gs, bs = short or (None, None, None)
     args = BlockArgs(
@@ -657,17 +759,19 @@ def _block_fwd(name, x, k1, g1, b1, k2, g2, b2, short, stride, eps):
         ms=_ptr(moments[4]) if short else None, vs=_ptr(moments[5]) if short else None,
         n=n, hi=hi, wi=wi, cin=cin, c=c, stride=stride, eps=eps,
     )
-    _run_entry(_library(), name, args, dev, _stream(dev))
+    _launch(name, cdt, args, dev)
     return (out,) + tuple(moments.unbind(0))
 
 
 def _block_bwd(name, x, k1, g1, b1, k2, g2, b2, short, m1, v1, m2, v2, gout, stride, eps):
-    """Launch ``basic_bwd`` (``short`` None) or ``proj_bwd``."""
-    n, hi, wi, cin, c = _block_tensors(x, k1, k2, short)
+    """Launch ``basic_bwd`` (``short`` None) or ``proj_bwd``, or their bf16
+    twins."""
+    cdt = _launch_dtype(x)
+    n, hi, wi, cin, c = _block_tensors(x, k1, k2, short, cdt)
     for label, t in (("g1", g1), ("b1", b1), ("g2", g2), ("b2", b2), ("m1", m1),
                      ("v1", v1), ("m2", m2), ("v2", v2)):
         _check(label, t, (c,))
-    _check("gout", gout, (n, hi // stride, wi // stride, c))
+    _check("gout", gout, (n, hi // stride, wi // stride, c), cdt)
     dev = x.device
     ks, gs, bs, ms, vs = short or (None,) * 5
     dx, dk1, dk2 = torch.empty_like(x), torch.empty_like(k1), torch.empty_like(k2)
@@ -685,7 +789,7 @@ def _block_bwd(name, x, k1, g1, b1, k2, g2, b2, short, m1, v1, m2, v2, gout, str
         dgs=_ptr(rows[4]) if short else None, dbs=_ptr(rows[5]) if short else None,
         n=n, hi=hi, wi=wi, cin=cin, c=c, stride=stride, eps=eps,
     )
-    _run_entry(_library(), name, args, dev, _stream(dev))
+    _launch(name, cdt, args, dev)
     if not short:
         return (dx, dk1, dk2) + tuple(rows.unbind(0))
     return (dx, dk1, dk2, dks) + tuple(rows.unbind(0))
@@ -693,54 +797,42 @@ def _block_bwd(name, x, k1, g1, b1, k2, g2, b2, short, m1, v1, m2, v2, gout, str
 
 def basic_fwd(x, k1, g1, b1, k2, g2, b2, eps):
     """Identity BasicBlock forward (see :func:`basic_block_fwd_reference`);
-    launches ``basic_fwd`` for CUDA tensors."""
-    global basic_fwd_launches
+    launches ``basic_fwd`` (or ``basic_fwd_bf16``) for CUDA tensors."""
     _admit_block(x, k1, 1, proj=False)
     if native.on_cpu(x, k1, g1, b1, k2, g2, b2):
         return basic_block_fwd_reference(x, k1, g1, b1, k2, g2, b2, eps)
-    res = _block_fwd("basic_fwd", x, k1, g1, b1, k2, g2, b2, None, 1, eps)
-    basic_fwd_launches += 1
-    return res
+    return _block_fwd("basic_fwd", x, k1, g1, b1, k2, g2, b2, None, 1, eps)
 
 
 def basic_bwd(x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout, eps):
     """Identity BasicBlock backward (see :func:`basic_block_bwd_reference`);
-    launches ``basic_bwd`` for CUDA tensors."""
-    global basic_bwd_launches
+    launches ``basic_bwd`` (or ``basic_bwd_bf16``) for CUDA tensors."""
     _admit_block(x, k1, 1, proj=False)
     if native.on_cpu(x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout):
         return basic_block_bwd_reference(x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout, eps)
-    res = _block_bwd("basic_bwd", x, k1, g1, b1, k2, g2, b2, None, m1, v1, m2, v2, gout, 1,
-                     eps)
-    basic_bwd_launches += 1
-    return res
+    return _block_bwd("basic_bwd", x, k1, g1, b1, k2, g2, b2, None, m1, v1, m2, v2, gout, 1,
+                      eps)
 
 
 def proj_fwd(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps):
     """Projection BasicBlock forward (see :func:`proj_block_fwd_reference`);
-    launches ``proj_fwd`` for CUDA tensors."""
-    global proj_fwd_launches
+    launches ``proj_fwd`` (or ``proj_fwd_bf16``) for CUDA tensors."""
     _admit_block(x, k1, stride, proj=True)
     if native.on_cpu(x, k1, g1, b1, k2, g2, b2, ks, gs, bs):
         return proj_block_fwd_reference(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps)
-    res = _block_fwd("proj_fwd", x, k1, g1, b1, k2, g2, b2, (ks, gs, bs), stride, eps)
-    proj_fwd_launches += 1
-    return res
+    return _block_fwd("proj_fwd", x, k1, g1, b1, k2, g2, b2, (ks, gs, bs), stride, eps)
 
 
 def proj_bwd(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, m1, v1, m2, v2, ms, vs, gout,
              stride, eps):
     """Projection BasicBlock backward (see :func:`proj_block_bwd_reference`);
-    launches ``proj_bwd`` for CUDA tensors."""
-    global proj_bwd_launches
+    launches ``proj_bwd`` (or ``proj_bwd_bf16``) for CUDA tensors."""
     _admit_block(x, k1, stride, proj=True)
     if native.on_cpu(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, m1, v1, m2, v2, ms, vs, gout):
         return proj_block_bwd_reference(x, k1, g1, b1, k2, g2, b2, ks, gs, bs,
                                         m1, v1, m2, v2, ms, vs, gout, stride, eps)
-    res = _block_bwd("proj_bwd", x, k1, g1, b1, k2, g2, b2, (ks, gs, bs, ms, vs),
-                     m1, v1, m2, v2, gout, stride, eps)
-    proj_bwd_launches += 1
-    return res
+    return _block_bwd("proj_bwd", x, k1, g1, b1, k2, g2, b2, (ks, gs, bs, ms, vs),
+                      m1, v1, m2, v2, gout, stride, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -749,13 +841,16 @@ def proj_bwd(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, m1, v1, m2, v2, ms, vs, gout
 
 
 class FusedStem(torch.autograd.Function):
-    """``(out, mean, var)`` of the fused stem; the backward is ``stem_bwd``."""
+    """``(out, mean, var)`` of the fused stem; the backward is ``stem_bwd``.
+    The kernel takes a copy of ``k`` in ``x``'s compute dtype; its gradient
+    comes back widened to ``k``'s dtype."""
 
     @staticmethod
     def forward(ctx, x, k, g, b, eps):
-        out, m, v = stem_fwd(x, k, g, b, eps)
-        ctx.save_for_backward(x, k, g, b, m, v)
-        ctx.eps = eps
+        kc = k.to(x.dtype)
+        out, m, v = stem_fwd(x, kc, g, b, eps)
+        ctx.save_for_backward(x, kc, g, b, m, v)
+        ctx.eps, ctx.w_dtype = eps, k.dtype
         ctx.mark_non_differentiable(m, v)
         return out, m, v
 
@@ -765,16 +860,25 @@ class FusedStem(torch.autograd.Function):
         dx, dk, dg, db = stem_bwd(
             x, k, g, b, m, v, gout.contiguous(), ctx.eps, need_dx=ctx.needs_input_grad[0]
         )
-        return dx, dk, dg, db, None
+        return dx, dk.to(ctx.w_dtype), dg, db, None
+
+
+def _widen(grads, dtype, kernel_slots):
+    """``grads`` with the entries at ``kernel_slots`` cast to ``dtype``."""
+    return tuple(g.to(dtype) if i in kernel_slots and g is not None else g
+                 for i, g in enumerate(grads))
 
 
 class FusedBottleneck(torch.autograd.Function):
     """``(out, m1, v1, m2, v2, m3, v3[, mS, vS])`` of the fused Bottleneck;
     the backward is ``bottleneck_bwd``. ``ks, gs, bs`` are ``None`` for the
-    identity shortcut."""
+    identity shortcut. Kernels as in :class:`FusedStem`."""
 
     @staticmethod
     def forward(ctx, x, k1, g1, b1, k2, g2, b2, k3, g3, b3, ks, gs, bs, stride, eps):
+        ctx.w_dtype = k1.dtype
+        k1, k2, k3 = k1.to(x.dtype), k2.to(x.dtype), k3.to(x.dtype)
+        ks = None if ks is None else ks.to(x.dtype)
         short = (ks, gs, bs) if ks is not None else None
         res = bottleneck_fwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, eps)
         moments = res[1:]
@@ -794,15 +898,17 @@ class FusedBottleneck(torch.autograd.Function):
                                ctx.stride, ctx.eps)
         if short is None:
             grads = grads + (None, None, None)
-        return grads + (None, None)
+        return _widen(grads, ctx.w_dtype, (1, 4, 7, 10)) + (None, None)
 
 
 class FusedBasicBlock(torch.autograd.Function):
     """``(out, m1, v1, m2, v2)`` of the fused identity BasicBlock; the
-    backward is ``basic_bwd``."""
+    backward is ``basic_bwd``. Kernels as in :class:`FusedStem`."""
 
     @staticmethod
     def forward(ctx, x, k1, g1, b1, k2, g2, b2, eps):
+        ctx.w_dtype = k1.dtype
+        k1, k2 = k1.to(x.dtype), k2.to(x.dtype)
         res = basic_fwd(x, k1, g1, b1, k2, g2, b2, eps)
         ctx.save_for_backward(x, k1, g1, b1, k2, g2, b2, *res[1:])
         ctx.eps = eps
@@ -814,15 +920,17 @@ class FusedBasicBlock(torch.autograd.Function):
         x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2 = ctx.saved_tensors
         dx, dk1, dk2, dg1, db1, dg2, db2 = basic_bwd(
             x, k1, g1, b1, k2, g2, b2, m1, v1, m2, v2, gout.contiguous(), ctx.eps)
-        return dx, dk1, dg1, db1, dk2, dg2, db2, None
+        return dx, dk1.to(ctx.w_dtype), dg1, db1, dk2.to(ctx.w_dtype), dg2, db2, None
 
 
 class FusedProjectionBlock(torch.autograd.Function):
     """``(out, m1, v1, m2, v2, mS, vS)`` of the fused projection BasicBlock;
-    the backward is ``proj_bwd``."""
+    the backward is ``proj_bwd``. Kernels as in :class:`FusedStem`."""
 
     @staticmethod
     def forward(ctx, x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps):
+        ctx.w_dtype = k1.dtype
+        k1, k2, ks = k1.to(x.dtype), k2.to(x.dtype), ks.to(x.dtype)
         res = proj_fwd(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, stride, eps)
         ctx.save_for_backward(x, k1, g1, b1, k2, g2, b2, ks, gs, bs, *res[1:])
         ctx.stride, ctx.eps = stride, eps
@@ -833,15 +941,18 @@ class FusedProjectionBlock(torch.autograd.Function):
     def backward(ctx, gout, *_moment_grads):
         dx, dk1, dk2, dks, dg1, db1, dg2, db2, dgs, dbs = proj_bwd(
             *ctx.saved_tensors, gout.contiguous(), ctx.stride, ctx.eps)
-        return dx, dk1, dg1, db1, dk2, dg2, db2, dks, dgs, dbs, None, None
+        w = ctx.w_dtype
+        return (dx, dk1.to(w), dg1, db1, dk2.to(w), dg2, db2, dks.to(w), dgs, dbs,
+                None, None)
 
 
 def fused_conv_bn_relu(x, kernel, scale, bias, eps=1e-5):
     """Fused stem: ``relu(bn_train(conv3x3_s1(x, kernel)))``.
 
-    ``x`` NHWC, ``kernel`` HWIO ``[3, 3, cin, cout]``. Returns ``(out,
-    batch_mean, batch_var_biased)``; the caller applies the running-stat
-    update. Gradients flow to all four inputs; the moments carry none.
+    ``x`` NHWC, ``kernel`` HWIO ``[3, 3, cin, cout]``; the compute dtype is
+    ``x.dtype``. Returns ``(out, batch_mean, batch_var_biased)``; the
+    caller applies the running-stat update. Gradients flow to all four
+    inputs; the moments carry none.
     """
     return FusedStem.apply(
         x.contiguous(), kernel.contiguous(), scale.contiguous(), bias.contiguous(), float(eps)

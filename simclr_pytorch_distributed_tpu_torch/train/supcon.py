@@ -74,14 +74,23 @@ def resolve_loss_impl_reasoned(loss_impl: str, device: torch.device) -> tuple:
     )
 
 
-def conv_fused_sites(model: str, rows: int, size: int) -> List[str]:
+def conv_fused_sites(model: str, rows: int, size: int,
+                     dtype: torch.dtype = torch.float32) -> List[str]:
     """Descriptions of the sites ``--conv_impl fused`` runs through the
-    fused kernels at this geometry (``models/resnet.fused_site_plan``)."""
-    return [site["desc"] for site in fused_site_plan(model, rows, size) if site["admitted"]]
+    fused kernels at this geometry and compute dtype
+    (``models/resnet.fused_site_plan``)."""
+    return [site["desc"] for site in fused_site_plan(model, rows, size, dtype)
+            if site["admitted"]]
+
+
+def compute_dtype(bf16: bool) -> torch.dtype:
+    """The model's compute dtype under ``--bf16``."""
+    return torch.bfloat16 if bf16 else torch.float32
 
 
 def resolve_conv_impl(
-    conv_impl: str, model: str, batch_size: int, size: int, device: torch.device
+    conv_impl: str, model: str, batch_size: int, size: int, device: torch.device,
+    bf16: bool = False,
 ) -> tuple:
     """``(resolved_impl, reason)`` for ``--conv_impl``, the JAX package's
     ladder (``train/supcon.py:197-268``) on the port's devices.
@@ -91,12 +100,15 @@ def resolve_conv_impl(
     on the CPU. Explicit 'fused' is honoured on any device (on the CPU the
     kernels' plain PyTorch forms run) and raises where it could only be a
     silent no-op: a geometry with no admitted site. Sites the per-site
-    gates reject stay eager; the banner lists the ones that fuse.
+    gates reject stay eager; the banner lists the ones that fuse. Under
+    ``bf16`` the reason names the compute dtype, as the JAX banner does
+    (``compute dtype bf16``).
     """
+    tag = ", compute dtype bf16" if bf16 else ""
     if conv_impl == "eager":
-        return "eager", "explicit request: cuDNN convs and nn.BatchNorm2d"
+        return "eager", f"explicit request: cuDNN convs and nn.BatchNorm2d{tag}"
     rows = 2 * batch_size
-    sites = conv_fused_sites(model, rows, size)
+    sites = conv_fused_sites(model, rows, size, compute_dtype(bf16))
     if conv_impl == "fused":
         if not sites:
             raise ValueError(
@@ -107,21 +119,21 @@ def resolve_conv_impl(
             "on cpu the kernels' plain PyTorch forms run"
             if device.type == "cpu" else "hand-written sm_90a kernels"
         )
-        return "fused", f"explicit request ({where}); fused sites: {', '.join(sites)}"
+        return "fused", f"explicit request ({where}){tag}; fused sites: {', '.join(sites)}"
     if conv_impl != "auto":
         raise ValueError(f"conv_impl must be 'eager', 'fused' or 'auto', got {conv_impl!r}")
     if device.type != "cuda":
         return "eager", (
             f"{device.type} device: the fused conv kernels run on CUDA only, so "
-            "eager convs"
+            f"eager convs{tag}"
         )
     if not sites:
         return "eager", (
             f"no admitted geometry for {model} at [{rows},{size},{size}] "
-            "(ops/fused_conv.supports_*)"
+            f"(ops/fused_conv.supports_*){tag}"
         )
     return "fused", (
-        "CUDA device: hand-written sm_90a kernels (ops/fused_conv.py); "
+        f"CUDA device: hand-written sm_90a kernels (ops/fused_conv.py){tag}; "
         f"fused sites: {', '.join(sites)}"
     )
 
@@ -137,10 +149,10 @@ def make_augment_config(cfg: config_lib.SupConConfig) -> AugmentConfig:
 def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.device):
     """``(TrainState, SupConStepConfig)``: the model from ``cfg.seed``
     (built on the CPU, so an init is the same on every device) with the
-    resolved conv path, SGD, the schedule, and the step configuration with
-    the resolved loss path."""
+    resolved conv path and the compute dtype (``--bf16``), SGD, the
+    schedule, and the step configuration with the resolved loss path."""
     conv_impl, conv_reason = resolve_conv_impl(
-        cfg.conv_impl, cfg.model, cfg.batch_size, cfg.size, device
+        cfg.conv_impl, cfg.model, cfg.batch_size, cfg.size, device, bf16=cfg.bf16
     )
     logging.info(
         "%s",
@@ -148,7 +160,7 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
     )
     torch.manual_seed(cfg.seed)
     model = SupConResNet(cfg.model, cfg.head, cfg.feat_dim)
-    model.encoder.set_conv_impl(conv_impl)
+    model.encoder.set_conv_impl(conv_impl).set_compute_dtype(compute_dtype(cfg.bf16))
     model = model.to(device=device, memory_format=torch.channels_last)
     grad_div = config_lib.resolve_ngpu(cfg.ngpu, 1)
     if grad_div != 1:
