@@ -92,8 +92,7 @@ class BasicBlock(nn.Module):
             fused
             and self.training
             and fused_conv.supports_block(
-                n, h, w, self.conv1.out_channels, stride=self.stride, in_channels=cin,
-                dtype=fused_conv.gate_dtype(x),
+                n, h, w, self.conv1.out_channels, stride=self.stride, in_channels=cin
             )
         ):
             return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -152,8 +151,7 @@ class Bottleneck(nn.Module):
             fused
             and self.training
             and fused_conv.supports_bottleneck(
-                n, h, w, self.conv2.in_channels, stride=self.stride, in_channels=cin,
-                dtype=fused_conv.gate_dtype(x),
+                n, h, w, self.conv2.in_channels, stride=self.stride, in_channels=cin
             )
         ):
             return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -255,8 +253,7 @@ class ResNet(nn.Module):
         if (
             self.conv_impl == "fused"
             and self.training
-            and fused_conv.supports_stem(n, h, w, cin, self.conv1.out_channels,
-                                         dtype=fused_conv.gate_dtype(x))
+            and fused_conv.supports_stem(n, h, w, cin, self.conv1.out_channels)
         ):
             out, m, v = fused_conv.fused_conv_bn_relu(
                 x, self.conv1.weight.permute(2, 3, 1, 0), self.bn1.weight, self.bn1.bias,

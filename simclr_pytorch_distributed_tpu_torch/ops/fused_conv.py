@@ -169,8 +169,11 @@ def _launch(name: str, cdt: torch.dtype, args: ctypes.Structure, device: torch.d
 
 
 def _check(name: str, t: torch.Tensor, shape: Sequence[int],
-           dtype: torch.dtype = torch.float32) -> None:
-    native.check_tensor(name, t, dtype, shape)
+           dtype: Optional[torch.dtype] = None) -> None:
+    """Check a launch operand: with ``dtype``, one in the compute dtype (an
+    activation, a kernel or an upstream gradient), which the kernels load
+    16 bytes at a time; without, an fp32 per-channel row."""
+    native.check_tensor(name, t, dtype or torch.float32, shape, 1 if dtype is None else 16)
 
 
 def _launch_dtype(x: torch.Tensor) -> torch.dtype:
@@ -178,13 +181,6 @@ def _launch_dtype(x: torch.Tensor) -> torch.dtype:
     if x.dtype not in COMPUTE_DTYPES:
         raise ValueError(f"the fused conv kernels compute in {COMPUTE_DTYPES}, got x {x.dtype}")
     return x.dtype
-
-
-def gate_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype to ask a ``supports_*`` gate about for input ``x``: its
-    compute dtype, or fp32 for the CPU's float64 plain forms. The entry
-    points and the model's sites ask alike."""
-    return torch.float32 if x.dtype == torch.float64 and x.device.type == "cpu" else x.dtype
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -200,18 +196,18 @@ def _stream(device: torch.device) -> int:
 # same for every geometry (about 17 KB per CTA under fp32, 36 KB under
 # bf16) and their register use is fixed by the tile, so nothing here
 # depends on a memory budget: the gates hold the geometric rules the
-# kernels rely on and the 32-bit index range, and take the compute dtype
-# as the Pallas gates do only to reject dtypes outside COMPUTE_DTYPES (the
-# Pallas gates' VMEM model admits more sites under bf16; these admit fp32
-# and bf16 alike).
+# kernels rely on and the 32-bit index range. They take the compute dtype,
+# as the Pallas gates do, but it does not change their answer (the Pallas
+# gates' VMEM model admits more sites under bf16; these admit fp32 and
+# bf16 alike); a launch rejects any dtype outside COMPUTE_DTYPES.
 # ---------------------------------------------------------------------------
 
 
 def supports_stem(n: int, h: int, w: int, cin: int, cout: int,
                   dtype: torch.dtype = torch.float32) -> bool:
-    """True if the fused stem kernels admit ``[n, h, w, cin] -> cout`` in
-    compute dtype ``dtype``."""
-    if dtype not in COMPUTE_DTYPES or min(n, h, w, cin, cout) < 1:
+    """True if the fused stem kernels admit ``[n, h, w, cin] -> cout``
+    (``dtype``, the compute dtype, does not change the answer)."""
+    if min(n, h, w, cin, cout) < 1:
         return False
     return n * h * w * max(cin, cout) <= _MAX_ELEMENTS
 
@@ -219,7 +215,7 @@ def supports_stem(n: int, h: int, w: int, cin: int, cout: int,
 def _admit_stem(x, k):
     """Raise unless ``supports_stem`` admits ``x`` and ``k`` (both devices)."""
     n, h, w, cin = x.shape
-    if not supports_stem(n, h, w, cin, k.shape[3], dtype=gate_dtype(x)):
+    if not supports_stem(n, h, w, cin, k.shape[3]):
         raise ValueError(f"fused stem does not admit [{n},{h},{w},{cin}]->{k.shape[3]} "
                          f"{x.dtype}")
 
@@ -227,14 +223,14 @@ def _admit_stem(x, k):
 def supports_block(n: int, h: int, w: int, c: int, *, stride: int = 1,
                    in_channels: Optional[int] = None,
                    dtype: torch.dtype = torch.float32) -> bool:
-    """True if the fused BasicBlock kernels admit this geometry in compute
-    dtype ``dtype``: the
+    """True if the fused BasicBlock kernels admit this geometry (``dtype``,
+    the compute dtype, does not change the answer): the
     identity kernels at stride 1 with ``in_channels == c`` (the default),
     the projection kernels otherwise. ``h``/``w`` are the block's INPUT
     spatial dims; stride 2 needs them even (the transposed-conv backward
     assumes ``ho == h // 2`` exactly)."""
     cin = c if in_channels is None else in_channels
-    if dtype not in COMPUTE_DTYPES or stride not in (1, 2):
+    if stride not in (1, 2):
         return False
     if min(n, h, w, c, cin) < 1:
         return False
@@ -248,7 +244,7 @@ def _admit_block(x, k1, stride, proj):
     kernels' kind (identity: stride 1 and ``cin == c``), on both devices."""
     n, h, w, cin = x.shape
     c = k1.shape[3]
-    if not supports_block(n, h, w, c, stride=stride, in_channels=cin, dtype=gate_dtype(x)):
+    if not supports_block(n, h, w, c, stride=stride, in_channels=cin):
         raise ValueError(f"fused BasicBlock does not admit [{n},{h},{w},{cin}]->{c}/s{stride} "
                          f"{x.dtype}")
     if proj == (stride == 1 and cin == c):
@@ -260,11 +256,11 @@ def _admit_block(x, k1, stride, proj):
 def supports_bottleneck(n: int, h: int, w: int, planes: int, *,
                         stride: int = 1, in_channels: int,
                         dtype: torch.dtype = torch.float32) -> bool:
-    """True if the fused Bottleneck kernels admit this geometry in compute
-    dtype ``dtype``. ``h``/``w``
+    """True if the fused Bottleneck kernels admit this geometry (``dtype``,
+    the compute dtype, does not change the answer). ``h``/``w``
     are the block's INPUT spatial dims; stride 2 needs them even (the
     transposed-conv backward assumes ``ho == h // 2`` exactly)."""
-    if dtype not in COMPUTE_DTYPES or stride not in (1, 2):
+    if stride not in (1, 2):
         return False
     if min(n, h, w, planes, in_channels) < 1:
         return False
@@ -277,8 +273,7 @@ def _admit_bottleneck(x, k2, stride):
     """Raise unless ``supports_bottleneck`` admits ``x`` (both devices)."""
     n, h, w, cin = x.shape
     p = k2.shape[2]
-    if not supports_bottleneck(n, h, w, p, stride=stride, in_channels=cin,
-                               dtype=gate_dtype(x)):
+    if not supports_bottleneck(n, h, w, p, stride=stride, in_channels=cin):
         raise ValueError(f"fused bottleneck does not admit [{n},{h},{w},{cin}] "
                          f"planes={p}/s{stride} {x.dtype}")
 
@@ -641,7 +636,7 @@ def _check_bottleneck(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, cdt)
     if short is not None:
         for name, t, shape in zip(("ks", "gs", "bs", "ms", "vs"), short,
                                   ((cin, 4 * p),) + ((4 * p,),) * 4):
-            _check(name, t, shape, cdt if name == "ks" else torch.float32)
+            _check(name, t, shape, cdt if name == "ks" else None)
 
 
 def bottleneck_fwd(x, k1, g1, b1, k2, g2, b2, k3, g3, b3, short, stride, eps):

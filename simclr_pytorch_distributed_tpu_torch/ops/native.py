@@ -121,14 +121,20 @@ def on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
     )
 
 
-def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int]) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``."""
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int],
+                 align: int = 1) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` whose
+    data starts on an ``align``-byte boundary (16 for a tensor a kernel
+    loads 16 bytes at a time)."""
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
             f"{name}: expected a contiguous {dtype} tensor of shape "
             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
             f"(contiguous={t.is_contiguous()})"
         )
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: its data must start on a {align}-byte boundary, "
+                         f"got address {t.data_ptr():#x}")
 
 
 def raise_on_error(code: int, kernel: str) -> None:

@@ -24,8 +24,8 @@
 - The pretraining entry point under ``--bf16 --device cpu``: the
   ``compute dtype bf16`` banner and a checkpoint that ``utils/convert.py``
   reads back in fp32.
-- ``--bf16`` parsing, the gates' dtype argument, and the head and BN
-  helpers.
+- ``--bf16`` parsing, the gates' dtype argument, the launch operands'
+  alignment check, and the head and BN helpers.
 
 Inputs are numpy draws from fixed seeds.
 """
@@ -236,26 +236,40 @@ def test_bf16_plain_forms_round_where_pallas_rounds():
 
 
 def test_gates_take_the_compute_dtype():
+    # no VMEM model: the dtype does not change a gate's answer, and the
+    # port admits the same sites in both compute dtypes
     for dtype in (torch.float32, torch.bfloat16):
         assert fused_conv.supports_stem(512, 32, 32, 3, 64, dtype=dtype)
         assert fused_conv.supports_block(512, 16, 16, 256, stride=2, in_channels=128, dtype=dtype)
         assert fused_conv.supports_bottleneck(512, 8, 8, 256, stride=2, in_channels=512,
                                               dtype=dtype)
-    for dtype in (torch.float16, torch.float64):
-        assert not fused_conv.supports_stem(512, 32, 32, 3, 64, dtype=dtype)
-        assert not fused_conv.supports_block(512, 32, 32, 64, dtype=dtype)
-        assert not fused_conv.supports_bottleneck(512, 32, 32, 64, in_channels=64, dtype=dtype)
-    # no VMEM model: the port admits the same sites in both dtypes
+        assert not fused_conv.supports_block(512, 9, 8, 128, stride=2, in_channels=64,
+                                             dtype=dtype)
+        assert not fused_conv.supports_bottleneck(512, 32, 32, 64, stride=3, in_channels=64,
+                                                  dtype=dtype)
     for model in ("resnet18", "resnet50"):
         fp32 = fused_site_plan(model, 512, 32)
         bf16 = fused_site_plan(model, 512, 32, torch.bfloat16)
         assert [s["admitted"] for s in fp32] == [s["admitted"] for s in bf16]
         assert all(s["admitted"] for s in bf16)
-    # float16 is no compute dtype of the kernels, on either device
-    x = torch.zeros(2, 4, 4, 3, dtype=torch.float16)
-    with pytest.raises(ValueError, match="does not admit"):
-        fused_conv.stem_fwd(x, torch.zeros(3, 3, 3, 8, dtype=torch.float16),
-                            torch.ones(8), torch.zeros(8), 1e-5)
+    # a launch computes in fp32 or bf16 only
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="compute in"):
+            fused_conv._launch_dtype(torch.zeros(2, 4, 4, 3, dtype=dtype))
+
+
+def test_launch_operands_must_be_16_byte_aligned():
+    # the kernels load x, the weights and the upstream gradient 16 bytes
+    # at a time; a contiguous view off that boundary is refused, per-channel
+    # rows are not held to it
+    base = torch.zeros(2 * 4 * 4 * 8 + 8, dtype=torch.bfloat16)
+    x = base[:-8].view(2, 4, 4, 8)
+    assert x.data_ptr() % 16 == 0
+    fused_conv._check("x", x, (2, 4, 4, 8), torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fused_conv._check("x", base[1:-7].view(2, 4, 4, 8), (2, 4, 4, 8), torch.bfloat16)
+    rows = torch.zeros(2, 10)
+    fused_conv._check("var", rows[1], (10,))
 
 
 def test_cpu_bf16_calls_leave_every_launch_counter_alone():
