@@ -53,6 +53,33 @@
 //     elementwise BN backward and its per-channel sums.
 // There are no atomics anywhere, so every output is deterministic.
 //
+// The Bottleneck backward (bottleneck_bwd, fp32 and bf16) is redesigned
+// around the pipelined GEMM core of conv_gemm_sm90.cuh, which runs every
+// one of its convolutions: conv_gemm_f32_kernel / conv_wgrad_f32_kernel
+// (fp32) and conv_gemm_sm90_kernel / conv_wgrad_sm90_kernel (bf16, wgmma).
+// It takes 78% of the fp32 ResNet-50 step and 77% of the bf16 one under
+// the first design (PERF.md), which lost its time to (1) GEMMs without
+// pipelining, with a BN+ReLU prologue in every loader, (2) a transposed
+// stride-2 gather that multiplies the zeros of the dilated gradient, and
+// (3) fp32 cotangents and three fp32 passes over the 4P-wide tensors. Its
+// schedule answers each:
+//   - plain operands: the recomputed convs' epilogues write y (fp32, for
+//     the BN backward's yhat and masks) and the next conv's operand a =
+//     rnd(relu(y * scale + shift)) in the compute dtype, the value the
+//     prologue computed from the same y and rounded at the same point;
+//     every cotangent is written once, in the compute dtype, by the pass
+//     that forms it (each GEMM that reads it rounded it there before).
+//     So every GEMM operand is a plain tensor that cp.async copies;
+//   - the stride-2 data gradients by parity: the transposed 3x3/s2 runs as
+//     four sub-GEMMs (one per parity class of the input grid, 1, 2, 2 and
+//     4 taps), the transposed 1x1/s2 of the shortcut as the even-even
+//     class only, whose dx epilogue adds it; no zero is multiplied;
+//   - stage 3 in two passes: bot_dz_sums_kernel forms z in registers,
+//     writes dz = gout (z > 0) in the compute dtype and the per-CTA
+//     partial sums; bot_dz_apply_kernel writes dy3 (and dyS). z is never
+//     stored; the identity block's dx epilogue takes dz as its residual.
+// The other entry points keep the first design's launch sequence.
+//
 // Stage, not recompute, inside a call: a call keeps its pre-BN
 // intermediates (y1, y2, y3, yS) in a workspace the wrapper allocates with
 // torch.empty and frees on return. Across forward -> backward the op's
@@ -61,33 +88,37 @@
 // extra forward's FLOPs) and then stages its own intermediates. The Pallas
 // kernels recompute every conv in every phase because VMEM cannot hold a
 // batch of activations; HBM can, and re-running a conv costs far more
-// FLOPs on CUDA cores than writing and reading its output once.
+// FLOPs than writing and reading its output once.
 //
 // What bounds it on the H100. Fp32 FMA on the CUDA cores (no TF32, no
-// tensor cores, no fast-math), so the convolutions are bound by the
+// tensor cores, no fast-math), so the fp32 convolutions are bound by the
 // 67 TFLOP/s non-tensor fp32 rate: a recipe-shape Bottleneck forward is
 // ~83 GFLOP against ~3 GB of activations, a recipe-shape ResNet-18 block
-// 60-77 GFLOP. The stem and the elementwise BN
-// passes are bound by bytes. The design answers the first with a
-// shared-memory tiled GEMM (128 x 64 output tile per CTA, each thread an
-// 8 x 4 register micro-tile, 16-deep K chunks, 16-byte loads where the
-// channel counts allow); the second it leaves for later work: each BN
-// pass is one read and one write of its tensor.
+// 60-77 GFLOP. The stem and the elementwise BN passes are bound by bytes.
+// The first design's conv_gemm_kernel is a shared-memory tiled GEMM (128 x
+// 64 output tile per CTA, each thread an 8 x 4 register micro-tile, 16-deep
+// K chunks, one stage); the redesigned core's fp32 kernels take 128 x 128
+// tiles, 8 x 8 micro-tiles fed by 16-byte shared loads and a three-stage
+// cp.async ring. Each BN pass is one read and one write of its tensor.
 //
-// Shared memory is static (under 17 KB per CTA) and independent of the
-// geometry, so the Hopper admission gate (ops/fused_conv.py supports_*)
-// needs only the geometric rules and the 32-bit row-index range.
+// Shared memory of the first design's kernels is static (under 17 KB per
+// CTA); the redesigned core's is dynamic (43-55 KB fp32, 96-128 KB bf16,
+// set with cudaFuncSetAttribute) and, like the first design's,
+// independent of the geometry, so the Hopper admission gate
+// (ops/fused_conv.py supports_*) needs only the geometric rules and the
+// 32-bit row-index range.
 //
 // bf16 compute (the *_bf16 entry points, the Pallas kernels run with a
 // bf16 compute dtype). x, the kernels, the upstream gradient, out, dx and
 // every dW are bf16; the moments, gamma/beta and their gradients stay
 // fp32. Every convolution rounds its operands to bf16 and multiplies them
-// on the tensor cores with fp32 accumulation (mma.sync m16n8k16), in two
-// kernels of their own: conv_gemm_bf16_kernel (the implicit GEMM, same
-// gathers, prologue and epilogues as conv_gemm_kernel) and
-// conv_wgrad_bf16_kernel (the row-split weight gradient). The rounding
-// points are the Pallas kernels': the BN+ReLU prologue runs in fp32 on the
-// fp32 staged y and rounds its result (the _fill_pad cast), a cotangent is
+// on the tensor cores with fp32 accumulation: in the first design's
+// kernels (mma.sync m16n8k16) conv_gemm_bf16_kernel (the implicit GEMM,
+// same gathers, prologue and epilogues as conv_gemm_kernel) and
+// conv_wgrad_bf16_kernel (the row-split weight gradient); in the
+// Bottleneck backward, wgmma on the redesigned core. The rounding points
+// are the Pallas kernels': the BN+ReLU of a staged y runs in fp32 on the
+// fp32 y and rounds its result (the _fill_pad cast), a cotangent is
 // rounded where it enters a product (as the Pallas backward casts dy
 // before each transposed product and each dW accumulation), and the
 // pre-BN y, the BN statistics, the residual adds and every BN backward
@@ -95,16 +126,19 @@
 // after the fp64 combine of its fp32 partials. The staged buffers are the
 // fp32 path's, plus fp32 buffers where that path stages in place in an
 // output that is bf16 here (y of the last conv, and the shortcut's share
-// of the projection blocks' dx). The elementwise kernels are templates
-// over the types they read and write; their fp32 instances are the fp32
-// path's code. Each *_bf16 entry point replaces the same Pallas kernel as
-// its fp32 twin, run with a bf16 compute dtype. What bounds them: the
-// convolutions by operations at the dense bf16 tensor-core rate (989
-// TFLOP/s: a recipe-shape Bottleneck forward in ~0.1 ms), the BN passes by
-// bytes. This first version answers neither: each 32-deep chunk is
+// of the projection blocks' dx), plus the Bottleneck backward's
+// compute-dtype operands and cotangents. The elementwise kernels are
+// templates over the types they read and write; their fp32 instances are
+// the fp32 path's code. Each *_bf16 entry point replaces the same Pallas
+// kernel as its fp32 twin, run with a bf16 compute dtype. What bounds
+// them: the convolutions by operations at the dense bf16 tensor-core rate
+// (989 TFLOP/s: a recipe-shape Bottleneck forward in ~0.1 ms), the BN
+// passes by bytes. The first design answers neither: each 32-deep chunk is
 // gathered by the loading threads and stored through shared memory with
-// no pipelining and no wgmma/TMA, and the BN passes are the fp32 path's,
-// so it runs far from both bounds (PERF.md has the times).
+// no pipelining and no wgmma/TMA; the Bottleneck backward's redesign
+// answers the first with wgmma on a three-stage cp.async ring and the
+// second with two-byte cotangents and a pass fewer (PERF.md has the
+// times of both).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,6 +147,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "conv_gemm_sm90.cuh"
 
 namespace {
 
@@ -123,7 +159,7 @@ constexpr int BM = 128, BN = 64, BK = 16, TM = 8, TN = 4;
 constexpr int WK = 64, WN = 64, WM = 16;
 // rows per CTA of the per-channel elementwise kernels (block 32 x 8)
 constexpr int EW_ROWS = 128;
-constexpr int WAVES = 4 * 132;  // CTAs the weight-gradient split aims for
+constexpr int WAVES = sm90::WGRAD_CTAS;  // CTAs the weight-gradient split aims for
 
 // bf16 tiles (conv_gemm_bf16_kernel, conv_wgrad_bf16_kernel): the same
 // 128 x 64 output tile, 32-deep K chunks; weight gradient 64 x 64 per
@@ -141,15 +177,8 @@ struct ConvGeom {
   int ks, stride, pad;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+using sm90::from_f;  // float -> float or bf16 (round to nearest)
+using sm90::to_f;    // float or bf16 -> float
 
 // The source pixel of GEMM row (n, oh, ow) at kernel offset (kh, kw).
 // Forward: the conv reads padded input stride * o + d, i.e. unpadded
@@ -977,23 +1006,140 @@ __global__ void sum_partials_kernel(const float* __restrict__ pa,
   }
 }
 
-// dy = rstd * gamma * (dp - sum_dp / count - yhat * sum_dpyh / count);
-// dy may alias dp or y.
+// dy = rstd * gamma * (dp - sum_dp / count - yhat * sum_dpyh / count),
+// stored as OutT (the compute dtype where dy only feeds GEMMs, which
+// round it there anyway); an fp32 dy may alias dp or y.
+template <typename OutT>
 __global__ void bn_bwd_apply_kernel(const float* dp, const float* y,
                                     const float* __restrict__ mean,
                                     const float* __restrict__ rstd,
                                     const float* __restrict__ gamma,
                                     const float* __restrict__ sum_dp,
                                     const float* __restrict__ sum_dpyh,
-                                    float count, float* dy, long long total,
+                                    float count, OutT* dy, long long total,
                                     int C) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     const int c = (int)(i % C);
     const float rs = rstd[c];
     const float yh = (y[i] - mean[c]) * rs;
-    dy[i] = rs * gamma[c] *
-            (dp[i] - sum_dp[c] / count - yh * sum_dpyh[c] / count);
+    dy[i] = from_f<OutT>(rs * gamma[c] *
+                         (dp[i] - sum_dp[c] / count - yh * sum_dpyh[c] / count));
+  }
+}
+
+// Stage 3 of the Bottleneck backward, pass 1: z = y3 * sc3 + sh3 plus the
+// shortcut (ys * scs + shs for the projection, else x), formed in
+// registers exactly as bn_apply_kernel forms it and never stored; dz =
+// gout where z > 0, else 0, written in the compute dtype (exact: gout is
+// in it and the mask is 0/1); per-CTA partials of sum dz, sum dz * yhat3
+// and (projection) sum dz * yhatS. Block (32 x 8): lane tx takes channels
+// 4 tx .. 4 tx + 3 of the CTA's 128 (C % 4 == 0: C is 4P), each of the 8
+// row lanes every eighth of the CTA's EW_ROWS rows.
+template <typename T>
+__global__ void bot_dz_sums_kernel(const float* __restrict__ y3, const float* __restrict__ sc3,
+                                   const float* __restrict__ sh3, const float* __restrict__ m3,
+                                   const float* __restrict__ rs3, const float* __restrict__ ys,
+                                   const float* __restrict__ scs, const float* __restrict__ shs,
+                                   const float* __restrict__ ms, const float* __restrict__ rss,
+                                   const T* __restrict__ x, const T* __restrict__ g,
+                                   T* __restrict__ dz, float* __restrict__ part_a,
+                                   float* __restrict__ part_b, float* __restrict__ part_c,
+                                   int M, int C) {
+  __shared__ float ra[8][129], rb[8][129], rc[8][129];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c0 = blockIdx.y * 128 + tx * 4;
+  float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f}, sq[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c0 < C) {
+    float a3[4], b3[4], mu3[4], r3[4], aS[4], bS[4], muS[4], rS[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a3[e] = sc3[c0 + e]; b3[e] = sh3[c0 + e]; mu3[e] = m3[c0 + e]; r3[e] = rs3[c0 + e];
+      aS[e] = ys ? scs[c0 + e] : 0.f; bS[e] = ys ? shs[c0 + e] : 0.f;
+      muS[e] = ys ? ms[c0 + e] : 0.f; rS[e] = ys ? rss[c0 + e] : 0.f;
+    }
+    const int r0 = blockIdx.x * EW_ROWS;
+    for (int r = ty; r < EW_ROWS; r += 8) {
+      const int row = r0 + r;
+      if (row >= M) break;
+      const size_t i = (size_t)row * C + c0;
+      const float4 y4 = sm90::load4(y3 + i), s4 = ys ? sm90::load4(ys + i) : sm90::load4(x + i);
+      const float4 g4 = sm90::load4(g + i);
+      const float yv[4] = {y4.x, y4.y, y4.z, y4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
+      const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+      float dv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = fmaf(yv[e], a3[e], b3[e]);
+        v += ys ? fmaf(sv[e], aS[e], bS[e]) : sv[e];
+        const float dp = fmaxf(v, 0.f) > 0.f ? gv[e] : 0.f;
+        dv[e] = dp;
+        sa[e] += dp;
+        sb[e] = fmaf(dp, (yv[e] - mu3[e]) * r3[e], sb[e]);
+        if (ys) sq[e] = fmaf(dp, (sv[e] - muS[e]) * rS[e], sq[e]);
+      }
+      sm90::store4(dz + i, make_float4(dv[0], dv[1], dv[2], dv[3]));
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    ra[ty][tx * 4 + e] = sa[e];
+    rb[ty][tx * 4 + e] = sb[e];
+    rc[ty][tx * 4 + e] = sq[e];
+  }
+  __syncthreads();
+  const int t = ty * 32 + tx;  // one channel of the CTA's 128 per thread
+  const int c = blockIdx.y * 128 + t;
+  if (t < 128 && c < C) {
+    float a = 0.f, b = 0.f, q = 0.f;
+    for (int k = 0; k < 8; ++k) {
+      a += ra[k][t];
+      b += rb[k][t];
+      q += rc[k][t];
+    }
+    part_a[(size_t)blockIdx.x * C + c] = a;
+    part_b[(size_t)blockIdx.x * C + c] = b;
+    if (ys) part_c[(size_t)blockIdx.x * C + c] = q;
+  }
+}
+
+// Stage 3, pass 2: dy3 (and, for the projection, dyS) in the compute dtype
+// from dz and the finalized sums, as bn_bwd_apply_kernel computes them
+// (the shortcut BN's sum dz is BN3's); four consecutive elements a thread.
+template <typename T>
+__global__ void bot_dz_apply_kernel(const T* __restrict__ dz, const float* __restrict__ y3,
+                                    const float* __restrict__ m3, const float* __restrict__ rs3,
+                                    const float* __restrict__ g3, const float* __restrict__ db3,
+                                    const float* __restrict__ dg3, const float* __restrict__ ys,
+                                    const float* __restrict__ ms, const float* __restrict__ rss,
+                                    const float* __restrict__ gs, const float* __restrict__ dgs,
+                                    float count, T* dy3, T* dys, long long total, int C) {
+  for (long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4; i < total;
+       i += (long long)gridDim.x * blockDim.x * 4) {
+    const int c0 = (int)(i % C);
+    const float4 d4 = sm90::load4(dz + i), y4 = sm90::load4(y3 + i);
+    const float dp[4] = {d4.x, d4.y, d4.z, d4.w}, yv[4] = {y4.x, y4.y, y4.z, y4.w};
+    float out[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + e;
+      const float r3 = rs3[c];
+      const float yh = (yv[e] - m3[c]) * r3;
+      out[e] = r3 * g3[c] * (dp[e] - db3[c] / count - yh * dg3[c] / count);
+    }
+    sm90::store4(dy3 + i, make_float4(out[0], out[1], out[2], out[3]));
+    if (ys) {
+      const float4 s4 = sm90::load4(ys + i);
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e;
+        const float rS = rss[c];
+        const float yhs = (sv[e] - ms[c]) * rS;
+        out[e] = rS * gs[c] * (dp[e] - db3[c] / count - yhs * dgs[c] / count);
+      }
+      sm90::store4(dys + i, make_float4(out[0], out[1], out[2], out[3]));
+    }
   }
 }
 
@@ -1032,7 +1178,7 @@ float* staged(Arena& ar, T* out, size_t count) {
 
 constexpr const float* kNone = nullptr;  // an absent fp32 operand
 
-inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+using sm90::cdiv;
 
 inline int elementwise_grid(long long total) {
   const long long g = (total + THREADS - 1) / THREADS;
@@ -1146,12 +1292,13 @@ cudaError_t bwd_sums(const GT* g, const float* mask, const float* y,
   return cudaGetLastError();
 }
 
+template <typename OutT>
 cudaError_t bwd_apply(const float* dp, const float* y, const float* mean,
               const BnScratch& s, const float* gamma, const float* sum_dp,
-              const float* sum_dpyh, float* dy, long long rows, int C,
+              const float* sum_dpyh, OutT* dy, long long rows, int C,
               cudaStream_t st) {
   const long long total = rows * C;
-  bn_bwd_apply_kernel<<<elementwise_grid(total), THREADS, 0, st>>>(
+  bn_bwd_apply_kernel<OutT><<<elementwise_grid(total), THREADS, 0, st>>>(
       dp, y, mean, s.rstd, gamma, sum_dp, sum_dpyh, (float)rows, dy, total, C);
   return cudaGetLastError();
 }
@@ -1217,6 +1364,35 @@ cudaError_t wgrad(const SrcT* src, const float* psc, const float* psh, const flo
 }
 
 inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
+
+// A buffer of count elements of T out of the arena.
+template <typename T>
+T* take_as(Arena& ar, size_t count) {
+  return reinterpret_cast<T*>(ar.take((count * sizeof(T) + sizeof(float) - 1) / sizeof(float)));
+}
+
+// Where a cotangent in the compute dtype goes: over its fp32 source
+// `alias` under fp32 compute (elementwise in place), in a buffer of its
+// own under bf16 compute.
+template <typename T>
+T* cotangent(Arena& ar, float* alias, size_t count) {
+  if constexpr (std::is_same<T, float>::value)
+    return alias;
+  else
+    return take_as<T>(ar, count);
+}
+
+// The weight gradient on the pipelined core: partials per row split, then
+// the fixed-order fp64 combine, rounded once to T.
+template <typename T>
+cudaError_t wgrad_sm90(const sm90::ConvPlan& p, const T* src, const T* dy, float* part, T* dw,
+                       cudaStream_t st) {
+  CHECK(sm90::conv_wgrad(p, src, dy, part, st));
+  const long long count = (long long)p.cls[0].ntaps * p.cs * p.cout;
+  split_reduce_kernel<T><<<elementwise_grid(count), THREADS, 0, st>>>(
+      part, sm90::wgrad_splits<T>(p), count, dw);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1409,24 +1585,44 @@ static int bottleneck_fwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, 
 
 template <typename T>
 static int bottleneck_bwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
+  using sm90::Epilogue;
   const BotGeoms b = bot_geoms(a);
-  const int P = b.P, C4 = b.C4;
+  const int P = b.P, C4 = b.C4, n = a->n, hi = a->hi, wi = a->wi, s = a->stride;
+  const int ho = hi / s, wo = wi / s;
+  // every convolution of the backward as a plan of the pipelined core
+  const sm90::ConvPlan r1 = sm90::forward_plan(n, hi, wi, a->cin, 1, 1, P);
+  const sm90::ConvPlan r2 = sm90::forward_plan(n, hi, wi, P, 3, s, P);
+  const sm90::ConvPlan r3 = sm90::forward_plan(n, ho, wo, P, 1, 1, C4);
+  const sm90::ConvPlan rs = sm90::forward_plan(n, hi, wi, a->cin, 1, s, C4);
+  const sm90::ConvPlan d3 = sm90::forward_plan(n, ho, wo, C4, 1, 1, P);  // dy3 k3^T
+  const sm90::ConvPlan d2 = sm90::transposed3_plan(n, ho, wo, P, hi, wi, P, s);
+  const sm90::ConvPlan d1 = sm90::pointwise_dx_plan(n, hi, wi, P, a->cin, s);  // dy1 k1^T
+  const sm90::ConvPlan dsx = sm90::shortcut_dx_plan(n, ho, wo, C4, hi, wi, a->cin, s);
   Arena ar{static_cast<char*>(ws)};
+  // pre-BN y in fp32 (the BN backward's yhat and masks) and, for the next
+  // conv, a = rnd(relu(y * scale + shift)) in the compute dtype
   float* y1 = ar.take((size_t)b.rows1 * P);
+  T* a1 = take_as<T>(ar, (size_t)b.rows1 * P);
   float* y2 = ar.take((size_t)b.rows2 * P);
+  T* a2 = take_as<T>(ar, (size_t)b.rows2 * P);
   float* y3 = ar.take((size_t)b.rows2 * C4);
   float* ys = a->proj ? ar.take((size_t)b.rows2 * C4) : nullptr;
-  float* z = ar.take((size_t)b.rows2 * C4);
+  // the cotangents in the compute dtype
+  T* dz = take_as<T>(ar, (size_t)b.rows2 * C4);
+  T* dy3 = cotangent<T>(ar, y3, (size_t)b.rows2 * C4);
+  T* dys = a->proj ? cotangent<T>(ar, ys, (size_t)b.rows2 * C4) : nullptr;
   float* da2 = ar.take((size_t)b.rows2 * P);
+  T* dy2 = cotangent<T>(ar, da2, (size_t)b.rows2 * P);
   float* da1 = ar.take((size_t)b.rows1 * P);
+  T* dy1 = cotangent<T>(ar, da1, (size_t)b.rows1 * P);
   float* tmp = ar.take(C4);
   BnScratch s1 = bn_scratch(ar, b.rows1, P);
   BnScratch s2 = bn_scratch(ar, b.rows2, P);
   BnScratch s3 = bn_scratch(ar, b.rows2, C4);
   BnScratch ss = bn_scratch(ar, b.rows2, C4);
-  size_t wpart = max_sz(max_sz(wgrad_scratch<T>(b.c1), wgrad_scratch<T>(b.c2)),
-                        wgrad_scratch<T>(b.c3));
-  if (a->proj) wpart = max_sz(wpart, wgrad_scratch<T>(b.cs));
+  size_t wpart = max_sz(max_sz(sm90::wgrad_part_floats<T>(r1), sm90::wgrad_part_floats<T>(r2)),
+                        sm90::wgrad_part_floats<T>(r3));
+  if (a->proj) wpart = max_sz(wpart, sm90::wgrad_part_floats<T>(rs));
   float* part = ar.take(wpart);
   // the shortcut's share of dx, summed into dx by the last conv's epilogue
   float* dxs = a->proj ? staged(ar, a->dx, (size_t)b.rows1 * a->cin) : nullptr;
@@ -1438,62 +1634,63 @@ static int bottleneck_bwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, 
   CHECK(fold_saved(s1, a->m1, a->v1, a->g1, a->b1, a->eps, P, st));
   CHECK(fold_saved(s2, a->m2, a->v2, a->g2, a->b2, a->eps, P, st));
   CHECK(fold_saved(s3, a->m3, a->v3, a->g3, a->b3, a->eps, C4, st));
-  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, nullptr, y1, nullptr, b.c1, st));
-  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, nullptr, b.c2, st));
-  CHECK(conv(false, y2, a->k3, s2.scale, s2.shift, nullptr, y3, nullptr, b.c3, st));
+  CHECK(sm90::conv_gemm(r1, a->x, a->k1,
+                        Epilogue<T, float, float>{y1, nullptr, a1, s1.scale, s1.shift}, st));
+  CHECK(sm90::conv_gemm(r2, a1, a->k2,
+                        Epilogue<T, float, float>{y2, nullptr, a2, s2.scale, s2.shift}, st));
+  CHECK(sm90::conv_gemm(r3, a2, a->k3, Epilogue<T, float, float>{y3, nullptr, nullptr, kNone, kNone},
+                        st));
   if (a->proj) {
     CHECK(fold_saved(ss, a->ms, a->vs, a->gs, a->bs, a->eps, C4, st));
-    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, nullptr, b.cs, st));
-    CHECK(apply(y3, s3.scale, s3.shift, ys, ss.scale, ss.shift, z,
-                             b.rows2, C4, true, st));
-    // the shortcut BN: sum dz * yhatS (its sum dz is BN3's)
-    CHECK(bwd_sums(a->gout, z, ys, a->ms, ss, nullptr, nullptr, nullptr,
-                                tmp, a->dgs, b.rows2, C4, st));
-  } else {
-    CHECK(apply(y3, s3.scale, s3.shift, a->x, nullptr, nullptr, z,
-                             b.rows2, C4, true, st));
+    CHECK(sm90::conv_gemm(rs, a->x, a->ks,
+                          Epilogue<T, float, float>{ys, nullptr, nullptr, kNone, kNone}, st));
   }
-  // stage 3: dz = gout * (z > 0), in place over z
-  CHECK(bwd_sums(a->gout, z, y3, a->m3, s3, nullptr, nullptr, z, a->db3,
-                              a->dg3, b.rows2, C4, st));
-  CHECK(bwd_apply(z, y3, a->m3, s3, a->g3, a->db3, a->dg3, y3, b.rows2,
-                               C4, st));  // dy3 over y3
-  CHECK(wgrad(y2, s2.scale, s2.shift, y3, part, a->dk3, b.c3, st));
+  // stage 3 in two passes: dz and the sums (z stays in registers), then
+  // dy3 and dyS
+  const int blocks = cdiv(b.rows2, EW_ROWS);
+  bot_dz_sums_kernel<T><<<dim3(blocks, cdiv(C4, 128)), dim3(32, 8), 0, st>>>(
+      y3, s3.scale, s3.shift, a->m3, s3.rstd, ys, a->proj ? ss.scale : kNone,
+      a->proj ? ss.shift : kNone, a->ms, a->proj ? ss.rstd : kNone, a->proj ? nullptr : a->x,
+      a->gout, dz, s3.pa, s3.pb, ss.pa, b.rows2, C4);
+  CHECK(cudaGetLastError());
+  sum_partials_kernel<<<cdiv(C4, 32), dim3(32, 32), 0, st>>>(s3.pa, s3.pb, blocks, C4, a->db3,
+                                                              a->dg3);
+  CHECK(cudaGetLastError());
   if (a->proj) {
-    CHECK(cudaMemcpyAsync(a->dbs, a->db3, sizeof(float) * C4,
-                          cudaMemcpyDeviceToDevice, st));
-    CHECK(bwd_apply(z, ys, a->ms, ss, a->gs, a->db3, a->dgs, ys, b.rows2,
-                                 C4, st));  // dyS over yS
-    CHECK(wgrad(a->x, nullptr, nullptr, ys, part, a->dks, b.cs, st));
+    sum_partials_kernel<<<cdiv(C4, 32), dim3(32, 32), 0, st>>>(ss.pa, ss.pa, blocks, C4, tmp,
+                                                                a->dgs);
+    CHECK(cudaGetLastError());
+    CHECK(cudaMemcpyAsync(a->dbs, a->db3, sizeof(float) * C4, cudaMemcpyDeviceToDevice, st));
   }
-  // stage 2: da2 = dy3 k3^T, then its BN backward in place
-  const ConvGeom g3t = geom(a->n, b.c3.ho, b.c3.wo, C4, b.c3.ho, b.c3.wo, P, 1, 1, 0);
-  CHECK(conv(false, y3, a->k3t, nullptr, nullptr, nullptr, da2, nullptr, g3t, st));
-  CHECK(bwd_sums(da2, nullptr, y2, a->m2, s2, a->g2, a->b2, da2, a->db2,
-                              a->dg2, b.rows2, P, st));
-  CHECK(bwd_apply(da2, y2, a->m2, s2, a->g2, a->db2, a->dg2, da2, b.rows2,
-                               P, st));  // dy2 over da2
-  CHECK(wgrad(y1, s1.scale, s1.shift, da2, part, a->dk2, b.c2, st));
-  // stage 1: da1 = the transposed 3x3/s of dy2
-  const ConvGeom g2t = geom(a->n, b.c2.ho, b.c2.wo, P, a->hi, a->wi, P, 3, a->stride, 1);
-  CHECK(conv(true, da2, a->k2t, nullptr, nullptr, nullptr, da1, nullptr, g2t, st));
-  CHECK(bwd_sums(da1, nullptr, y1, a->m1, s1, a->g1, a->b1, da1, a->db1,
-                              a->dg1, b.rows1, P, st));
-  CHECK(bwd_apply(da1, y1, a->m1, s1, a->g1, a->db1, a->dg1, da1, b.rows1,
-                               P, st));  // dy1 over da1
-  CHECK(wgrad(a->x, nullptr, nullptr, da1, part, a->dk1, b.c1, st));
-  // dx = dy1 k1^T + the shortcut's share
-  const ConvGeom g1t = geom(a->n, a->hi, a->wi, P, a->hi, a->wi, a->cin, 1, 1, 0);
+  const long long total3 = (long long)b.rows2 * C4;
+  bot_dz_apply_kernel<T><<<elementwise_grid(total3 / 4), THREADS, 0, st>>>(
+      dz, y3, a->m3, s3.rstd, a->g3, a->db3, a->dg3, ys, a->ms, a->proj ? ss.rstd : kNone, a->gs,
+      a->dgs, (float)b.rows2, dy3, dys, total3, C4);
+  CHECK(cudaGetLastError());
+  CHECK(wgrad_sm90(r3, a2, dy3, part, a->dk3, st));
+  if (a->proj) CHECK(wgrad_sm90(rs, a->x, dys, part, a->dks, st));
+  // stage 2: da2 = dy3 k3^T, then its BN backward (dp2 in place, dy2)
+  CHECK(sm90::conv_gemm(d3, dy3, a->k3t,
+                        Epilogue<T, float, float>{da2, nullptr, nullptr, kNone, kNone}, st));
+  CHECK(bwd_sums(da2, nullptr, y2, a->m2, s2, a->g2, a->b2, da2, a->db2, a->dg2, b.rows2, P, st));
+  CHECK(bwd_apply(da2, y2, a->m2, s2, a->g2, a->db2, a->dg2, dy2, b.rows2, P, st));
+  CHECK(wgrad_sm90(r2, a1, dy2, part, a->dk2, st));
+  // stage 1: da1 = the transposed 3x3/s of dy2 (by parity class at s = 2)
+  CHECK(sm90::conv_gemm(d2, dy2, a->k2t,
+                        Epilogue<T, float, float>{da1, nullptr, nullptr, kNone, kNone}, st));
+  CHECK(bwd_sums(da1, nullptr, y1, a->m1, s1, a->g1, a->b1, da1, a->db1, a->dg1, b.rows1, P, st));
+  CHECK(bwd_apply(da1, y1, a->m1, s1, a->g1, a->db1, a->dg1, dy1, b.rows1, P, st));
+  CHECK(wgrad_sm90(r1, a->x, dy1, part, a->dk1, st));
+  // dx = dy1 k1^T + dz (identity) or + the shortcut's share dyS ks^T,
+  // which at s = 2 lands on the even-even pixels only
   if (a->proj) {
-    const ConvGeom gst = geom(a->n, b.cs.ho, b.cs.wo, C4, a->hi, a->wi, a->cin, 1,
-                              a->stride, 0);
-    CHECK(conv(true, ys, a->kst, nullptr, nullptr, nullptr, dxs, nullptr,
-                            gst, st));
-    CHECK(conv(false, da1, a->k1t, nullptr, nullptr, dxs, a->dx, nullptr,
-                            g1t, st));
+    CHECK(sm90::conv_gemm(dsx, dys, a->kst,
+                          Epilogue<T, float, float>{dxs, nullptr, nullptr, kNone, kNone}, st));
+    CHECK(sm90::conv_gemm(d1, dy1, a->k1t,
+                          Epilogue<T, T, float>{a->dx, dxs, nullptr, kNone, kNone}, st));
   } else {
-    CHECK(conv(false, da1, a->k1t, nullptr, nullptr, z, a->dx, nullptr, g1t,
-                            st));
+    CHECK(sm90::conv_gemm(d1, dy1, a->k1t, Epilogue<T, T, T>{a->dx, dz, nullptr, kNone, kNone},
+                          st));
   }
   return 0;
 }

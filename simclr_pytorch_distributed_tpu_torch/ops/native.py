@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The build happens
 at first use, into ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``), under a file name that carries a hash of the source and the
-flags, so an edited ``.cu`` rebuilds and an unchanged one is reused. The
+``.gitignore``), under a file name that carries a hash of the source, of the
+``csrc/*.cuh`` headers it includes and of the flags, so an edited ``.cu`` or
+header rebuilds and an unchanged one is reused. The
 compiler's output (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``<library>.log``.
 
@@ -21,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -59,10 +61,31 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: Path) -> list:
+    """The headers under ``csrc/`` that ``source`` includes with quotes,
+    directly or through another such header, in the order first reached."""
+    found, todo = [], [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_text()):
+            header = CSRC_DIR / name
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
-    source bytes and the compiler flags."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    source bytes, of every header it includes from ``csrc/`` and of the
+    compiler flags, so editing a header rebuilds too."""
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in included_headers(source):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
