@@ -20,17 +20,18 @@ fused, compares one step of each model's fused conv path with its eager
 one (fp32: the loss, each parameter's update and the BN buffers, beside a
 float64 run; bf16: the eager and the fused bf16 step each against the fp32
 eager step, from an init with small residual-branch BN gammas where the
-step is well conditioned), checks that two Bottleneck backward calls give
-bitwise-equal outputs, and times kernels and train steps with CUDA events,
-the Bottleneck backward also split by device kernel (``torch.profiler``)
-with its peak memory. Phases: device, build, kernel_parity, train, timing.
-Any failure raises and the script exits non-zero.
+step is well conditioned), checks that two Bottleneck forward calls and
+two backward calls give bitwise-equal outputs, and times kernels and train
+steps with CUDA events, the Bottleneck forward and backward also split by
+device kernel (``torch.profiler``) with their peak memory. Phases: device,
+build, kernel_parity, train, timing. Any failure raises and the script
+exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
 builds only the conv library of another checkout (a parent commit unpacked
-with ``git archive``, say) and prints its Bottleneck backward split, for a
-comparison inside one call.
+with ``git archive``, say) and prints its Bottleneck forward and backward
+splits, for a comparison inside one call.
 
 The last lines of standard output are the card's name and power limit, one
 JSON object with an entry per kernel (``{"kernels": [...]}``: launches on
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import functools
 import json
 import math
 import os
@@ -776,39 +778,44 @@ def short_kernel_name(name):
     return head.split("::")[-1].strip()
 
 
-def bottleneck_bwd_determinism(dev):
-    """Two ``bottleneck_bwd`` calls on the same inputs, in each compute
-    dtype, at one recipe geometry per stride (a ResNet-50 identity site and
-    its stride-2 projection site): every output bitwise equal, or raise.
-    The kernels use no atomics and combine partial sums in a fixed order."""
+def bottleneck_determinism(dev):
+    """Two ``bottleneck_fwd`` calls and two ``bottleneck_bwd`` calls on the
+    same inputs, in each compute dtype, at one recipe geometry per stride (a
+    ResNet-50 identity site and its stride-2 projection site): every output
+    bitwise equal, or raise. The kernels use no atomics and combine partial
+    sums in a fixed order."""
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     for geo in ((512, 16, 16, 512, 128, 1), (512, 16, 16, 512, 256, 2)):
         for dtype in (torch.float32, torch.bfloat16):
             _, _, fwd, bwd = site_calls(fc, "bottleneck", geo, dev, seed=8, dtype=dtype)
-            r = fwd[0]()
+            r, r_again = fwd[0](), fwd[0]()
             bargs, kernel, _, names = bwd(r[1:], torch.randn_like(r[0]))
-            first, second = kernel(*bargs), kernel(*bargs)
-            same = [torch.equal(a, b) for a, b in zip(first, second)]
-            print(f"bottleneck_bwd determinism {geo} {dtype}: two calls bitwise equal on "
-                  f"{sum(same)} of {len(same)} outputs")
-            if not all(same):
-                raise AssertionError(f"bottleneck_bwd {geo} {dtype}: outputs differ between two "
-                                     f"calls: {[n for n, ok in zip(names, same) if not ok]}")
-            del fwd, bwd, r, bargs, first, second
+            for entry, first, second, what in (
+                    ("bottleneck_fwd", r, r_again, BOT_OUT),
+                    ("bottleneck_bwd", kernel(*bargs), kernel(*bargs), names)):
+                same = [torch.equal(a, b) for a, b in zip(first, second)]
+                print(f"{entry} determinism {geo} {dtype}: two calls bitwise equal on "
+                      f"{sum(same)} of {len(same)} outputs")
+                if not all(same):
+                    raise AssertionError(
+                        f"{entry} {geo} {dtype}: outputs differ between two calls: "
+                        f"{[n for n, ok in zip(what, same) if not ok]}")
+            del fwd, bwd, r, r_again, bargs, first, second
             torch.cuda.empty_cache()
 
 
-def bottleneck_bwd_split(dev, where, dtype=torch.float32):
-    """One ``bottleneck_bwd`` call at each distinct ResNet-50 recipe
-    geometry, traced by ``torch.profiler``: device time per kernel name
-    (``key_averages()``, self device time), one step's worth (each
-    geometry times its number of sites) summed per name and per group
-    (:func:`kernel_group`); beside it the peak device memory of one call
-    beyond its inputs (``max_memory_allocated`` after a reset). Prints "not
-    measured" when the profiler shows no device time."""
+def bottleneck_split(dev, where, direction, dtype=torch.float32):
+    """One ``bottleneck_fwd`` (``direction`` 'fwd') or ``bottleneck_bwd``
+    ('bwd') call at each distinct ResNet-50 recipe geometry, traced by
+    ``torch.profiler``: device time per kernel name (``key_averages()``,
+    self device time), one step's worth (each geometry times its number of
+    sites) summed per name and per group (:func:`kernel_group`); beside it
+    the peak device memory of one call beyond its inputs
+    (``max_memory_allocated`` after a reset). Prints "not measured" when the
+    profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
-    tag = "fp32" if dtype == torch.float32 else "bf16"
+    tag = f"bottleneck_{direction} split {'fp32' if dtype == torch.float32 else 'bf16'}"
     mult = {}
     for _, _, geo in model_sites("resnet50"):
         mult[geo] = mult.get(geo, 0) + 1
@@ -816,20 +823,26 @@ def bottleneck_bwd_split(dev, where, dtype=torch.float32):
     for geo, k in mult.items():
         _, _, fwd, bwd = site_calls(fc, "bottleneck", geo, dev, seed=4, dtype=dtype)
         r = fwd[0]()
-        bargs, kernel, _, _ = bwd(r[1:], torch.randn_like(r[0]))
-        kernel(*bargs)
+        if direction == "fwd":
+            call = fwd[0]
+        else:
+            bargs, kernel, _, _ = bwd(r[1:], torch.randn_like(r[0]))
+            call = functools.partial(kernel, *bargs)
+            del bargs
+        del r
+        call()
         torch.cuda.synchronize()
         # the device memory the call takes beyond its inputs: outputs,
         # workspace (with its compute-dtype copies) and the weight copies
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        kernel(*bargs)
+        call()
         torch.cuda.synchronize()
         extra_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
         per = {}
         for _ in range(3):  # a trace now and then comes back empty: trace again
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                kernel(*bargs)
+                call()
                 torch.cuda.synchronize()
             for avg in prof.key_averages():
                 us = getattr(avg, "self_device_time_total", None)
@@ -841,22 +854,22 @@ def bottleneck_bwd_split(dev, where, dtype=torch.float32):
             if per:
                 break
         if not per:
-            print(f"bottleneck_bwd split {tag}: not measured (the profiler shows no device "
-                  f"time on this machine) {where}")
+            print(f"{tag}: not measured (the profiler shows no device time on this machine) "
+                  f"{where}")
             return
         total = sum(per.values())
-        print(f"bottleneck_bwd split {tag} {geo} x{k} sites, one call {total:.3f} ms, peak "
-              f"device memory beyond its inputs {extra_mb:.1f} MiB: "
+        print(f"{tag} {geo} x{k} sites, one call {total:.3f} ms, peak device memory beyond its "
+              f"inputs {extra_mb:.1f} MiB: "
               + ", ".join(f"{n} {ms:.3f}" for n, ms in sorted(per.items(), key=lambda p: -p[1]))
               + f" {where}", flush=True)
         for name, ms in per.items():
             step[name] = step.get(name, 0.0) + k * ms
-        del fwd, bwd, r, bargs
+        del fwd, bwd, call
         torch.cuda.empty_cache()
     groups = {g: sum(ms for n, ms in step.items() if kernel_group(n) == g)
               for g in ("gemm", "elementwise")}
     total = sum(step.values())
-    print(f"bottleneck_bwd split {tag}, sum over the 16 sites (one step) {total:.3f} ms: "
+    print(f"{tag}, sum over the 16 sites (one step) {total:.3f} ms: "
           f"GEMMs {groups['gemm']:.3f} ms ({100 * groups['gemm'] / total:.1f}%), elementwise "
           f"{groups['elementwise']:.3f} ms; "
           + ", ".join(f"{n} {ms:.3f}" for n, ms in sorted(step.items(), key=lambda p: -p[1]))
@@ -1078,8 +1091,8 @@ def step_check_bf16(name, model, views, labels):
 
 
 def split_only() -> int:
-    """The ``--split-only`` run: the build and the Bottleneck backward's
-    per-kernel split in both compute dtypes."""
+    """The ``--split-only`` run: the build and the Bottleneck forward's and
+    backward's per-kernel splits in both compute dtypes."""
     from simclr_pytorch_distributed_tpu_torch.ops import native
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1090,8 +1103,9 @@ def split_only() -> int:
     tb = time.time()
     lib = native.build("fused_conv_bn")
     print(f"built {lib} in {time.time() - tb:.2f} s")
-    for dtype in (torch.float32, torch.bfloat16):
-        bottleneck_bwd_split(dev, f"on {card}", dtype)
+    for direction in ("fwd", "bwd"):
+        for dtype in (torch.float32, torch.bfloat16):
+            bottleneck_split(dev, f"on {card}", direction, dtype)
     return 0
 
 
@@ -1099,8 +1113,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--split-only", action="store_true",
-                    help="only build the conv kernels and print the per-kernel split of the "
-                         "Bottleneck backward (fp32 and bf16), then exit")
+                    help="only build the conv kernels and print the per-kernel splits of the "
+                         "Bottleneck forward and backward (fp32 and bf16), then exit")
     ap.add_argument("--root", default=REPO,
                     help="the checkout whose port package is imported and built (default: "
                          "this script's directory; another checkout, for example a parent "
@@ -1208,7 +1222,7 @@ def main(argv=None) -> int:
     for line in parity.excused:
         print(f"  excused: {line}")
     parity.raise_if_failed()
-    bottleneck_bwd_determinism(dev)
+    bottleneck_determinism(dev)
     done("kernel_parity", t0)
 
     # -- train: each main path, through the port's entry point --------------
@@ -1344,8 +1358,9 @@ def main(argv=None) -> int:
         res = sites_timing(dev, where, family, model_sites(model_name), seed, torch.bfloat16)
         sites16 += res.pop("sites")
         times16.update(res)
-    for dtype in (torch.float32, torch.bfloat16):
-        bottleneck_bwd_split(dev, where, dtype)
+    for direction in ("fwd", "bwd"):
+        for dtype in (torch.float32, torch.bfloat16):
+            bottleneck_split(dev, where, direction, dtype)
     done("timing", t0)
 
     # each input read once, each output written once: features, ids and

@@ -1,8 +1,9 @@
 // Pipelined implicit-GEMM convolution and weight-gradient kernels for
 // Hopper (sm_90a), one design per compute dtype, included by
-// fused_conv_bn.cu. bottleneck_bwd (fp32 and bf16) runs every convolution
-// of its backward through them: the recomputed forward convs, the data
-// gradients and the weight gradients.
+// fused_conv_bn.cu. The Bottleneck entry points (fp32 and bf16) run every
+// convolution through them: bottleneck_fwd its four forward convs, with
+// the statistics epilogue; bottleneck_bwd the recomputed forward convs,
+// the data gradients and the weight gradients.
 //
 // A convolution is a GEMM over an explicit list of taps. Each GEMM row is
 // a pixel (b, i, j) of a row grid [n, gh, gw]; tap t reads the source
@@ -41,9 +42,18 @@
 // Epilogues: the fp32 result (+ a residual), stored fp32 or in the compute
 // dtype, and optionally a second output a = rnd(relu(v * sc + sh)) in the
 // compute dtype: the next conv's operand, rounded where the Pallas kernel
-// rounds it (its _fill_pad cast). The weight gradient writes fp32 partials
-// per row split, which split_reduce_kernel combines in fp64 in a fixed
-// order: no atomics, so every call is bitwise repeatable.
+// rounds it (its _fill_pad cast). The statistics epilogue (one-class
+// plans, fp32 out, no residual; a template flag, so the kernels without it
+// compile as before) writes, per CTA and output channel, the mean of the
+// fp32 result over the tile's valid rows and the sum of squares about that
+// mean: part_mean / part_m2 [tiles, cout], tile t holding min(128, rows -
+// 128 t) rows, which bn_finalize_kernel in fused_conv_bn.cu combines in
+// fp64. bf16 reduces the fp32 tile that already sits in shared memory for
+// the stores, fp32 each thread's micro-tile in registers and then the 16
+// row lanes through shared memory (the ring is free after the main loop);
+// both sum in a fixed order. The weight gradient writes fp32 partials per
+// row split, which split_reduce_kernel combines in fp64 in a fixed order:
+// no atomics, so every call is bitwise repeatable.
 
 #pragma once
 
@@ -177,7 +187,9 @@ __device__ __forceinline__ long long out_offset(const ConvPlan& p, const ConvCla
 }
 
 // The epilogue's operands: out[o] = v (+ res[o] where the class adds it);
-// act[o] = rnd(relu(v * sc[c] + sh[c])) when act is set.
+// act[o] = rnd(relu(v * sc[c] + sh[c])) when act is set; the statistics of
+// v per 128-row tile into part_mean / part_m2 [tiles, cout] when part_mean
+// is set (see the header comment).
 template <typename T, typename OutT, typename ResT>
 struct Epilogue {
   OutT* out;
@@ -185,6 +197,8 @@ struct Epilogue {
   T* act;
   const float* sc;
   const float* sh;
+  float* part_mean;
+  float* part_m2;
 };
 
 template <typename T, typename OutT, typename ResT>
@@ -363,7 +377,8 @@ struct HTile {
 // K-major, one line per row (its 64 channels of the chunk), atom r / 8;
 // B (weights) MN-major, one line per K row and 64 channels, atom
 // (n / 64) * 8 + k / 8. Warpgroup w multiplies rows 64 w .. 64 w + 63.
-template <int BN, typename OutT, typename ResT>
+// STATS: the statistics epilogue.
+template <int BN, typename OutT, typename ResT, bool STATS>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
     conv_gemm_sm90_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wt,
                           const __grid_constant__ ConvPlan p, Epilogue<bf16, OutT, ResT> e) {
@@ -467,6 +482,43 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2)
     if (n0 + cq >= p.cout) continue;
     store_four(e, add, out_offset(p, cl, r), n0 + cq, p.cout,
                *reinterpret_cast<const float4*>(ct + lr * LD + cq));
+  }
+  if constexpr (STATS) {
+    // G row lanes a channel, each summing every G-th valid row in order;
+    // the lanes combined in order
+    constexpr int G = GEMM_THREADS / BN;
+    static_assert((GEMM_BM * LD + (G + 1) * BN) * 4 <= Tile::SMEM, "the sums fit beside the tile");
+    float* red = ct + GEMM_BM * LD;  // [G][BN]
+    float* tmean = red + G * BN;     // [BN]
+    const int nrows = min(GEMM_BM, rows - m0);
+    const int c = tid % BN, q = tid / BN;
+    float sum = 0.f;
+    for (int r = q; r < nrows; r += G) sum += ct[r * LD + c];
+    red[q * BN + c] = sum;
+    __syncthreads();
+    if (tid < BN) {
+      float t = 0.f;
+#pragma unroll
+      for (int k = 0; k < G; ++k) t += red[k * BN + tid];
+      tmean[tid] = t / (float)nrows;
+    }
+    __syncthreads();
+    const float mu = tmean[c];
+    float m2 = 0.f;
+    for (int r = q; r < nrows; r += G) {
+      const float d = ct[r * LD + c] - mu;
+      m2 = fmaf(d, d, m2);
+    }
+    red[q * BN + c] = m2;
+    __syncthreads();
+    if (tid < BN && n0 + tid < p.cout) {
+      float t = 0.f;
+#pragma unroll
+      for (int k = 0; k < G; ++k) t += red[k * BN + tid];
+      const long long o = (long long)blockIdx.x * p.cout + n0 + tid;
+      e.part_mean[o] = tmean[tid];
+      e.part_m2[o] = t;
+    }
   }
 }
 
@@ -615,8 +667,8 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 // blockIdx.z; thread (tx, ty) of a 16 x 16 grid owns rows ty + 16 i (i < 8)
 // and columns 4 tx + 64 jj .. + 3 (jj < BN / 64). A is stored row-major
 // with a padded pitch (its float4 reads along K broadcast within a warp),
-// B as [16 k][BN].
-template <int BN>
+// B as [16 k][BN]. STATS: the statistics epilogue.
+template <int BN, bool STATS>
 __global__ void __launch_bounds__(GEMM_THREADS)
     conv_gemm_f32_kernel(const float* __restrict__ src, const float* __restrict__ wt,
                          const __grid_constant__ ConvPlan p, Epilogue<float, float, float> e) {
@@ -721,6 +773,61 @@ __global__ void __launch_bounds__(GEMM_THREADS)
       store_four(e, add, o, c, p.cout,
                      make_float4(acc[i][4 * jj], acc[i][4 * jj + 1], acc[i][4 * jj + 2],
                                  acc[i][4 * jj + 3]));
+    }
+  }
+  if constexpr (STATS) {
+    // each thread's 8 rows in registers, then the 16 row lanes (ty)
+    // combined in order through shared memory
+    static_assert((16 + 1) * BN * 4 <= Tile::SMEM, "the sums fit in the ring");
+    float* red = fsmem;              // [16][BN]
+    float* tmean = fsmem + 16 * BN;  // [BN]
+    const int nrows = min(GEMM_BM, rows - m0);
+    float part[4 * JN];
+#pragma unroll
+    for (int j = 0; j < 4 * JN; ++j) {
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (ty + 16 * i < nrows) t += acc[i][j];
+      part[j] = t;
+    }
+    __syncthreads();  // every thread is done with the ring
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj)
+      store4(red + ty * BN + tx * 4 + 64 * jj,
+             make_float4(part[4 * jj], part[4 * jj + 1], part[4 * jj + 2], part[4 * jj + 3]));
+    __syncthreads();
+    if (tid < BN) {
+      float t = 0.f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) t += red[k * BN + tid];
+      tmean[tid] = t / (float)nrows;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4 * JN; ++j) {
+      const float mu = tmean[tx * 4 + 64 * (j / 4) + j % 4];
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (ty + 16 * i < nrows) {
+          const float d = acc[i][j] - mu;
+          q = fmaf(d, d, q);
+        }
+      part[j] = q;
+    }
+#pragma unroll
+    for (int jj = 0; jj < JN; ++jj)
+      store4(red + ty * BN + tx * 4 + 64 * jj,
+             make_float4(part[4 * jj], part[4 * jj + 1], part[4 * jj + 2], part[4 * jj + 3]));
+    __syncthreads();
+    if (tid < BN && n0 + tid < p.cout) {
+      float t = 0.f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) t += red[k * BN + tid];
+      const long long o = (long long)blockIdx.x * p.cout + n0 + tid;
+      e.part_mean[o] = tmean[tid];
+      e.part_m2[o] = t;
     }
   }
 }
@@ -951,45 +1058,48 @@ constexpr bool is_f32() {
   return std::is_same<T, float>::value;
 }
 
-// out (+ res) = the conv of plan p, with act = rnd(relu(out * sc + sh))
-// when e.act is set; on the caller's stream.
-template <typename T, typename OutT, typename ResT>
-cudaError_t conv_gemm(const ConvPlan& p, const T* src, const T* wt,
-                      const Epilogue<T, OutT, ResT>& e, cudaStream_t st) {
+template <typename K, typename... A>
+cudaError_t launch(K kernel, dim3 grid, int smem, cudaStream_t st, A... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, GEMM_THREADS, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+template <bool STATS, typename T, typename OutT, typename ResT>
+cudaError_t conv_gemm_launch(const ConvPlan& p, const T* src, const T* wt,
+                             const Epilogue<T, OutT, ResT>& e, cudaStream_t st) {
   const int rows = p.n * p.gh * p.gw;
   const bool wide = p.cout > 64;
   const dim3 grid(cdiv(rows, GEMM_BM), cdiv(p.cout, wide ? 128 : 64), p.nclass);
-  cudaError_t err;
   if constexpr (is_f32<T>()) {
-    if (wide) {
-      auto k = conv_gemm_f32_kernel<128>;
-      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      FTile<128>::SMEM)) != cudaSuccess)
-        return err;
-      k<<<grid, GEMM_THREADS, FTile<128>::SMEM, st>>>(src, wt, p, e);
-    } else {
-      auto k = conv_gemm_f32_kernel<64>;
-      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      FTile<64>::SMEM)) != cudaSuccess)
-        return err;
-      k<<<grid, GEMM_THREADS, FTile<64>::SMEM, st>>>(src, wt, p, e);
-    }
+    if (wide)
+      return launch(conv_gemm_f32_kernel<128, STATS>, grid, FTile<128>::SMEM, st, src, wt, p, e);
+    return launch(conv_gemm_f32_kernel<64, STATS>, grid, FTile<64>::SMEM, st, src, wt, p, e);
   } else {
-    if (wide) {
-      auto k = conv_gemm_sm90_kernel<128, OutT, ResT>;
-      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      HTile<128>::SMEM)) != cudaSuccess)
-        return err;
-      k<<<grid, GEMM_THREADS, HTile<128>::SMEM, st>>>(src, wt, p, e);
-    } else {
-      auto k = conv_gemm_sm90_kernel<64, OutT, ResT>;
-      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      HTile<64>::SMEM)) != cudaSuccess)
-        return err;
-      k<<<grid, GEMM_THREADS, HTile<64>::SMEM, st>>>(src, wt, p, e);
-    }
+    if (wide)
+      return launch(conv_gemm_sm90_kernel<128, OutT, ResT, STATS>, grid, HTile<128>::SMEM, st, src,
+                    wt, p, e);
+    return launch(conv_gemm_sm90_kernel<64, OutT, ResT, STATS>, grid, HTile<64>::SMEM, st, src, wt,
+                  p, e);
   }
-  return cudaGetLastError();
+}
+
+// out (+ res) = the conv of plan p, with act = rnd(relu(out * sc + sh))
+// when e.act is set and the tile statistics when e.part_mean is set (a
+// one-class plan with fp32 out and no residual, else cudaErrorInvalidValue);
+// on the caller's stream.
+template <typename T, typename OutT, typename ResT>
+cudaError_t conv_gemm(const ConvPlan& p, const T* src, const T* wt,
+                      const Epilogue<T, OutT, ResT>& e, cudaStream_t st) {
+  if (!e.part_mean) return conv_gemm_launch<false>(p, src, wt, e, st);
+  if constexpr (std::is_same<OutT, float>::value) {
+    if (p.nclass != 1 || e.res || !e.part_m2) return cudaErrorInvalidValue;
+    return conv_gemm_launch<true>(p, src, wt, e, st);
+  } else {
+    return cudaErrorInvalidValue;
+  }
 }
 
 // The weight gradient's row split: pixels per split, a whole number of
@@ -1028,37 +1138,17 @@ cudaError_t conv_wgrad(const ConvPlan& p, const T* src, const T* dy, float* part
   const bool wide = p.cout > 64;
   const int m_per = wgrad_rows_per_split<T>(p);
   const dim3 grid(cdiv(kpad, GEMM_BM), cdiv(p.cout, wide ? 128 : 64), wgrad_splits<T>(p));
-  cudaError_t err;
   if constexpr (is_f32<T>()) {
-    if (wide) {
-      auto k = conv_wgrad_f32_kernel<128>;
-      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      FWTile<128>::SMEM)) != cudaSuccess)
-        return err;
-      k<<<grid, GEMM_THREADS, FWTile<128>::SMEM, st>>>(src, dy, part, p, m_per);
-    } else {
-      auto k = conv_wgrad_f32_kernel<64>;
-      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      FWTile<64>::SMEM)) != cudaSuccess)
-        return err;
-      k<<<grid, GEMM_THREADS, FWTile<64>::SMEM, st>>>(src, dy, part, p, m_per);
-    }
+    if (wide)
+      return launch(conv_wgrad_f32_kernel<128>, grid, FWTile<128>::SMEM, st, src, dy, part, p,
+                    m_per);
+    return launch(conv_wgrad_f32_kernel<64>, grid, FWTile<64>::SMEM, st, src, dy, part, p, m_per);
   } else {
-    if (wide) {
-      auto k = conv_wgrad_sm90_kernel<128>;
-      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      HTile<128>::SMEM)) != cudaSuccess)
-        return err;
-      k<<<grid, GEMM_THREADS, HTile<128>::SMEM, st>>>(src, dy, part, p, m_per);
-    } else {
-      auto k = conv_wgrad_sm90_kernel<64>;
-      if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      HTile<64>::SMEM)) != cudaSuccess)
-        return err;
-      k<<<grid, GEMM_THREADS, HTile<64>::SMEM, st>>>(src, dy, part, p, m_per);
-    }
+    if (wide)
+      return launch(conv_wgrad_sm90_kernel<128>, grid, HTile<128>::SMEM, st, src, dy, part, p,
+                    m_per);
+    return launch(conv_wgrad_sm90_kernel<64>, grid, HTile<64>::SMEM, st, src, dy, part, p, m_per);
   }
-  return cudaGetLastError();
 }
 
 }  // namespace sm90

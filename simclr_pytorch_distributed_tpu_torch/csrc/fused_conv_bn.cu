@@ -53,16 +53,17 @@
 //     elementwise BN backward and its per-channel sums.
 // There are no atomics anywhere, so every output is deterministic.
 //
-// The Bottleneck backward (bottleneck_bwd, fp32 and bf16) is redesigned
-// around the pipelined GEMM core of conv_gemm_sm90.cuh, which runs every
-// one of its convolutions: conv_gemm_f32_kernel / conv_wgrad_f32_kernel
-// (fp32) and conv_gemm_sm90_kernel / conv_wgrad_sm90_kernel (bf16, wgmma).
-// It takes 78% of the fp32 ResNet-50 step and 77% of the bf16 one under
-// the first design (PERF.md), which lost its time to (1) GEMMs without
-// pipelining, with a BN+ReLU prologue in every loader, (2) a transposed
-// stride-2 gather that multiplies the zeros of the dilated gradient, and
-// (3) fp32 cotangents and three fp32 passes over the 4P-wide tensors. Its
-// schedule answers each:
+// Both Bottleneck entry points (bottleneck_fwd and bottleneck_bwd, fp32 and
+// bf16) are redesigned around the pipelined GEMM core of
+// conv_gemm_sm90.cuh, which runs every one of their convolutions:
+// conv_gemm_f32_kernel / conv_wgrad_f32_kernel (fp32) and
+// conv_gemm_sm90_kernel / conv_wgrad_sm90_kernel (bf16, wgmma). Under the
+// first design the two took 96% of the fp32 ResNet-50 step and 88% of the
+// bf16 one (PERF.md), and lost their time to (1) GEMMs without pipelining,
+// with a BN+ReLU prologue in every loader, (2) a transposed stride-2
+// gather that multiplies the zeros of the dilated gradient, and (3) fp32
+// cotangents and scalar fp32 passes over the 4P-wide tensors. The
+// backward's schedule answers each:
 //   - plain operands: the recomputed convs' epilogues write y (fp32, for
 //     the BN backward's yhat and masks) and the next conv's operand a =
 //     rnd(relu(y * scale + shift)) in the compute dtype, the value the
@@ -78,8 +79,26 @@
 //     writes dz = gout (z > 0) in the compute dtype and the per-CTA
 //     partial sums; bot_dz_apply_kernel writes dy3 (and dyS). z is never
 //     stored; the identity block's dx epilogue takes dz as its residual.
+// The forward cannot fold its BNs into the epilogues that way: its scale
+// and shift come from this batch's statistics, known only once the whole
+// conv has run. So each conv writes y in fp32 through the core's
+// statistics epilogue (per-CTA tile mean and centred sum of squares, the
+// partials bn_finalize_kernel combines), bn_finalize_kernel folds the BN,
+// and one 4-wide pass, bn_act_kernel, writes a = rnd(relu(y * scale +
+// shift)) in the compute dtype as a plain tensor (over y under fp32):
+//   y1 = x k1 (stats), finalize, a1;  y2 = conv3x3/s(a1, k2) (stats),
+//   finalize, a2;  y3 = a2 k3 (stats), finalize;  yS = x ks /s (stats),
+//   finalize (projection);  out = rnd(relu(y3 s3 + t3 + (yS sS + tS | x)))
+//   in one 4-wide pass, bot_out_kernel.
+// A materialised a, not the prologue in the loader, keeps every operand a
+// plain tensor for 16-byte cp.async, keeps the bf16 ring's stages bf16 (an
+// fp32 y would not fit them), and keeps the 3x3's zero padding zero after
+// the activation (the Pallas _fill_pad), which a loader that transforms
+// what it loads would have to special-case (relu(0 * s + t) != 0). The
+// act pass forms a as the backward's act epilogue does (one fmaf), so the
+// forward's a1/a2 equal the backward's recomputed ones bitwise.
 // The other entry points keep the first design's launch sequence.
-//
+
 // Stage, not recompute, inside a call: a call keeps its pre-BN
 // intermediates (y1, y2, y3, yS) in a workspace the wrapper allocates with
 // torch.empty and frees on return. Across forward -> backward the op's
@@ -116,7 +135,7 @@
 // kernels (mma.sync m16n8k16) conv_gemm_bf16_kernel (the implicit GEMM,
 // same gathers, prologue and epilogues as conv_gemm_kernel) and
 // conv_wgrad_bf16_kernel (the row-split weight gradient); in the
-// Bottleneck backward, wgmma on the redesigned core. The rounding points
+// Bottleneck entry points, wgmma on the redesigned core. The rounding points
 // are the Pallas kernels': the BN+ReLU of a staged y runs in fp32 on the
 // fp32 y and rounds its result (the _fill_pad cast), a cotangent is
 // rounded where it enters a product (as the Pallas backward casts dy
@@ -126,7 +145,7 @@
 // after the fp64 combine of its fp32 partials. The staged buffers are the
 // fp32 path's, plus fp32 buffers where that path stages in place in an
 // output that is bf16 here (y of the last conv, and the shortcut's share
-// of the projection blocks' dx), plus the Bottleneck backward's
+// of the projection blocks' dx), plus the Bottleneck entry points'
 // compute-dtype operands and cotangents. The elementwise kernels are
 // templates over the types they read and write; their fp32 instances are
 // the fp32 path's code. Each *_bf16 entry point replaces the same Pallas
@@ -135,10 +154,10 @@
 // (989 TFLOP/s: a recipe-shape Bottleneck forward in ~0.1 ms), the BN
 // passes by bytes. The first design answers neither: each 32-deep chunk is
 // gathered by the loading threads and stored through shared memory with
-// no pipelining and no wgmma/TMA; the Bottleneck backward's redesign
-// answers the first with wgmma on a three-stage cp.async ring and the
-// second with two-byte cotangents and a pass fewer (PERF.md has the
-// times of both).
+// no pipelining and no wgmma/TMA; the Bottleneck redesign answers the
+// first with wgmma on a three-stage cp.async ring and the second with
+// two-byte operands and cotangents, a pass fewer in the backward and 4-wide
+// passes (PERF.md has the times of both designs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,6 +187,9 @@ constexpr int WAVES = sm90::WGRAD_CTAS;  // CTAs the weight-gradient split aims 
 // banks).
 constexpr int HBK = 32, HWM = 32, HLD = 40;
 static_assert(BM == 128 && BN == 64, "the bf16 conv tile is 128 x 64");
+// bn_finalize_kernel counts min(BM, rows - t * BM) rows in tile t, for the
+// first design's partials and for the pipelined core's statistics epilogue
+static_assert(sm90::GEMM_BM == BM, "one tile height for every statistics partial");
 
 using bf16 = __nv_bfloat16;
 
@@ -1143,6 +1165,61 @@ __global__ void bot_dz_apply_kernel(const T* __restrict__ dz, const float* __res
   }
 }
 
+// a = rnd(relu(y * sc + sh)) in the compute dtype, formed as the pipelined
+// core's act epilogue forms it (store_one: one fmaf, then the ReLU), so the
+// forward's a equals the backward's recomputed a bitwise. Four consecutive
+// elements of the flat [rows, C] tensor a thread, the channel counted
+// along; the last partial group one at a time. a may alias y (fp32).
+template <typename T>
+__global__ void bn_act_kernel(const float* y, const float* __restrict__ sc,
+                              const float* __restrict__ sh, T* a, long long total, int C) {
+  for (long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4; i < total;
+       i += (long long)gridDim.x * blockDim.x * 4) {
+    int c = (int)(i % C);
+    if (i + 4 <= total) {
+      const float4 y4 = sm90::load4(y + i);
+      float v[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = fmaxf(fmaf(v[e], sc[c], sh[c]), 0.f);
+        c = c + 1 == C ? 0 : c + 1;
+      }
+      sm90::store4(a + i, make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+      for (long long j = i; j < total; ++j) {
+        a[j] = from_f<T>(fmaxf(fmaf(y[j], sc[c], sh[c]), 0.f));
+        c = c + 1 == C ? 0 : c + 1;
+      }
+    }
+  }
+}
+
+// The Bottleneck forward's last pass: out = rnd(relu(y3 * sc3 + sh3 + (ys *
+// scs + shs | x))), z formed as bn_apply_kernel and bot_dz_sums_kernel form
+// it; four consecutive elements a thread (C = 4P, a multiple of 4). out
+// may alias y3 (fp32).
+template <typename T>
+__global__ void bot_out_kernel(const float* y3, const float* __restrict__ sc3,
+                               const float* __restrict__ sh3, const float* __restrict__ ys,
+                               const float* __restrict__ scs, const float* __restrict__ shs,
+                               const T* __restrict__ x, T* out, long long total, int C) {
+  for (long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4; i < total;
+       i += (long long)gridDim.x * blockDim.x * 4) {
+    const int c0 = (int)(i % C);
+    const float4 y4 = sm90::load4(y3 + i), s4 = ys ? sm90::load4(ys + i) : sm90::load4(x + i);
+    const float yv[4] = {y4.x, y4.y, y4.z, y4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + e;
+      v[e] = fmaf(yv[e], sc3[c], sh3[c]);
+      v[e] += ys ? fmaf(sv[e], scs[c], shs[c]) : sv[e];
+      v[e] = fmaxf(v[e], 0.f);
+    }
+    sm90::store4(out + i, make_float4(v[0], v[1], v[2], v[3]));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host side: workspace carving and the launch sequences.
 // ---------------------------------------------------------------------------
@@ -1248,14 +1325,19 @@ cudaError_t conv(bool trans, const SrcT* src, const bf16* wt, const float* psc,
   return cudaGetLastError();
 }
 
+// The moments and folded rows of one BN from the tile partials in s.pa /
+// s.pb of a conv with `rows` rows and C channels.
+cudaError_t finalize(const BnScratch& s, int rows, int C, const float* gamma, const float* beta,
+                     float eps, float* mean, float* var, cudaStream_t st) {
+  bn_finalize_kernel<<<cdiv(C, 32), dim3(32, 32), 0, st>>>(
+      s.pa, s.pb, cdiv(rows, BM), rows, C, gamma, beta, eps, mean, var, s.rstd, s.scale, s.shift);
+  return cudaGetLastError();
+}
+
 cudaError_t finalize(const BnScratch& s, const ConvGeom& g, const float* gamma,
              const float* beta, float eps, float* mean, float* var,
              cudaStream_t st) {
-  const int rows = g.n * g.ho * g.wo;
-  bn_finalize_kernel<<<cdiv(g.cout, 32), dim3(32, 32), 0, st>>>(
-      s.pa, s.pb, conv_tiles(g), rows, g.cout, gamma, beta, eps, mean, var,
-      s.rstd, s.scale, s.shift);
-  return cudaGetLastError();
+  return finalize(s, g.n * g.ho * g.wo, g.cout, gamma, beta, eps, mean, var, st);
 }
 
 cudaError_t fold_saved(const BnScratch& s, const float* mean, const float* var,
@@ -1363,6 +1445,16 @@ cudaError_t wgrad(const SrcT* src, const float* psc, const float* psh, const flo
   return cudaGetLastError();
 }
 
+// a = rnd(relu(y * scale + shift)) of one BN, in the compute dtype.
+template <typename T>
+cudaError_t activate(const float* y, const BnScratch& s, T* a, long long rows, int C,
+                     cudaStream_t st) {
+  const long long total = rows * C;
+  bn_act_kernel<T><<<elementwise_grid(cdiv(total, 4)), THREADS, 0, st>>>(y, s.scale, s.shift, a,
+                                                                         total, C);
+  return cudaGetLastError();
+}
+
 inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
 
 // A buffer of count elements of T out of the arena.
@@ -1371,11 +1463,12 @@ T* take_as(Arena& ar, size_t count) {
   return reinterpret_cast<T*>(ar.take((count * sizeof(T) + sizeof(float) - 1) / sizeof(float)));
 }
 
-// Where a cotangent in the compute dtype goes: over its fp32 source
-// `alias` under fp32 compute (elementwise in place), in a buffer of its
-// own under bf16 compute.
+// Where a tensor in the compute dtype that one elementwise pass forms from
+// an fp32 one (a cotangent, an activated conv operand) goes: over its fp32
+// source `alias` under fp32 compute (in place), in a buffer of its own
+// under bf16 compute.
 template <typename T>
-T* cotangent(Arena& ar, float* alias, size_t count) {
+T* compute_copy(Arena& ar, float* alias, size_t count) {
   if constexpr (std::is_same<T, float>::value)
     return alias;
   else
@@ -1529,8 +1622,10 @@ struct BotArgs {
   float eps;
 };
 
+// The Bottleneck's forward convolutions as plans of the pipelined core,
+// which both entry points run them on, and its sizes.
 struct BotGeoms {
-  ConvGeom c1, c2, c3, cs;  // forward convs
+  sm90::ConvPlan r1, r2, r3, rs;
   int rows1, rows2, P, C4;
 };
 
@@ -1540,10 +1635,10 @@ static BotGeoms bot_geoms(const BotArgs<T>* a) {
   const int s = a->stride, ho = a->hi / s, wo = a->wi / s;
   b.P = a->planes;
   b.C4 = 4 * a->planes;
-  b.c1 = geom(a->n, a->hi, a->wi, a->cin, a->hi, a->wi, b.P, 1, 1, 0);
-  b.c2 = geom(a->n, a->hi, a->wi, b.P, ho, wo, b.P, 3, s, 1);
-  b.c3 = geom(a->n, ho, wo, b.P, ho, wo, b.C4, 1, 1, 0);
-  b.cs = geom(a->n, a->hi, a->wi, a->cin, ho, wo, b.C4, 1, s, 0);
+  b.r1 = sm90::forward_plan(a->n, a->hi, a->wi, a->cin, 1, 1, b.P);
+  b.r2 = sm90::forward_plan(a->n, a->hi, a->wi, b.P, 3, s, b.P);
+  b.r3 = sm90::forward_plan(a->n, ho, wo, b.P, 1, 1, b.C4);
+  b.rs = sm90::forward_plan(a->n, a->hi, a->wi, a->cin, 1, s, b.C4);
   b.rows1 = a->n * a->hi * a->wi;
   b.rows2 = a->n * ho * wo;
   return b;
@@ -1551,36 +1646,48 @@ static BotGeoms bot_geoms(const BotArgs<T>* a) {
 
 template <typename T>
 static int bottleneck_fwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
+  using sm90::Epilogue;
   const BotGeoms b = bot_geoms(a);
+  const int P = b.P, C4 = b.C4;
   Arena ar{static_cast<char*>(ws)};
-  float* y1 = ar.take((size_t)b.rows1 * b.P);
-  float* y2 = ar.take((size_t)b.rows2 * b.P);
-  float* ys = a->proj ? ar.take((size_t)b.rows2 * b.C4) : nullptr;
-  BnScratch s1 = bn_scratch(ar, b.rows1, b.P);
-  BnScratch s2 = bn_scratch(ar, b.rows2, b.P);
-  BnScratch s3 = bn_scratch(ar, b.rows2, b.C4);
-  BnScratch ss = bn_scratch(ar, b.rows2, b.C4);
-  // y3 is staged in out and normalized in place (fp32)
-  float* y3 = staged(ar, a->out, (size_t)b.rows2 * b.C4);
+  // pre-BN y in fp32 and, for the next conv, a = rnd(relu(y * scale +
+  // shift)) in the compute dtype (over y under fp32)
+  float* y1 = ar.take((size_t)b.rows1 * P);
+  T* a1 = compute_copy<T>(ar, y1, (size_t)b.rows1 * P);
+  float* y2 = ar.take((size_t)b.rows2 * P);
+  T* a2 = compute_copy<T>(ar, y2, (size_t)b.rows2 * P);
+  float* ys = a->proj ? ar.take((size_t)b.rows2 * C4) : nullptr;
+  BnScratch s1 = bn_scratch(ar, b.rows1, P);
+  BnScratch s2 = bn_scratch(ar, b.rows2, P);
+  BnScratch s3 = bn_scratch(ar, b.rows2, C4);
+  BnScratch ss = bn_scratch(ar, b.rows2, C4);
+  // y3 is staged in out and the last pass runs in place (fp32)
+  float* y3 = staged(ar, a->out, (size_t)b.rows2 * C4);
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
   }
-  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, nullptr, y1, &s1, b.c1, st));
-  CHECK(finalize(s1, b.c1, a->g1, a->b1, a->eps, a->m1, a->v1, st));
+  // y (fp32) with its tile statistics in the BN's partials
+  auto with_stats = [](float* y, const BnScratch& bn) {
+    return Epilogue<T, float, float>{y, nullptr, nullptr, kNone, kNone, bn.pa, bn.pb};
+  };
+  CHECK(sm90::conv_gemm(b.r1, a->x, a->k1, with_stats(y1, s1), st));
+  CHECK(finalize(s1, b.rows1, P, a->g1, a->b1, a->eps, a->m1, a->v1, st));
+  CHECK(activate(y1, s1, a1, b.rows1, P, st));
+  CHECK(sm90::conv_gemm(b.r2, a1, a->k2, with_stats(y2, s2), st));
+  CHECK(finalize(s2, b.rows2, P, a->g2, a->b2, a->eps, a->m2, a->v2, st));
+  CHECK(activate(y2, s2, a2, b.rows2, P, st));
+  CHECK(sm90::conv_gemm(b.r3, a2, a->k3, with_stats(y3, s3), st));
+  CHECK(finalize(s3, b.rows2, C4, a->g3, a->b3, a->eps, a->m3, a->v3, st));
   if (a->proj) {
-    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, &ss, b.cs, st));
-    CHECK(finalize(ss, b.cs, a->gs, a->bs, a->eps, a->ms, a->vs, st));
+    CHECK(sm90::conv_gemm(b.rs, a->x, a->ks, with_stats(ys, ss), st));
+    CHECK(finalize(ss, b.rows2, C4, a->gs, a->bs, a->eps, a->ms, a->vs, st));
   }
-  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, &s2, b.c2, st));
-  CHECK(finalize(s2, b.c2, a->g2, a->b2, a->eps, a->m2, a->v2, st));
-  CHECK(conv(false, y2, a->k3, s2.scale, s2.shift, nullptr, y3, &s3, b.c3, st));
-  CHECK(finalize(s3, b.c3, a->g3, a->b3, a->eps, a->m3, a->v3, st));
-  if (a->proj)
-    return static_cast<int>(apply(y3, s3.scale, s3.shift, ys, ss.scale,
-                                  ss.shift, a->out, b.rows2, b.C4, true, st));
-  return static_cast<int>(apply(y3, s3.scale, s3.shift, a->x, nullptr,
-                                nullptr, a->out, b.rows2, b.C4, true, st));
+  const long long total = (long long)b.rows2 * C4;
+  bot_out_kernel<T><<<elementwise_grid(total / 4), THREADS, 0, st>>>(
+      y3, s3.scale, s3.shift, ys, a->proj ? ss.scale : kNone, a->proj ? ss.shift : kNone,
+      a->proj ? nullptr : a->x, a->out, total, C4);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -1589,11 +1696,9 @@ static int bottleneck_bwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, 
   const BotGeoms b = bot_geoms(a);
   const int P = b.P, C4 = b.C4, n = a->n, hi = a->hi, wi = a->wi, s = a->stride;
   const int ho = hi / s, wo = wi / s;
-  // every convolution of the backward as a plan of the pipelined core
-  const sm90::ConvPlan r1 = sm90::forward_plan(n, hi, wi, a->cin, 1, 1, P);
-  const sm90::ConvPlan r2 = sm90::forward_plan(n, hi, wi, P, 3, s, P);
-  const sm90::ConvPlan r3 = sm90::forward_plan(n, ho, wo, P, 1, 1, C4);
-  const sm90::ConvPlan rs = sm90::forward_plan(n, hi, wi, a->cin, 1, s, C4);
+  // every convolution of the backward as a plan of the pipelined core: the
+  // recomputed forward's, then the data gradients'
+  const sm90::ConvPlan &r1 = b.r1, &r2 = b.r2, &r3 = b.r3, &rs = b.rs;
   const sm90::ConvPlan d3 = sm90::forward_plan(n, ho, wo, C4, 1, 1, P);  // dy3 k3^T
   const sm90::ConvPlan d2 = sm90::transposed3_plan(n, ho, wo, P, hi, wi, P, s);
   const sm90::ConvPlan d1 = sm90::pointwise_dx_plan(n, hi, wi, P, a->cin, s);  // dy1 k1^T
@@ -1609,12 +1714,12 @@ static int bottleneck_bwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, 
   float* ys = a->proj ? ar.take((size_t)b.rows2 * C4) : nullptr;
   // the cotangents in the compute dtype
   T* dz = take_as<T>(ar, (size_t)b.rows2 * C4);
-  T* dy3 = cotangent<T>(ar, y3, (size_t)b.rows2 * C4);
-  T* dys = a->proj ? cotangent<T>(ar, ys, (size_t)b.rows2 * C4) : nullptr;
+  T* dy3 = compute_copy<T>(ar, y3, (size_t)b.rows2 * C4);
+  T* dys = a->proj ? compute_copy<T>(ar, ys, (size_t)b.rows2 * C4) : nullptr;
   float* da2 = ar.take((size_t)b.rows2 * P);
-  T* dy2 = cotangent<T>(ar, da2, (size_t)b.rows2 * P);
+  T* dy2 = compute_copy<T>(ar, da2, (size_t)b.rows2 * P);
   float* da1 = ar.take((size_t)b.rows1 * P);
-  T* dy1 = cotangent<T>(ar, da1, (size_t)b.rows1 * P);
+  T* dy1 = compute_copy<T>(ar, da1, (size_t)b.rows1 * P);
   float* tmp = ar.take(C4);
   BnScratch s1 = bn_scratch(ar, b.rows1, P);
   BnScratch s2 = bn_scratch(ar, b.rows2, P);
