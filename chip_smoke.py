@@ -20,10 +20,12 @@ fused, compares one step of each model's fused conv path with its eager
 one (fp32: the loss, each parameter's update and the BN buffers, beside a
 float64 run; bf16: the eager and the fused bf16 step each against the fp32
 eager step, from an init with small residual-branch BN gammas where the
-step is well conditioned), checks that two Bottleneck forward calls and
-two backward calls give bitwise-equal outputs, and times kernels and train
-steps with CUDA events, the Bottleneck forward and backward also split by
-device kernel (``torch.profiler``) with their peak memory. Phases: device,
+step is well conditioned), checks that two forward calls and two backward
+calls of the Bottleneck and of the BasicBlock and projection-block entry
+points give bitwise-equal outputs, and times kernels and train steps with
+CUDA events, the Bottleneck forward and backward and the BasicBlock and
+projection-block backwards also split by device kernel
+(``torch.profiler``) with their peak memory. Phases: device,
 build, kernel_parity, train, timing. Any failure raises and the script
 exits non-zero.
 
@@ -31,7 +33,8 @@ exits non-zero.
 
 builds only the conv library of another checkout (a parent commit unpacked
 with ``git archive``, say) and prints its Bottleneck forward and backward
-splits, for a comparison inside one call.
+and its BasicBlock and projection-block backward splits, for a comparison
+inside one call.
 
 The last lines of standard output are the card's name and power limit, one
 JSON object with an entry per kernel (``{"kernels": [...]}``: launches on
@@ -778,21 +781,30 @@ def short_kernel_name(name):
     return head.split("::")[-1].strip()
 
 
-def bottleneck_determinism(dev):
-    """Two ``bottleneck_fwd`` calls and two ``bottleneck_bwd`` calls on the
-    same inputs, in each compute dtype, at one recipe geometry per stride (a
-    ResNet-50 identity site and its stride-2 projection site): every output
-    bitwise equal, or raise. The kernels use no atomics and combine partial
-    sums in a fixed order."""
+# one recipe geometry per stride of each family's determinism check: a
+# ResNet-50 identity Bottleneck and its stride-2 projection; a ResNet-18
+# identity BasicBlock and its stride-2 projection block
+DETERMINISM_GEOMETRIES = {
+    "bottleneck": ((512, 16, 16, 512, 128, 1), (512, 16, 16, 512, 256, 2)),
+    "block": ((512, 16, 16, 128, 128, 1), (512, 32, 32, 64, 128, 2)),
+}
+
+
+def determinism(dev, family):
+    """Two forward calls and two backward calls of ``family``'s entry
+    points on the same inputs, in each compute dtype, at each of its
+    ``DETERMINISM_GEOMETRIES``: every output bitwise equal, or raise. The
+    kernels use no atomics and combine partial sums in a fixed order."""
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
-    for geo in ((512, 16, 16, 512, 128, 1), (512, 16, 16, 512, 256, 2)):
+    for geo in DETERMINISM_GEOMETRIES[family]:
         for dtype in (torch.float32, torch.bfloat16):
-            _, _, fwd, bwd = site_calls(fc, "bottleneck", geo, dev, seed=8, dtype=dtype)
+            _, kind, fwd, bwd = site_calls(fc, family, geo, dev, seed=8, dtype=dtype)
             r, r_again = fwd[0](), fwd[0]()
             bargs, kernel, _, names = bwd(r[1:], torch.randn_like(r[0]))
+            out_names = BOT_OUT if kind == "bottleneck" else BLOCK_OUT
             for entry, first, second, what in (
-                    ("bottleneck_fwd", r, r_again, BOT_OUT),
-                    ("bottleneck_bwd", kernel(*bargs), kernel(*bargs), names)):
+                    (f"{kind}_fwd", r, r_again, out_names),
+                    (f"{kind}_bwd", kernel(*bargs), kernel(*bargs), names)):
                 same = [torch.equal(a, b) for a, b in zip(first, second)]
                 print(f"{entry} determinism {geo} {dtype}: two calls bitwise equal on "
                       f"{sum(same)} of {len(same)} outputs")
@@ -804,24 +816,26 @@ def bottleneck_determinism(dev):
             torch.cuda.empty_cache()
 
 
-def bottleneck_split(dev, where, direction, dtype=torch.float32):
-    """One ``bottleneck_fwd`` (``direction`` 'fwd') or ``bottleneck_bwd``
-    ('bwd') call at each distinct ResNet-50 recipe geometry, traced by
-    ``torch.profiler``: device time per kernel name (``key_averages()``,
-    self device time), one step's worth (each geometry times its number of
-    sites) summed per name and per group (:func:`kernel_group`); beside it
-    the peak device memory of one call beyond its inputs
-    (``max_memory_allocated`` after a reset). Prints "not measured" when the
-    profiler shows no device time."""
+def conv_split(dev, where, family, direction, dtype=torch.float32):
+    """One forward (``direction`` 'fwd') or backward ('bwd') call of
+    ``family``'s entry point at each distinct recipe geometry of its model
+    (``bottleneck_*`` at ResNet-50's, ``basic_*`` and ``proj_*`` at
+    ResNet-18's), traced by ``torch.profiler``: device time per kernel name
+    (``key_averages()``, self device time), one step's worth (each geometry
+    times its number of sites) summed per entry point, per name and per
+    group (:func:`kernel_group`); beside it the peak device memory of one
+    call beyond its inputs (``max_memory_allocated`` after a reset). Prints
+    "not measured" when the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
-    tag = f"bottleneck_{direction} split {'fp32' if dtype == torch.float32 else 'bf16'}"
-    mult = {}
-    for _, _, geo in model_sites("resnet50"):
-        mult[geo] = mult.get(geo, 0) + 1
-    step = {}
-    for geo, k in mult.items():
-        _, _, fwd, bwd = site_calls(fc, "bottleneck", geo, dev, seed=4, dtype=dtype)
+    dt = "fp32" if dtype == torch.float32 else "bf16"
+    sites = {}  # geometry -> (kind, number of sites)
+    for _, kind, geo in model_sites("resnet50" if family == "bottleneck" else "resnet18"):
+        sites[geo] = (kind, sites.get(geo, (kind, 0))[1] + 1)
+    step = {}  # kind -> {kernel name: ms in one step}
+    for geo, (kind, k) in sites.items():
+        tag = f"{kind}_{direction} split {dt}"
+        _, _, fwd, bwd = site_calls(fc, family, geo, dev, seed=4, dtype=dtype)
         r = fwd[0]()
         if direction == "fwd":
             call = fwd[0]
@@ -862,18 +876,33 @@ def bottleneck_split(dev, where, direction, dtype=torch.float32):
               f"inputs {extra_mb:.1f} MiB: "
               + ", ".join(f"{n} {ms:.3f}" for n, ms in sorted(per.items(), key=lambda p: -p[1]))
               + f" {where}", flush=True)
+        mine = step.setdefault(kind, {})
         for name, ms in per.items():
-            step[name] = step.get(name, 0.0) + k * ms
+            mine[name] = mine.get(name, 0.0) + k * ms
         del fwd, bwd, call
         torch.cuda.empty_cache()
-    groups = {g: sum(ms for n, ms in step.items() if kernel_group(n) == g)
-              for g in ("gemm", "elementwise")}
-    total = sum(step.values())
-    print(f"{tag}, sum over the 16 sites (one step) {total:.3f} ms: "
-          f"GEMMs {groups['gemm']:.3f} ms ({100 * groups['gemm'] / total:.1f}%), elementwise "
-          f"{groups['elementwise']:.3f} ms; "
-          + ", ".join(f"{n} {ms:.3f}" for n, ms in sorted(step.items(), key=lambda p: -p[1]))
-          + f" {where}", flush=True)
+    for kind, per in step.items():
+        n_sites = sum(k for knd, k in sites.values() if knd == kind)
+        groups = {g: sum(ms for n, ms in per.items() if kernel_group(n) == g)
+                  for g in ("gemm", "elementwise")}
+        total = sum(per.values())
+        print(f"{kind}_{direction} split {dt}, sum over the {n_sites} sites (one step) "
+              f"{total:.3f} ms: GEMMs {groups['gemm']:.3f} ms "
+              f"({100 * groups['gemm'] / total:.1f}%), elementwise "
+              f"{groups['elementwise']:.3f} ms; "
+              + ", ".join(f"{n} {ms:.3f}" for n, ms in sorted(per.items(), key=lambda p: -p[1]))
+              + f" {where}", flush=True)
+
+
+# the splits a run prints: (family, direction), each in both compute dtypes
+SPLITS = (("bottleneck", "fwd"), ("bottleneck", "bwd"), ("block", "bwd"))
+
+
+def splits(dev, where):
+    """Every split of ``SPLITS`` in both compute dtypes (:func:`conv_split`)."""
+    for family, direction in SPLITS:
+        for dtype in (torch.float32, torch.bfloat16):
+            conv_split(dev, where, family, direction, dtype)
 
 
 def train_epochs(model, workdir, expected, banner_sites, bf16=False):
@@ -1091,8 +1120,9 @@ def step_check_bf16(name, model, views, labels):
 
 
 def split_only() -> int:
-    """The ``--split-only`` run: the build and the Bottleneck forward's and
-    backward's per-kernel splits in both compute dtypes."""
+    """The ``--split-only`` run: the build and the per-kernel splits of
+    ``SPLITS`` (the Bottleneck forward and backward, the BasicBlock and
+    projection-block backwards) in both compute dtypes."""
     from simclr_pytorch_distributed_tpu_torch.ops import native
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1103,9 +1133,7 @@ def split_only() -> int:
     tb = time.time()
     lib = native.build("fused_conv_bn")
     print(f"built {lib} in {time.time() - tb:.2f} s")
-    for direction in ("fwd", "bwd"):
-        for dtype in (torch.float32, torch.bfloat16):
-            bottleneck_split(dev, f"on {card}", direction, dtype)
+    splits(dev, f"on {card}")
     return 0
 
 
@@ -1114,7 +1142,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--split-only", action="store_true",
                     help="only build the conv kernels and print the per-kernel splits of the "
-                         "Bottleneck forward and backward (fp32 and bf16), then exit")
+                         "Bottleneck forward and backward and of the BasicBlock and "
+                         "projection-block backwards (fp32 and bf16), then exit")
     ap.add_argument("--root", default=REPO,
                     help="the checkout whose port package is imported and built (default: "
                          "this script's directory; another checkout, for example a parent "
@@ -1222,7 +1251,8 @@ def main(argv=None) -> int:
     for line in parity.excused:
         print(f"  excused: {line}")
     parity.raise_if_failed()
-    bottleneck_determinism(dev)
+    determinism(dev, "bottleneck")
+    determinism(dev, "block")
     done("kernel_parity", t0)
 
     # -- train: each main path, through the port's entry point --------------
@@ -1358,9 +1388,7 @@ def main(argv=None) -> int:
         res = sites_timing(dev, where, family, model_sites(model_name), seed, torch.bfloat16)
         sites16 += res.pop("sites")
         times16.update(res)
-    for direction in ("fwd", "bwd"):
-        for dtype in (torch.float32, torch.bfloat16):
-            bottleneck_split(dev, where, direction, dtype)
+    splits(dev, where)
     done("timing", t0)
 
     # each input read once, each output written once: features, ids and

@@ -1,9 +1,10 @@
 // Pipelined implicit-GEMM convolution and weight-gradient kernels for
 // Hopper (sm_90a), one design per compute dtype, included by
-// fused_conv_bn.cu. The Bottleneck entry points (fp32 and bf16) run every
-// convolution through them: bottleneck_fwd its four forward convs, with
-// the statistics epilogue; bottleneck_bwd the recomputed forward convs,
-// the data gradients and the weight gradients.
+// fused_conv_bn.cu. The Bottleneck entry points and the BasicBlock
+// backward (fp32 and bf16) run every convolution through them:
+// bottleneck_fwd its four forward convs, with the statistics epilogue;
+// bottleneck_bwd, basic_bwd and proj_bwd the recomputed forward convs, the
+// data gradients and the weight gradients.
 //
 // A convolution is a GEMM over an explicit list of taps. Each GEMM row is
 // a pixel (b, i, j) of a row grid [n, gh, gw]; tap t reads the source
@@ -995,8 +996,13 @@ inline ConvPlan forward_plan(int n, int hi, int wi, int cin, int ks, int s, int 
 // tap kh where th = ih + 1 - kh is a multiple of s. At s = 2 the input grid
 // splits into four parity classes (ph, pw), each an ho x wo grid with only
 // the taps kh = 1 (ph = 0) or kh = 0, 2 (ph = 1), reading dy at
-// i + (ph + 1 - kh) / 2.
-inline ConvPlan transposed3_plan(int n, int ho, int wo, int c, int hi, int wi, int cout, int s) {
+// i + (ph + 1 - kh) / 2. even_even_residual: at s = 2 only class (0, 0)
+// adds the epilogue's residual, for a residual written at the even-even
+// pixels alone (the 1x1/s2 shortcut's share of dx, shortcut_dx_plan); the
+// other classes never read it, so its odd pixels may hold anything. Else
+// (and always at s = 1, one class) every class adds it.
+inline ConvPlan transposed3_plan(int n, int ho, int wo, int c, int hi, int wi, int cout, int s,
+                                 bool even_even_residual = false) {
   if (s == 1) {
     ConvPlan p = plan_grid(n, ho, wo, c, hi, wi, 1, hi, wi, 1, cout);
     p.nclass = 1;
@@ -1012,7 +1018,7 @@ inline ConvPlan transposed3_plan(int n, int ho, int wo, int c, int hi, int wi, i
       ConvClass& cl = p.cls[ph * 2 + pw];
       cl.oph = ph;
       cl.opw = pw;
-      cl.residual = 1;
+      cl.residual = !even_even_residual || (ph == 0 && pw == 0);
       for (int kh = 0; kh < 3; ++kh) {
         if (((ph + 1 - kh) & 1) != 0) continue;
         for (int kw = 0; kw < 3; ++kw) {

@@ -26,20 +26,17 @@
 // output grid; the shortcut BN's bias gradient is the same sum of dz as
 // BN3's (both biases add straight into z). BasicBlocks: every BN counts
 // over the output grid, BN1 of the projection block included (its strided
-// 3x3 comes first), and the shortcut BN's bias gradient is BN2's. The four
-// BasicBlock entry points are compositions of the kernels below and add no
-// device code: the identity block's dx takes dz through the transposed
-// conv's residual epilogue, the projection block's dx adds the transposed
-// 3x3/s gather of dy1 onto the transposed 1x1/s gather of dyS the same
-// way, and its first conv's weight gradient is the stride-2 wgrad over x.
+// 3x3 comes first), and the shortcut BN's bias gradient is BN2's. The
+// BasicBlock forwards are compositions of the first design's kernels
+// below; the BasicBlock backwards run on the pipelined core (below).
 //
 // Design: phases become kernels. The Pallas kernels walk a sequential
 // phase-major grid (phases, batch tiles) and carry BN sums from tile to
 // tile in VMEM scratch. CTAs on Hopper run in no order, so each entry point
 // is a sequence of kernels on the caller's stream:
 //   - conv_gemm_kernel: an implicit-GEMM convolution (kernel 1 or 3,
-//     stride 1 or 2, forward or transposed gather) with an optional
-//     BN+ReLU prologue on its input, an optional residual add, and an
+//     stride 1 or 2, forward gather, or the stem's stride-1 transposed
+//     gather) with an optional BN+ReLU prologue on its input and an
 //     optional statistics epilogue that writes each CTA's per-channel tile
 //     mean and centred sum of squares to a [tiles, C] partial buffer;
 //   - bn_finalize_kernel: combines the partials in a fixed order, in fp64,
@@ -53,17 +50,20 @@
 //     elementwise BN backward and its per-channel sums.
 // There are no atomics anywhere, so every output is deterministic.
 //
-// Both Bottleneck entry points (bottleneck_fwd and bottleneck_bwd, fp32 and
-// bf16) are redesigned around the pipelined GEMM core of
-// conv_gemm_sm90.cuh, which runs every one of their convolutions:
-// conv_gemm_f32_kernel / conv_wgrad_f32_kernel (fp32) and
-// conv_gemm_sm90_kernel / conv_wgrad_sm90_kernel (bf16, wgmma). Under the
-// first design the two took 96% of the fp32 ResNet-50 step and 88% of the
-// bf16 one (PERF.md), and lost their time to (1) GEMMs without pipelining,
-// with a BN+ReLU prologue in every loader, (2) a transposed stride-2
-// gather that multiplies the zeros of the dilated gradient, and (3) fp32
-// cotangents and scalar fp32 passes over the 4P-wide tensors. The
-// backward's schedule answers each:
+// Both Bottleneck entry points (bottleneck_fwd and bottleneck_bwd) and
+// both BasicBlock backwards (basic_bwd and proj_bwd), fp32 and bf16, are
+// redesigned around the pipelined GEMM core of conv_gemm_sm90.cuh, which
+// runs every one of their convolutions: conv_gemm_f32_kernel /
+// conv_wgrad_f32_kernel (fp32) and conv_gemm_sm90_kernel /
+// conv_wgrad_sm90_kernel (bf16, wgmma). Under the first design the two
+// Bottleneck entry points took 96% of the fp32 ResNet-50 step and 88% of
+// the bf16 one (PERF.md), and lost their time to (1) GEMMs without
+// pipelining, with a BN+ReLU prologue in every loader, (2) a transposed
+// stride-2 gather that multiplies the zeros of the dilated gradient, and
+// (3) fp32 cotangents and scalar fp32 passes over the 4P-wide tensors. The
+// backwards' schedule (the Bottleneck's; block_bwd runs it with the
+// BasicBlock's convs, its stage 2 being the Bottleneck's stage 3) answers
+// each:
 //   - plain operands: the recomputed convs' epilogues write y (fp32, for
 //     the BN backward's yhat and masks) and the next conv's operand a =
 //     rnd(relu(y * scale + shift)) in the compute dtype, the value the
@@ -74,11 +74,14 @@
 //   - the stride-2 data gradients by parity: the transposed 3x3/s2 runs as
 //     four sub-GEMMs (one per parity class of the input grid, 1, 2, 2 and
 //     4 taps), the transposed 1x1/s2 of the shortcut as the even-even
-//     class only, whose dx epilogue adds it; no zero is multiplied;
+//     class only, whose dx epilogue adds it (a BasicBlock's transposed
+//     3x3/s2 adds it in class (0, 0) alone); no zero is multiplied;
 //   - stage 3 in two passes: bot_dz_sums_kernel forms z in registers,
 //     writes dz = gout (z > 0) in the compute dtype and the per-CTA
 //     partial sums; bot_dz_apply_kernel writes dy3 (and dyS). z is never
 //     stored; the identity block's dx epilogue takes dz as its residual.
+//     Four channels a thread, or one where C % 4 != 0 (a BasicBlock's C
+//     may be any count).
 // The forward cannot fold its BNs into the epilogues that way: its scale
 // and shift come from this batch's statistics, known only once the whole
 // conv has run. So each conv writes y in fp32 through the core's
@@ -97,7 +100,8 @@
 // what it loads would have to special-case (relu(0 * s + t) != 0). The
 // act pass forms a as the backward's act epilogue does (one fmaf), so the
 // forward's a1/a2 equal the backward's recomputed ones bitwise.
-// The other entry points keep the first design's launch sequence.
+// The stem and the BasicBlock forwards keep the first design's launch
+// sequence.
 
 // Stage, not recompute, inside a call: a call keeps its pre-BN
 // intermediates (y1, y2, y3, yS) in a workspace the wrapper allocates with
@@ -135,7 +139,8 @@
 // kernels (mma.sync m16n8k16) conv_gemm_bf16_kernel (the implicit GEMM,
 // same gathers, prologue and epilogues as conv_gemm_kernel) and
 // conv_wgrad_bf16_kernel (the row-split weight gradient); in the
-// Bottleneck entry points, wgmma on the redesigned core. The rounding points
+// Bottleneck entry points and the BasicBlock backwards, wgmma on the
+// redesigned core. The rounding points
 // are the Pallas kernels': the BN+ReLU of a staged y runs in fp32 on the
 // fp32 y and rounds its result (the _fill_pad cast), a cotangent is
 // rounded where it enters a product (as the Pallas backward casts dy
@@ -145,7 +150,7 @@
 // after the fp64 combine of its fp32 partials. The staged buffers are the
 // fp32 path's, plus fp32 buffers where that path stages in place in an
 // output that is bf16 here (y of the last conv, and the shortcut's share
-// of the projection blocks' dx), plus the Bottleneck entry points'
+// of the projection blocks' dx), plus the redesigned entry points'
 // compute-dtype operands and cotangents. The elementwise kernels are
 // templates over the types they read and write; their fp32 instances are
 // the fp32 path's code. Each *_bf16 entry point replaces the same Pallas
@@ -154,7 +159,7 @@
 // (989 TFLOP/s: a recipe-shape Bottleneck forward in ~0.1 ms), the BN
 // passes by bytes. The first design answers neither: each 32-deep chunk is
 // gathered by the loading threads and stored through shared memory with
-// no pipelining and no wgmma/TMA; the Bottleneck redesign answers the
+// no pipelining and no wgmma/TMA; the redesign answers the
 // first with wgmma on a three-stage cp.async ring and the second with
 // two-byte operands and cotangents, a pass fewer in the backward and 4-wide
 // passes (PERF.md has the times of both designs).
@@ -204,10 +209,9 @@ using sm90::to_f;    // float or bf16 -> float
 
 // The source pixel of GEMM row (n, oh, ow) at kernel offset (kh, kw).
 // Forward: the conv reads padded input stride * o + d, i.e. unpadded
-// stride * o - pad + d. Transposed (data gradient): the rows are the
-// forward conv's input grid, the source is dy, and a row takes dy[o]
-// where stride * o - pad + kh == its index; at stride 2 that is the
-// zero-dilated dy of the Pallas backward without building it.
+// stride * o - pad + d. Transposed (the stem's data gradient, stride 1):
+// the rows are the forward conv's input grid, the source is dy, and a row
+// takes dy[o] where o - pad + kh == its index.
 template <bool TRANS>
 __device__ __forceinline__ bool src_pixel(const ConvGeom& g, int oh, int ow,
                                           int kh, int kw, int& ih, int& iw) {
@@ -215,15 +219,8 @@ __device__ __forceinline__ bool src_pixel(const ConvGeom& g, int oh, int ow,
     ih = oh * g.stride - g.pad + kh;
     iw = ow * g.stride - g.pad + kw;
   } else {
-    int th = oh + g.pad - kh, tw = ow + g.pad - kw;
-    if (th < 0 || tw < 0) return false;
-    if (g.stride == 2) {
-      if ((th & 1) || (tw & 1)) return false;
-      th >>= 1;
-      tw >>= 1;
-    }
-    ih = th;
-    iw = tw;
+    ih = oh + g.pad - kh;
+    iw = ow + g.pad - kw;
   }
   return ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi;
 }
@@ -279,15 +276,15 @@ __device__ __forceinline__ float4 load_a4(const float* src, const ConvGeom& g,
   return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// out[m, c] = sum_k A[m, k] * wt[k, c] (+ residual[m, c]), with A the
-// implicit im2col matrix of src. Optional statistics of out per CTA tile:
-// part_mean[blockIdx.x, c] and part_m2[blockIdx.x, c] (centred on the
-// tile mean, over the tile's valid rows). residual may alias out.
+// out[m, c] = sum_k A[m, k] * wt[k, c], with A the implicit im2col matrix
+// of src. Optional statistics of out per CTA tile: part_mean[blockIdx.x, c]
+// and part_m2[blockIdx.x, c] (centred on the tile mean, over the tile's
+// valid rows).
 template <bool TRANS>
 __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(
     const float* __restrict__ src, const float* __restrict__ wt,
     const float* __restrict__ psc, const float* __restrict__ psh,
-    const float* residual, float* out, float* __restrict__ part_mean,
+    float* out, float* __restrict__ part_mean,
     float* __restrict__ part_m2, ConvGeom g) {
   __shared__ float As[BK][BM + 4];
   __shared__ __align__(16) float Bs[BK][BN + 4];
@@ -371,10 +368,7 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(
     for (int j = 0; j < TN; ++j) {
       const int c = n0 + tx + 16 * j;
       if (c >= g.cout) continue;
-      const size_t o = (size_t)m * g.cout + c;
-      float v = acc[i][j];
-      if (residual) v += residual[o];
-      out[o] = v;
+      out[(size_t)m * g.cout + c] = acc[i][j];
     }
   }
 
@@ -419,10 +413,9 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(
 }
 
 // part[z, k, c] = sum over rows m of split z of A[m, k] * dy[m, c]: the
-// weight gradient, A the (prologued) im2col of src in forward gather.
+// weight gradient, A the im2col of src in forward gather.
 __global__ void __launch_bounds__(THREADS) conv_wgrad_kernel(
-    const float* __restrict__ src, const float* __restrict__ psc,
-    const float* __restrict__ psh, const float* __restrict__ dy,
+    const float* __restrict__ src, const float* __restrict__ dy,
     float* __restrict__ part, ConvGeom g, int m_per) {
   __shared__ __align__(16) float As[WM][WK + 4];
   __shared__ __align__(16) float Ds[WM][WN + 4];
@@ -454,7 +447,7 @@ __global__ void __launch_bounds__(THREADS) conv_wgrad_kernel(
       ow = r - oh * g.wo;
     }
     *reinterpret_cast<float4*>(&As[lm][lk]) =
-        load_a4<false>(src, g, psc, psh, ok, n, oh, ow, k0 + lk, K, vec);
+        load_a4<false>(src, g, nullptr, nullptr, ok, n, oh, ow, k0 + lk, K, vec);
     float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
     if (ok) {
       const int c = c0 + lk;
@@ -619,7 +612,7 @@ __device__ __forceinline__ void load_row8(const float* m, int r, int rows_end,
 }
 
 // conv_gemm_kernel with bf16 operands on the tensor cores: out[m, c] =
-// sum_k bf16(A[m, k]) * wt[k, c] (+ residual[m, c]) with fp32 accumulation,
+// sum_k bf16(A[m, k]) * wt[k, c] with fp32 accumulation,
 // A the implicit im2col matrix of src (bf16 x, or an fp32 staged tensor
 // through the optional BN+ReLU prologue, rounded after it). K is walked in
 // 32-deep chunks, zero past K (the stem's 27). Eight warps, each a 32 x 32
@@ -631,7 +624,7 @@ template <bool TRANS, typename SrcT, typename OutT>
 __global__ void __launch_bounds__(THREADS) conv_gemm_bf16_kernel(
     const SrcT* __restrict__ src, const bf16* __restrict__ wt,
     const float* __restrict__ psc, const float* __restrict__ psh,
-    const float* residual, OutT* out, float* __restrict__ part_mean,
+    OutT* out, float* __restrict__ part_mean,
     float* __restrict__ part_m2, ConvGeom g) {
   // the A and B chunks during the K loop; the fp32 tile after it
   __shared__ __align__(16) unsigned char smem[BM * (BN + 4) * sizeof(float)];
@@ -727,10 +720,7 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_bf16_kernel(
   for (int i = tid; i < BM * BN; i += THREADS) {
     const int r = i / BN, c = i % BN;
     if (r >= rows || n0 + c >= g.cout) continue;
-    const size_t o = (size_t)(m0 + r) * g.cout + n0 + c;
-    float v = Cs[r][c];
-    if (residual) v += residual[o];
-    out[o] = from_f<OutT>(v);
+    out[(size_t)(m0 + r) * g.cout + n0 + c] = from_f<OutT>(Cs[r][c]);
   }
 
   if (part_mean) {
@@ -758,16 +748,14 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_bf16_kernel(
 }
 
 // conv_wgrad_kernel with bf16 operands on the tensor cores: part[z, k, c] =
-// sum over rows m of split z of bf16(A[m, k]) * bf16(dy[m, c]), fp32
-// accumulation; A the (prologued) im2col of src in forward gather, dy the
+// sum over rows m of split z of A[m, k] * bf16(dy[m, c]), fp32
+// accumulation; A the im2col of the bf16 src in forward gather, dy the
 // fp32 cotangent rounded as it is loaded. 64 weight rows x 64 channels a
 // CTA over 32-row chunks; eight warps, each 32 rows x 16 channels (2 x 2
 // mma tiles). Both operands are stored transposed (m inner), so the row
 // sum is the mma's K.
-template <typename SrcT>
 __global__ void __launch_bounds__(THREADS) conv_wgrad_bf16_kernel(
-    const SrcT* __restrict__ src, const float* __restrict__ psc,
-    const float* __restrict__ psh, const float* __restrict__ dy,
+    const bf16* __restrict__ src, const float* __restrict__ dy,
     float* __restrict__ part, ConvGeom g, int m_per) {
   __shared__ __align__(16) bf16 At[WK][HLD];  // [k][m]
   __shared__ __align__(16) bf16 Dt[WN][HLD];  // [c][m]
@@ -801,7 +789,7 @@ __global__ void __launch_bounds__(THREADS) conv_wgrad_bf16_kernel(
       ow = r - oh * g.wo;
     }
     float v[8];
-    load_a8<false>(src, g, psc, psh, ok, n, oh, ow, k0 + lk, K, v);
+    load_a8<false>(src, g, nullptr, nullptr, ok, n, oh, ow, k0 + lk, K, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) At[lk + e][lm] = __float2bfloat16_rn(v[e]);
     load_row8(dy, m, me, c0 + lk, g.cout, v);
@@ -1050,15 +1038,40 @@ __global__ void bn_bwd_apply_kernel(const float* dp, const float* y,
   }
 }
 
-// Stage 3 of the Bottleneck backward, pass 1: z = y3 * sc3 + sh3 plus the
-// shortcut (ys * scs + shs for the projection, else x), formed in
-// registers exactly as bn_apply_kernel forms it and never stored; dz =
-// gout where z > 0, else 0, written in the compute dtype (exact: gout is
-// in it and the mask is 0/1); per-CTA partials of sum dz, sum dz * yhat3
-// and (projection) sum dz * yhatS. Block (32 x 8): lane tx takes channels
-// 4 tx .. 4 tx + 3 of the CTA's 128 (C % 4 == 0: C is 4P), each of the 8
-// row lanes every eighth of the CTA's EW_ROWS rows.
-template <typename T>
+// W consecutive elements at p as floats, and back (one 16- or 8-byte access
+// at W = 4, which then lies inside one row of a C % 4 == 0 tensor).
+template <int W, typename T>
+__device__ __forceinline__ void load_w(const T* p, float (&v)[W]) {
+  if constexpr (W == 4) {
+    const float4 q = sm90::load4(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) v[e] = to_f(p[e]);
+  }
+}
+
+template <int W, typename T>
+__device__ __forceinline__ void store_w(T* p, const float (&v)[W]) {
+  if constexpr (W == 4) {
+    sm90::store4(p, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) p[e] = from_f<T>(v[e]);
+  }
+}
+
+// The BN backward of a residual block's last BN (the Bottleneck's BN3, a
+// BasicBlock's BN2; y3 below) and of its shortcut BN, pass 1: z = y3 * sc3
+// + sh3 plus the shortcut (ys * scs + shs for the projection, else x),
+// formed in registers exactly as bn_apply_kernel forms it and never
+// stored; dz = gout where z > 0, else 0, written in the compute dtype
+// (exact: gout is in it and the mask is 0/1); per-CTA partials of sum dz,
+// sum dz * yhat3 and (projection) sum dz * yhatS. Block (32 x 8): lane tx
+// takes channels W tx .. W tx + W - 1 of the CTA's 32 W (W = 4 needs C % 4
+// == 0, W = 1 takes any C), each of the 8 row lanes every eighth of the
+// CTA's EW_ROWS rows.
+template <typename T, int W>
 __global__ void bot_dz_sums_kernel(const float* __restrict__ y3, const float* __restrict__ sc3,
                                    const float* __restrict__ sh3, const float* __restrict__ m3,
                                    const float* __restrict__ rs3, const float* __restrict__ ys,
@@ -1068,14 +1081,17 @@ __global__ void bot_dz_sums_kernel(const float* __restrict__ y3, const float* __
                                    T* __restrict__ dz, float* __restrict__ part_a,
                                    float* __restrict__ part_b, float* __restrict__ part_c,
                                    int M, int C) {
-  __shared__ float ra[8][129], rb[8][129], rc[8][129];
+  constexpr int CPB = 32 * W;  // channels a CTA
+  __shared__ float ra[8][CPB + 1], rb[8][CPB + 1], rc[8][CPB + 1];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c0 = blockIdx.y * 128 + tx * 4;
-  float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f}, sq[4] = {0.f, 0.f, 0.f, 0.f};
-  if (c0 < C) {
-    float a3[4], b3[4], mu3[4], r3[4], aS[4], bS[4], muS[4], rS[4];
+  const int c0 = blockIdx.y * CPB + tx * W;
+  float sa[W], sb[W], sq[W];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+  for (int e = 0; e < W; ++e) sa[e] = sb[e] = sq[e] = 0.f;
+  if (c0 < C) {
+    float a3[W], b3[W], mu3[W], r3[W], aS[W], bS[W], muS[W], rS[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
       a3[e] = sc3[c0 + e]; b3[e] = sh3[c0 + e]; mu3[e] = m3[c0 + e]; r3[e] = rs3[c0 + e];
       aS[e] = ys ? scs[c0 + e] : 0.f; bS[e] = ys ? shs[c0 + e] : 0.f;
       muS[e] = ys ? ms[c0 + e] : 0.f; rS[e] = ys ? rss[c0 + e] : 0.f;
@@ -1085,13 +1101,15 @@ __global__ void bot_dz_sums_kernel(const float* __restrict__ y3, const float* __
       const int row = r0 + r;
       if (row >= M) break;
       const size_t i = (size_t)row * C + c0;
-      const float4 y4 = sm90::load4(y3 + i), s4 = ys ? sm90::load4(ys + i) : sm90::load4(x + i);
-      const float4 g4 = sm90::load4(g + i);
-      const float yv[4] = {y4.x, y4.y, y4.z, y4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
-      const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
-      float dv[4];
+      float yv[W], sv[W], gv[W], dv[W];
+      load_w<W>(y3 + i, yv);
+      if (ys)
+        load_w<W>(ys + i, sv);
+      else
+        load_w<W>(x + i, sv);
+      load_w<W>(g + i, gv);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < W; ++e) {
         float v = fmaf(yv[e], a3[e], b3[e]);
         v += ys ? fmaf(sv[e], aS[e], bS[e]) : sv[e];
         const float dp = fmaxf(v, 0.f) > 0.f ? gv[e] : 0.f;
@@ -1100,19 +1118,19 @@ __global__ void bot_dz_sums_kernel(const float* __restrict__ y3, const float* __
         sb[e] = fmaf(dp, (yv[e] - mu3[e]) * r3[e], sb[e]);
         if (ys) sq[e] = fmaf(dp, (sv[e] - muS[e]) * rS[e], sq[e]);
       }
-      sm90::store4(dz + i, make_float4(dv[0], dv[1], dv[2], dv[3]));
+      store_w<W>(dz + i, dv);
     }
   }
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    ra[ty][tx * 4 + e] = sa[e];
-    rb[ty][tx * 4 + e] = sb[e];
-    rc[ty][tx * 4 + e] = sq[e];
+  for (int e = 0; e < W; ++e) {
+    ra[ty][tx * W + e] = sa[e];
+    rb[ty][tx * W + e] = sb[e];
+    rc[ty][tx * W + e] = sq[e];
   }
   __syncthreads();
-  const int t = ty * 32 + tx;  // one channel of the CTA's 128 per thread
-  const int c = blockIdx.y * 128 + t;
-  if (t < 128 && c < C) {
+  const int t = ty * 32 + tx;  // one channel of the CTA's CPB a thread
+  const int c = blockIdx.y * CPB + t;
+  if (t < CPB && c < C) {
     float a = 0.f, b = 0.f, q = 0.f;
     for (int k = 0; k < 8; ++k) {
       a += ra[k][t];
@@ -1125,10 +1143,11 @@ __global__ void bot_dz_sums_kernel(const float* __restrict__ y3, const float* __
   }
 }
 
-// Stage 3, pass 2: dy3 (and, for the projection, dyS) in the compute dtype
-// from dz and the finalized sums, as bn_bwd_apply_kernel computes them
-// (the shortcut BN's sum dz is BN3's); four consecutive elements a thread.
-template <typename T>
+// Pass 2: dy3 (and, for the projection, dyS) in the compute dtype from dz
+// and the finalized sums, as bn_bwd_apply_kernel computes them (the
+// shortcut BN's sum dz is BN3's); W consecutive elements a thread (W = 4
+// needs C % 4 == 0).
+template <typename T, int W>
 __global__ void bot_dz_apply_kernel(const T* __restrict__ dz, const float* __restrict__ y3,
                                     const float* __restrict__ m3, const float* __restrict__ rs3,
                                     const float* __restrict__ g3, const float* __restrict__ db3,
@@ -1136,31 +1155,31 @@ __global__ void bot_dz_apply_kernel(const T* __restrict__ dz, const float* __res
                                     const float* __restrict__ ms, const float* __restrict__ rss,
                                     const float* __restrict__ gs, const float* __restrict__ dgs,
                                     float count, T* dy3, T* dys, long long total, int C) {
-  for (long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4; i < total;
-       i += (long long)gridDim.x * blockDim.x * 4) {
+  for (long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * W; i < total;
+       i += (long long)gridDim.x * blockDim.x * W) {
     const int c0 = (int)(i % C);
-    const float4 d4 = sm90::load4(dz + i), y4 = sm90::load4(y3 + i);
-    const float dp[4] = {d4.x, d4.y, d4.z, d4.w}, yv[4] = {y4.x, y4.y, y4.z, y4.w};
-    float out[4];
+    float dp[W], yv[W], out[W];
+    load_w<W>(dz + i, dp);
+    load_w<W>(y3 + i, yv);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < W; ++e) {
       const int c = c0 + e;
       const float r3 = rs3[c];
       const float yh = (yv[e] - m3[c]) * r3;
       out[e] = r3 * g3[c] * (dp[e] - db3[c] / count - yh * dg3[c] / count);
     }
-    sm90::store4(dy3 + i, make_float4(out[0], out[1], out[2], out[3]));
+    store_w<W>(dy3 + i, out);
     if (ys) {
-      const float4 s4 = sm90::load4(ys + i);
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+      float sv[W];
+      load_w<W>(ys + i, sv);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < W; ++e) {
         const int c = c0 + e;
         const float rS = rss[c];
         const float yhs = (sv[e] - ms[c]) * rS;
         out[e] = rS * gs[c] * (dp[e] - db3[c] / count - yhs * dgs[c] / count);
       }
-      sm90::store4(dys + i, make_float4(out[0], out[1], out[2], out[3]));
+      store_w<W>(dys + i, out);
     }
   }
 }
@@ -1293,35 +1312,33 @@ BnScratch bn_scratch(Arena& ar, int rows, int C) {
 
 // The fp32 convolution (fp32 weights): conv_gemm_kernel.
 cudaError_t conv(bool trans, const float* src, const float* wt, const float* psc,
-         const float* psh, const float* residual, float* out, BnScratch* stats,
-         const ConvGeom& g, cudaStream_t st) {
+                 const float* psh, float* out, BnScratch* stats, const ConvGeom& g,
+                 cudaStream_t st) {
   const dim3 grid(conv_tiles(g), cdiv(g.cout, BN));
   float* pm = stats ? stats->pa : nullptr;
   float* pq = stats ? stats->pb : nullptr;
   if (trans)
-    conv_gemm_kernel<true><<<grid, THREADS, 0, st>>>(src, wt, psc, psh,
-                                                     residual, out, pm, pq, g);
+    conv_gemm_kernel<true><<<grid, THREADS, 0, st>>>(src, wt, psc, psh, out, pm, pq, g);
   else
-    conv_gemm_kernel<false><<<grid, THREADS, 0, st>>>(src, wt, psc, psh,
-                                                      residual, out, pm, pq, g);
+    conv_gemm_kernel<false><<<grid, THREADS, 0, st>>>(src, wt, psc, psh, out, pm, pq, g);
   return cudaGetLastError();
 }
 
 // The bf16 convolution (bf16 weights): conv_gemm_bf16_kernel, src bf16 or
-// fp32, out fp32 (staged) or bf16 (an output), residual fp32.
+// fp32, out fp32 (staged) or bf16 (an output).
 template <typename SrcT, typename OutT>
 cudaError_t conv(bool trans, const SrcT* src, const bf16* wt, const float* psc,
-                 const float* psh, const float* residual, OutT* out,
-                 BnScratch* stats, const ConvGeom& g, cudaStream_t st) {
+                 const float* psh, OutT* out, BnScratch* stats, const ConvGeom& g,
+                 cudaStream_t st) {
   const dim3 grid(conv_tiles(g), cdiv(g.cout, BN));
   float* pm = stats ? stats->pa : nullptr;
   float* pq = stats ? stats->pb : nullptr;
   if (trans)
     conv_gemm_bf16_kernel<true, SrcT, OutT><<<grid, THREADS, 0, st>>>(
-        src, wt, psc, psh, residual, out, pm, pq, g);
+        src, wt, psc, psh, out, pm, pq, g);
   else
     conv_gemm_bf16_kernel<false, SrcT, OutT><<<grid, THREADS, 0, st>>>(
-        src, wt, psc, psh, residual, out, pm, pq, g);
+        src, wt, psc, psh, out, pm, pq, g);
   return cudaGetLastError();
 }
 
@@ -1412,14 +1429,14 @@ size_t wgrad_scratch(const ConvGeom& g) {
 }
 
 // The fp32 weight gradient: conv_wgrad_kernel, then the fp64 combine.
-cudaError_t wgrad(const float* src, const float* psc, const float* psh, const float* dy,
-          float* part, float* dw, const ConvGeom& g, cudaStream_t st) {
+cudaError_t wgrad(const float* src, const float* dy, float* part, float* dw, const ConvGeom& g,
+                  cudaStream_t st) {
   const long long M = (long long)g.n * g.ho * g.wo;
   const int K = g.ks * g.ks * g.cin;
   const int m_per = wgrad_rows_per_split(g, WM);
   const int splits = cdiv(M, m_per);
   conv_wgrad_kernel<<<dim3(cdiv(K, WK), cdiv(g.cout, WN), splits), THREADS, 0,
-                      st>>>(src, psc, psh, dy, part, g, m_per);
+                      st>>>(src, dy, part, g, m_per);
   CHECK(cudaGetLastError());
   const long long count = (long long)K * g.cout;
   split_reduce_kernel<float><<<elementwise_grid(count), THREADS, 0, st>>>(
@@ -1429,15 +1446,14 @@ cudaError_t wgrad(const float* src, const float* psc, const float* psh, const fl
 
 // The bf16 weight gradient (bf16 dw): conv_wgrad_bf16_kernel, then the
 // same combine, rounded once to bf16.
-template <typename SrcT>
-cudaError_t wgrad(const SrcT* src, const float* psc, const float* psh, const float* dy,
-                  float* part, bf16* dw, const ConvGeom& g, cudaStream_t st) {
+cudaError_t wgrad(const bf16* src, const float* dy, float* part, bf16* dw, const ConvGeom& g,
+                  cudaStream_t st) {
   const long long M = (long long)g.n * g.ho * g.wo;
   const int K = g.ks * g.ks * g.cin;
   const int m_per = wgrad_rows_per_split(g, HWM);
   const int splits = cdiv(M, m_per);
-  conv_wgrad_bf16_kernel<SrcT><<<dim3(cdiv(K, WK), cdiv(g.cout, WN), splits), THREADS,
-                                  0, st>>>(src, psc, psh, dy, part, g, m_per);
+  conv_wgrad_bf16_kernel<<<dim3(cdiv(K, WK), cdiv(g.cout, WN), splits), THREADS, 0, st>>>(
+      src, dy, part, g, m_per);
   CHECK(cudaGetLastError());
   const long long count = (long long)K * g.cout;
   split_reduce_kernel<bf16><<<elementwise_grid(count), THREADS, 0, st>>>(
@@ -1485,6 +1501,44 @@ cudaError_t wgrad_sm90(const sm90::ConvPlan& p, const T* src, const T* dy, float
   split_reduce_kernel<T><<<elementwise_grid(count), THREADS, 0, st>>>(
       part, sm90::wgrad_splits<T>(p), count, dw);
   return cudaGetLastError();
+}
+
+// The BN backward of a residual block's last BN (pre-BN y, saved mean m,
+// folded rows s, gamma g) and, when ys is set, of its shortcut BN (ys, ms,
+// ss, gs), in two passes: bot_dz_sums_kernel writes dz and the partials,
+// whose fixed-order fp64 combine gives db / dg (and dgs; the shortcut's
+// dbs is db), then bot_dz_apply_kernel writes dy (and dys) in the compute
+// dtype. Without ys the shortcut is x. Four channels a thread where C %
+// 4 == 0, else one. tmp: C floats of scratch.
+template <typename T>
+cudaError_t residual_bn_bwd(const float* y, const float* m, const BnScratch& s, const float* g,
+                            float* db, float* dg, T* dy, const float* ys, const float* ms,
+                            const BnScratch& ss, const float* gs, float* dbs, float* dgs, T* dys,
+                            const T* x, const T* gout, T* dz, float* tmp, int rows, int C,
+                            cudaStream_t st) {
+  const bool proj = ys != nullptr;
+  const int blocks = cdiv(rows, EW_ROWS);
+  const long long total = (long long)rows * C;
+  auto passes = [&](auto width) -> cudaError_t {
+    constexpr int W = decltype(width)::value;
+    bot_dz_sums_kernel<T, W><<<dim3(blocks, cdiv(C, 32 * W)), dim3(32, 8), 0, st>>>(
+        y, s.scale, s.shift, m, s.rstd, ys, proj ? ss.scale : kNone, proj ? ss.shift : kNone, ms,
+        proj ? ss.rstd : kNone, proj ? nullptr : x, gout, dz, s.pa, s.pb, ss.pa, rows, C);
+    CHECK(cudaGetLastError());
+    sum_partials_kernel<<<cdiv(C, 32), dim3(32, 32), 0, st>>>(s.pa, s.pb, blocks, C, db, dg);
+    CHECK(cudaGetLastError());
+    if (proj) {
+      sum_partials_kernel<<<cdiv(C, 32), dim3(32, 32), 0, st>>>(ss.pa, ss.pa, blocks, C, tmp, dgs);
+      CHECK(cudaGetLastError());
+      CHECK(cudaMemcpyAsync(dbs, db, sizeof(float) * C, cudaMemcpyDeviceToDevice, st));
+    }
+    bot_dz_apply_kernel<T, W><<<elementwise_grid(cdiv(total, W)), THREADS, 0, st>>>(
+        dz, y, m, s.rstd, g, db, dg, ys, ms, proj ? ss.rstd : kNone, gs, dgs, (float)rows, dy, dys,
+        total, C);
+    return cudaGetLastError();
+  };
+  if (C % 4 == 0) return passes(std::integral_constant<int, 4>());
+  return passes(std::integral_constant<int, 1>());
 }
 
 }  // namespace
@@ -1535,7 +1589,7 @@ static int stem_fwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaS
     *ws_bytes = ar.off;
     return 0;
   }
-  CHECK(conv(false, a->x, a->k, nullptr, nullptr, nullptr, y, &s, g, st));
+  CHECK(conv(false, a->x, a->k, nullptr, nullptr, y, &s, g, st));
   CHECK(finalize(s, g, a->gamma, a->beta, a->eps, a->mean, a->var, st));
   return static_cast<int>(apply(y, s.scale, s.shift, kNone, nullptr,
                                 nullptr, a->out, rows, a->cout, true, st));
@@ -1555,16 +1609,16 @@ static int stem_bwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaS
     return 0;
   }
   CHECK(fold_saved(s, a->mean, a->var, a->gamma, a->beta, a->eps, a->cout, st));
-  CHECK(conv(false, a->x, a->k, nullptr, nullptr, nullptr, y, nullptr, g, st));
+  CHECK(conv(false, a->x, a->k, nullptr, nullptr, y, nullptr, g, st));
   CHECK(bwd_sums(a->gout, nullptr, y, a->mean, s, a->gamma, a->beta, dp,
                               a->dbeta, a->dgamma, rows, a->cout, st));
   CHECK(bwd_apply(dp, y, a->mean, s, a->gamma, a->dbeta, a->dgamma, dp,
                                rows, a->cout, st));
-  CHECK(wgrad(a->x, nullptr, nullptr, dp, part, a->dk, g, st));
+  CHECK(wgrad(a->x, dp, part, a->dk, g, st));
   if (a->dx) {
     // transposed gather over dy [n, h, w, cout] with kt [3, 3, cout, cin]
     const ConvGeom gt = geom(a->n, a->h, a->w, a->cout, a->h, a->w, a->cin, 3, 1, 1);
-    CHECK(conv(true, dp, a->kt, nullptr, nullptr, nullptr, a->dx, nullptr, gt, st));
+    CHECK(conv(true, dp, a->kt, nullptr, nullptr, a->dx, nullptr, gt, st));
   }
   return 0;
 }
@@ -1752,26 +1806,8 @@ static int bottleneck_bwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, 
   }
   // stage 3 in two passes: dz and the sums (z stays in registers), then
   // dy3 and dyS
-  const int blocks = cdiv(b.rows2, EW_ROWS);
-  bot_dz_sums_kernel<T><<<dim3(blocks, cdiv(C4, 128)), dim3(32, 8), 0, st>>>(
-      y3, s3.scale, s3.shift, a->m3, s3.rstd, ys, a->proj ? ss.scale : kNone,
-      a->proj ? ss.shift : kNone, a->ms, a->proj ? ss.rstd : kNone, a->proj ? nullptr : a->x,
-      a->gout, dz, s3.pa, s3.pb, ss.pa, b.rows2, C4);
-  CHECK(cudaGetLastError());
-  sum_partials_kernel<<<cdiv(C4, 32), dim3(32, 32), 0, st>>>(s3.pa, s3.pb, blocks, C4, a->db3,
-                                                              a->dg3);
-  CHECK(cudaGetLastError());
-  if (a->proj) {
-    sum_partials_kernel<<<cdiv(C4, 32), dim3(32, 32), 0, st>>>(ss.pa, ss.pa, blocks, C4, tmp,
-                                                                a->dgs);
-    CHECK(cudaGetLastError());
-    CHECK(cudaMemcpyAsync(a->dbs, a->db3, sizeof(float) * C4, cudaMemcpyDeviceToDevice, st));
-  }
-  const long long total3 = (long long)b.rows2 * C4;
-  bot_dz_apply_kernel<T><<<elementwise_grid(total3 / 4), THREADS, 0, st>>>(
-      dz, y3, a->m3, s3.rstd, a->g3, a->db3, a->dg3, ys, a->ms, a->proj ? ss.rstd : kNone, a->gs,
-      a->dgs, (float)b.rows2, dy3, dys, total3, C4);
-  CHECK(cudaGetLastError());
+  CHECK(residual_bn_bwd<T>(y3, a->m3, s3, a->g3, a->db3, a->dg3, dy3, ys, a->ms, ss, a->gs,
+                           a->dbs, a->dgs, dys, a->x, a->gout, dz, tmp, b.rows2, C4, st));
   CHECK(wgrad_sm90(r3, a2, dy3, part, a->dk3, st));
   if (a->proj) CHECK(wgrad_sm90(rs, a->x, dys, part, a->dks, st));
   // stage 2: da2 = dy3 k3^T, then its BN backward (dp2 in place, dy2)
@@ -1877,13 +1913,13 @@ static int block_fwd(const BlockArgs<T>* a, bool proj, void* ws, size_t* ws_byte
     *ws_bytes = ar.off;
     return 0;
   }
-  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, nullptr, y1, &s1, b.c1, st));
+  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, y1, &s1, b.c1, st));
   CHECK(finalize(s1, b.c1, a->g1, a->b1, a->eps, a->m1, a->v1, st));
   if (proj) {
-    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, &ss, b.cs, st));
+    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, ys, &ss, b.cs, st));
     CHECK(finalize(ss, b.cs, a->gs, a->bs, a->eps, a->ms, a->vs, st));
   }
-  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, &s2, b.c2, st));
+  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, y2, &s2, b.c2, st));
   CHECK(finalize(s2, b.c2, a->g2, a->b2, a->eps, a->m2, a->v2, st));
   if (proj)
     return static_cast<int>(apply(y2, s2.scale, s2.shift, ys,
@@ -1892,26 +1928,52 @@ static int block_fwd(const BlockArgs<T>* a, bool proj, void* ws, size_t* ws_byte
                                 nullptr, a->out, b.rows, C, true, st));
 }
 
+// The BasicBlock backward on the pipelined core: the Bottleneck backward's
+// schedule with the block's convs. Recompute y1 = conv3x3/s(x, k1) with a1 =
+// rnd(relu(y1 * s1 + t1)) in its epilogue, y2 = conv3x3(a1, k2) and
+// (projection) yS = conv1x1/s(x, ks); stage 2 in two passes (dz, the sums,
+// then dy2 and dyS in the compute dtype) and dk2, dks; stage 1 da1 = the
+// transposed 3x3 of dy2, its BN backward into dy1, dk1 over x; dx = the
+// transposed 3x3/s of dy1 (by parity class at s = 2) plus dz (identity) or
+// the shortcut's share dyS ks^T, which at s = 2 lands on the even-even
+// pixels only, so only class (0, 0) adds it.
 template <typename T>
 static int block_bwd(const BlockArgs<T>* a, bool proj, void* ws, size_t* ws_bytes,
                      cudaStream_t st) {
-  const BlockGeoms b = block_geoms(a);
-  const int C = a->c, rows = b.rows;
+  using sm90::Epilogue;
+  const int n = a->n, hi = a->hi, wi = a->wi, cin = a->cin, C = a->c, s = a->stride;
+  const int ho = hi / s, wo = wi / s, rows = n * ho * wo;
+  const size_t count = (size_t)rows * C;
+  // every convolution of the backward as a plan of the pipelined core: the
+  // recomputed forward's, then the data gradients'
+  const sm90::ConvPlan r1 = sm90::forward_plan(n, hi, wi, cin, 3, s, C);
+  const sm90::ConvPlan r2 = sm90::forward_plan(n, ho, wo, C, 3, 1, C);
+  const sm90::ConvPlan rs = sm90::forward_plan(n, hi, wi, cin, 1, s, C);
+  const sm90::ConvPlan d2 = sm90::transposed3_plan(n, ho, wo, C, ho, wo, C, 1);  // dy2 k2^T
+  const sm90::ConvPlan d1 = sm90::transposed3_plan(n, ho, wo, C, hi, wi, cin, s, proj);
+  const sm90::ConvPlan dsx = sm90::shortcut_dx_plan(n, ho, wo, C, hi, wi, cin, s);
   Arena ar{static_cast<char*>(ws)};
-  float* y1 = ar.take((size_t)rows * C);
-  float* y2 = ar.take((size_t)rows * C);
-  float* ys = proj ? ar.take((size_t)rows * C) : nullptr;
-  float* z = ar.take((size_t)rows * C);
-  float* da1 = ar.take((size_t)rows * C);
+  // pre-BN y in fp32 (the BN backward's yhat and masks) and a1 in the
+  // compute dtype
+  float* y1 = ar.take(count);
+  T* a1 = take_as<T>(ar, count);
+  float* y2 = ar.take(count);
+  float* ys = proj ? ar.take(count) : nullptr;
+  // the cotangents in the compute dtype
+  T* dz = take_as<T>(ar, count);
+  T* dy2 = compute_copy<T>(ar, y2, count);
+  T* dys = proj ? compute_copy<T>(ar, ys, count) : nullptr;
+  float* da1 = ar.take(count);
+  T* dy1 = compute_copy<T>(ar, da1, count);
   float* tmp = ar.take(C);
   BnScratch s1 = bn_scratch(ar, rows, C);
   BnScratch s2 = bn_scratch(ar, rows, C);
   BnScratch ss = bn_scratch(ar, rows, C);
-  size_t wpart = max_sz(wgrad_scratch<T>(b.c1), wgrad_scratch<T>(b.c2));
-  if (proj) wpart = max_sz(wpart, wgrad_scratch<T>(b.cs));
+  size_t wpart = max_sz(sm90::wgrad_part_floats<T>(r1), sm90::wgrad_part_floats<T>(r2));
+  if (proj) wpart = max_sz(wpart, sm90::wgrad_part_floats<T>(rs));
   float* part = ar.take(wpart);
   // the shortcut's share of dx, summed into dx by the last conv's epilogue
-  float* dxs = proj ? staged(ar, a->dx, (size_t)a->n * a->hi * a->wi * a->cin) : nullptr;
+  float* dxs = proj ? staged(ar, a->dx, (size_t)n * hi * wi * cin) : nullptr;
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
@@ -1919,50 +1981,37 @@ static int block_bwd(const BlockArgs<T>* a, bool proj, void* ws, size_t* ws_byte
   // recompute the forward from the saved moments
   CHECK(fold_saved(s1, a->m1, a->v1, a->g1, a->b1, a->eps, C, st));
   CHECK(fold_saved(s2, a->m2, a->v2, a->g2, a->b2, a->eps, C, st));
-  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, nullptr, y1, nullptr, b.c1, st));
-  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, nullptr, y2, nullptr, b.c2, st));
+  CHECK(sm90::conv_gemm(r1, a->x, a->k1,
+                        Epilogue<T, float, float>{y1, nullptr, a1, s1.scale, s1.shift}, st));
+  CHECK(sm90::conv_gemm(r2, a1, a->k2, Epilogue<T, float, float>{y2, nullptr, nullptr, kNone, kNone},
+                        st));
   if (proj) {
     CHECK(fold_saved(ss, a->ms, a->vs, a->gs, a->bs, a->eps, C, st));
-    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, nullptr, ys, nullptr, b.cs, st));
-    CHECK(apply(y2, s2.scale, s2.shift, ys, ss.scale, ss.shift,
-                z, rows, C, true, st));
-    // the shortcut BN: sum dz * yhatS (its sum dz is BN2's)
-    CHECK(bwd_sums(a->gout, z, ys, a->ms, ss, nullptr, nullptr, nullptr, tmp,
-                   a->dgs, rows, C, st));
-  } else {
-    CHECK(apply(y2, s2.scale, s2.shift, a->x, nullptr, nullptr, z, rows, C, true, st));
+    CHECK(sm90::conv_gemm(rs, a->x, a->ks,
+                          Epilogue<T, float, float>{ys, nullptr, nullptr, kNone, kNone}, st));
   }
-  // stage 2: dz = gout * (z > 0), in place over z, then dy2 over y2
-  CHECK(bwd_sums(a->gout, z, y2, a->m2, s2, nullptr, nullptr, z, a->db2, a->dg2,
-                 rows, C, st));
-  CHECK(bwd_apply(z, y2, a->m2, s2, a->g2, a->db2, a->dg2, y2, rows, C, st));
-  CHECK(wgrad(y1, s1.scale, s1.shift, y2, part, a->dk2, b.c2, st));
+  // stage 2 in two passes: dz and the sums (z stays in registers), then
+  // dy2 and dyS
+  CHECK(residual_bn_bwd<T>(y2, a->m2, s2, a->g2, a->db2, a->dg2, dy2, ys, a->ms, ss, a->gs,
+                           a->dbs, a->dgs, dys, a->x, a->gout, dz, tmp, rows, C, st));
+  CHECK(wgrad_sm90(r2, a1, dy2, part, a->dk2, st));
+  if (proj) CHECK(wgrad_sm90(rs, a->x, dys, part, a->dks, st));
+  // stage 1: da1 = the transposed 3x3 of dy2, then its BN backward (dp1 in
+  // place, dy1)
+  CHECK(sm90::conv_gemm(d2, dy2, a->k2t,
+                        Epilogue<T, float, float>{da1, nullptr, nullptr, kNone, kNone}, st));
+  CHECK(bwd_sums(da1, nullptr, y1, a->m1, s1, a->g1, a->b1, da1, a->db1, a->dg1, rows, C, st));
+  CHECK(bwd_apply(da1, y1, a->m1, s1, a->g1, a->db1, a->dg1, dy1, rows, C, st));
+  CHECK(wgrad_sm90(r1, a->x, dy1, part, a->dk1, st));
+  // dx = dy1 k1^T + dz (identity) or + the shortcut's share dyS ks^T
   if (proj) {
-    CHECK(cudaMemcpyAsync(a->dbs, a->db2, sizeof(float) * C,
-                          cudaMemcpyDeviceToDevice, st));
-    CHECK(bwd_apply(z, ys, a->ms, ss, a->gs, a->db2, a->dgs, ys, rows, C,
-                    st));  // dyS over yS
-    CHECK(wgrad(a->x, nullptr, nullptr, ys, part, a->dks, b.cs, st));
-  }
-  // stage 1: da1 = the transposed 3x3 of dy2, then its BN backward in place
-  const ConvGeom g2t = geom(a->n, b.c2.ho, b.c2.wo, C, b.c2.ho, b.c2.wo, C, 3, 1, 1);
-  CHECK(conv(true, y2, a->k2t, nullptr, nullptr, nullptr, da1, nullptr, g2t, st));
-  CHECK(bwd_sums(da1, nullptr, y1, a->m1, s1, a->g1, a->b1, da1, a->db1, a->dg1,
-                 rows, C, st));
-  CHECK(bwd_apply(da1, y1, a->m1, s1, a->g1, a->db1, a->dg1, da1, rows, C,
-                  st));  // dy1 over da1
-  CHECK(wgrad(a->x, nullptr, nullptr, da1, part, a->dk1, b.c1, st));
-  // dx = the transposed 3x3/s of dy1, plus dz (identity) or the transposed
-  // 1x1/s of dyS (projection) through the residual epilogue
-  const ConvGeom g1t = geom(a->n, b.c1.ho, b.c1.wo, C, a->hi, a->wi, a->cin, 3,
-                            a->stride, 1);
-  if (proj) {
-    const ConvGeom gst = geom(a->n, b.cs.ho, b.cs.wo, C, a->hi, a->wi, a->cin, 1,
-                              a->stride, 0);
-    CHECK(conv(true, ys, a->kst, nullptr, nullptr, nullptr, dxs, nullptr, gst, st));
-    CHECK(conv(true, da1, a->k1t, nullptr, nullptr, dxs, a->dx, nullptr, g1t, st));
+    CHECK(sm90::conv_gemm(dsx, dys, a->kst,
+                          Epilogue<T, float, float>{dxs, nullptr, nullptr, kNone, kNone}, st));
+    CHECK(sm90::conv_gemm(d1, dy1, a->k1t,
+                          Epilogue<T, T, float>{a->dx, dxs, nullptr, kNone, kNone}, st));
   } else {
-    CHECK(conv(true, da1, a->k1t, nullptr, nullptr, z, a->dx, nullptr, g1t, st));
+    CHECK(sm90::conv_gemm(d1, dy1, a->k1t, Epilogue<T, T, T>{a->dx, dz, nullptr, kNone, kNone},
+                          st));
   }
   return 0;
 }
