@@ -23,18 +23,18 @@ eager step, from an init with small residual-branch BN gammas where the
 step is well conditioned), checks that two forward calls and two backward
 calls of the Bottleneck and of the BasicBlock and projection-block entry
 points give bitwise-equal outputs, and times kernels and train steps with
-CUDA events, the Bottleneck forward and backward and the BasicBlock and
-projection-block backwards also split by device kernel
-(``torch.profiler``) with their peak memory. Phases: device,
+CUDA events, the Bottleneck, BasicBlock and projection-block forwards and
+backwards also split by device kernel (``torch.profiler``) with their peak
+memory. Phases: device,
 build, kernel_parity, train, timing. Any failure raises and the script
 exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
 builds only the conv library of another checkout (a parent commit unpacked
-with ``git archive``, say) and prints its Bottleneck forward and backward
-and its BasicBlock and projection-block backward splits, for a comparison
-inside one call.
+with ``git archive``, say) and prints its Bottleneck, BasicBlock and
+projection-block forward and backward splits, for a comparison inside one
+call.
 
 The last lines of standard output are the card's name and power limit, one
 JSON object with an entry per kernel (``{"kernels": [...]}``: launches on
@@ -823,9 +823,10 @@ def conv_split(dev, where, family, direction, dtype=torch.float32):
     ResNet-18's), traced by ``torch.profiler``: device time per kernel name
     (``key_averages()``, self device time), one step's worth (each geometry
     times its number of sites) summed per entry point, per name and per
-    group (:func:`kernel_group`); beside it the peak device memory of one
-    call beyond its inputs (``max_memory_allocated`` after a reset). Prints
-    "not measured" when the profiler shows no device time."""
+    group (:func:`kernel_group`), from the fullest of three traces of the
+    call; beside it the peak device memory of one call beyond its inputs
+    (``max_memory_allocated`` after a reset). Prints "not measured" when
+    the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     dt = "fp32" if dtype == torch.float32 else "bf16"
@@ -853,20 +854,23 @@ def conv_split(dev, where, family, direction, dtype=torch.float32):
         call()
         torch.cuda.synchronize()
         extra_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        # a trace now and then comes back empty or short of some kernels
+        # (one read 0.12 of a call's 1.7 ms): three traces, the fullest kept
         per = {}
-        for _ in range(3):  # a trace now and then comes back empty: trace again
+        for _ in range(3):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 call()
                 torch.cuda.synchronize()
+            trace = {}
             for avg in prof.key_averages():
                 us = getattr(avg, "self_device_time_total", None)
                 if us is None:
                     us = getattr(avg, "self_cuda_time_total", 0.0)
                 if us > 0:
                     name = short_kernel_name(avg.key)
-                    per[name] = per.get(name, 0.0) + us / 1e3
-            if per:
-                break
+                    trace[name] = trace.get(name, 0.0) + us / 1e3
+            if sum(trace.values()) > sum(per.values()):
+                per = trace
         if not per:
             print(f"{tag}: not measured (the profiler shows no device time on this machine) "
                   f"{where}")
@@ -895,7 +899,7 @@ def conv_split(dev, where, family, direction, dtype=torch.float32):
 
 
 # the splits a run prints: (family, direction), each in both compute dtypes
-SPLITS = (("bottleneck", "fwd"), ("bottleneck", "bwd"), ("block", "bwd"))
+SPLITS = (("bottleneck", "fwd"), ("bottleneck", "bwd"), ("block", "fwd"), ("block", "bwd"))
 
 
 def splits(dev, where):
@@ -1121,8 +1125,8 @@ def step_check_bf16(name, model, views, labels):
 
 def split_only() -> int:
     """The ``--split-only`` run: the build and the per-kernel splits of
-    ``SPLITS`` (the Bottleneck forward and backward, the BasicBlock and
-    projection-block backwards) in both compute dtypes."""
+    ``SPLITS`` (the Bottleneck, BasicBlock and projection-block forwards
+    and backwards) in both compute dtypes."""
     from simclr_pytorch_distributed_tpu_torch.ops import native
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1142,8 +1146,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--split-only", action="store_true",
                     help="only build the conv kernels and print the per-kernel splits of the "
-                         "Bottleneck forward and backward and of the BasicBlock and "
-                         "projection-block backwards (fp32 and bf16), then exit")
+                         "Bottleneck, BasicBlock and projection-block forwards and "
+                         "backwards (fp32 and bf16), then exit")
     ap.add_argument("--root", default=REPO,
                     help="the checkout whose port package is imported and built (default: "
                          "this script's directory; another checkout, for example a parent "

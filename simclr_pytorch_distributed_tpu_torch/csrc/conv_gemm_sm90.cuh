@@ -1,8 +1,8 @@
 // Pipelined implicit-GEMM convolution and weight-gradient kernels for
 // Hopper (sm_90a), one design per compute dtype, included by
-// fused_conv_bn.cu. The Bottleneck entry points and the BasicBlock
-// backward (fp32 and bf16) run every convolution through them:
-// bottleneck_fwd its four forward convs, with the statistics epilogue;
+// fused_conv_bn.cu. Every block entry point (fp32 and bf16) runs every
+// convolution through them: bottleneck_fwd its four forward convs and
+// basic_fwd and proj_fwd their two or three, with the statistics epilogue;
 // bottleneck_bwd, basic_bwd and proj_bwd the recomputed forward convs, the
 // data gradients and the weight gradients.
 //

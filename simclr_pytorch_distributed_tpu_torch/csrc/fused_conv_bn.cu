@@ -26,41 +26,42 @@
 // output grid; the shortcut BN's bias gradient is the same sum of dz as
 // BN3's (both biases add straight into z). BasicBlocks: every BN counts
 // over the output grid, BN1 of the projection block included (its strided
-// 3x3 comes first), and the shortcut BN's bias gradient is BN2's. The
-// BasicBlock forwards are compositions of the first design's kernels
-// below; the BasicBlock backwards run on the pipelined core (below).
+// 3x3 comes first), and the shortcut BN's bias gradient is BN2's. Every
+// block entry point (Bottleneck and BasicBlock, forward and backward) runs
+// on the pipelined core (below); only the stem keeps the first design.
 //
 // Design: phases become kernels. The Pallas kernels walk a sequential
 // phase-major grid (phases, batch tiles) and carry BN sums from tile to
 // tile in VMEM scratch. CTAs on Hopper run in no order, so each entry point
-// is a sequence of kernels on the caller's stream:
-//   - conv_gemm_kernel: an implicit-GEMM convolution (kernel 1 or 3,
-//     stride 1 or 2, forward gather, or the stem's stride-1 transposed
-//     gather) with an optional BN+ReLU prologue on its input and an
+// is a sequence of kernels on the caller's stream. The first design's,
+// which the stem runs:
+//   - conv_gemm_kernel: an implicit-GEMM 3x3 convolution (forward gather,
+//     or the stride-1 transposed gather of the data gradient) with an
 //     optional statistics epilogue that writes each CTA's per-channel tile
 //     mean and centred sum of squares to a [tiles, C] partial buffer;
 //   - bn_finalize_kernel: combines the partials in a fixed order, in fp64,
 //     around a per-channel shift (the first tile's mean), so the variance
 //     suffers no E[y^2] - E[y]^2 cancellation and repeated runs are
 //     bitwise identical; then folds gamma/beta into scale/shift;
-//   - bn_apply_kernel: the normalize (+ residual) (+ ReLU) pass;
+//   - bn_apply_kernel: the normalize + ReLU pass;
 //   - conv_wgrad_kernel + split_reduce_kernel: the weight gradient as a
 //     GEMM over rows split across CTAs, with a fixed-order fp64 combine;
 //   - bn_bwd_sums_kernel + sum_partials_kernel, bn_bwd_apply_kernel: the
 //     elementwise BN backward and its per-channel sums.
 // There are no atomics anywhere, so every output is deterministic.
 //
-// Both Bottleneck entry points (bottleneck_fwd and bottleneck_bwd) and
-// both BasicBlock backwards (basic_bwd and proj_bwd), fp32 and bf16, are
-// redesigned around the pipelined GEMM core of conv_gemm_sm90.cuh, which
-// runs every one of their convolutions: conv_gemm_f32_kernel /
-// conv_wgrad_f32_kernel (fp32) and conv_gemm_sm90_kernel /
-// conv_wgrad_sm90_kernel (bf16, wgmma). Under the first design the two
-// Bottleneck entry points took 96% of the fp32 ResNet-50 step and 88% of
-// the bf16 one (PERF.md), and lost their time to (1) GEMMs without
-// pipelining, with a BN+ReLU prologue in every loader, (2) a transposed
-// stride-2 gather that multiplies the zeros of the dilated gradient, and
-// (3) fp32 cotangents and scalar fp32 passes over the 4P-wide tensors. The
+// The Bottleneck entry points (bottleneck_fwd, bottleneck_bwd) and the
+// BasicBlock ones (basic_fwd, basic_bwd, proj_fwd, proj_bwd), fp32 and
+// bf16, are redesigned around the pipelined GEMM core of
+// conv_gemm_sm90.cuh, which runs every one of their convolutions:
+// conv_gemm_f32_kernel / conv_wgrad_f32_kernel (fp32) and
+// conv_gemm_sm90_kernel / conv_wgrad_sm90_kernel (bf16, wgmma). Under the
+// first design the two Bottleneck entry points took 96% of the fp32
+// ResNet-50 step and 88% of the bf16 one (PERF.md), and lost their time
+// to (1) GEMMs without pipelining, with a BN+ReLU prologue in every
+// loader, (2) a transposed stride-2 gather that multiplies the zeros of
+// the dilated gradient, and (3) fp32 cotangents and scalar fp32 passes
+// over the 4P-wide tensors. The
 // backwards' schedule (the Bottleneck's; block_bwd runs it with the
 // BasicBlock's convs, its stage 2 being the Bottleneck's stage 3) answers
 // each:
@@ -82,7 +83,7 @@
 //     stored; the identity block's dx epilogue takes dz as its residual.
 //     Four channels a thread, or one where C % 4 != 0 (a BasicBlock's C
 //     may be any count).
-// The forward cannot fold its BNs into the epilogues that way: its scale
+// The forwards cannot fold their BNs into the epilogues that way: the scale
 // and shift come from this batch's statistics, known only once the whole
 // conv has run. So each conv writes y in fp32 through the core's
 // statistics epilogue (per-CTA tile mean and centred sum of squares, the
@@ -92,16 +93,18 @@
 //   y1 = x k1 (stats), finalize, a1;  y2 = conv3x3/s(a1, k2) (stats),
 //   finalize, a2;  y3 = a2 k3 (stats), finalize;  yS = x ks /s (stats),
 //   finalize (projection);  out = rnd(relu(y3 s3 + t3 + (yS sS + tS | x)))
-//   in one 4-wide pass, bot_out_kernel.
+//   in one 4-wide pass, bot_out_kernel. block_fwd runs the same schedule
+//   with the BasicBlock's convs: y1 = conv3x3/s(x, k1), a1, y2 =
+//   conv3x3(a1, k2), yS = conv1x1/s(x, ks), and the last pass over y2,
+//   four channels a thread where C % 4 == 0, else one.
 // A materialised a, not the prologue in the loader, keeps every operand a
 // plain tensor for 16-byte cp.async, keeps the bf16 ring's stages bf16 (an
 // fp32 y would not fit them), and keeps the 3x3's zero padding zero after
 // the activation (the Pallas _fill_pad), which a loader that transforms
 // what it loads would have to special-case (relu(0 * s + t) != 0). The
 // act pass forms a as the backward's act epilogue does (one fmaf), so the
-// forward's a1/a2 equal the backward's recomputed ones bitwise.
-// The stem and the BasicBlock forwards keep the first design's launch
-// sequence.
+// forward's a1/a2 equal the backward's recomputed ones bitwise. The stem
+// alone keeps the first design's launch sequence.
 
 // Stage, not recompute, inside a call: a call keeps its pre-BN
 // intermediates (y1, y2, y3, yS) in a workspace the wrapper allocates with
@@ -135,12 +138,11 @@
 // bf16 compute dtype). x, the kernels, the upstream gradient, out, dx and
 // every dW are bf16; the moments, gamma/beta and their gradients stay
 // fp32. Every convolution rounds its operands to bf16 and multiplies them
-// on the tensor cores with fp32 accumulation: in the first design's
-// kernels (mma.sync m16n8k16) conv_gemm_bf16_kernel (the implicit GEMM,
-// same gathers, prologue and epilogues as conv_gemm_kernel) and
-// conv_wgrad_bf16_kernel (the row-split weight gradient); in the
-// Bottleneck entry points and the BasicBlock backwards, wgmma on the
-// redesigned core. The rounding points
+// on the tensor cores with fp32 accumulation: in the stem, the first
+// design's kernels (mma.sync m16n8k16) conv_gemm_bf16_kernel (the implicit
+// GEMM, same gathers and epilogues as conv_gemm_kernel) and
+// conv_wgrad_bf16_kernel (the row-split weight gradient); in every block
+// entry point, wgmma on the redesigned core. The rounding points
 // are the Pallas kernels': the BN+ReLU of a staged y runs in fp32 on the
 // fp32 y and rounds its result (the _fill_pad cast), a cotangent is
 // rounded where it enters a product (as the Pallas backward casts dy
@@ -225,17 +227,11 @@ __device__ __forceinline__ bool src_pixel(const ConvGeom& g, int oh, int ow,
   return ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi;
 }
 
-__device__ __forceinline__ float bn_relu(float v, const float* sc,
-                                         const float* sh, int c) {
-  return fmaxf(fmaf(v, sc[c], sh[c]), 0.f);
-}
-
 // Four consecutive GEMM-K entries k .. k+3 of row (n, oh, ow): the im2col
-// value, through the optional BN+ReLU prologue; zero outside the image or
-// past K. With cin % 4 == 0 the four share one pixel: one 16-byte load.
+// value; zero outside the image or past K. With cin % 4 == 0 the four
+// share one pixel: one 16-byte load.
 template <bool TRANS>
 __device__ __forceinline__ float4 load_a4(const float* src, const ConvGeom& g,
-                                          const float* psc, const float* psh,
                                           bool row_ok, int n, int oh, int ow,
                                           int k, int K, bool vec) {
   float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -252,10 +248,6 @@ __device__ __forceinline__ float4 load_a4(const float* src, const ConvGeom& g,
           v[1] = q.y;
           v[2] = q.z;
           v[3] = q.w;
-          if (psc) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) v[e] = bn_relu(v[e], psc, psh, ci + e);
-          }
         }
       }
     } else {
@@ -266,10 +258,8 @@ __device__ __forceinline__ float4 load_a4(const float* src, const ConvGeom& g,
         const int ci = kk % g.cin, t = kk / g.cin;
         const int kw = t % g.ks, kh = t / g.ks;
         int ih, iw;
-        if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw)) {
-          float s = src[(((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci];
-          v[e] = psc ? bn_relu(s, psc, psh, ci) : s;
-        }
+        if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw))
+          v[e] = src[(((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci];
       }
     }
   }
@@ -283,7 +273,6 @@ __device__ __forceinline__ float4 load_a4(const float* src, const ConvGeom& g,
 template <bool TRANS>
 __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(
     const float* __restrict__ src, const float* __restrict__ wt,
-    const float* __restrict__ psc, const float* __restrict__ psh,
     float* out, float* __restrict__ part_mean,
     float* __restrict__ part_m2, ConvGeom g) {
   __shared__ float As[BK][BM + 4];
@@ -321,8 +310,7 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(
   for (int k0 = 0; k0 < K; k0 += BK) {
 #pragma unroll
     for (int q = 0; q < 8; q += 4) {
-      const float4 a = load_a4<TRANS>(src, g, psc, psh, arow, an, aoh, aow,
-                                      k0 + ak + q, K, vec);
+      const float4 a = load_a4<TRANS>(src, g, arow, an, aoh, aow, k0 + ak + q, K, vec);
       As[ak + q + 0][ar] = a.x;
       As[ak + q + 1][ar] = a.y;
       As[ak + q + 2][ar] = a.z;
@@ -447,7 +435,7 @@ __global__ void __launch_bounds__(THREADS) conv_wgrad_kernel(
       ow = r - oh * g.wo;
     }
     *reinterpret_cast<float4*>(&As[lm][lk]) =
-        load_a4<false>(src, g, nullptr, nullptr, ok, n, oh, ow, k0 + lk, K, vec);
+        load_a4<false>(src, g, ok, n, oh, ow, k0 + lk, K, vec);
     float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
     if (ok) {
       const int c = c0 + lk;
@@ -517,16 +505,15 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Eight consecutive GEMM-K entries k .. k+7 of row (n, oh, ow), as floats
-// after the optional BN+ReLU prologue: load_a4 twice for an fp32 source.
+// Eight consecutive GEMM-K entries k .. k+7 of row (n, oh, ow), as floats:
+// load_a4 twice for an fp32 source.
 template <bool TRANS>
 __device__ __forceinline__ void load_a8(const float* src, const ConvGeom& g,
-                                        const float* psc, const float* psh,
                                         bool row_ok, int n, int oh, int ow,
                                         int k, int K, float (&v)[8]) {
   const bool vec = (g.cin % 4) == 0;
-  const float4 a = load_a4<TRANS>(src, g, psc, psh, row_ok, n, oh, ow, k, K, vec);
-  const float4 b = load_a4<TRANS>(src, g, psc, psh, row_ok, n, oh, ow, k + 4, K, vec);
+  const float4 a = load_a4<TRANS>(src, g, row_ok, n, oh, ow, k, K, vec);
+  const float4 b = load_a4<TRANS>(src, g, row_ok, n, oh, ow, k + 4, K, vec);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
@@ -535,7 +522,6 @@ __device__ __forceinline__ void load_a8(const float* src, const ConvGeom& g,
 // pixel, one 16-byte load.
 template <bool TRANS>
 __device__ __forceinline__ void load_a8(const bf16* src, const ConvGeom& g,
-                                        const float* psc, const float* psh,
                                         bool row_ok, int n, int oh, int ow,
                                         int k, int K, float (&v)[8]) {
 #pragma unroll
@@ -551,8 +537,7 @@ __device__ __forceinline__ void load_a8(const bf16* src, const ConvGeom& g,
         src + (((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci);
     const bf16* h = reinterpret_cast<const bf16*>(&q);
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = psc ? bn_relu(to_f(h[e]), psc, psh, ci + e) : to_f(h[e]);
+    for (int e = 0; e < 8; ++e) v[e] = to_f(h[e]);
     return;
   }
 #pragma unroll
@@ -562,10 +547,8 @@ __device__ __forceinline__ void load_a8(const bf16* src, const ConvGeom& g,
     const int ci = kk % g.cin, t = kk / g.cin;
     const int kw = t % g.ks, kh = t / g.ks;
     int ih, iw;
-    if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw)) {
-      const float s = to_f(src[(((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci]);
-      v[e] = psc ? bn_relu(s, psc, psh, ci) : s;
-    }
+    if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw))
+      v[e] = to_f(src[(((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci]);
   }
 }
 
@@ -614,7 +597,7 @@ __device__ __forceinline__ void load_row8(const float* m, int r, int rows_end,
 // conv_gemm_kernel with bf16 operands on the tensor cores: out[m, c] =
 // sum_k bf16(A[m, k]) * wt[k, c] with fp32 accumulation,
 // A the implicit im2col matrix of src (bf16 x, or an fp32 staged tensor
-// through the optional BN+ReLU prologue, rounded after it). K is walked in
+// rounded as it is loaded). K is walked in
 // 32-deep chunks, zero past K (the stem's 27). Eight warps, each a 32 x 32
 // quarter-column of the 128 x 64 tile: 2 x 4 mma tiles. The accumulators
 // are staged through shared memory for coalesced stores and for the
@@ -623,7 +606,6 @@ __device__ __forceinline__ void load_row8(const float* m, int r, int rows_end,
 template <bool TRANS, typename SrcT, typename OutT>
 __global__ void __launch_bounds__(THREADS) conv_gemm_bf16_kernel(
     const SrcT* __restrict__ src, const bf16* __restrict__ wt,
-    const float* __restrict__ psc, const float* __restrict__ psh,
     OutT* out, float* __restrict__ part_mean,
     float* __restrict__ part_m2, ConvGeom g) {
   // the A and B chunks during the K loop; the fp32 tile after it
@@ -667,7 +649,7 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_bf16_kernel(
 #pragma unroll
     for (int q = 0; q < 16; q += 8) {
       float v[8];
-      load_a8<TRANS>(src, g, psc, psh, arow, an, aoh, aow, k0 + ak + q, K, v);
+      load_a8<TRANS>(src, g, arow, an, aoh, aow, k0 + ak + q, K, v);
       *reinterpret_cast<uint4*>(&As[ar][ak + q]) =
           make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
                      pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
@@ -789,7 +771,7 @@ __global__ void __launch_bounds__(THREADS) conv_wgrad_bf16_kernel(
       ow = r - oh * g.wo;
     }
     float v[8];
-    load_a8<false>(src, g, nullptr, nullptr, ok, n, oh, ow, k0 + lk, K, v);
+    load_a8<false>(src, g, ok, n, oh, ow, k0 + lk, K, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) At[lk + e][lm] = __float2bfloat16_rn(v[e]);
     load_row8(dy, m, me, c0 + lk, g.cout, v);
@@ -922,20 +904,15 @@ __global__ void bn_fold_kernel(const float* __restrict__ mean,
   shift[c] = sh;
 }
 
-// out = [relu](y * sc + sh [+ r * rsc + rsh | + r]), in fp32, stored as
-// OutT; out may alias y (fp32 instance).
-template <typename RT, typename OutT>
+// The stem's last pass: out = relu(y * sc + sh), in fp32, stored as OutT;
+// out may alias y (fp32 instance).
+template <typename OutT>
 __global__ void bn_apply_kernel(const float* y, const float* __restrict__ sc,
-                                const float* __restrict__ sh, const RT* r,
-                                const float* __restrict__ rsc,
-                                const float* __restrict__ rsh, OutT* out,
-                                long long total, int C, int relu) {
+                                const float* __restrict__ sh, OutT* out, long long total, int C) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     const int c = (int)(i % C);
-    float v = fmaf(y[i], sc[c], sh[c]);
-    if (r) v += rsc ? fmaf(to_f(r[i]), rsc[c], rsh[c]) : to_f(r[i]);
-    out[i] = from_f<OutT>(relu ? fmaxf(v, 0.f) : v);
+    out[i] = from_f<OutT>(fmaxf(fmaf(y[i], sc[c], sh[c]), 0.f));
   }
 }
 
@@ -1064,10 +1041,11 @@ __device__ __forceinline__ void store_w(T* p, const float (&v)[W]) {
 // The BN backward of a residual block's last BN (the Bottleneck's BN3, a
 // BasicBlock's BN2; y3 below) and of its shortcut BN, pass 1: z = y3 * sc3
 // + sh3 plus the shortcut (ys * scs + shs for the projection, else x),
-// formed in registers exactly as bn_apply_kernel forms it and never
-// stored; dz = gout where z > 0, else 0, written in the compute dtype
-// (exact: gout is in it and the mask is 0/1); per-CTA partials of sum dz,
-// sum dz * yhat3 and (projection) sum dz * yhatS. Block (32 x 8): lane tx
+// formed in registers exactly as the forward's last pass (bot_out_kernel)
+// forms it and never stored; dz = gout where z > 0, else 0, written in the
+// compute dtype (exact: gout is in it and the mask is 0/1); per-CTA
+// partials of sum dz, sum dz * yhat3 and (projection) sum dz * yhatS.
+// Block (32 x 8): lane tx
 // takes channels W tx .. W tx + W - 1 of the CTA's 32 W (W = 4 needs C % 4
 // == 0, W = 1 takes any C), each of the 8 row lanes every eighth of the
 // CTA's EW_ROWS rows.
@@ -1213,29 +1191,35 @@ __global__ void bn_act_kernel(const float* y, const float* __restrict__ sc,
   }
 }
 
-// The Bottleneck forward's last pass: out = rnd(relu(y3 * sc3 + sh3 + (ys *
-// scs + shs | x))), z formed as bn_apply_kernel and bot_dz_sums_kernel form
-// it; four consecutive elements a thread (C = 4P, a multiple of 4). out
-// may alias y3 (fp32).
-template <typename T>
+// A residual block's last pass (the Bottleneck's and the BasicBlock's
+// forward): out = rnd(relu(y3 * sc3 + sh3 + (ys * scs + shs | x))), y3 the
+// last conv's pre-BN output, z formed as bot_dz_sums_kernel forms it. W
+// consecutive elements a thread, all of one row: W = 4 needs C % 4 == 0
+// (the Bottleneck's C = 4P always, a BasicBlock's C where it holds), W = 1
+// takes any C (a BasicBlock's C may be any count); the host picks W as
+// residual_bn_bwd does. out may alias y3 (fp32).
+template <typename T, int W>
 __global__ void bot_out_kernel(const float* y3, const float* __restrict__ sc3,
                                const float* __restrict__ sh3, const float* __restrict__ ys,
                                const float* __restrict__ scs, const float* __restrict__ shs,
                                const T* __restrict__ x, T* out, long long total, int C) {
-  for (long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4; i < total;
-       i += (long long)gridDim.x * blockDim.x * 4) {
+  for (long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * W; i < total;
+       i += (long long)gridDim.x * blockDim.x * W) {
     const int c0 = (int)(i % C);
-    const float4 y4 = sm90::load4(y3 + i), s4 = ys ? sm90::load4(ys + i) : sm90::load4(x + i);
-    const float yv[4] = {y4.x, y4.y, y4.z, y4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
-    float v[4];
+    float yv[W], sv[W], v[W];
+    load_w<W>(y3 + i, yv);
+    if (ys)
+      load_w<W>(ys + i, sv);
+    else
+      load_w<W>(x + i, sv);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < W; ++e) {
       const int c = c0 + e;
       v[e] = fmaf(yv[e], sc3[c], sh3[c]);
       v[e] += ys ? fmaf(sv[e], scs[c], shs[c]) : sv[e];
       v[e] = fmaxf(v[e], 0.f);
     }
-    sm90::store4(out + i, make_float4(v[0], v[1], v[2], v[3]));
+    store_w<W>(out + i, v);
   }
 }
 
@@ -1311,34 +1295,32 @@ BnScratch bn_scratch(Arena& ar, int rows, int C) {
 }
 
 // The fp32 convolution (fp32 weights): conv_gemm_kernel.
-cudaError_t conv(bool trans, const float* src, const float* wt, const float* psc,
-                 const float* psh, float* out, BnScratch* stats, const ConvGeom& g,
-                 cudaStream_t st) {
+cudaError_t conv(bool trans, const float* src, const float* wt, float* out, BnScratch* stats,
+                 const ConvGeom& g, cudaStream_t st) {
   const dim3 grid(conv_tiles(g), cdiv(g.cout, BN));
   float* pm = stats ? stats->pa : nullptr;
   float* pq = stats ? stats->pb : nullptr;
   if (trans)
-    conv_gemm_kernel<true><<<grid, THREADS, 0, st>>>(src, wt, psc, psh, out, pm, pq, g);
+    conv_gemm_kernel<true><<<grid, THREADS, 0, st>>>(src, wt, out, pm, pq, g);
   else
-    conv_gemm_kernel<false><<<grid, THREADS, 0, st>>>(src, wt, psc, psh, out, pm, pq, g);
+    conv_gemm_kernel<false><<<grid, THREADS, 0, st>>>(src, wt, out, pm, pq, g);
   return cudaGetLastError();
 }
 
 // The bf16 convolution (bf16 weights): conv_gemm_bf16_kernel, src bf16 or
 // fp32, out fp32 (staged) or bf16 (an output).
 template <typename SrcT, typename OutT>
-cudaError_t conv(bool trans, const SrcT* src, const bf16* wt, const float* psc,
-                 const float* psh, OutT* out, BnScratch* stats, const ConvGeom& g,
-                 cudaStream_t st) {
+cudaError_t conv(bool trans, const SrcT* src, const bf16* wt, OutT* out, BnScratch* stats,
+                 const ConvGeom& g, cudaStream_t st) {
   const dim3 grid(conv_tiles(g), cdiv(g.cout, BN));
   float* pm = stats ? stats->pa : nullptr;
   float* pq = stats ? stats->pb : nullptr;
   if (trans)
     conv_gemm_bf16_kernel<true, SrcT, OutT><<<grid, THREADS, 0, st>>>(
-        src, wt, psc, psh, out, pm, pq, g);
+        src, wt, out, pm, pq, g);
   else
     conv_gemm_bf16_kernel<false, SrcT, OutT><<<grid, THREADS, 0, st>>>(
-        src, wt, psc, psh, out, pm, pq, g);
+        src, wt, out, pm, pq, g);
   return cudaGetLastError();
 }
 
@@ -1351,12 +1333,6 @@ cudaError_t finalize(const BnScratch& s, int rows, int C, const float* gamma, co
   return cudaGetLastError();
 }
 
-cudaError_t finalize(const BnScratch& s, const ConvGeom& g, const float* gamma,
-             const float* beta, float eps, float* mean, float* var,
-             cudaStream_t st) {
-  return finalize(s, g.n * g.ho * g.wo, g.cout, gamma, beta, eps, mean, var, st);
-}
-
 cudaError_t fold_saved(const BnScratch& s, const float* mean, const float* var,
                const float* gamma, const float* beta, float eps, int C,
                cudaStream_t st) {
@@ -1365,13 +1341,11 @@ cudaError_t fold_saved(const BnScratch& s, const float* mean, const float* var,
   return cudaGetLastError();
 }
 
-template <typename RT, typename OutT>
-cudaError_t apply(const float* y, const float* sc, const float* sh, const RT* r,
-          const float* rsc, const float* rsh, OutT* out, long long rows, int C,
-          bool relu, cudaStream_t st) {
+template <typename OutT>
+cudaError_t apply(const float* y, const float* sc, const float* sh, OutT* out, long long rows,
+                  int C, cudaStream_t st) {
   const long long total = rows * C;
-  bn_apply_kernel<RT, OutT><<<elementwise_grid(total), THREADS, 0, st>>>(
-      y, sc, sh, r, rsc, rsh, out, total, C, relu ? 1 : 0);
+  bn_apply_kernel<OutT><<<elementwise_grid(total), THREADS, 0, st>>>(y, sc, sh, out, total, C);
   return cudaGetLastError();
 }
 
@@ -1541,6 +1515,34 @@ cudaError_t residual_bn_bwd(const float* y, const float* m, const BnScratch& s, 
   return passes(std::integral_constant<int, 1>());
 }
 
+// The core's statistics epilogue: y (fp32) with its tile statistics in the
+// BN's partials.
+template <typename T>
+sm90::Epilogue<T, float, float> with_stats(float* y, const BnScratch& bn) {
+  return sm90::Epilogue<T, float, float>{y, nullptr, nullptr, kNone, kNone, bn.pa, bn.pb};
+}
+
+// A residual block's last pass, bot_out_kernel: y (pre-BN, fp32) through
+// its folded BN s, plus the shortcut (ys through ss for the projection,
+// else x), ReLU, into out in the compute dtype. Four elements a thread
+// where C % 4 == 0, else one.
+template <typename T>
+cudaError_t residual_out(const float* y, const BnScratch& s, const float* ys,
+                         const BnScratch& ss, const T* x, T* out, int rows, int C,
+                         cudaStream_t st) {
+  const bool proj = ys != nullptr;
+  const long long total = (long long)rows * C;
+  auto pass = [&](auto width) -> cudaError_t {
+    constexpr int W = decltype(width)::value;
+    bot_out_kernel<T, W><<<elementwise_grid(total / W), THREADS, 0, st>>>(
+        y, s.scale, s.shift, ys, proj ? ss.scale : kNone, proj ? ss.shift : kNone,
+        proj ? nullptr : x, out, total, C);
+    return cudaGetLastError();
+  };
+  if (C % 4 == 0) return pass(std::integral_constant<int, 4>());
+  return pass(std::integral_constant<int, 1>());
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1589,10 +1591,9 @@ static int stem_fwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaS
     *ws_bytes = ar.off;
     return 0;
   }
-  CHECK(conv(false, a->x, a->k, nullptr, nullptr, y, &s, g, st));
-  CHECK(finalize(s, g, a->gamma, a->beta, a->eps, a->mean, a->var, st));
-  return static_cast<int>(apply(y, s.scale, s.shift, kNone, nullptr,
-                                nullptr, a->out, rows, a->cout, true, st));
+  CHECK(conv(false, a->x, a->k, y, &s, g, st));
+  CHECK(finalize(s, rows, a->cout, a->gamma, a->beta, a->eps, a->mean, a->var, st));
+  return static_cast<int>(apply(y, s.scale, s.shift, a->out, rows, a->cout, st));
 }
 
 template <typename T>
@@ -1609,7 +1610,7 @@ static int stem_bwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaS
     return 0;
   }
   CHECK(fold_saved(s, a->mean, a->var, a->gamma, a->beta, a->eps, a->cout, st));
-  CHECK(conv(false, a->x, a->k, nullptr, nullptr, y, nullptr, g, st));
+  CHECK(conv(false, a->x, a->k, y, nullptr, g, st));
   CHECK(bwd_sums(a->gout, nullptr, y, a->mean, s, a->gamma, a->beta, dp,
                               a->dbeta, a->dgamma, rows, a->cout, st));
   CHECK(bwd_apply(dp, y, a->mean, s, a->gamma, a->dbeta, a->dgamma, dp,
@@ -1618,7 +1619,7 @@ static int stem_bwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaS
   if (a->dx) {
     // transposed gather over dy [n, h, w, cout] with kt [3, 3, cout, cin]
     const ConvGeom gt = geom(a->n, a->h, a->w, a->cout, a->h, a->w, a->cin, 3, 1, 1);
-    CHECK(conv(true, dp, a->kt, nullptr, nullptr, a->dx, nullptr, gt, st));
+    CHECK(conv(true, dp, a->kt, a->dx, nullptr, gt, st));
   }
   return 0;
 }
@@ -1700,7 +1701,6 @@ static BotGeoms bot_geoms(const BotArgs<T>* a) {
 
 template <typename T>
 static int bottleneck_fwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
-  using sm90::Epilogue;
   const BotGeoms b = bot_geoms(a);
   const int P = b.P, C4 = b.C4;
   Arena ar{static_cast<char*>(ws)};
@@ -1721,27 +1721,19 @@ static int bottleneck_fwd_impl(const BotArgs<T>* a, void* ws, size_t* ws_bytes, 
     *ws_bytes = ar.off;
     return 0;
   }
-  // y (fp32) with its tile statistics in the BN's partials
-  auto with_stats = [](float* y, const BnScratch& bn) {
-    return Epilogue<T, float, float>{y, nullptr, nullptr, kNone, kNone, bn.pa, bn.pb};
-  };
-  CHECK(sm90::conv_gemm(b.r1, a->x, a->k1, with_stats(y1, s1), st));
+  CHECK(sm90::conv_gemm(b.r1, a->x, a->k1, with_stats<T>(y1, s1), st));
   CHECK(finalize(s1, b.rows1, P, a->g1, a->b1, a->eps, a->m1, a->v1, st));
   CHECK(activate(y1, s1, a1, b.rows1, P, st));
-  CHECK(sm90::conv_gemm(b.r2, a1, a->k2, with_stats(y2, s2), st));
+  CHECK(sm90::conv_gemm(b.r2, a1, a->k2, with_stats<T>(y2, s2), st));
   CHECK(finalize(s2, b.rows2, P, a->g2, a->b2, a->eps, a->m2, a->v2, st));
   CHECK(activate(y2, s2, a2, b.rows2, P, st));
-  CHECK(sm90::conv_gemm(b.r3, a2, a->k3, with_stats(y3, s3), st));
+  CHECK(sm90::conv_gemm(b.r3, a2, a->k3, with_stats<T>(y3, s3), st));
   CHECK(finalize(s3, b.rows2, C4, a->g3, a->b3, a->eps, a->m3, a->v3, st));
   if (a->proj) {
-    CHECK(sm90::conv_gemm(b.rs, a->x, a->ks, with_stats(ys, ss), st));
+    CHECK(sm90::conv_gemm(b.rs, a->x, a->ks, with_stats<T>(ys, ss), st));
     CHECK(finalize(ss, b.rows2, C4, a->gs, a->bs, a->eps, a->ms, a->vs, st));
   }
-  const long long total = (long long)b.rows2 * C4;
-  bot_out_kernel<T><<<elementwise_grid(total / 4), THREADS, 0, st>>>(
-      y3, s3.scale, s3.shift, ys, a->proj ? ss.scale : kNone, a->proj ? ss.shift : kNone,
-      a->proj ? nullptr : a->x, a->out, total, C4);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(residual_out<T>(y3, s3, ys, ss, a->x, a->out, b.rows2, C4, st));
 }
 
 template <typename T>
@@ -1880,52 +1872,62 @@ struct BlockArgs {
   float eps;
 };
 
+// The BasicBlock's forward convolutions as plans of the pipelined core,
+// which both entry points run them on, and its rows.
 struct BlockGeoms {
-  ConvGeom c1, c2, cs;  // forward convs
-  int rows;             // n * ho * wo: every BN of the block counts over it
+  sm90::ConvPlan r1, r2, rs;  // conv3x3/s(x, k1), conv3x3(a1, k2), conv1x1/s(x, ks)
+  int rows;                   // n * ho * wo: every BN of the block counts over it
 };
 
 template <typename T>
 static BlockGeoms block_geoms(const BlockArgs<T>* a) {
   BlockGeoms b;
   const int s = a->stride, ho = a->hi / s, wo = a->wi / s;
-  b.c1 = geom(a->n, a->hi, a->wi, a->cin, ho, wo, a->c, 3, s, 1);
-  b.c2 = geom(a->n, ho, wo, a->c, ho, wo, a->c, 3, 1, 1);
-  b.cs = geom(a->n, a->hi, a->wi, a->cin, ho, wo, a->c, 1, s, 0);
+  b.r1 = sm90::forward_plan(a->n, a->hi, a->wi, a->cin, 3, s, a->c);
+  b.r2 = sm90::forward_plan(a->n, ho, wo, a->c, 3, 1, a->c);
+  b.rs = sm90::forward_plan(a->n, a->hi, a->wi, a->cin, 1, s, a->c);
   b.rows = a->n * ho * wo;
   return b;
 }
 
+// The BasicBlock forward on the pipelined core: the Bottleneck forward's
+// schedule with the block's convs. y1 = conv3x3/s(x, k1) through the
+// statistics epilogue, finalize, a1 = rnd(relu(y1 * s1 + t1)) in the
+// compute dtype; y2 = conv3x3(a1, k2) with statistics, finalize;
+// (projection) yS = conv1x1/s(x, ks) with statistics, finalize; then out
+// = rnd(relu(y2 * s2 + t2 + (yS * sS + tS | x))) in one pass. a1 comes
+// from the same plan, K order and fmaf as the backward's recomputed a1, so
+// the two are bitwise equal.
 template <typename T>
 static int block_fwd(const BlockArgs<T>* a, bool proj, void* ws, size_t* ws_bytes,
                      cudaStream_t st) {
   const BlockGeoms b = block_geoms(a);
-  const int C = a->c;
+  const int C = a->c, rows = b.rows;
+  const size_t count = (size_t)rows * C;
   Arena ar{static_cast<char*>(ws)};
-  float* y1 = ar.take((size_t)b.rows * C);
-  float* ys = proj ? ar.take((size_t)b.rows * C) : nullptr;
-  BnScratch s1 = bn_scratch(ar, b.rows, C);
-  BnScratch s2 = bn_scratch(ar, b.rows, C);
-  BnScratch ss = bn_scratch(ar, b.rows, C);
-  // y2 is staged in out and normalized in place (fp32)
-  float* y2 = staged(ar, a->out, (size_t)b.rows * C);
+  // pre-BN y1 in fp32 and a1 in the compute dtype (over y1 under fp32)
+  float* y1 = ar.take(count);
+  T* a1 = compute_copy<T>(ar, y1, count);
+  float* ys = proj ? ar.take(count) : nullptr;
+  BnScratch s1 = bn_scratch(ar, rows, C);
+  BnScratch s2 = bn_scratch(ar, rows, C);
+  BnScratch ss = bn_scratch(ar, rows, C);
+  // y2 is staged in out and the last pass runs in place (fp32)
+  float* y2 = staged(ar, a->out, count);
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
   }
-  CHECK(conv(false, a->x, a->k1, nullptr, nullptr, y1, &s1, b.c1, st));
-  CHECK(finalize(s1, b.c1, a->g1, a->b1, a->eps, a->m1, a->v1, st));
+  CHECK(sm90::conv_gemm(b.r1, a->x, a->k1, with_stats<T>(y1, s1), st));
+  CHECK(finalize(s1, rows, C, a->g1, a->b1, a->eps, a->m1, a->v1, st));
+  CHECK(activate(y1, s1, a1, rows, C, st));
+  CHECK(sm90::conv_gemm(b.r2, a1, a->k2, with_stats<T>(y2, s2), st));
+  CHECK(finalize(s2, rows, C, a->g2, a->b2, a->eps, a->m2, a->v2, st));
   if (proj) {
-    CHECK(conv(false, a->x, a->ks, nullptr, nullptr, ys, &ss, b.cs, st));
-    CHECK(finalize(ss, b.cs, a->gs, a->bs, a->eps, a->ms, a->vs, st));
+    CHECK(sm90::conv_gemm(b.rs, a->x, a->ks, with_stats<T>(ys, ss), st));
+    CHECK(finalize(ss, rows, C, a->gs, a->bs, a->eps, a->ms, a->vs, st));
   }
-  CHECK(conv(false, y1, a->k2, s1.scale, s1.shift, y2, &s2, b.c2, st));
-  CHECK(finalize(s2, b.c2, a->g2, a->b2, a->eps, a->m2, a->v2, st));
-  if (proj)
-    return static_cast<int>(apply(y2, s2.scale, s2.shift, ys,
-                                  ss.scale, ss.shift, a->out, b.rows, C, true, st));
-  return static_cast<int>(apply(y2, s2.scale, s2.shift, a->x, nullptr,
-                                nullptr, a->out, b.rows, C, true, st));
+  return static_cast<int>(residual_out<T>(y2, s2, ys, ss, a->x, a->out, rows, C, st));
 }
 
 // The BasicBlock backward on the pipelined core: the Bottleneck backward's
@@ -1941,14 +1943,13 @@ template <typename T>
 static int block_bwd(const BlockArgs<T>* a, bool proj, void* ws, size_t* ws_bytes,
                      cudaStream_t st) {
   using sm90::Epilogue;
+  const BlockGeoms b = block_geoms(a);
   const int n = a->n, hi = a->hi, wi = a->wi, cin = a->cin, C = a->c, s = a->stride;
-  const int ho = hi / s, wo = wi / s, rows = n * ho * wo;
+  const int ho = hi / s, wo = wi / s, rows = b.rows;
   const size_t count = (size_t)rows * C;
   // every convolution of the backward as a plan of the pipelined core: the
   // recomputed forward's, then the data gradients'
-  const sm90::ConvPlan r1 = sm90::forward_plan(n, hi, wi, cin, 3, s, C);
-  const sm90::ConvPlan r2 = sm90::forward_plan(n, ho, wo, C, 3, 1, C);
-  const sm90::ConvPlan rs = sm90::forward_plan(n, hi, wi, cin, 1, s, C);
+  const sm90::ConvPlan &r1 = b.r1, &r2 = b.r2, &rs = b.rs;
   const sm90::ConvPlan d2 = sm90::transposed3_plan(n, ho, wo, C, ho, wo, C, 1);  // dy2 k2^T
   const sm90::ConvPlan d1 = sm90::transposed3_plan(n, ho, wo, C, hi, wi, cin, s, proj);
   const sm90::ConvPlan dsx = sm90::shortcut_dx_plan(n, ho, wo, C, hi, wi, cin, s);
