@@ -21,18 +21,18 @@ one (fp32: the loss, each parameter's update and the BN buffers, beside a
 float64 run; bf16: the eager and the fused bf16 step each against the fp32
 eager step, from an init with small residual-branch BN gammas where the
 step is well conditioned), checks that two forward calls and two backward
-calls of the Bottleneck and of the BasicBlock and projection-block entry
-points give bitwise-equal outputs, and times kernels and train steps with
-CUDA events, the Bottleneck, BasicBlock and projection-block forwards and
-backwards also split by device kernel (``torch.profiler``) with their peak
-memory. Phases: device,
+calls of the stem, the Bottleneck and the BasicBlock and projection-block
+entry points give bitwise-equal outputs, and times kernels and train steps
+with CUDA events, the stem, Bottleneck, BasicBlock and projection-block
+forwards and backwards also split by device kernel (``torch.profiler``)
+with their peak memory. Phases: device,
 build, kernel_parity, train, timing. Any failure raises and the script
 exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
 builds only the conv library of another checkout (a parent commit unpacked
-with ``git archive``, say) and prints its Bottleneck, BasicBlock and
+with ``git archive``, say) and prints its stem, Bottleneck, BasicBlock and
 projection-block forward and backward splits, for a comparison inside one
 call.
 
@@ -238,12 +238,12 @@ def rand(shape, gen, dev, scale=1.0, shift=0.0):
     return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
 
 
-def stem_inputs(n, h, w, dev, seed, margin=0.0):
+def stem_inputs(n, h, w, cin, cout, dev, seed, margin=0.0):
     """x, the HWIO kernel, gamma and beta; ``margin`` shifts beta, so the
     ReLU inputs sit away from zero."""
     g = torch.Generator().manual_seed(seed)
-    return (rand((n, h, w, 3), g, dev), rand((3, 3, 3, 64), g, dev, 0.3),
-            rand((64,), g, dev, 0.2, 1.0), rand((64,), g, dev, 0.1, margin))
+    return (rand((n, h, w, cin), g, dev), rand((3, 3, cin, cout), g, dev, 0.3),
+            rand((cout,), g, dev, 0.2, 1.0), rand((cout,), g, dev, 0.1, margin))
 
 
 def bottleneck_inputs(n, h, w, cin, p, stride, dev, seed, margin=0.0):
@@ -420,9 +420,18 @@ RAGGED_BLOCKS = (
     ("ragged proj s2 [5,10,6,24]->40", (5, 10, 6, 24, 40, 2)),
     ("ragged proj s2 [3,8,8,6]->10", (3, 8, 8, 6, 10, 2)),
 )
-STEM_CASES = (("recipe [512,32,32,3]", (512, 32, 32), 0.0),
-              ("recipe [512,32,32,3] margin", (512, 32, 32), MARGIN),
-              ("ragged [6,10,6,3]", (6, 10, 6), 0.0))
+# (label, (n, h, w, cin, cout), margin, seed of its own upstream-gradient
+# draw or None): the recipe's stem, and ragged ones. [5,7,9,5]->72 has 315
+# rows (a 59-row last tile), K = 45 in two chunks, the first straddling a
+# tap, cin no multiple of 4 and a 72-wide output past one 64-channel block;
+# it draws its gradient from a generator of its own, so every case after
+# the stem's draws what it drew before the case was added.
+STEM_CASES = (("recipe [512,32,32,3]", (512, 32, 32, 3, 64), 0.0, None),
+              ("recipe [512,32,32,3] margin", (512, 32, 32, 3, 64), MARGIN, None),
+              ("ragged [6,10,6,3]", (6, 10, 6, 3, 64), 0.0, None),
+              ("ragged [5,7,9,5]->72", (5, 7, 9, 5, 72), 0.0, 23))
+STEM_OUT = ("out", "mean", "var")
+STEM_GRADS = ("dx", "dk", "dgamma", "dbeta")
 BOT_OUT = ("out", "m1", "v1", "m2", "v2", "m3", "v3", "m_sc", "v_sc")
 BOT_GRADS = ("dx", "dk1", "dg1", "db1", "dk2", "dg2", "db2", "dk3", "dg3", "db3",
              "dk_sc", "dg_sc", "db_sc")
@@ -449,12 +458,25 @@ def in_dtype(tensors, slots, dtype):
 
 
 def site_calls(fc, family, geo, dev, seed, margin=0.0, dtype=torch.float32):
-    """One block call at ``geo``: ``(x, kind, fwd, bwd)`` with ``fwd`` the
+    """One call at ``geo``: ``(x, kind, fwd, bwd)`` with ``fwd`` the
     ``(kernel, plain)`` forward calls and ``bwd(moments, gout)`` giving
     ``(args, kernel, plain, gradient names)`` of the backward. ``family``
-    is 'bottleneck' or 'block' (a BasicBlock: identity or projection, as
-    the geometry says). ``dtype`` is the compute dtype: x and the kernels
-    are drawn in fp32 and cast to it."""
+    is 'stem' (``geo`` ``(n, h, w, cin, cout)``; ``dx`` off the recipe's
+    shape only, as on the main path), 'bottleneck' or 'block' (a
+    BasicBlock: identity or projection, as the geometry says). ``dtype``
+    is the compute dtype: x and the kernels are drawn in fp32 and cast to
+    it."""
+    if family == "stem":  # geo (n, h, w, cin, cout)
+        x, k, gam, bet = in_dtype(stem_inputs(*geo, dev, seed=seed, margin=margin), (0, 1), dtype)
+        fwd = (lambda: fc.stem_fwd(x, k, gam, bet, EPS),
+               lambda: fc.stem_fwd_reference(x, k, gam, bet, EPS))
+        need_dx = geo[0] != 512  # the main path needs no dx of the images
+
+        def bwd(moments, gout):
+            bargs = (x, k, gam, bet, *moments, gout, EPS)
+            return (bargs, functools.partial(fc.stem_bwd, need_dx=need_dx),
+                    functools.partial(fc.stem_bwd_reference, need_dx=need_dx), STEM_GRADS)
+        return x, "stem", fwd, bwd
     stride = geo[5]
     if family == "bottleneck":
         args, short = bottleneck_inputs(*geo, dev, seed=seed, margin=margin)
@@ -528,33 +550,41 @@ def block_parity(dev, parity, family, sites, ragged, seed, gen):
     torch.cuda.synchronize()
 
 
+def stem_gen(seed, shared):
+    """The generator a stem case draws its upstream gradient from: its own
+    (``seed``) or the one the parity phase shares (seed None)."""
+    return shared if seed is None else torch.Generator().manual_seed(seed)
+
+
+def stem_parity(dev, parity, g):
+    """The stem kernels against their plain forms at ``STEM_CASES``; ``g``
+    draws the upstream gradients of the cases without a seed of their own."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+    for label, geo, margin, gseed in STEM_CASES:
+        recipe = geo[0] == 512
+        _, _, fwd, bwd = site_calls(fc, "stem", geo, dev, seed=1, margin=margin)
+        got, ref = fwd[0](), fwd[1]()
+        parity.case("fused_stem_fwd", label, [
+            (name, a, b, elem(VAL_RTOL, VAL_ATOL) if name == "out" else elem(STAT_RTOL, STAT_ATOL))
+            for name, a, b in zip(STEM_OUT, got, ref)])
+        gout = rand(tuple(ref[0].shape), stem_gen(gseed, g), dev)
+        bargs, kernel, plain_fn, names = bwd(ref[1:], gout)
+        got, plain = kernel(*bargs), plain_fn(*bargs)
+        refs, pin = plain, elem(GRAD_RTOL, GRAD_ATOL)
+        if recipe:
+            exact = plain_fn(*_f64(bargs))
+            refs = list(zip(exact, plain))
+            pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
+        parity.case("fused_stem_bwd", label, [
+            (name, a, b, pin) for name, a, b in zip(names, got, refs)])
+
+
 def conv_parity(dev, parity):
     """The stem, Bottleneck, BasicBlock and projection-block kernels
     against their plain forms at every distinct geometry of the ResNet-50
     and ResNet-18 recipe's sites and at ragged shapes."""
-    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     g = torch.Generator().manual_seed(7)
-    for label, (n, h, w), margin in STEM_CASES:
-        recipe = n == 512
-        x, k, gam, bet = stem_inputs(n, h, w, dev, seed=1, margin=margin)
-        got = fc.stem_fwd(x, k, gam, bet, EPS)
-        ref = fc.stem_fwd_reference(x, k, gam, bet, EPS)
-        parity.case("fused_stem_fwd", label, [
-            ("out", got[0], ref[0], elem(VAL_RTOL, VAL_ATOL)),
-            ("mean", got[1], ref[1], elem(STAT_RTOL, STAT_ATOL)),
-            ("var", got[2], ref[2], elem(STAT_RTOL, STAT_ATOL))])
-        gout = rand(tuple(ref[0].shape), g, dev)
-        need_dx = not recipe  # the main path needs no dx of the images
-        bargs = (x, k, gam, bet, ref[1], ref[2], gout, EPS)
-        got = fc.stem_bwd(*bargs, need_dx=need_dx)
-        plain = fc.stem_bwd_reference(*bargs, need_dx=need_dx)
-        refs, pin = plain, elem(GRAD_RTOL, GRAD_ATOL)
-        if recipe:
-            exact = fc.stem_bwd_reference(*_f64(bargs), need_dx=need_dx)
-            refs = list(zip(exact, plain))
-            pin = ("l2_vs", GRAD_VS_PLAIN, GRAD_L2_FLOOR) if margin else ("l2", GRAD_REL_L2)
-        parity.case("fused_stem_bwd", label, [
-            (name, a, b, pin) for name, a, b in zip(("dx", "dk", "dgamma", "dbeta"), got, refs)])
+    stem_parity(dev, parity, g)
     block_parity(dev, parity, "bottleneck", model_sites("resnet50"), RAGGED_BOTTLENECKS, 2, g)
     block_parity(dev, parity, "block", model_sites("resnet18"), RAGGED_BLOCKS, 5,
                  torch.Generator().manual_seed(9))
@@ -574,6 +604,25 @@ def bf16_case(parity, kernel, label, names, got, r16, r32, kinds):
         for name, a, b, c, kind in rows])
 
 
+def stem_bf16_parity(dev, parity, gen):
+    """``stem_fwd_bf16`` / ``stem_bwd_bf16`` against the bf16 and the fp32
+    plain forms (:func:`bf16_case`) at ``STEM_CASES``; ``gen`` draws the
+    upstream gradients of the cases without a seed of their own."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+    bf16 = torch.bfloat16
+    for label, geo, margin, gseed in STEM_CASES:
+        _, _, fwd, bwd = site_calls(fc, "stem", geo, dev, seed=1, margin=margin, dtype=bf16)
+        _, _, fwd32, bwd32 = site_calls(fc, "stem", geo, dev, seed=1, margin=margin)
+        got, r16, r32 = fwd[0](), fwd[1](), fwd32[1]()
+        bf16_case(parity, "fused_stem_fwd_bf16", label, STEM_OUT, got, r16, r32,
+                  ("value", "stats", "stats"))
+        gout = rand(tuple(got[0].shape), stem_gen(gseed, gen), dev).to(bf16)
+        bargs, kernel, plain_fn, names = bwd(r16[1:], gout)
+        bargs32 = bwd32(r32[1:], gout.float())[0]
+        got, g16, g32 = kernel(*bargs), plain_fn(*bargs), plain_fn(*bargs32)
+        bf16_case(parity, "fused_stem_bwd_bf16", label, names, got, g16, g32, ("grad",) * 4)
+
+
 def bf16_parity(dev, parity):
     """The eight bf16 entry points against their bf16 plain forms and
     against the fp32 plain forms (:func:`bf16_case`), at the cases
@@ -586,22 +635,7 @@ def bf16_parity(dev, parity):
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     bf16 = torch.bfloat16
     gen = torch.Generator().manual_seed(17)
-    for label, (n, h, w), margin in STEM_CASES:
-        x, k, gam, bet = stem_inputs(n, h, w, dev, seed=1, margin=margin)
-        xb, kb = x.to(bf16), k.to(bf16)
-        got = fc.stem_fwd(xb, kb, gam, bet, EPS)
-        r16 = fc.stem_fwd_reference(xb, kb, gam, bet, EPS)
-        r32 = fc.stem_fwd_reference(x, k, gam, bet, EPS)
-        bf16_case(parity, "fused_stem_fwd_bf16", label, ("out", "mean", "var"), got, r16, r32,
-                  ("value", "stats", "stats"))
-        gout = rand(tuple(got[0].shape), gen, dev).to(bf16)
-        need_dx = n != 512  # the main path needs no dx of the images
-        got = fc.stem_bwd(xb, kb, gam, bet, r16[1], r16[2], gout, EPS, need_dx=need_dx)
-        g16 = fc.stem_bwd_reference(xb, kb, gam, bet, r16[1], r16[2], gout, EPS, need_dx=need_dx)
-        g32 = fc.stem_bwd_reference(x, k, gam, bet, r32[1], r32[2], gout.float(), EPS,
-                                    need_dx=need_dx)
-        bf16_case(parity, "fused_stem_bwd_bf16", label, ("dx", "dk", "dgamma", "dbeta"), got,
-                  g16, g32, ("grad",) * 4)
+    stem_bf16_parity(dev, parity, gen)
     for family, model, ragged, seed in (("bottleneck", "resnet50", RAGGED_BOTTLENECKS, 2),
                                         ("block", "resnet18", RAGGED_BLOCKS, 5)):
         for label, geo, margin in parity_cases(model_sites(model), ragged):
@@ -671,7 +705,7 @@ def stem_timing(dev, where, dtype=torch.float32):
     from simclr_pytorch_distributed_tpu_torch.models.resnet import conv as conv_of
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     reps = dict(reps=2, rounds=3, warmup=1)
-    x, k, g, b = stem_inputs(512, 32, 32, dev, seed=3)
+    x, k, g, b = stem_inputs(512, 32, 32, 3, 64, dev, seed=3)
     x, k = x.to(dtype), k.to(dtype)
     y, m, v = fc.stem_fwd(x, k, g, b, EPS)
     gout = torch.randn_like(y)
@@ -767,9 +801,11 @@ def summed_bound(sites, direction):
 
 
 def kernel_group(name):
-    """'gemm' for a convolution's or a weight gradient's device kernel,
-    else 'elementwise' (BN passes, partial sums, the dW combine, copies)."""
-    return "gemm" if "gemm" in name or "wgrad" in name else "elementwise"
+    """'gemm' for a convolution's or a weight gradient's device kernel (a
+    stem pass, which recomputes the stem's conv, among them), else
+    'elementwise' (BN passes, partial sums, the dW combine, copies)."""
+    return ("gemm" if "gemm" in name or "wgrad" in name or name.startswith("stem_kernel")
+            else "elementwise")
 
 
 def short_kernel_name(name):
@@ -781,10 +817,12 @@ def short_kernel_name(name):
     return head.split("::")[-1].strip()
 
 
-# one recipe geometry per stride of each family's determinism check: a
-# ResNet-50 identity Bottleneck and its stride-2 projection; a ResNet-18
+# each family's determinism check: the recipe's stem and the ragged one of
+# STEM_CASES (with dx); one recipe geometry per stride of the blocks: a
+# ResNet-50 identity Bottleneck and its stride-2 projection, a ResNet-18
 # identity BasicBlock and its stride-2 projection block
 DETERMINISM_GEOMETRIES = {
+    "stem": ((512, 32, 32, 3, 64), (5, 7, 9, 5, 72)),
     "bottleneck": ((512, 16, 16, 512, 128, 1), (512, 16, 16, 512, 256, 2)),
     "block": ((512, 16, 16, 128, 128, 1), (512, 32, 32, 64, 128, 2)),
 }
@@ -801,11 +839,12 @@ def determinism(dev, family):
             _, kind, fwd, bwd = site_calls(fc, family, geo, dev, seed=8, dtype=dtype)
             r, r_again = fwd[0](), fwd[0]()
             bargs, kernel, _, names = bwd(r[1:], torch.randn_like(r[0]))
-            out_names = BOT_OUT if kind == "bottleneck" else BLOCK_OUT
+            out_names = {"stem": STEM_OUT, "bottleneck": BOT_OUT}.get(kind, BLOCK_OUT)
             for entry, first, second, what in (
                     (f"{kind}_fwd", r, r_again, out_names),
                     (f"{kind}_bwd", kernel(*bargs), kernel(*bargs), names)):
-                same = [torch.equal(a, b) for a, b in zip(first, second)]
+                same = [a is b is None or (a is not None and b is not None and torch.equal(a, b))
+                        for a, b in zip(first, second)]
                 print(f"{entry} determinism {geo} {dtype}: two calls bitwise equal on "
                       f"{sum(same)} of {len(same)} outputs")
                 if not all(same):
@@ -819,19 +858,22 @@ def determinism(dev, family):
 def conv_split(dev, where, family, direction, dtype=torch.float32):
     """One forward (``direction`` 'fwd') or backward ('bwd') call of
     ``family``'s entry point at each distinct recipe geometry of its model
-    (``bottleneck_*`` at ResNet-50's, ``basic_*`` and ``proj_*`` at
-    ResNet-18's), traced by ``torch.profiler``: device time per kernel name
-    (``key_averages()``, self device time), one step's worth (each geometry
-    times its number of sites) summed per entry point, per name and per
-    group (:func:`kernel_group`), from the fullest of three traces of the
-    call; beside it the peak device memory of one call beyond its inputs
+    (``stem_*`` at the recipe's stem, ``bottleneck_*`` at ResNet-50's
+    sites, ``basic_*`` and ``proj_*`` at ResNet-18's; the backward without
+    ``dx`` where the main path takes none), traced by ``torch.profiler``:
+    device time per kernel name (``key_averages()``, self device time),
+    one step's worth (each geometry times its number of sites) summed per
+    entry point, per name and per group (:func:`kernel_group`), from the
+    fullest of three traces of the call; beside it the peak device memory of one call beyond its inputs
     (``max_memory_allocated`` after a reset). Prints "not measured" when
     the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     dt = "fp32" if dtype == torch.float32 else "bf16"
     sites = {}  # geometry -> (kind, number of sites)
-    for _, kind, geo in model_sites("resnet50" if family == "bottleneck" else "resnet18"):
+    family_sites = ([("stem", "stem", STEM_CASES[0][1])] if family == "stem" else
+                    model_sites("resnet50" if family == "bottleneck" else "resnet18"))
+    for _, kind, geo in family_sites:
         sites[geo] = (kind, sites.get(geo, (kind, 0))[1] + 1)
     step = {}  # kind -> {kernel name: ms in one step}
     for geo, (kind, k) in sites.items():
@@ -899,7 +941,8 @@ def conv_split(dev, where, family, direction, dtype=torch.float32):
 
 
 # the splits a run prints: (family, direction), each in both compute dtypes
-SPLITS = (("bottleneck", "fwd"), ("bottleneck", "bwd"), ("block", "fwd"), ("block", "bwd"))
+SPLITS = (("stem", "fwd"), ("stem", "bwd"), ("bottleneck", "fwd"), ("bottleneck", "bwd"),
+          ("block", "fwd"), ("block", "bwd"))
 
 
 def splits(dev, where):
@@ -1125,8 +1168,8 @@ def step_check_bf16(name, model, views, labels):
 
 def split_only() -> int:
     """The ``--split-only`` run: the build and the per-kernel splits of
-    ``SPLITS`` (the Bottleneck, BasicBlock and projection-block forwards
-    and backwards) in both compute dtypes."""
+    ``SPLITS`` (the stem, Bottleneck, BasicBlock and projection-block
+    forwards and backwards) in both compute dtypes."""
     from simclr_pytorch_distributed_tpu_torch.ops import native
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1146,7 +1189,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--split-only", action="store_true",
                     help="only build the conv kernels and print the per-kernel splits of the "
-                         "Bottleneck, BasicBlock and projection-block forwards and "
+                         "stem, Bottleneck, BasicBlock and projection-block forwards and "
                          "backwards (fp32 and bf16), then exit")
     ap.add_argument("--root", default=REPO,
                     help="the checkout whose port package is imported and built (default: "
@@ -1255,6 +1298,7 @@ def main(argv=None) -> int:
     for line in parity.excused:
         print(f"  excused: {line}")
     parity.raise_if_failed()
+    determinism(dev, "stem")
     determinism(dev, "bottleneck")
     determinism(dev, "block")
     done("kernel_parity", t0)

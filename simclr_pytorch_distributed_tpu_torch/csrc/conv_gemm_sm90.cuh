@@ -4,7 +4,8 @@
 // convolution through them: bottleneck_fwd its four forward convs and
 // basic_fwd and proj_fwd their two or three, with the statistics epilogue;
 // bottleneck_bwd, basic_bwd and proj_bwd the recomputed forward convs, the
-// data gradients and the weight gradients.
+// data gradients and the weight gradients; stem_bwd its data gradient,
+// when one is wanted.
 //
 // A convolution is a GEMM over an explicit list of taps. Each GEMM row is
 // a pixel (b, i, j) of a row grid [n, gh, gw]; tap t reads the source

@@ -28,24 +28,23 @@
 // over the output grid, BN1 of the projection block included (its strided
 // 3x3 comes first), and the shortcut BN's bias gradient is BN2's. Every
 // block entry point (Bottleneck and BasicBlock, forward and backward) runs
-// on the pipelined core (below); only the stem keeps the first design.
+// on the pipelined core (below); the stem runs two passes of its own that
+// recompute its conv (its section, near the end of the file).
 //
 // Design: phases become kernels. The Pallas kernels walk a sequential
 // phase-major grid (phases, batch tiles) and carry BN sums from tile to
 // tile in VMEM scratch. CTAs on Hopper run in no order, so each entry point
-// is a sequence of kernels on the caller's stream. The first design's,
-// which the stem runs:
-//   - conv_gemm_kernel: an implicit-GEMM 3x3 convolution (forward gather,
-//     or the stride-1 transposed gather of the data gradient) with an
-//     optional statistics epilogue that writes each CTA's per-channel tile
-//     mean and centred sum of squares to a [tiles, C] partial buffer;
+// is a sequence of kernels on the caller's stream. Every entry point
+// shares these:
+//   - the statistics partials: per 128-row tile and channel, the tile mean
+//     and centred sum of squares, [tiles, C] (the core's statistics
+//     epilogue, the stem's first pass);
 //   - bn_finalize_kernel: combines the partials in a fixed order, in fp64,
 //     around a per-channel shift (the first tile's mean), so the variance
 //     suffers no E[y^2] - E[y]^2 cancellation and repeated runs are
 //     bitwise identical; then folds gamma/beta into scale/shift;
-//   - bn_apply_kernel: the normalize + ReLU pass;
-//   - conv_wgrad_kernel + split_reduce_kernel: the weight gradient as a
-//     GEMM over rows split across CTAs, with a fixed-order fp64 combine;
+//   - split_reduce_kernel: the fixed-order fp64 combine of weight-gradient
+//     partials, rounded once;
 //   - bn_bwd_sums_kernel + sum_partials_kernel, bn_bwd_apply_kernel: the
 //     elementwise BN backward and its per-channel sums.
 // There are no atomics anywhere, so every output is deterministic.
@@ -104,7 +103,7 @@
 // what it loads would have to special-case (relu(0 * s + t) != 0). The
 // act pass forms a as the backward's act epilogue does (one fmaf), so the
 // forward's a1/a2 equal the backward's recomputed ones bitwise. The stem
-// alone keeps the first design's launch sequence.
+// alone recomputes its conv in every pass instead (its section says why).
 
 // Stage, not recompute, inside a call: a call keeps its pre-BN
 // intermediates (y1, y2, y3, yS) in a workspace the wrapper allocates with
@@ -113,24 +112,22 @@
 // saved, so the backward recomputes the forward convolutions once (one
 // extra forward's FLOPs) and then stages its own intermediates. The Pallas
 // kernels recompute every conv in every phase because VMEM cannot hold a
-// batch of activations; HBM can, and re-running a conv costs far more
-// FLOPs than writing and reading its output once.
+// batch of activations; HBM can, and re-running a block's conv costs far
+// more than writing and reading its output once. The stem's conv is the
+// exception (1.8 GFLOP against 134 MB of y): it recomputes, as Pallas does.
 //
 // What bounds it on the H100. Fp32 FMA on the CUDA cores (no TF32, no
 // tensor cores, no fast-math), so the fp32 convolutions are bound by the
 // 67 TFLOP/s non-tensor fp32 rate: a recipe-shape Bottleneck forward is
 // ~83 GFLOP against ~3 GB of activations, a recipe-shape ResNet-18 block
 // 60-77 GFLOP. The stem and the elementwise BN passes are bound by bytes.
-// The first design's conv_gemm_kernel is a shared-memory tiled GEMM (128 x
-// 64 output tile per CTA, each thread an 8 x 4 register micro-tile, 16-deep
-// K chunks, one stage); the redesigned core's fp32 kernels take 128 x 128
-// tiles, 8 x 8 micro-tiles fed by 16-byte shared loads and a three-stage
-// cp.async ring. Each BN pass is one read and one write of its tensor.
+// The core's fp32 kernels take 128 x 128 tiles, 8 x 8 micro-tiles fed by
+// 16-byte shared loads and a three-stage cp.async ring. Each BN pass is one
+// read and one write of its tensor.
 //
-// Shared memory of the first design's kernels is static (under 17 KB per
-// CTA); the redesigned core's is dynamic (43-55 KB fp32, 96-128 KB bf16,
-// set with cudaFuncSetAttribute) and, like the first design's,
-// independent of the geometry, so the Hopper admission gate
+// Shared memory is dynamic (the core's 43-55 KB fp32 and 96-128 KB bf16,
+// the stem's 63-70 KB; set with cudaFuncSetAttribute) and independent of
+// the geometry, so the Hopper admission gate
 // (ops/fused_conv.py supports_*) needs only the geometric rules and the
 // 32-bit row-index range.
 //
@@ -138,11 +135,9 @@
 // bf16 compute dtype). x, the kernels, the upstream gradient, out, dx and
 // every dW are bf16; the moments, gamma/beta and their gradients stay
 // fp32. Every convolution rounds its operands to bf16 and multiplies them
-// on the tensor cores with fp32 accumulation: in the stem, the first
-// design's kernels (mma.sync m16n8k16) conv_gemm_bf16_kernel (the implicit
-// GEMM, same gathers and epilogues as conv_gemm_kernel) and
-// conv_wgrad_bf16_kernel (the row-split weight gradient); in every block
-// entry point, wgmma on the redesigned core. The rounding points
+// on the tensor cores with fp32 accumulation: mma.sync m16n8k16 in the
+// stem's passes, wgmma on the core in every block entry point. The
+// rounding points
 // are the Pallas kernels': the BN+ReLU of a staged y runs in fp32 on the
 // fp32 y and rounds its result (the _fill_pad cast), a cotangent is
 // rounded where it enters a product (as the Pallas backward casts dy
@@ -159,12 +154,10 @@
 // kernel as its fp32 twin, run with a bf16 compute dtype. What bounds
 // them: the convolutions by operations at the dense bf16 tensor-core rate
 // (989 TFLOP/s: a recipe-shape Bottleneck forward in ~0.1 ms), the BN
-// passes by bytes. The first design answers neither: each 32-deep chunk is
-// gathered by the loading threads and stored through shared memory with
-// no pipelining and no wgmma/TMA; the redesign answers the
-// first with wgmma on a three-stage cp.async ring and the second with
-// two-byte operands and cotangents, a pass fewer in the backward and 4-wide
-// passes (PERF.md has the times of both designs).
+// passes and the stem by bytes: the core answers the first with wgmma on a
+// three-stage cp.async ring, the second with two-byte operands and
+// cotangents, a pass fewer in the backward and 4-wide passes (PERF.md has
+// the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -179,642 +172,18 @@
 namespace {
 
 constexpr int THREADS = 256;
-// conv_gemm_kernel tile: BM output rows x BN output channels, BK deep
-constexpr int BM = 128, BN = 64, BK = 16, TM = 8, TN = 4;
-// conv_wgrad_kernel tile: WK weight rows x WN channels, WM-row chunks
-constexpr int WK = 64, WN = 64, WM = 16;
+// rows of a statistics tile: bn_finalize_kernel counts min(BM, rows - t *
+// BM) rows in tile t, for the pipelined core's statistics epilogue and for
+// the stem's first pass
+constexpr int BM = 128;
+static_assert(sm90::GEMM_BM == BM, "one tile height for every statistics partial");
 // rows per CTA of the per-channel elementwise kernels (block 32 x 8)
 constexpr int EW_ROWS = 128;
-constexpr int WAVES = sm90::WGRAD_CTAS;  // CTAs the weight-gradient split aims for
-
-// bf16 tiles (conv_gemm_bf16_kernel, conv_wgrad_bf16_kernel): the same
-// 128 x 64 output tile, 32-deep K chunks; weight gradient 64 x 64 per
-// CTA over 32-row chunks. Shared-memory rows hold HLD bf16 (the chunk plus
-// 8 of padding: 80 bytes, so the fragment loads of a warp hit 32 distinct
-// banks).
-constexpr int HBK = 32, HWM = 32, HLD = 40;
-static_assert(BM == 128 && BN == 64, "the bf16 conv tile is 128 x 64");
-// bn_finalize_kernel counts min(BM, rows - t * BM) rows in tile t, for the
-// first design's partials and for the pipelined core's statistics epilogue
-static_assert(sm90::GEMM_BM == BM, "one tile height for every statistics partial");
 
 using bf16 = __nv_bfloat16;
 
-struct ConvGeom {
-  int n, hi, wi, cin;  // the tensor the gather reads
-  int ho, wo, cout;    // the GEMM's row grid (n * ho * wo rows) and columns
-  int ks, stride, pad;
-};
-
 using sm90::from_f;  // float -> float or bf16 (round to nearest)
 using sm90::to_f;    // float or bf16 -> float
-
-// The source pixel of GEMM row (n, oh, ow) at kernel offset (kh, kw).
-// Forward: the conv reads padded input stride * o + d, i.e. unpadded
-// stride * o - pad + d. Transposed (the stem's data gradient, stride 1):
-// the rows are the forward conv's input grid, the source is dy, and a row
-// takes dy[o] where o - pad + kh == its index.
-template <bool TRANS>
-__device__ __forceinline__ bool src_pixel(const ConvGeom& g, int oh, int ow,
-                                          int kh, int kw, int& ih, int& iw) {
-  if (!TRANS) {
-    ih = oh * g.stride - g.pad + kh;
-    iw = ow * g.stride - g.pad + kw;
-  } else {
-    ih = oh + g.pad - kh;
-    iw = ow + g.pad - kw;
-  }
-  return ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi;
-}
-
-// Four consecutive GEMM-K entries k .. k+3 of row (n, oh, ow): the im2col
-// value; zero outside the image or past K. With cin % 4 == 0 the four
-// share one pixel: one 16-byte load.
-template <bool TRANS>
-__device__ __forceinline__ float4 load_a4(const float* src, const ConvGeom& g,
-                                          bool row_ok, int n, int oh, int ow,
-                                          int k, int K, bool vec) {
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (row_ok) {
-    if (vec) {
-      if (k < K) {
-        const int ci = k % g.cin, t = k / g.cin;
-        const int kw = t % g.ks, kh = t / g.ks;
-        int ih, iw;
-        if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw)) {
-          const float4 q = *reinterpret_cast<const float4*>(
-              src + (((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci);
-          v[0] = q.x;
-          v[1] = q.y;
-          v[2] = q.z;
-          v[3] = q.w;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kk = k + e;
-        if (kk >= K) break;
-        const int ci = kk % g.cin, t = kk / g.cin;
-        const int kw = t % g.ks, kh = t / g.ks;
-        int ih, iw;
-        if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw))
-          v[e] = src[(((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci];
-      }
-    }
-  }
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// out[m, c] = sum_k A[m, k] * wt[k, c], with A the implicit im2col matrix
-// of src. Optional statistics of out per CTA tile: part_mean[blockIdx.x, c]
-// and part_m2[blockIdx.x, c] (centred on the tile mean, over the tile's
-// valid rows).
-template <bool TRANS>
-__global__ void __launch_bounds__(THREADS) conv_gemm_kernel(
-    const float* __restrict__ src, const float* __restrict__ wt,
-    float* out, float* __restrict__ part_mean,
-    float* __restrict__ part_m2, ConvGeom g) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  __shared__ float red[16][BN + 1];
-  __shared__ float tmean[BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int M = g.n * g.ho * g.wo;
-  const int K = g.ks * g.ks * g.cin;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  // A loader: one row, eight consecutive k
-  const int ar = tid >> 1, ak = (tid & 1) * 8;
-  const int am = m0 + ar;
-  const bool arow = am < M;
-  int an = 0, aoh = 0, aow = 0;
-  if (arow) {
-    const int hw = g.ho * g.wo;
-    an = am / hw;
-    const int r = am - an * hw;
-    aoh = r / g.wo;
-    aow = r - aoh * g.wo;
-  }
-  // B loader: one k, four consecutive channels
-  const int bk = tid >> 4, bc = (tid & 15) * 4;
-  const bool vec = (g.cin % 4) == 0;
-  const bool bvec = (g.cout % 4) == 0;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < 8; q += 4) {
-      const float4 a = load_a4<TRANS>(src, g, arow, an, aoh, aow, k0 + ak + q, K, vec);
-      As[ak + q + 0][ar] = a.x;
-      As[ak + q + 1][ar] = a.y;
-      As[ak + q + 2][ar] = a.z;
-      As[ak + q + 3][ar] = a.w;
-    }
-    {
-      const int k = k0 + bk, c = n0 + bc;
-      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < K) {
-        const float* row = wt + (size_t)k * g.cout;
-        if (bvec) {
-          if (c < g.cout) b = *reinterpret_cast<const float4*>(row + c);
-        } else {
-          if (c + 0 < g.cout) b.x = row[c + 0];
-          if (c + 1 < g.cout) b.y = row[c + 1];
-          if (c + 2 < g.cout) b.z = row[c + 2];
-          if (c + 3 < g.cout) b.w = row[c + 3];
-        }
-      }
-      *reinterpret_cast<float4*>(&Bs[bk][bc]) = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c >= g.cout) continue;
-      out[(size_t)m * g.cout + c] = acc[i][j];
-    }
-  }
-
-  if (part_mean) {
-    const int rows = min(BM, M - m0);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        if (m0 + ty + 16 * i < M) s += acc[i][j];
-      red[ty][tx + 16 * j] = s;
-    }
-    __syncthreads();
-    if (tid < BN) {
-      float s = 0.f;
-      for (int t = 0; t < 16; ++t) s += red[t][tid];
-      tmean[tid] = s / (float)rows;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const float mu = tmean[tx + 16 * j];
-      float q = 0.f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        if (m0 + ty + 16 * i < M) {
-          const float d = acc[i][j] - mu;
-          q = fmaf(d, d, q);
-        }
-      red[ty][tx + 16 * j] = q;
-    }
-    __syncthreads();
-    if (tid < BN && n0 + tid < g.cout) {
-      float q = 0.f;
-      for (int t = 0; t < 16; ++t) q += red[t][tid];
-      const size_t o = (size_t)blockIdx.x * g.cout + n0 + tid;
-      part_mean[o] = tmean[tid];
-      part_m2[o] = q;
-    }
-  }
-}
-
-// part[z, k, c] = sum over rows m of split z of A[m, k] * dy[m, c]: the
-// weight gradient, A the im2col of src in forward gather.
-__global__ void __launch_bounds__(THREADS) conv_wgrad_kernel(
-    const float* __restrict__ src, const float* __restrict__ dy,
-    float* __restrict__ part, ConvGeom g, int m_per) {
-  __shared__ __align__(16) float As[WM][WK + 4];
-  __shared__ __align__(16) float Ds[WM][WN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int M = g.n * g.ho * g.wo;
-  const int K = g.ks * g.ks * g.cin;
-  const int k0 = blockIdx.x * WK, c0 = blockIdx.y * WN;
-  const int mb = blockIdx.z * m_per;
-  const int me = min(M, mb + m_per);
-  const int lm = tid / 16, lk = (tid % 16) * 4;
-  const bool vec = (g.cin % 4) == 0;
-  const bool dvec = (g.cout % 4) == 0;
-  const int hw = g.ho * g.wo;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int m0 = mb; m0 < me; m0 += WM) {
-    const int m = m0 + lm;
-    const bool ok = m < me;
-    int n = 0, oh = 0, ow = 0;
-    if (ok) {
-      n = m / hw;
-      const int r = m - n * hw;
-      oh = r / g.wo;
-      ow = r - oh * g.wo;
-    }
-    *reinterpret_cast<float4*>(&As[lm][lk]) =
-        load_a4<false>(src, g, ok, n, oh, ow, k0 + lk, K, vec);
-    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok) {
-      const int c = c0 + lk;
-      const float* row = dy + (size_t)m * g.cout;
-      if (dvec) {
-        if (c < g.cout) d = *reinterpret_cast<const float4*>(row + c);
-      } else {
-        if (c + 0 < g.cout) d.x = row[c + 0];
-        if (c + 1 < g.cout) d.y = row[c + 1];
-        if (c + 2 < g.cout) d.z = row[c + 2];
-        if (c + 3 < g.cout) d.w = row[c + 3];
-      }
-    }
-    *reinterpret_cast<float4*>(&Ds[lm][lk]) = d;
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < WM; ++mm) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[mm][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ds[mm][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty + 16 * i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < g.cout) part[((size_t)blockIdx.z * K + k) * g.cout + c] = acc[i][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 operands on the tensor cores.
-// ---------------------------------------------------------------------------
-
-// d += a * b over one 16 x 8 x 16 tile: bf16 operands, fp32 accumulators.
-// Fragments (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4): a holds
-// A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b holds
-// B[2t..2t+1][g], B[2t+8..2t+9][g]; d holds D[g][2t..2t+1], D[g+8][2t..].
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two floats rounded to bf16 in one 32-bit word, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Eight consecutive GEMM-K entries k .. k+7 of row (n, oh, ow), as floats:
-// load_a4 twice for an fp32 source.
-template <bool TRANS>
-__device__ __forceinline__ void load_a8(const float* src, const ConvGeom& g,
-                                        bool row_ok, int n, int oh, int ow,
-                                        int k, int K, float (&v)[8]) {
-  const bool vec = (g.cin % 4) == 0;
-  const float4 a = load_a4<TRANS>(src, g, row_ok, n, oh, ow, k, K, vec);
-  const float4 b = load_a4<TRANS>(src, g, row_ok, n, oh, ow, k + 4, K, vec);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// The same from a bf16 source: with cin % 8 == 0 the eight share one
-// pixel, one 16-byte load.
-template <bool TRANS>
-__device__ __forceinline__ void load_a8(const bf16* src, const ConvGeom& g,
-                                        bool row_ok, int n, int oh, int ow,
-                                        int k, int K, float (&v)[8]) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = 0.f;
-  if (!row_ok) return;
-  if ((g.cin % 8) == 0) {
-    if (k >= K) return;
-    const int ci = k % g.cin, t = k / g.cin;
-    const int kw = t % g.ks, kh = t / g.ks;
-    int ih, iw;
-    if (!src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw)) return;
-    const uint4 q = *reinterpret_cast<const uint4*>(
-        src + (((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci);
-    const bf16* h = reinterpret_cast<const bf16*>(&q);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = to_f(h[e]);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int kk = k + e;
-    if (kk >= K) break;
-    const int ci = kk % g.cin, t = kk / g.cin;
-    const int kw = t % g.ks, kh = t / g.ks;
-    int ih, iw;
-    if (src_pixel<TRANS>(g, oh, ow, kh, kw, ih, iw))
-      v[e] = to_f(src[(((size_t)n * g.hi + ih) * g.wi + iw) * g.cin + ci]);
-  }
-}
-
-// Eight consecutive columns c .. c+7 of row r of a [rows, cols] matrix
-// (zero past rows_end or cols), as floats.
-__device__ __forceinline__ void load_row8(const bf16* m, int r, int rows_end,
-                                          int c, int cols, float (&v)[8]) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = 0.f;
-  if (r >= rows_end) return;
-  const bf16* row = m + (size_t)r * cols;
-  if ((cols % 8) == 0) {
-    if (c < cols) {
-      const uint4 q = *reinterpret_cast<const uint4*>(row + c);
-      const bf16* h = reinterpret_cast<const bf16*>(&q);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = to_f(h[e]);
-    }
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    if (c + e < cols) v[e] = to_f(row[c + e]);
-}
-
-__device__ __forceinline__ void load_row8(const float* m, int r, int rows_end,
-                                          int c, int cols, float (&v)[8]) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = 0.f;
-  if (r >= rows_end) return;
-  const float* row = m + (size_t)r * cols;
-  if ((cols % 4) == 0) {
-#pragma unroll
-    for (int h = 0; h < 8; h += 4)
-      if (c + h < cols) {
-        const float4 q = *reinterpret_cast<const float4*>(row + c + h);
-        v[h] = q.x; v[h + 1] = q.y; v[h + 2] = q.z; v[h + 3] = q.w;
-      }
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    if (c + e < cols) v[e] = row[c + e];
-}
-
-// conv_gemm_kernel with bf16 operands on the tensor cores: out[m, c] =
-// sum_k bf16(A[m, k]) * wt[k, c] with fp32 accumulation,
-// A the implicit im2col matrix of src (bf16 x, or an fp32 staged tensor
-// rounded as it is loaded). K is walked in
-// 32-deep chunks, zero past K (the stem's 27). Eight warps, each a 32 x 32
-// quarter-column of the 128 x 64 tile: 2 x 4 mma tiles. The accumulators
-// are staged through shared memory for coalesced stores and for the
-// per-CTA statistics, which are conv_gemm_kernel's (tile mean and centred
-// sum of squares of the fp32 accumulators over the valid rows).
-template <bool TRANS, typename SrcT, typename OutT>
-__global__ void __launch_bounds__(THREADS) conv_gemm_bf16_kernel(
-    const SrcT* __restrict__ src, const bf16* __restrict__ wt,
-    OutT* out, float* __restrict__ part_mean,
-    float* __restrict__ part_m2, ConvGeom g) {
-  // the A and B chunks during the K loop; the fp32 tile after it
-  __shared__ __align__(16) unsigned char smem[BM * (BN + 4) * sizeof(float)];
-  __shared__ float red[4][BN];
-  __shared__ float tmean[BN];
-  bf16 (*As)[HLD] = reinterpret_cast<bf16 (*)[HLD]>(smem);                // [BM][HLD]
-  bf16 (*Bs)[HLD] = reinterpret_cast<bf16 (*)[HLD]>(smem + BM * HLD * 2);  // [BN][HLD], k inner
-  float (*Cs)[BN + 4] = reinterpret_cast<float (*)[BN + 4]>(smem);       // [BM][BN + 4]
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int gq = lane / 4, tq = lane % 4;
-  const int wm = (warp % 4) * 32, wn = (warp / 4) * 32;
-  const int M = g.n * g.ho * g.wo;
-  const int K = g.ks * g.ks * g.cin;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  // A loader: one row, sixteen consecutive k
-  const int ar = tid >> 1, ak = (tid & 1) * 16;
-  const int am = m0 + ar;
-  const bool arow = am < M;
-  int an = 0, aoh = 0, aow = 0;
-  if (arow) {
-    const int hw = g.ho * g.wo;
-    an = am / hw;
-    const int r = am - an * hw;
-    aoh = r / g.wo;
-    aow = r - aoh * g.wo;
-  }
-  // B loader: one k, eight consecutive channels
-  const int bk = tid >> 3, bc = (tid & 7) * 8;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += HBK) {
-#pragma unroll
-    for (int q = 0; q < 16; q += 8) {
-      float v[8];
-      load_a8<TRANS>(src, g, arow, an, aoh, aow, k0 + ak + q, K, v);
-      *reinterpret_cast<uint4*>(&As[ar][ak + q]) =
-          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-    }
-    {
-      float w[8];
-      load_row8(wt, k0 + bk, K, n0 + bc, g.cout, w);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Bs[bc + j][bk] = __float2bfloat16_rn(w[j]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < HBK; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm + i * 16 + gq;
-        af[i][0] = ld32(&As[r][kk + 2 * tq]);
-        af[i][1] = ld32(&As[r + 8][kk + 2 * tq]);
-        af[i][2] = ld32(&As[r][kk + 2 * tq + 8]);
-        af[i][3] = ld32(&As[r + 8][kk + 2 * tq + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = wn + j * 8 + gq;
-        bfr[j][0] = ld32(&Bs[c][kk + 2 * tq]);
-        bfr[j][1] = ld32(&Bs[c][kk + 2 * tq + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = wm + i * 16 + gq, c = wn + j * 8 + 2 * tq;
-      Cs[r][c] = acc[i][j][0];
-      Cs[r][c + 1] = acc[i][j][1];
-      Cs[r + 8][c] = acc[i][j][2];
-      Cs[r + 8][c + 1] = acc[i][j][3];
-    }
-  __syncthreads();
-
-  const int rows = min(BM, M - m0);
-  for (int i = tid; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    if (r >= rows || n0 + c >= g.cout) continue;
-    out[(size_t)(m0 + r) * g.cout + n0 + c] = from_f<OutT>(Cs[r][c]);
-  }
-
-  if (part_mean) {
-    const int c = tid % BN, q = tid / BN;
-    float s = 0.f;
-    for (int r = q; r < rows; r += 4) s += Cs[r][c];
-    red[q][c] = s;
-    __syncthreads();
-    if (tid < BN) tmean[tid] = (red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid]) / (float)rows;
-    __syncthreads();
-    const float mu = tmean[c];
-    float m2 = 0.f;
-    for (int r = q; r < rows; r += 4) {
-      const float d = Cs[r][c] - mu;
-      m2 = fmaf(d, d, m2);
-    }
-    red[q][c] = m2;
-    __syncthreads();
-    if (tid < BN && n0 + tid < g.cout) {
-      const size_t o = (size_t)blockIdx.x * g.cout + n0 + tid;
-      part_mean[o] = tmean[tid];
-      part_m2[o] = red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid];
-    }
-  }
-}
-
-// conv_wgrad_kernel with bf16 operands on the tensor cores: part[z, k, c] =
-// sum over rows m of split z of A[m, k] * bf16(dy[m, c]), fp32
-// accumulation; A the im2col of the bf16 src in forward gather, dy the
-// fp32 cotangent rounded as it is loaded. 64 weight rows x 64 channels a
-// CTA over 32-row chunks; eight warps, each 32 rows x 16 channels (2 x 2
-// mma tiles). Both operands are stored transposed (m inner), so the row
-// sum is the mma's K.
-__global__ void __launch_bounds__(THREADS) conv_wgrad_bf16_kernel(
-    const bf16* __restrict__ src, const float* __restrict__ dy,
-    float* __restrict__ part, ConvGeom g, int m_per) {
-  __shared__ __align__(16) bf16 At[WK][HLD];  // [k][m]
-  __shared__ __align__(16) bf16 Dt[WN][HLD];  // [c][m]
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int gq = lane / 4, tq = lane % 4;
-  const int wk = (warp % 2) * 32, wc = (warp / 2) * 16;
-  const int M = g.n * g.ho * g.wo;
-  const int K = g.ks * g.ks * g.cin;
-  const int k0 = blockIdx.x * WK, c0 = blockIdx.y * WN;
-  const int mb = blockIdx.z * m_per;
-  const int me = min(M, mb + m_per);
-  const int lm = tid >> 3, lk = (tid & 7) * 8;
-  const int hw = g.ho * g.wo;
-
-  float acc[2][2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int m0 = mb; m0 < me; m0 += HWM) {
-    const int m = m0 + lm;
-    const bool ok = m < me;
-    int n = 0, oh = 0, ow = 0;
-    if (ok) {
-      n = m / hw;
-      const int r = m - n * hw;
-      oh = r / g.wo;
-      ow = r - oh * g.wo;
-    }
-    float v[8];
-    load_a8<false>(src, g, ok, n, oh, ow, k0 + lk, K, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) At[lk + e][lm] = __float2bfloat16_rn(v[e]);
-    load_row8(dy, m, me, c0 + lk, g.cout, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) Dt[lk + e][lm] = __float2bfloat16_rn(v[e]);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < HWM; kk += 16) {
-      uint32_t af[2][4], bfr[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wk + i * 16 + gq;
-        af[i][0] = ld32(&At[r][kk + 2 * tq]);
-        af[i][1] = ld32(&At[r + 8][kk + 2 * tq]);
-        af[i][2] = ld32(&At[r][kk + 2 * tq + 8]);
-        af[i][3] = ld32(&At[r + 8][kk + 2 * tq + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = wc + j * 8 + gq;
-        bfr[j][0] = ld32(&Dt[c][kk + 2 * tq]);
-        bfr[j][1] = ld32(&Dt[c][kk + 2 * tq + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = k0 + wk + i * 16 + gq + (e >= 2 ? 8 : 0);
-        const int c = c0 + wc + j * 8 + 2 * tq + (e & 1);
-        if (k < K && c < g.cout)
-          part[((size_t)blockIdx.z * K + k) * g.cout + c] = acc[i][j][e];
-      }
-}
 
 // out[i] = sum over z of part[z, i], in order, in fp64, rounded once to OutT.
 template <typename OutT>
@@ -836,7 +205,7 @@ __device__ __forceinline__ void fold(float m, float v, float gamma, float beta,
   sh = beta - m * sc;
 }
 
-// Batch moments from conv_gemm_kernel's tile partials (tile t holds
+// Batch moments from the statistics tile partials (tile t holds
 // min(BM, rows - t * BM) rows), combined around the shift K = the first
 // tile's mean:  sum (y - K) = sum_t n_t (mean_t - K),
 // sum (y - K)^2 = sum_t [m2_t + n_t (mean_t - K)^2],  in fp64 and in a
@@ -902,18 +271,6 @@ __global__ void bn_fold_kernel(const float* __restrict__ mean,
   rstd[c] = rs;
   scale[c] = sc;
   shift[c] = sh;
-}
-
-// The stem's last pass: out = relu(y * sc + sh), in fp32, stored as OutT;
-// out may alias y (fp32 instance).
-template <typename OutT>
-__global__ void bn_apply_kernel(const float* y, const float* __restrict__ sc,
-                                const float* __restrict__ sh, OutT* out, long long total, int C) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C);
-    out[i] = from_f<OutT>(fmaxf(fmaf(y[i], sc[c], sh[c]), 0.f));
-  }
 }
 
 // dp = g where the ReLU passed (mask > 0, or yhat * gamma + beta > 0 when
@@ -1265,17 +622,6 @@ inline int elementwise_grid(long long total) {
   return (int)(g < 8 * 132 * 8 ? g : 8 * 132 * 8);
 }
 
-ConvGeom geom(int n, int hi, int wi, int cin, int ho, int wo, int cout, int ks,
-              int stride, int pad) {
-  ConvGeom g;
-  g.n = n; g.hi = hi; g.wi = wi; g.cin = cin;
-  g.ho = ho; g.wo = wo; g.cout = cout;
-  g.ks = ks; g.stride = stride; g.pad = pad;
-  return g;
-}
-
-inline int conv_tiles(const ConvGeom& g) { return cdiv((long long)g.n * g.ho * g.wo, BM); }
-
 // Per-BN scratch: statistics partials (forward) or backward sums partials,
 // and the folded rows.
 struct BnScratch {
@@ -1294,36 +640,6 @@ BnScratch bn_scratch(Arena& ar, int rows, int C) {
   return s;
 }
 
-// The fp32 convolution (fp32 weights): conv_gemm_kernel.
-cudaError_t conv(bool trans, const float* src, const float* wt, float* out, BnScratch* stats,
-                 const ConvGeom& g, cudaStream_t st) {
-  const dim3 grid(conv_tiles(g), cdiv(g.cout, BN));
-  float* pm = stats ? stats->pa : nullptr;
-  float* pq = stats ? stats->pb : nullptr;
-  if (trans)
-    conv_gemm_kernel<true><<<grid, THREADS, 0, st>>>(src, wt, out, pm, pq, g);
-  else
-    conv_gemm_kernel<false><<<grid, THREADS, 0, st>>>(src, wt, out, pm, pq, g);
-  return cudaGetLastError();
-}
-
-// The bf16 convolution (bf16 weights): conv_gemm_bf16_kernel, src bf16 or
-// fp32, out fp32 (staged) or bf16 (an output).
-template <typename SrcT, typename OutT>
-cudaError_t conv(bool trans, const SrcT* src, const bf16* wt, OutT* out, BnScratch* stats,
-                 const ConvGeom& g, cudaStream_t st) {
-  const dim3 grid(conv_tiles(g), cdiv(g.cout, BN));
-  float* pm = stats ? stats->pa : nullptr;
-  float* pq = stats ? stats->pb : nullptr;
-  if (trans)
-    conv_gemm_bf16_kernel<true, SrcT, OutT><<<grid, THREADS, 0, st>>>(
-        src, wt, out, pm, pq, g);
-  else
-    conv_gemm_bf16_kernel<false, SrcT, OutT><<<grid, THREADS, 0, st>>>(
-        src, wt, out, pm, pq, g);
-  return cudaGetLastError();
-}
-
 // The moments and folded rows of one BN from the tile partials in s.pa /
 // s.pb of a conv with `rows` rows and C channels.
 cudaError_t finalize(const BnScratch& s, int rows, int C, const float* gamma, const float* beta,
@@ -1338,14 +654,6 @@ cudaError_t fold_saved(const BnScratch& s, const float* mean, const float* var,
                cudaStream_t st) {
   bn_fold_kernel<<<cdiv(C, 128), 128, 0, st>>>(mean, var, gamma, beta, eps, C,
                                                s.rstd, s.scale, s.shift);
-  return cudaGetLastError();
-}
-
-template <typename OutT>
-cudaError_t apply(const float* y, const float* sc, const float* sh, OutT* out, long long rows,
-                  int C, cudaStream_t st) {
-  const long long total = rows * C;
-  bn_apply_kernel<OutT><<<elementwise_grid(total), THREADS, 0, st>>>(y, sc, sh, out, total, C);
   return cudaGetLastError();
 }
 
@@ -1373,65 +681,6 @@ cudaError_t bwd_apply(const float* dp, const float* y, const float* mean,
   const long long total = rows * C;
   bn_bwd_apply_kernel<OutT><<<elementwise_grid(total), THREADS, 0, st>>>(
       dp, y, mean, s.rstd, gamma, sum_dp, sum_dpyh, (float)rows, dy, total, C);
-  return cudaGetLastError();
-}
-
-// Rows of the weight-gradient GEMM per split: enough splits to fill about
-// WAVES CTAs, each split a whole number of wm-row chunks (WM under fp32
-// compute, HWM under bf16).
-int wgrad_rows_per_split(const ConvGeom& g, int wm) {
-  const long long M = (long long)g.n * g.ho * g.wo;
-  const int K = g.ks * g.ks * g.cin;
-  const int ctas = cdiv(K, WK) * cdiv(g.cout, WN);
-  const int chunks = cdiv(M, wm);
-  int splits = cdiv(WAVES, ctas);
-  if (splits > chunks) splits = chunks;
-  if (splits < 1) splits = 1;
-  return cdiv(chunks, splits) * wm;
-}
-
-template <typename T>
-constexpr int wgrad_chunk() {
-  return std::is_same<T, float>::value ? WM : HWM;
-}
-
-template <typename T>
-size_t wgrad_scratch(const ConvGeom& g) {
-  const long long M = (long long)g.n * g.ho * g.wo;
-  return (size_t)cdiv(M, wgrad_rows_per_split(g, wgrad_chunk<T>())) * g.ks * g.ks *
-         g.cin * g.cout;
-}
-
-// The fp32 weight gradient: conv_wgrad_kernel, then the fp64 combine.
-cudaError_t wgrad(const float* src, const float* dy, float* part, float* dw, const ConvGeom& g,
-                  cudaStream_t st) {
-  const long long M = (long long)g.n * g.ho * g.wo;
-  const int K = g.ks * g.ks * g.cin;
-  const int m_per = wgrad_rows_per_split(g, WM);
-  const int splits = cdiv(M, m_per);
-  conv_wgrad_kernel<<<dim3(cdiv(K, WK), cdiv(g.cout, WN), splits), THREADS, 0,
-                      st>>>(src, dy, part, g, m_per);
-  CHECK(cudaGetLastError());
-  const long long count = (long long)K * g.cout;
-  split_reduce_kernel<float><<<elementwise_grid(count), THREADS, 0, st>>>(
-      part, splits, count, dw);
-  return cudaGetLastError();
-}
-
-// The bf16 weight gradient (bf16 dw): conv_wgrad_bf16_kernel, then the
-// same combine, rounded once to bf16.
-cudaError_t wgrad(const bf16* src, const float* dy, float* part, bf16* dw, const ConvGeom& g,
-                  cudaStream_t st) {
-  const long long M = (long long)g.n * g.ho * g.wo;
-  const int K = g.ks * g.ks * g.cin;
-  const int m_per = wgrad_rows_per_split(g, HWM);
-  const int splits = cdiv(M, m_per);
-  conv_wgrad_bf16_kernel<<<dim3(cdiv(K, WK), cdiv(g.cout, WN), splits), THREADS, 0, st>>>(
-      src, dy, part, g, m_per);
-  CHECK(cudaGetLastError());
-  const long long count = (long long)K * g.cout;
-  split_reduce_kernel<bf16><<<elementwise_grid(count), THREADS, 0, st>>>(
-      part, splits, count, dw);
   return cudaGetLastError();
 }
 
@@ -1543,6 +792,705 @@ cudaError_t residual_out(const float* y, const BnScratch& s, const float* ys,
   return pass(std::integral_constant<int, 1>());
 }
 
+// ---------------------------------------------------------------------------
+// The stem: conv3x3/s1 + train-mode BN + ReLU, forward and backward, each as
+// two passes over the batch that recompute the conv (stem_fwd_impl,
+// stem_bwd_impl).
+// ---------------------------------------------------------------------------
+//
+// Replaces _stem_fwd_kernel :401 and _stem_bwd_kernel :443 of
+// pallas_conv.py and keeps their schedule: two phases over the batch, the
+// conv recomputed in each, y never in memory.
+//   forward  pass 1 (FWD_STATS): y of each 128-row tile, its mean and
+//              centred sum of squares per channel (bn_finalize_kernel's
+//              partials); bn_finalize_kernel: the moments in fp64, then
+//              scale and shift;
+//            pass 2 (FWD_OUT): the same y, out = rnd(relu(fmaf(y, scale,
+//              shift))) (bn_apply_kernel's fmaf before it) in the compute
+//              dtype.
+//   backward bn_fold_kernel: rstd from the saved moments;
+//            pass 1 (BWD_SUMS): y, yh = (y - mean) rstd, dp = gout where
+//              yh gamma + beta > 0; per-CTA partials of sum dp and sum dp
+//              yh, combined in fp64 by sum_partials_kernel into dbeta and
+//              dgamma;
+//            pass 2 (BWD_DW): y and dp again, dy = rstd gamma (dp - dbeta /
+//              n - yh dgamma / n) rounded to the compute dtype (where the
+//              Pallas _dw_accumulate casts it), dk += im2col(x)^T dy over
+//              the CTA's tiles: one [K, cout] partial a CTA, combined in
+//              fp64 by split_reduce_kernel and rounded once. With dx wanted
+//              pass 2 also writes dy, and the core's transposed 3x3
+//              (transposed3_plan, s = 1) takes dx from it.
+// The BN backward is not folded into one pass (sum x dp - (sum dp / n) sum
+// x - ...): that would skip the rounding of dy before the weight product.
+//
+// What bounds it: bytes. At the recipe ([512, 32, 32, 3] -> 64) a conv is
+// 2 * 524288 * 27 * 64 = 1.81 GFLOP, 27 us at the fp32 FMA peak, while the
+// fp32 y is 134 MB, whose write and read back cost 80 us of HBM: so the
+// passes recompute y, where the blocks, whose convs are 60-80 GFLOP,
+// stage theirs. The forward's floor is out written once (x is 6 MB); the
+// backward reads gout once a pass, so its floor is about twice the
+// one-read bound, ~80 us fp32 and ~40 us bf16.
+//
+// Design. 256 threads a CTA, a tile of 128 rows (the statistics tile) x 64
+// channels (blockIdx.y picks the 64-channel block; the edge is masked). K =
+// 9 cin is packed (kh, kw, ci), the order of the HWIO weight rows, and
+// walked in 32-deep chunks that may straddle taps (one chunk at the recipe,
+// 27 zero-padded to 32, whose weights then stay in shared memory for the
+// CTA's whole walk). Two threads gather a tile row's im2col values straight
+// from x into registers, sixteen each, a tile ahead of the one that
+// computes (with one K chunk): in the flattened x each sits at a fixed
+// offset from the row's pixel, masked by the taps inside the image, so a
+// tile's rows need not align with image rows, and L1/L2 serve the overlap
+// of neighbouring rows (x is 6 MB at the recipe). y is formed in registers:
+// fp32 FMA on 8 x 4 micro-tiles (no TF32; 8 x 8 would need 128-thread CTAs
+// for a 64-channel tile), bf16 mma.sync m16n8k16 with fp32 accumulators (two
+// k-steps at the recipe, too few for a wgmma pipeline to pay). The same
+// function forms y in every pass, in one K order, so each pass's y is
+// bitwise the others'. The epilogues work on y where the product leaves
+// it, in registers, and the channel sums go through a small shared scratch
+// in a fixed order of the threads. The big tensors move 16 bytes a thread
+// along rows (one element at a time where cout is no multiple of the
+// 16-byte width): the backward's gout tile comes in by cp.async while y
+// forms, and each thread overwrites its own cells of it with dy, which the
+// weight gradient then reads; the fp32 out leaves from the registers (four
+// channels of a row a thread), the bf16 out (whose fragments hold channel
+// pairs) through the same tile. The weight gradient: fp32 FMA on 4 x 8
+// micro-tiles over a quarter of the tile's rows each (the quarters combined
+// once, after the walk), bf16 mma.sync with both operands through
+// ldmatrix.trans. CTAs persist: as many as stay resident (the occupancy is
+// asked once), each walking tiles blockIdx.x, + gridDim.x, ...; every
+// partial is summed in a fixed order and there are no atomics, so each
+// output is bitwise repeatable.
+namespace stem {
+
+constexpr int BN = 64;        // output channels of a CTA
+constexpr int KC = 32;        // K chunk
+constexpr int AUX_ROWS = 6;   // per-channel rows a pass reads
+
+enum Mode { FWD_STATS, FWD_OUT, BWD_SUMS, BWD_DW };
+
+struct Params {
+  int n, h, w, cin, cout;
+  int rows, tiles, K, nk;  // n h w; cdiv(rows, BM); 9 cin; cdiv(K, KC)
+};
+
+// What a pass reads and writes; null where the pass has no use for it.
+template <typename T>
+struct IO {
+  const T* x;                  // [n, h, w, cin]
+  const T* k;                  // HWIO [3, 3, cin, cout], i.e. [K, cout]
+  const T* gout;               // backward: [n, h, w, cout]
+  const float* row[AUX_ROWS];  // FWD_OUT: scale, shift; BWD_*: mean, rstd,
+                               // gamma, beta, sum dp, sum dp yh
+  T* out;                      // FWD_OUT: out; BWD_DW: dy (for dx; may be null)
+  float* pa;                   // FWD_STATS: tile means [tiles, cout]; BWD_SUMS:
+  float* pb;                   // sum dp / sum dp yh [ctas, cout]; BWD_DW: pa is
+                               // dk [ctas, K, cout]
+};
+
+// A CTA's shared memory (byte offsets): the im2col chunk As [BM][ALD]
+// (row-major, K along), the weight chunk Bs (fp32 [KC][BN], bf16 [BN][ALD]:
+// the mma's column-major B), the tile Ts [BM][TLD] of the compute dtype
+// (the backward's gout, overwritten by dy; the bf16 forward's out; after
+// the fp32 walk the dk quarters), the channel sums' scratch [32][BN] fp32,
+// then the per-channel rows [AUX_ROWS][BN] and the tile means [BN]. The
+// pitches keep the fragment accesses and ldmatrix rows on distinct banks.
+template <typename T>
+struct Smem {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int ALD = F32 ? KC + 4 : KC + 8;  // As row pitch (elements)
+  static constexpr int TLD = F32 ? BN + 4 : BN + 8;  // Ts row pitch (elements)
+  static constexpr int A = 0;
+  static constexpr int B = A + BM * ALD * (int)sizeof(T);
+  static constexpr int TL = B + (F32 ? KC * BN : BN * ALD) * (int)sizeof(T);
+  static constexpr int RED = TL + BM * TLD * (int)sizeof(T);
+  static constexpr int AUX = RED + 32 * BN * 4;
+  static constexpr int BYTES = AUX + (AUX_ROWS + 1) * BN * 4;
+};
+
+// Two floats rounded to bf16 in one 32-bit word, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a * b over one 16 x 8 x 16 tile: bf16 operands, fp32 accumulators.
+// Fragments (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4): a holds
+// A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; b holds
+// B[2t..2t+1][g], B[2t+8..2t+9][g]; d holds D[g][2t..2t+1], D[g+8][2t..].
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8 i .. 8 i
+// + 7 give the addresses of matrix i's eight 16-byte rows, and register i
+// of lane l holds elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of
+// matrix i as stored.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p)));
+}
+
+// A thread's share of chunk kc of tile m0's im2col rows, loaded into
+// registers (so the next tile's loads fly while this one computes): row r
+// = tid / 2, columns c0 .. c0 + 15 (c0 = 16 (tid % 2)). Column kk holds x
+// at K index k = kc KC + kk, i.e. at tap k / cin = 3 kh + kw and channel k
+// % cin (the HWIO weight row k), pixel (i + kh - 1, j + kw - 1) of the
+// row's pixel (b, i, j); zero outside the image, past K and past the rows.
+// In the flattened [n h w, cin] x that element sits at a fixed offset from
+// the row's pixel, ((kh - 1) w + kw - 1) cin + ci, which grows by one
+// along k but at a new kh; the taps inside the image are a 9-bit mask of
+// the row.
+template <typename T>
+__device__ __forceinline__ void gather_load(T (&v)[16], const T* __restrict__ x, const Params& p,
+                                            int m0, int kc) {
+  const int m = m0 + (threadIdx.x >> 1);
+  unsigned taps = 0;  // bit 3 kh + kw: tap (kh, kw) inside the image
+  if (m < p.rows) {
+    const int q = m / p.w, j = m - q * p.w, i = q - (q / p.h) * p.h;
+    const unsigned cols = (j > 0 ? 1u : 0u) | 2u | (j < p.w - 1 ? 4u : 0u);
+    taps = (i > 0 ? cols : 0u) | (cols << 3) | (i < p.h - 1 ? cols << 6 : 0u);
+  }
+  const int k = kc * KC + (threadIdx.x & 1) * 16;
+  int t = k / p.cin;
+  int ci = k - t * p.cin, kw = t - 3 * (t / 3);
+  int off = ((t / 3 - 1) * p.w + kw - 1) * p.cin + ci;
+  const T* row = x + (long long)m * p.cin;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    v[e] = t < 9 && ((taps >> t) & 1u) ? row[off] : from_f<T>(0.f);
+    ++off;
+    if (++ci == p.cin) {
+      ci = 0;
+      ++t;
+      if (++kw == 3) {
+        kw = 0;
+        off += (p.w - 3) * p.cin;
+      }
+    }
+  }
+}
+
+// The loaded share into As (16-byte stores).
+__device__ __forceinline__ void gather_store(float* As, const float (&v)[16]) {
+  float* d = As + (threadIdx.x >> 1) * Smem<float>::ALD + (threadIdx.x & 1) * 16;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    sm90::store4(d + 4 * q, make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+}
+__device__ __forceinline__ void gather_store(bf16* As, const bf16 (&v)[16]) {
+  uint4* d = reinterpret_cast<uint4*>(As + (threadIdx.x >> 1) * Smem<bf16>::ALD +
+                                      (threadIdx.x & 1) * 16);
+  uint32_t w[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    w[q] = (uint32_t)__bfloat16_as_ushort(v[2 * q]) |
+           ((uint32_t)__bfloat16_as_ushort(v[2 * q + 1]) << 16);
+  d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Chunk kc of the weights' channels n0 .. n0 + BN - 1 into Bs; zero past K
+// and past cout. Eight consecutive channels a thread.
+template <typename T>
+__device__ __forceinline__ void load_b(T* Bs, const T* __restrict__ wt, const Params& p, int n0,
+                                       int kc) {
+  const int kk = threadIdx.x >> 3, c0 = (threadIdx.x & 7) * 8, k = kc * KC + kk;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = n0 + c0 + e;
+    const T v = k < p.K && c < p.cout ? wt[(long long)k * p.cout + c] : from_f<T>(0.f);
+    if constexpr (Smem<T>::F32)
+      Bs[kk * BN + c0 + e] = v;
+    else
+      Bs[(c0 + e) * Smem<T>::ALD + kk] = v;
+  }
+}
+
+// The depth of chunk kc that y multiplies: its K, rounded up to the FMA
+// loop's 4 (fp32) or the mma's 16 (bf16); As and Bs are zero past K.
+template <typename T>
+__device__ __forceinline__ int chunk_depth(const Params& p, int kc) {
+  const int k = p.K - kc * KC < KC ? p.K - kc * KC : KC;
+  return Smem<T>::F32 ? (k + 3) & ~3 : (k + 15) & ~15;
+}
+
+// y += the chunk's product, fp32 FMA: thread (tx, ty) = (tid % 16, tid /
+// 16) owns rows ty + 16 i (i < 8) and channels 4 tx .. 4 tx + 3, acc[4 i +
+// j]; A read four K at a time along its rows (a warp reads two rows).
+__device__ __forceinline__ void y_chunk(const float* As, const float* Bs, int kn,
+                                        float (&acc)[32]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int kk = 0; kk < kn; kk += 4) {
+    float4 b[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) b[u] = *reinterpret_cast<const float4*>(Bs + (kk + u) * BN + 4 * tx);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * Smem<float>::ALD + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float av = sm90::comp(a, u);
+        acc[4 * i + 0] = fmaf(av, b[u].x, acc[4 * i + 0]);
+        acc[4 * i + 1] = fmaf(av, b[u].y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(av, b[u].z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(av, b[u].w, acc[4 * i + 3]);
+      }
+    }
+  }
+}
+
+// The same on the tensor cores: warp w multiplies rows 32 (w % 4) .. + 31
+// and channels 32 (w / 4) .. + 31 as 2 x 4 mma tiles, acc[16 i + 4 j + e]
+// the fragment of tile (i, j).
+__device__ __forceinline__ void y_chunk(const bf16* As, const bf16* Bs, int kn,
+                                        float (&acc)[32]) {
+  constexpr int LD = Smem<bf16>::ALD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gq = lane >> 2, tq = lane & 3;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
+  for (int kk = 0; kk < kn; kk += 16) {
+    uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bf16* a = As + (wm + 16 * i + gq) * LD + kk + 2 * tq;
+      af[i][0] = ld32(a);
+      af[i][1] = ld32(a + 8 * LD);
+      af[i][2] = ld32(a + 8);
+      af[i][3] = ld32(a + 8 * LD + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bf16* b = Bs + (wn + 8 * j + gq) * LD + kk + 2 * tq;
+      bfr[j][0] = ld32(b);
+      bfr[j][1] = ld32(b + 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 16 * i + 4 * j), af[i], bfr[j][0],
+                 bfr[j][1]);
+  }
+}
+
+// The y tile as a thread holds it after y_chunk: NR rows of NG groups of GW
+// consecutive channels, acc[idx(ri, g, e)] at tile row row(ri), channel
+// col(g) + e. fp32: rows ty + 16 i, channels 4 tx .. 4 tx + 3. bf16: the
+// mma fragments, rows 32 (w % 4) + 16 i + g (+ 8), channels 32 (w / 4) + 8
+// j + 2 t (+ 1). slot() numbers the SLOTS threads that hold each channel,
+// the order in which their partials are summed.
+template <typename T>
+struct Frag;
+template <>
+struct Frag<float> {
+  static constexpr int NR = 8, NG = 1, GW = 4, SLOTS = 16;
+  __device__ static int row(int ri) { return (threadIdx.x >> 4) + 16 * ri; }
+  __device__ static int col(int) { return 4 * (threadIdx.x & 15); }
+  __device__ static int idx(int ri, int, int e) { return 4 * ri + e; }
+  __device__ static int slot() { return threadIdx.x >> 4; }
+};
+template <>
+struct Frag<bf16> {
+  static constexpr int NR = 4, NG = 4, GW = 2, SLOTS = 32;
+  __device__ static int row(int ri) {
+    return ((threadIdx.x >> 5) & 3) * 32 + 16 * (ri >> 1) + ((threadIdx.x & 31) >> 2) + 8 * (ri & 1);
+  }
+  __device__ static int col(int g) { return (threadIdx.x >> 7) * 32 + 8 * g + 2 * (threadIdx.x & 3); }
+  __device__ static int idx(int ri, int g, int e) { return 16 * (ri >> 1) + 4 * g + 2 * (ri & 1) + e; }
+  __device__ static int slot() { return ((threadIdx.x >> 5) & 3) * 8 + ((threadIdx.x & 31) >> 2); }
+};
+
+// fp32 out: four consecutive channels of a row, one 16-byte store where
+// vec, else the first n one at a time.
+__device__ __forceinline__ void store_gw(float* p, bool vec, int n, const float (&v)[4]) {
+  if (vec) {
+    sm90::store4(p, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < n) p[e] = v[e];
+  }
+}
+
+// The big tensors' tiles (gout in; the bf16 out, and dy for dx, out) go
+// through Ts, so that global memory sees 16-byte accesses along rows (not
+// bf16 fragments' channel pairs) and gout lands while y forms. Rows m0 ..
+// m0 + BM - 1, channels n0 .. n0 + BN - 1 of a [rows, cout] tensor to or
+// from Ts, sixteen bytes a thread: by cp.async (in; zero-filled past the
+// rows and channels, committed as one group) or stores (out) where cout is
+// a multiple of the 16-byte width, else one element at a time.
+template <typename T>
+__device__ __forceinline__ void tile_in(T* Ts, const T* __restrict__ g, const Params& p, int m0,
+                                        int n0) {
+  constexpr int V = 16 / (int)sizeof(T), GPR = BN / V;
+  const bool vec = p.cout % V == 0;
+  for (int i = threadIdx.x; i < BM * GPR; i += THREADS) {
+    const int r = i / GPR, c = (i % GPR) * V, m = m0 + r, cg = n0 + c;
+    T* d = Ts + r * Smem<T>::TLD + c;
+    const T* src = g + (long long)m * p.cout + cg;
+    if (vec) {
+      const bool ok = m < p.rows && cg < p.cout;
+      sm90::cp_async16(d, ok ? src : g, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        d[e] = m < p.rows && cg + e < p.cout ? src[e] : from_f<T>(0.f);
+    }
+  }
+  sm90::cp_async_commit();
+}
+template <typename T>
+__device__ __forceinline__ void tile_out(const T* Ts, T* g, const Params& p, int m0, int nrows,
+                                         int n0) {
+  constexpr int V = 16 / (int)sizeof(T), GPR = BN / V;
+  const bool vec = p.cout % V == 0;
+  for (int i = threadIdx.x; i < BM * GPR; i += THREADS) {
+    const int r = i / GPR, c = (i % GPR) * V, cg = n0 + c;
+    if (r >= nrows || cg >= p.cout) continue;
+    const T* src = Ts + r * Smem<T>::TLD + c;
+    T* d = g + (long long)(m0 + r) * p.cout + cg;
+    if (vec) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (cg + e < p.cout) d[e] = src[e];
+    }
+  }
+}
+
+// GW channels of one row of Ts to or from floats (a thread's own cells).
+__device__ __forceinline__ void get_gw(const float* Ts, int r, int c, float (&v)[4]) {
+  const float4 q = sm90::load4(Ts + r * Smem<float>::TLD + c);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void get_gw(const bf16* Ts, int r, int c, float (&v)[2]) {
+  const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(Ts + r * Smem<bf16>::TLD + c);
+  v[0] = __low2float(q);
+  v[1] = __high2float(q);
+}
+__device__ __forceinline__ void put_gw(float* Ts, int r, int c, const float (&v)[4]) {
+  sm90::store4(Ts + r * Smem<float>::TLD + c, make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void put_gw(bf16* Ts, int r, int c, const float (&v)[2]) {
+  *reinterpret_cast<uint32_t*>(Ts + r * Smem<bf16>::TLD + c) = pack_bf16(v[0], v[1]);
+}
+
+// Per channel of the tile, the sum of the threads' partials v[g GW + e]
+// (channel col(g) + e) in slot order, through red [SLOTS][BN]: thread c <
+// BN gets channel c's. Syncs once; the caller syncs before red is written
+// again.
+template <typename T>
+__device__ __forceinline__ float column_sum(float* red, const float (&v)[Frag<T>::NG * Frag<T>::GW]) {
+  using F = Frag<T>;
+#pragma unroll
+  for (int g = 0; g < F::NG; ++g)
+#pragma unroll
+    for (int e = 0; e < F::GW; ++e) red[F::slot() * BN + F::col(g) + e] = v[g * F::GW + e];
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < BN)
+    for (int q = 0; q < F::SLOTS; ++q) s += red[q * BN + threadIdx.x];
+  return s;
+}
+
+// dk += the chunk in As (transposed) times the dy tile, fp32 FMA: thread
+// (cq, kq, rq) = (tid % 8, tid / 8 % 8, tid / 64) owns chunk rows 4 kq ..
+// 4 kq + 3 and channels 4 cq .. + 3 and 32 + 4 cq .. + 3, dk[8 i + j], over
+// the tile's rows 32 rq .. 32 rq + 31.
+__device__ __forceinline__ void dk_tile(const float* As, const float* Dy, float (&dk)[32]) {
+  const int cq = threadIdx.x & 7, kq = (threadIdx.x >> 3) & 7, rq = threadIdx.x >> 6;
+#pragma unroll 4
+  for (int rr = 0; rr < 32; ++rr) {
+    const int r = 32 * rq + rr;
+    const float4 a = *reinterpret_cast<const float4*>(As + r * Smem<float>::ALD + 4 * kq);
+    const float4 d0 = *reinterpret_cast<const float4*>(Dy + r * Smem<float>::TLD + 4 * cq);
+    const float4 d1 = *reinterpret_cast<const float4*>(Dy + r * Smem<float>::TLD + 32 + 4 * cq);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dk[8 * i + j] = fmaf(av[i], dv[j], dk[8 * i + j]);
+  }
+}
+
+// The same on the tensor cores: warp w takes chunk rows 16 (w % 2) .. + 15
+// and channels 16 (w / 2) .. + 15 (two n8 tiles, dk[4 jn + e]), the tile's
+// 128 rows as the mma's K in eight 16-row steps; A = As^T and B = the dy tile
+// through ldmatrix.trans.
+__device__ __forceinline__ void dk_tile(const bf16* As, const bf16* Dy, float (&dk)[32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = (warp & 1) * 16, c0 = (warp >> 1) * 16, i = lane >> 3, j = lane & 7;
+#pragma unroll 2
+  for (int r0 = 0; r0 < BM; r0 += 16) {
+    uint32_t a[4], b[4];
+    ldsm_x4_trans(a, As + (r0 + j + 8 * (i >> 1)) * Smem<bf16>::ALD + m0 + 8 * (i & 1));
+    ldsm_x4_trans(b, Dy + (r0 + j + 8 * (i & 1)) * Smem<bf16>::TLD + c0 + 8 * (i >> 1));
+    mma_bf16(*reinterpret_cast<float(*)[4]>(dk), a, b[0], b[1]);
+    mma_bf16(*reinterpret_cast<float(*)[4]>(dk + 4), a, b[2], b[3]);
+  }
+}
+
+// Two CTAs an SM under fp32 (the weight gradient's 32 partials beside y's
+// 32 accumulators need up to 128 registers), three under bf16 (80-odd
+// registers; the third CTA hides more of each tile's latency).
+template <typename T, int MODE>
+__global__ void __launch_bounds__(THREADS, Smem<T>::F32 ? 2 : 3)
+    stem_kernel(const IO<T> io, const Params p) {
+  using S = Smem<T>;
+  using F = Frag<T>;
+  constexpr int NC = F::NG * F::GW;  // channels a thread holds
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* As = reinterpret_cast<T*>(smem + S::A);
+  T* Bs = reinterpret_cast<T*>(smem + S::B);
+  T* Ts = reinterpret_cast<T*>(smem + S::TL);
+  float* red = reinterpret_cast<float*>(smem + S::RED);
+  float* aux = reinterpret_cast<float*>(smem + S::AUX);    // [AUX_ROWS][BN], then tmean
+  float* tmean = aux + AUX_ROWS * BN;
+  const int tid = threadIdx.x, n0 = blockIdx.y * BN, kz = blockIdx.z;
+  const float count = (float)p.rows;
+#pragma unroll
+  for (int j = 0; j < AUX_ROWS; ++j)
+    if (tid < BN) aux[j * BN + tid] = io.row[j] && n0 + tid < p.cout ? io.row[j][n0 + tid] : 0.f;
+  // one K chunk (the recipe's): its weights stay for the whole walk, and
+  // each tile's im2col loads are issued a tile ahead
+  const bool ahead = p.nk == 1;
+  T pre[16];
+  if (ahead) {
+    load_b(Bs, io.k, p, n0, 0);
+    if (blockIdx.x < p.tiles) gather_load(pre, io.x, p, blockIdx.x * BM, 0);
+  }
+  float dk[32], sa[NC], sb[NC];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) sa[i] = sb[i] = 0.f;
+
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int m0 = t * BM, nrows = p.rows - m0 < BM ? p.rows - m0 : BM;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int kc = 0; kc < p.nk; ++kc) {
+      __syncthreads();  // the last tile's (chunk's) readers are done
+      if constexpr (MODE >= BWD_SUMS)
+        if (kc == 0) tile_in(Ts, io.gout, p, m0, n0);  // lands while y forms
+      if (!ahead) {
+        gather_load(pre, io.x, p, m0, kc);
+        load_b(Bs, io.k, p, n0, kc);
+      }
+      gather_store(As, pre);
+      __syncthreads();
+      if (ahead && t + (int)gridDim.x < p.tiles)
+        gather_load(pre, io.x, p, m0 + (int)gridDim.x * BM, 0);
+      y_chunk(As, Bs, chunk_depth<T>(p, kc), acc);
+    }
+
+    // the epilogues work on y in the registers (F's layout)
+    if constexpr (MODE >= BWD_SUMS) {
+      sm90::cp_async_wait<0>();
+      __syncthreads();  // the gout tile
+    }
+    if constexpr (MODE == FWD_STATS) {
+      // the tile's mean per channel, then the sum of squares about it: each
+      // thread over its rows, then the slots in order
+      float v[NC];
+#pragma unroll
+      for (int g = 0; g < F::NG; ++g)
+#pragma unroll
+        for (int e = 0; e < F::GW; ++e) {
+          float s = 0.f;
+#pragma unroll
+          for (int ri = 0; ri < F::NR; ++ri)
+            if (F::row(ri) < nrows) s += acc[F::idx(ri, g, e)];
+          v[g * F::GW + e] = s;
+        }
+      const float sum = column_sum<T>(red, v);
+      if (tid < BN) tmean[tid] = sum / (float)nrows;
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < F::NG; ++g)
+#pragma unroll
+        for (int e = 0; e < F::GW; ++e) {
+          const float mu = tmean[F::col(g) + e];
+          float s = 0.f;
+#pragma unroll
+          for (int ri = 0; ri < F::NR; ++ri)
+            if (F::row(ri) < nrows) {
+              const float d = acc[F::idx(ri, g, e)] - mu;
+              s = fmaf(d, d, s);
+            }
+          v[g * F::GW + e] = s;
+        }
+      const float m2 = column_sum<T>(red, v);
+      if (tid < BN && n0 + tid < p.cout) {
+        const long long o = (long long)t * p.cout + n0 + tid;
+        io.pa[o] = tmean[tid];
+        io.pb[o] = m2;
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < F::NG; ++g) {
+        const int c = F::col(g);
+        const int nval = p.cout - n0 - c < 0 ? 0 : (p.cout - n0 - c < F::GW ? p.cout - n0 - c : F::GW);
+        const bool vec = p.cout % F::GW == 0 && nval == F::GW;
+#pragma unroll
+        for (int ri = 0; ri < F::NR; ++ri) {
+          const int r = F::row(ri);
+          const long long o = (long long)(m0 + r) * p.cout + n0 + c;
+          float v[F::GW];
+          if constexpr (MODE == FWD_OUT) {
+            if (r < nrows && nval > 0) {
+#pragma unroll
+              for (int e = 0; e < F::GW; ++e)
+                v[e] = fmaxf(fmaf(acc[F::idx(ri, g, e)], aux[c + e], aux[BN + c + e]), 0.f);
+              if constexpr (S::F32)
+                store_gw(io.out + o, vec, nval, v);
+              else
+                put_gw(Ts, r, c, v);
+            }
+          } else {
+            // BWD_SUMS: dp and its sums; BWD_DW: dy into the dy tile (zero
+            // past the rows) and into io.out for dx
+            float go[F::GW];
+            get_gw(Ts, r, c, go);
+#pragma unroll
+            for (int e = 0; e < F::GW; ++e) {
+              const float mu = aux[c + e], rs = aux[BN + c + e];
+              const float ga = aux[2 * BN + c + e], be = aux[3 * BN + c + e];
+              const float yh = (acc[F::idx(ri, g, e)] - mu) * rs;
+              const float dp = fmaf(yh, ga, be) > 0.f ? go[e] : 0.f;
+              if constexpr (MODE == BWD_SUMS) {
+                sa[g * F::GW + e] += dp;
+                sb[g * F::GW + e] = fmaf(dp, yh, sb[g * F::GW + e]);
+              } else {
+                const float db = aux[4 * BN + c + e], dg = aux[5 * BN + c + e];
+                v[e] = r < nrows ? rs * ga * (dp - db / count - yh * dg / count) : 0.f;
+              }
+            }
+            if constexpr (MODE == BWD_DW) put_gw(Ts, r, c, v);  // over gout: own cells
+          }
+        }
+      }
+      if constexpr (MODE == FWD_OUT && !S::F32) {
+        __syncthreads();  // the out tile
+        tile_out(Ts, io.out, p, m0, nrows, n0);
+      }
+      if constexpr (MODE == BWD_DW) {
+        if (!ahead) {  // As holds the last chunk of y; dk wants chunk kz
+          __syncthreads();
+          gather_load(pre, io.x, p, m0, kz);
+          gather_store(As, pre);
+        }
+        __syncthreads();
+        if (io.out && kz == 0) tile_out(Ts, io.out, p, m0, nrows, n0);
+        dk_tile(As, Ts, dk);
+      }
+    }
+  }
+
+  // after the walk: this CTA's partials, combined in a fixed order
+  if constexpr (MODE == BWD_SUMS) {
+    __syncthreads();
+    const float a = column_sum<T>(red, sa);
+    __syncthreads();
+    const float b = column_sum<T>(red, sb);
+    if (tid < BN && n0 + tid < p.cout) {
+      io.pa[(long long)blockIdx.x * p.cout + n0 + tid] = a;
+      io.pb[(long long)blockIdx.x * p.cout + n0 + tid] = b;
+    }
+  } else if constexpr (MODE == BWD_DW) {
+    float* part = io.pa + (long long)blockIdx.x * p.K * p.cout;
+    if constexpr (S::F32) {
+      // the four row quarters through shared memory, summed in order
+      __syncthreads();
+      float* red4 = reinterpret_cast<float*>(Ts);  // [4][KC][BN]
+      const int cq = tid & 7, kq = (tid >> 3) & 7, rq = tid >> 6;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          red4[(rq * KC + 4 * kq + i) * BN + (j < 4 ? 4 * cq + j : 28 + 4 * cq + j)] = dk[8 * i + j];
+      __syncthreads();
+      for (int idx = tid; idx < KC * BN; idx += THREADS) {
+        const int k = kz * KC + idx / BN, c = n0 + idx % BN;
+        const float s = ((red4[idx] + red4[KC * BN + idx]) + red4[2 * KC * BN + idx]) +
+                        red4[3 * KC * BN + idx];
+        if (k < p.K && c < p.cout) part[(long long)k * p.cout + c] = s;
+      }
+    } else {
+      const int lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = kz * KC + (warp & 1) * 16 + gq + (e >= 2 ? 8 : 0);
+          const int c = n0 + (warp >> 1) * 16 + 8 * jn + 2 * tq + (e & 1);
+          if (k < p.K && c < p.cout) part[(long long)k * p.cout + c] = dk[4 * jn + e];
+        }
+    }
+  }
+}
+
+Params params(int n, int h, int w, int cin, int cout) {
+  Params p;
+  p.n = n;
+  p.h = h;
+  p.w = w;
+  p.cin = cin;
+  p.cout = cout;
+  p.rows = n * h * w;
+  p.tiles = cdiv(p.rows, BM);
+  p.K = 9 * cin;
+  p.nk = cdiv(p.K, KC);
+  return p;
+}
+
+// A pass's grid: blockIdx.y the 64-channel block, blockIdx.z (BWD_DW) the K
+// chunk of dk, blockIdx.x the CTAs that walk the tiles: as many as stay
+// resident on the card beside the (y, z) blocks, at most one a tile. The
+// same for every call on one card, so the partials' order is too. The
+// residency (occupancy times SMs) is asked once per kernel.
+template <typename T, int MODE>
+cudaError_t grid(const Params& p, dim3* g) {
+  static int resident = 0;
+  if (resident == 0) {
+    auto kernel = stem_kernel<T, MODE>;
+    CHECK(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<T>::BYTES));
+    int per_sm = 0, dev = 0, sms = 0;
+    CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                        Smem<T>::BYTES));
+    CHECK(cudaGetDevice(&dev));
+    CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    resident = (per_sm > 1 ? per_sm : 1) * sms;
+  }
+  const int z = MODE == BWD_DW ? p.nk : 1, x = resident / (cdiv(p.cout, BN) * z);
+  *g = dim3(x < 1 ? 1 : (x > p.tiles ? p.tiles : x), cdiv(p.cout, BN), z);
+  return cudaSuccess;
+}
+
+template <typename T, int MODE>
+cudaError_t pass(const IO<T>& io, const Params& p, dim3 g, cudaStream_t st) {
+  return sm90::launch(stem_kernel<T, MODE>, g, Smem<T>::BYTES, st, io, p);
+}
+
+}  // namespace stem
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1582,44 +1530,66 @@ struct StemArgs {
 
 template <typename T>
 static int stem_fwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
-  const ConvGeom g = geom(a->n, a->h, a->w, a->cin, a->h, a->w, a->cout, 3, 1, 1);
-  const int rows = a->n * a->h * a->w;
+  const stem::Params p = stem::params(a->n, a->h, a->w, a->cin, a->cout);
   Arena ar{static_cast<char*>(ws)};
-  BnScratch s = bn_scratch(ar, rows, a->cout);
-  float* y = staged(ar, a->out, (size_t)rows * a->cout);
+  BnScratch s = bn_scratch(ar, p.rows, a->cout);  // pass 1's tile partials, the folded rows
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
   }
-  CHECK(conv(false, a->x, a->k, y, &s, g, st));
-  CHECK(finalize(s, rows, a->cout, a->gamma, a->beta, a->eps, a->mean, a->var, st));
-  return static_cast<int>(apply(y, s.scale, s.shift, a->out, rows, a->cout, st));
+  dim3 g1, g2;
+  CHECK((stem::grid<T, stem::FWD_STATS>(p, &g1)));
+  CHECK((stem::grid<T, stem::FWD_OUT>(p, &g2)));
+  stem::IO<T> io = {a->x, a->k};
+  io.pa = s.pa;
+  io.pb = s.pb;
+  CHECK((stem::pass<T, stem::FWD_STATS>(io, p, g1, st)));
+  CHECK(finalize(s, p.rows, a->cout, a->gamma, a->beta, a->eps, a->mean, a->var, st));
+  io.row[0] = s.scale;
+  io.row[1] = s.shift;
+  io.out = a->out;
+  return static_cast<int>(stem::pass<T, stem::FWD_OUT>(io, p, g2, st));
 }
 
 template <typename T>
 static int stem_bwd_impl(const StemArgs<T>* a, void* ws, size_t* ws_bytes, cudaStream_t st) {
-  const ConvGeom g = geom(a->n, a->h, a->w, a->cin, a->h, a->w, a->cout, 3, 1, 1);
-  const int rows = a->n * a->h * a->w;
+  const stem::Params p = stem::params(a->n, a->h, a->w, a->cin, a->cout);
+  const int C = a->cout;
+  dim3 g1, g2;
+  CHECK((stem::grid<T, stem::BWD_SUMS>(p, &g1)));
+  CHECK((stem::grid<T, stem::BWD_DW>(p, &g2)));
   Arena ar{static_cast<char*>(ws)};
-  BnScratch s = bn_scratch(ar, rows, a->cout);
-  float* y = ar.take((size_t)rows * a->cout);
-  float* dp = ar.take((size_t)rows * a->cout);
-  float* part = ar.take(wgrad_scratch<T>(g));
+  BnScratch s = bn_scratch(ar, p.rows, C);  // rstd and pass 1's CTA partials
+  float* part = ar.take((size_t)g2.x * p.K * C);  // pass 2's dk partials
+  // dy in the compute dtype, for dx alone
+  T* dy = a->dx ? take_as<T>(ar, (size_t)p.rows * C) : nullptr;
   if (!ws) {
     *ws_bytes = ar.off;
     return 0;
   }
-  CHECK(fold_saved(s, a->mean, a->var, a->gamma, a->beta, a->eps, a->cout, st));
-  CHECK(conv(false, a->x, a->k, y, nullptr, g, st));
-  CHECK(bwd_sums(a->gout, nullptr, y, a->mean, s, a->gamma, a->beta, dp,
-                              a->dbeta, a->dgamma, rows, a->cout, st));
-  CHECK(bwd_apply(dp, y, a->mean, s, a->gamma, a->dbeta, a->dgamma, dp,
-                               rows, a->cout, st));
-  CHECK(wgrad(a->x, dp, part, a->dk, g, st));
+  CHECK(fold_saved(s, a->mean, a->var, a->gamma, a->beta, a->eps, C, st));
+  stem::IO<T> io = {a->x, a->k, a->gout, {a->mean, s.rstd, a->gamma, a->beta}};
+  io.pa = s.pa;
+  io.pb = s.pb;
+  CHECK((stem::pass<T, stem::BWD_SUMS>(io, p, g1, st)));
+  sum_partials_kernel<<<cdiv(C, 32), dim3(32, 32), 0, st>>>(s.pa, s.pb, (int)g1.x, C, a->dbeta,
+                                                           a->dgamma);
+  CHECK(cudaGetLastError());
+  io.row[4] = a->dbeta;
+  io.row[5] = a->dgamma;
+  io.out = dy;
+  io.pa = part;
+  io.pb = nullptr;
+  CHECK((stem::pass<T, stem::BWD_DW>(io, p, g2, st)));
+  const long long count = (long long)p.K * C;
+  split_reduce_kernel<T><<<elementwise_grid(count), THREADS, 0, st>>>(part, (int)g2.x, count,
+                                                                      a->dk);
+  CHECK(cudaGetLastError());
   if (a->dx) {
-    // transposed gather over dy [n, h, w, cout] with kt [3, 3, cout, cin]
-    const ConvGeom gt = geom(a->n, a->h, a->w, a->cout, a->h, a->w, a->cin, 3, 1, 1);
-    CHECK(conv(true, dp, a->kt, a->dx, nullptr, gt, st));
+    // dx = the transposed 3x3 of dy, [n, h, w, cout] with kt [3, 3, cout, cin]
+    const sm90::ConvPlan d = sm90::transposed3_plan(a->n, a->h, a->w, C, a->h, a->w, a->cin, 1);
+    CHECK(sm90::conv_gemm(d, dy, a->kt, sm90::Epilogue<T, T, T>{a->dx, nullptr, nullptr, kNone,
+                                                                kNone}, st));
   }
   return 0;
 }

@@ -193,10 +193,8 @@ def _stream(device: torch.device) -> int:
 
 # ---------------------------------------------------------------------------
 # Admission gates (Hopper). The kernels' shared memory is the same for
-# every geometry (static, about 17 KB per CTA under fp32 and 36 KB under
-# bf16, in the first design's kernels, which the stem runs; dynamic, 43-55
-# KB fp32 and 96-128 KB bf16, in the pipelined core every block entry
-# point runs on) and
+# every geometry (dynamic: 63-70 KB in the stem's passes, 43-55 KB fp32 and
+# 96-128 KB bf16 in the pipelined core every block entry point runs on) and
 # their register use is fixed by the tile, so nothing here depends on a
 # memory budget: the gates hold the geometric rules the
 # kernels rely on and the 32-bit index range. They take the compute dtype,
