@@ -5,10 +5,12 @@
 
 Builds the port's CUDA kernels from this checkout (one nvcc per source, all
 started together), holds each against its plain PyTorch version on the card
-(the loss pair at N = 512 and 74 rows; the stem, Bottleneck, BasicBlock and
-projection-block pairs at every distinct geometry of the ResNet-50 and
-ResNet-18 recipe sites and at ragged shapes, in fp32 and, for the conv
-kernels, in bf16 against both their bf16 and their fp32 plain forms),
+(the loss pair at ``LOSS_CASES``: N = 512 SimCLR and SupCon, 74 rows,
+the sharded form's row offset, D = 18 and nr = nc = 2; the stem,
+Bottleneck, BasicBlock and projection-block pairs at every distinct
+geometry of the ResNet-50 and ResNet-18 recipe sites and at ragged shapes,
+in fp32 and, for the conv kernels, in bf16 against both their bf16 and
+their fp32 plain forms),
 drives the port's pretraining entry point (``train.supcon.main``) for one
 epoch of SimCLR at the published recipe's width (batch 256, 32 px, two
 crops, so the encoder and the loss see 512 rows) with ``--conv_impl fused
@@ -22,19 +24,21 @@ float64 run; bf16: the eager and the fused bf16 step each against the fp32
 eager step, from an init with small residual-branch BN gammas where the
 step is well conditioned), checks that two forward calls and two backward
 calls of the stem, the Bottleneck and the BasicBlock and projection-block
-entry points give bitwise-equal outputs, and times kernels and train steps
-with CUDA events, the stem, Bottleneck, BasicBlock and projection-block
-forwards and backwards also split by device kernel (``torch.profiler``)
-with their peak memory. Phases: device,
-build, kernel_parity, train, timing. Any failure raises and the script
-exits non-zero.
+entry points, and of the loss kernels, give bitwise-equal outputs, and
+times kernels and train steps with CUDA events (the loss kernels also at
+N = 8192), the loss kernels and the stem, Bottleneck, BasicBlock and
+projection-block forwards and backwards also split by device kernel
+(``torch.profiler``), the conv entry points with their peak memory.
+Phases: device, build, kernel_parity, train, timing. Any failure raises
+and the script exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
-builds only the conv library of another checkout (a parent commit unpacked
-with ``git archive``, say) and prints its stem, Bottleneck, BasicBlock and
-projection-block forward and backward splits, for a comparison inside one
-call.
+builds only the kernel libraries of another checkout (a parent commit
+unpacked with ``git archive``, say) and prints its loss split (device time
+per kernel name, CUDA-event time and the wrapper's host time, at N = 512
+and 8192) and its stem, Bottleneck, BasicBlock and projection-block forward
+and backward splits, for a comparison inside one call.
 
 The last lines of standard output are the card's name and power limit, one
 JSON object with an entry per kernel (``{"kernels": [...]}``: launches on
@@ -171,9 +175,9 @@ def unit_features(n, d, seed, device):
     return (f / f.norm(dim=1, keepdim=True)).to(device)
 
 
-def loss_inputs(batch, seed, device, n_classes=None):
+def loss_inputs(batch, seed, device, n_classes=None, dim=DIM):
     """View-major unit features and ids for a [batch, 2] problem."""
-    f = unit_features(2 * batch, DIM, seed, device)
+    f = unit_features(2 * batch, dim, seed, device)
     if n_classes is None:
         base = torch.arange(batch)
     else:
@@ -182,6 +186,165 @@ def loss_inputs(batch, seed, device, n_classes=None):
     ids = base.repeat(2).to(device=device, dtype=torch.int32)
     gid = torch.arange(2 * batch, device=device, dtype=torch.int32)
     return f, ids, gid
+
+
+# The loss parity cases: (case, batch, classes, dim, anchor rows, contrast
+# columns), rows and columns each ``(lo, hi)`` of the 2 x batch view-major
+# rows or None for all. a-c square at the recipe's D; d the sharded form:
+# anchor rows 128..255 of N = 512 against all 512 columns (the row ids
+# offset by 128), the column lse/cnt from the forward over all rows, as a
+# sharded backward gets them; e N = 74 at D = 18 (no multiple of 4: the
+# scalar load path; most column splits empty); f the smallest, nr = nc = 2:
+# the first views of a batch of two against their second views (no self
+# pair; each row has one positive of two columns; the column lse/cnt from
+# the columns as anchors against the rows). Square, nr = nc = 2 leaves each
+# row one live column: its positive (loss and dF exactly 0, so the pins
+# have no scale) or not (cnt 0).
+LOSS_CASES = (("a", 256, None, DIM, None, None), ("b", 256, 10, DIM, None, None),
+              ("c", 37, None, DIM, None, None), ("d", 256, 10, DIM, (128, 256), None),
+              ("e", 37, None, 18, None, None), ("f", 2, None, DIM, (0, 2), (2, 4)))
+
+
+def loss_case(fused_loss, dev, batch, classes, dim, rows, cols, seed=1):
+    """``(fwd_args, bwd_args)`` of one loss case (``LOSS_CASES``): the
+    anchor rows against the contrast columns, and for the backward the
+    plain forward's lse/cnt of the rows and of the columns."""
+    f, ids, gid = loss_inputs(batch, seed, dev, classes, dim)
+    r, c = slice(*(rows or (0, f.shape[0]))), slice(*(cols or (0, f.shape[0])))
+    args = (f[r], f[c], ids[r], ids[c], gid[r], gid[c])
+    if cols is None:  # the columns' statistics over every row
+        _, lse, cnt = fused_loss.fused_rows_reference(f, f, ids, ids, gid, gid, TEMP, BASE_TEMP)
+        lse_r, cnt_r, lse_c, cnt_c = lse[r], cnt[r], lse, cnt
+    else:  # two blocks: each side's statistics against the other
+        _, lse_r, cnt_r = fused_loss.fused_rows_reference(*args, TEMP, BASE_TEMP)
+        _, lse_c, cnt_c = fused_loss.fused_rows_reference(
+            *(args[i] for i in (1, 0, 3, 2, 5, 4)), TEMP, BASE_TEMP)
+    coeff = (TEMP / BASE_TEMP) / f.shape[0]
+    return args, args + (lse_r, lse_c, cnt_r, cnt_c, TEMP, coeff)
+
+
+def loss_parity(fused_loss, dev):
+    """The loss kernels against their plain forms at ``LOSS_CASES``: ``cnt``
+    exact, ``loss_row``/``lse`` rtol 1e-5, ``dF`` atol 1e-5 x max|dF|.
+    Returns the errors per (case, tensor)."""
+    errors = {}
+    for case, batch, classes, dim, rows, cols in LOSS_CASES:
+        args, bwd_args = loss_case(fused_loss, dev, batch, classes, dim, rows, cols)
+        got = fused_loss.fused_rows(*args, TEMP, BASE_TEMP)
+        ref = fused_loss.fused_rows_reference(*args, TEMP, BASE_TEMP)
+        d_got = fused_loss.fused_bwd(*bwd_args)
+        d_ref = fused_loss.fused_bwd_reference(*bwd_args)
+        torch.cuda.synchronize()
+        n = 2 * batch
+        shape = (f"N={n}" if rows is None else f"rows {rows[0]}..{rows[1] - 1} of N={n}"
+                 + ("" if cols is None else f" against columns {cols[0]}..{cols[1] - 1}"))
+        line = [f"case {case}: {shape} D={dim} "
+                f"{'SupCon %d classes' % classes if classes else 'SimCLR'}"]
+        for name, g, r in zip(("loss_row", "lse", "cnt"), got, ref):
+            abs_err = (g - r).abs().max().item()
+            rel_err = ((g - r).abs() / r.abs()).max().item()
+            line.append(f"{name} abs {abs_err:.3e} rel {rel_err:.3e}")
+            ok = torch.equal(g, r) if name == "cnt" else rel_err <= 1e-5
+            if not ok:
+                raise AssertionError(f"case {case}: {name} off: abs {abs_err} rel {rel_err}")
+            errors[(case, name)] = abs_err
+        d_abs = (d_got - d_ref).abs().max().item()
+        d_scale = d_ref.abs().max().item()
+        line.append(f"dF abs {d_abs:.3e} (max|dF| {d_scale:.3e}, rel {d_abs / d_scale:.3e})")
+        print("; ".join(line))
+        if not d_abs <= 1e-5 * d_scale:
+            raise AssertionError(f"case {case}: dF off: {d_abs} > 1e-5 * {d_scale}")
+        errors[(case, "dF")] = d_abs
+        errors[(case, "dF_rel_l2")] = rel_l2(d_got, d_ref)
+    print("bounds: cnt exact; loss_row, lse rtol 1e-5; dF atol 1e-5 x max|dF|")
+    return errors
+
+
+def loss_determinism(fused_loss, dev):
+    """Two forward and two backward calls of the loss kernels on the same
+    inputs, at N = 512 (case a) and in the sharded form (case d): every
+    output bitwise equal, or raise. The splits combine in rank order and
+    no kernel uses atomics."""
+    for case, batch, classes, dim, rows, cols in (LOSS_CASES[0], LOSS_CASES[3]):
+        args, bwd_args = loss_case(fused_loss, dev, batch, classes, dim, rows, cols)
+        for entry, call, names in (
+                ("loss_fwd", lambda: fused_loss.fused_rows(*args, TEMP, BASE_TEMP),
+                 ("loss_row", "lse", "cnt")),
+                ("loss_bwd", lambda: (fused_loss.fused_bwd(*bwd_args),), ("dF",))):
+            first, second = call(), call()
+            same = [torch.equal(a, b) for a, b in zip(first, second)]
+            print(f"{entry} determinism case {case}: two calls bitwise equal on "
+                  f"{sum(same)} of {len(same)} outputs")
+            if not all(same):
+                raise AssertionError(f"{entry} case {case}: outputs differ between two calls: "
+                                     f"{[n for n, ok in zip(names, same) if not ok]}")
+
+
+# the loss split's sizes: the recipe's N = 512 and ImageNet SimCLR's
+# global batch of 4096 (N = 8192), both at D = 128
+LOSS_SPLIT_ROWS = (512, 8192)
+
+
+def host_ms_per_call(fn, calls=200):
+    """The host's wall time per call of ``fn`` over ``calls`` back-to-back
+    calls that are only enqueued (the device is synchronised before and
+    after, outside the window)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def loss_split(fused_loss, dev, where):
+    """One forward and one backward call of the loss kernels at each of
+    ``LOSS_SPLIT_ROWS``: the device time per kernel name
+    (:func:`device_times`), the CUDA-event time of back-to-back calls
+    beside the plain form's, the wrapper's host time per call
+    (:func:`host_ms_per_call`) and the bound. Returns ``{(direction, n):
+    {"device_ms": ms or None, "ms": ..., "plain_ms": ..., "host_ms": ...}}``."""
+    res = {}
+    for n in LOSS_SPLIT_ROWS:
+        f, ids, gid = loss_inputs(n // 2, seed=2, device=dev)
+        args = (f, f, ids, ids, gid, gid)
+        _, lse, cnt = fused_loss.fused_rows(*args, TEMP, BASE_TEMP)
+        bwd_args = args + (lse, lse, cnt, cnt, TEMP, (TEMP / BASE_TEMP) / n)
+        reps = dict(reps=100, rounds=5, warmup=10) if n <= 512 else dict(reps=10, rounds=3,
+                                                                          warmup=2)
+        bounds = loss_bounds(n, DIM)
+        for direction, call, plain in (
+                ("fwd", lambda: fused_loss.fused_rows(*args, TEMP, BASE_TEMP),
+                 lambda: fused_loss.fused_rows_reference(*args, TEMP, BASE_TEMP)),
+                ("bwd", lambda: fused_loss.fused_bwd(*bwd_args),
+                 lambda: fused_loss.fused_bwd_reference(*bwd_args))):
+            per = device_times(call)
+            got = {"device_ms": sum(per.values()) if per else None,
+                   "ms": cuda_time_ms(call, **reps), "plain_ms": cuda_time_ms(plain, **reps),
+                   "host_ms": host_ms_per_call(call, calls=200 if n <= 512 else 20)}
+            res[(direction, n)] = got
+            names = (", ".join(f"{k} {v * 1e3:.2f} us" for k, v in sorted(per.items()))
+                     if per else "not measured (the profiler shows no device time)")
+            print(f"loss_{direction} split N={n} D={DIM}: device time (profiler, one call) "
+                  f"{names}; CUDA events {got['ms'] * 1e3:.2f} us a call, plain form "
+                  f"{got['plain_ms'] * 1e3:.2f} us; wrapper host time {got['host_ms'] * 1e3:.2f} "
+                  f"us a call; bound {bounds[direction][0] * 1e3:.2f} us "
+                  f"({bounds[direction][1]}) {where}", flush=True)
+        del f, ids, gid, args, lse, cnt, bwd_args
+        torch.cuda.empty_cache()
+    return res
+
+
+def loss_bounds(n, d):
+    """``{"fwd": (ms, by), "bwd": (ms, by)}`` of the square loss at ``n``
+    rows of depth ``d``: each input read once, each output written once
+    (features, ids and global ids in, three [n] rows out; features, ids,
+    global ids, lse and cnt in, [n, d] out), FMA FLOPs of the logits
+    (forward) and of the logits plus h @ F (backward)."""
+    return {"fwd": bound(2 * n * n * d, n * d * 4 + 2 * n * 4 + 3 * n * 4),
+            "bwd": bound(4 * n * n * d, n * d * 4 + 4 * n * 4 + n * d * 4)}
 
 
 def cuda_time_ms(fn, reps=100, rounds=5, warmup=10):
@@ -855,6 +1018,31 @@ def determinism(dev, family):
             torch.cuda.empty_cache()
 
 
+def device_times(call):
+    """``{kernel name: ms}`` of one ``call`` traced by ``torch.profiler``
+    (``key_averages()``, self device time), or ``{}`` when the profiler
+    shows no device time. A trace now and then comes back empty or short
+    of some kernels (one read 0.12 of a call's 1.7 ms): three traces, the
+    fullest kept."""
+    from torch.profiler import ProfilerActivity, profile
+    per = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        trace = {}
+        for avg in prof.key_averages():
+            us = getattr(avg, "self_device_time_total", None)
+            if us is None:
+                us = getattr(avg, "self_cuda_time_total", 0.0)
+            if us > 0:
+                name = short_kernel_name(avg.key)
+                trace[name] = trace.get(name, 0.0) + us / 1e3
+        if sum(trace.values()) > sum(per.values()):
+            per = trace
+    return per
+
+
 def conv_split(dev, where, family, direction, dtype=torch.float32):
     """One forward (``direction`` 'fwd') or backward ('bwd') call of
     ``family``'s entry point at each distinct recipe geometry of its model
@@ -863,11 +1051,10 @@ def conv_split(dev, where, family, direction, dtype=torch.float32):
     ``dx`` where the main path takes none), traced by ``torch.profiler``:
     device time per kernel name (``key_averages()``, self device time),
     one step's worth (each geometry times its number of sites) summed per
-    entry point, per name and per group (:func:`kernel_group`), from the
-    fullest of three traces of the call; beside it the peak device memory of one call beyond its inputs
-    (``max_memory_allocated`` after a reset). Prints "not measured" when
-    the profiler shows no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    entry point, per name and per group (:func:`kernel_group`), from
+    :func:`device_times`; beside it the peak device memory of one call
+    beyond its inputs (``max_memory_allocated`` after a reset). Prints
+    "not measured" when the profiler shows no device time."""
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
     dt = "fp32" if dtype == torch.float32 else "bf16"
     sites = {}  # geometry -> (kind, number of sites)
@@ -896,23 +1083,7 @@ def conv_split(dev, where, family, direction, dtype=torch.float32):
         call()
         torch.cuda.synchronize()
         extra_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-        # a trace now and then comes back empty or short of some kernels
-        # (one read 0.12 of a call's 1.7 ms): three traces, the fullest kept
-        per = {}
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            trace = {}
-            for avg in prof.key_averages():
-                us = getattr(avg, "self_device_time_total", None)
-                if us is None:
-                    us = getattr(avg, "self_cuda_time_total", 0.0)
-                if us > 0:
-                    name = short_kernel_name(avg.key)
-                    trace[name] = trace.get(name, 0.0) + us / 1e3
-            if sum(trace.values()) > sum(per.values()):
-                per = trace
+        per = device_times(call)
         if not per:
             print(f"{tag}: not measured (the profiler shows no device time on this machine) "
                   f"{where}")
@@ -1167,10 +1338,11 @@ def step_check_bf16(name, model, views, labels):
 
 
 def split_only() -> int:
-    """The ``--split-only`` run: the build and the per-kernel splits of
-    ``SPLITS`` (the stem, Bottleneck, BasicBlock and projection-block
-    forwards and backwards) in both compute dtypes."""
-    from simclr_pytorch_distributed_tpu_torch.ops import native
+    """The ``--split-only`` run: the build, the loss split
+    (:func:`loss_split`) and the per-kernel splits of ``SPLITS`` (the
+    stem, Bottleneck, BasicBlock and projection-block forwards and
+    backwards) in both compute dtypes."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_loss, native
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1178,8 +1350,11 @@ def split_only() -> int:
     card = card_line()
     print(f"nvidia-smi name, power.limit: {card}")
     tb = time.time()
-    lib = native.build("fused_conv_bn")
-    print(f"built {lib} in {time.time() - tb:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        for lib in pool.map(native.build, SOURCES):
+            print(f"built {lib}")
+    print(f"built {len(SOURCES)} libraries in parallel in {time.time() - tb:.2f} s")
+    loss_split(fused_loss, dev, f"on {card}")
     splits(dev, f"on {card}")
     return 0
 
@@ -1188,9 +1363,9 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--split-only", action="store_true",
-                    help="only build the conv kernels and print the per-kernel splits of the "
-                         "stem, Bottleneck, BasicBlock and projection-block forwards and "
-                         "backwards (fp32 and bf16), then exit")
+                    help="only build the kernels and print the per-kernel splits of the loss "
+                         "(N = 512 and 8192) and of the stem, Bottleneck, BasicBlock and "
+                         "projection-block forwards and backwards (fp32 and bf16), then exit")
     ap.add_argument("--root", default=REPO,
                     help="the checkout whose port package is imported and built (default: "
                          "this script's directory; another checkout, for example a parent "
@@ -1244,36 +1419,7 @@ def main(argv=None) -> int:
     t0 = phase("kernel_parity")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errors = {}
-    for case, batch, classes in (("a", 256, None), ("b", 256, 10), ("c", 37, None)):
-        f, ids, gid = loss_inputs(batch, seed=1, device=dev, n_classes=classes)
-        args = (f, f, ids, ids, gid, gid)
-        got = fused_loss.fused_rows(*args, TEMP, BASE_TEMP)
-        ref = fused_loss.fused_rows_reference(*args, TEMP, BASE_TEMP)
-        _, lse, cnt = ref
-        coeff = (TEMP / BASE_TEMP) / f.shape[0]
-        d_got = fused_loss.fused_bwd(*args, lse, lse, cnt, cnt, TEMP, coeff)
-        d_ref = fused_loss.fused_bwd_reference(*args, lse, lse, cnt, cnt, TEMP, coeff)
-        torch.cuda.synchronize()
-        line = [f"case {case}: N={f.shape[0]} D={DIM} "
-                f"{'SupCon %d classes' % classes if classes else 'SimCLR'}"]
-        for name, g, r in zip(("loss_row", "lse", "cnt"), got, ref):
-            abs_err = (g - r).abs().max().item()
-            rel_err = ((g - r).abs() / r.abs()).max().item()
-            line.append(f"{name} abs {abs_err:.3e} rel {rel_err:.3e}")
-            ok = torch.equal(g, r) if name == "cnt" else rel_err <= 1e-5
-            if not ok:
-                raise AssertionError(f"case {case}: {name} off: abs {abs_err} rel {rel_err}")
-            errors[(case, name)] = abs_err
-        d_abs = (d_got - d_ref).abs().max().item()
-        d_scale = d_ref.abs().max().item()
-        line.append(f"dF abs {d_abs:.3e} (max|dF| {d_scale:.3e}, rel {d_abs / d_scale:.3e})")
-        print("; ".join(line))
-        if not d_abs <= 1e-5 * d_scale:
-            raise AssertionError(f"case {case}: dF off: {d_abs} > 1e-5 * {d_scale}")
-        errors[(case, "dF")] = d_abs
-        errors[(case, "dF_rel_l2")] = rel_l2(d_got, d_ref)
-    print("bounds: cnt exact; loss_row, lse rtol 1e-5; dF atol 1e-5 x max|dF|")
+    errors = loss_parity(fused_loss, dev)
     parity = Parity()
     conv_parity(dev, parity)
     print(f"conv bounds: out rtol {VAL_RTOL} atol {VAL_ATOL}; moments rtol {STAT_RTOL} "
@@ -1301,6 +1447,7 @@ def main(argv=None) -> int:
     determinism(dev, "stem")
     determinism(dev, "bottleneck")
     determinism(dev, "block")
+    loss_determinism(fused_loss, dev)
     done("kernel_parity", t0)
 
     # -- train: each main path, through the port's entry point --------------
@@ -1382,26 +1529,25 @@ def main(argv=None) -> int:
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")
-    f, ids, gid = loss_inputs(N_ROWS // 2, seed=2, device=dev)
-    args = (f, f, ids, ids, gid, gid)
-    _, lse, cnt = fused_loss.fused_rows(*args, TEMP, BASE_TEMP)
-    coeff = (TEMP / BASE_TEMP) / N_ROWS
-    bwd_args = args + (lse, lse, cnt, cnt, TEMP, coeff)
-    fwd_ms = cuda_time_ms(lambda: fused_loss.fused_rows(*args, TEMP, BASE_TEMP))
-    fwd_plain_ms = cuda_time_ms(lambda: fused_loss.fused_rows_reference(*args, TEMP, BASE_TEMP))
-    bwd_ms = cuda_time_ms(lambda: fused_loss.fused_bwd(*bwd_args))
-    bwd_plain_ms = cuda_time_ms(lambda: fused_loss.fused_bwd_reference(*bwd_args))
+    where = f"on {card}"
+    split = loss_split(fused_loss, dev, where)
+    loss_ms = {direction: split[(direction, N_ROWS)] for direction in ("fwd", "bwd")}
+    f, _, _ = loss_inputs(N_ROWS // 2, seed=2, device=dev)
     feats3 = f.reshape(2, N_ROWS // 2, DIM).transpose(0, 1)
     dense_ms = cuda_time_ms(
         lambda: supcon_loss(feats3, temperature=TEMP, base_temperature=BASE_TEMP)
     )
+    leaf3 = feats3.detach().requires_grad_()
+    dense_fwd_bwd_ms = cuda_time_ms(
+        lambda: supcon_loss(leaf3, temperature=TEMP, base_temperature=BASE_TEMP).backward()
+    )
     aug_cfg = AugmentConfig(mean=(0.5,) * 3, std=(0.25,) * 3)
     aug_ms = cuda_time_ms(lambda: two_crop_batch(gen, images, aug_cfg), reps=5, rounds=3, warmup=2)
-    where = f"on {card}"
-    print(f"fused fwd kernel {fwd_ms * 1e3:.2f} us, plain {fwd_plain_ms * 1e3:.2f} us {where}")
-    print(f"fused bwd kernel {bwd_ms * 1e3:.2f} us, plain {bwd_plain_ms * 1e3:.2f} us {where}")
-    print(f"dense supcon_loss forward (several PyTorch calls; context, not a yardstick) "
-          f"{dense_ms * 1e3:.2f} us {where}")
+    for direction, got in loss_ms.items():
+        print(f"fused {direction} kernel {got['ms'] * 1e3:.2f} us, plain "
+              f"{got['plain_ms'] * 1e3:.2f} us {where}")
+    print(f"dense supcon_loss (several PyTorch calls; context, not a yardstick) forward "
+          f"{dense_ms * 1e3:.2f} us, forward+backward {dense_fwd_bwd_ms * 1e3:.2f} us {where}")
     for name, net, runs in (("resnet50", model, (result, eager_result)),
                             ("resnet18", rn18, (rn18_result, rn18_eager_result))):
         step_flops = 3 * forward_flops(net, 32, dev) * 2 * batch_size
@@ -1439,13 +1585,7 @@ def main(argv=None) -> int:
     splits(dev, where)
     done("timing", t0)
 
-    # each input read once, each output written once: features, ids and
-    # global ids in, three [n] rows out (forward); features, ids, global
-    # ids, lse and cnt in, [n, d] out (backward); FMA FLOPs of the logits
-    # tile (forward) and of the logits tile plus h @ F (backward)
-    n, d = f.shape
-    fwd_bound = bound(2 * n * n * d, n * d * 4 + 2 * n * 4 + 3 * n * 4)
-    bwd_bound = bound(4 * n * n * d, n * d * 4 + 4 * n * 4 + n * d * 4)
+    loss_bound = loss_bounds(*f.shape)
     source = "simclr_pytorch_distributed_tpu_torch/csrc/fused_supcon_loss.cu"
     kernels = [
         {
@@ -1453,16 +1593,18 @@ def main(argv=None) -> int:
             "replaces": "simclr_pytorch_distributed_tpu/ops/pallas_loss.py:69",
             "launches": launches["fwd"],
             "max_abs_err": max(errors[("a", "loss_row")], errors[("a", "lse")]),
-            "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None,
+            "ms": loss_ms["fwd"]["ms"], "plain_ms": loss_ms["fwd"]["plain_ms"],
+            "bound_ms": loss_bound["fwd"][0], "bound_by": loss_bound["fwd"][1],
+            "library_ms": None,
         },
         {
             "name": "fused_supcon_loss_bwd", "route": "cuda", "source": source,
             "replaces": "simclr_pytorch_distributed_tpu/ops/pallas_loss.py:114",
             "launches": launches["bwd"], "max_abs_err": errors[("a", "dF")],
             "max_rel_l2": errors[("a", "dF_rel_l2")],
-            "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
+            "ms": loss_ms["bwd"]["ms"], "plain_ms": loss_ms["bwd"]["plain_ms"],
+            "bound_ms": loss_bound["bwd"][0], "bound_by": loss_bound["bwd"][1],
+            "library_ms": None,
         },
     ]
     # the stem at the recipe shape: fwd reads x and writes out; its main-

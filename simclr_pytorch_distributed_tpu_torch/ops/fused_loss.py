@@ -6,8 +6,11 @@ pair in ``simclr_pytorch_distributed_tpu/ops/pallas_loss.py``:
 replaces ``_bwd_kernel``. The forward streams column tiles of ``F·Fᵀ/τ``
 with an online log-sum-exp and keeps per row only ``loss_row``, ``lse`` and
 the positive count; the backward recomputes each logits tile from those and
-accumulates ``dF`` with no O(N²) residual. The source file states what
-bounds them on the H100 and what their design does about it.
+accumulates ``dF`` with no O(N²) residual. Each row tile's column walk is
+split over a cluster of CTAs whose partials meet in distributed shared
+memory in a fixed order, so both kernels are bitwise repeatable and need
+no workspace. The source file states what bounds them on the H100 and what
+their design does about it.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 (:func:`fused_rows_reference`, :func:`fused_bwd_reference`); a CUDA tensor
