@@ -29,8 +29,17 @@ times kernels and train steps with CUDA events (the loss kernels also at
 N = 8192), the loss kernels and the stem, Bottleneck, BasicBlock and
 projection-block forwards and backwards also split by device kernel
 (``torch.profiler``), the conv entry points with their peak memory.
-Phases: device, build, kernel_parity, train, timing. Any failure raises
-and the script exits non-zero.
+It then drives the linear probe's entry point (``train.linear.main``) at
+full width from the ResNet-50 fp32 and ``--bf16`` runs' ``last.pth``
+(checking that the frozen encoder is bitwise unchanged, that no kernel
+launched, that ``classifier_best.pth`` reloads and that one eval batch's
+logits match the port's CPU run of the same weights, and timing the probe
+step and the validation pass), and proves resume on ResNet-18 at full
+width: two epochs straight, one epoch then ``--resume``, and a run
+SIGTERM'd after step 3 (exit 75) then resumed end bitwise equal, and a
+non-finite loss exits 1 with ``crash_epoch_1.pth``.
+Phases: device, build, kernel_parity, train, probe, resume, timing. Any
+failure raises and the script exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
@@ -55,9 +64,11 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import functools
+import glob
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1123,6 +1134,13 @@ def splits(dev, where):
             conv_split(dev, where, family, direction, dtype)
 
 
+def kernel_counters():
+    """Every launch counter of the port's kernels, as (module, name)."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv, fused_loss
+    return ([(fused_loss, "fwd_launches"), (fused_loss, "bwd_launches")]
+            + [(fused_conv, name) for name in CONV_COUNTERS + BF16_COUNTERS])
+
+
 def train_epochs(model, workdir, expected, banner_sites, bf16=False):
     """One 7-step epoch of ``model`` at the recipe's width through
     ``train.supcon.main`` with ``--conv_impl fused --loss_impl fused`` (and
@@ -1133,7 +1151,6 @@ def train_epochs(model, workdir, expected, banner_sites, bf16=False):
     ``[conv_impl]`` banner listing the stem and ``banner_sites`` (kind ->
     count), and under ``bf16`` naming ``compute dtype bf16``. Returns
     ``(fused_result, eager_result, launches)``."""
-    from simclr_pytorch_distributed_tpu_torch.ops import fused_conv, fused_loss
     from simclr_pytorch_distributed_tpu_torch.train import supcon
     argv = [
         "--device", "cuda", "--dataset", "synthetic", "--model", model,
@@ -1146,8 +1163,7 @@ def train_epochs(model, workdir, expected, banner_sites, bf16=False):
         "--workdir", tempfile.mkdtemp(prefix=f"{model}_", dir=workdir),
     ] + (["--bf16"] if bf16 else [])
     model = f"{model}{' bf16' if bf16 else ''}"
-    counters = [(fused_loss, "fwd_launches"), (fused_loss, "bwd_launches")]
-    counters += [(fused_conv, name) for name in CONV_COUNTERS + BF16_COUNTERS]
+    counters = kernel_counters()
     for mod, name in counters:
         setattr(mod, name, 0)
     result = supcon.main(argv)
@@ -1335,6 +1351,270 @@ def step_check_bf16(name, model, views, labels):
               f"{buf_worst[0]:.3e} at {buf_worst[1]} (bound {BF16_STATS_SCALED})")
     if failures:
         raise AssertionError(f"{name} bf16 step check:\n" + "\n".join(failures))
+
+
+# The probe phase's card-vs-CPU check of one eval batch's logits (64 rows
+# of the test split, the frozen encoder and the trained classifier run by
+# the port on the card and on the CPU), relative L2 over the logits. fp32
+# (TF32 off): two summation orders of a K-term product differ by about
+# sqrt(K) u relative (K <= 4608 for rn50, u = 2^-24: 4e-6 a layer); the
+# eval-mode encoder is affine between ReLUs, so ~54 layers add up to
+# ~2.2e-4, and the bound is ~4x that. bf16: both sides round each conv and
+# BN output to bf16 from fp32 sums that differ by the fp32 amount, so ~1e-3
+# of the elements (4e-6 over bf16's 2^-8 spacing, times sqrt(K)) land one
+# bf16 step (2^-8 relative) apart: ~1.2e-4 relative L2 a layer, ~6.6e-3
+# over 54 layers, and the bound is ~3x that.
+PROBE_LOGITS_REL_L2 = {False: 1e-3, True: 2e-2}
+PROBE_ROWS = 64
+
+
+def cuda_call_ms(fn, calls=20, warmup=3):
+    """Median of ``calls`` single calls, each timed by its own CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def probe_run(dev, workdir, ckpt, bf16, where):
+    """The probe's entry point ``train.linear.main`` at full width (rn50,
+    batch 512, one epoch of ``--dataset synthetic``) on ``cuda`` from the
+    pretrain checkpoint ``ckpt``, the launch counters set to 0 just before
+    and read just after. Raises unless the losses are finite, top-1 and
+    top-5 lie in [0, 100], no kernel launched (the frozen eval-mode encoder
+    runs no fused kernel), the encoder's parameters and BN buffers are
+    bitwise those of ``ckpt``, ``classifier_best.pth`` reloads to the same
+    logits, and one eval batch's logits on the card match the port's CPU
+    run of the same weights (``PROBE_LOGITS_REL_L2``). Prints the probe
+    step's and the validation pass's times."""
+    from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
+    from simclr_pytorch_distributed_tpu_torch.models import LinearClassifier, SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.ops.augment import (
+        AugmentConfig,
+        augment_batch,
+        eval_batch,
+    )
+    from simclr_pytorch_distributed_tpu_torch.train import linear
+    from simclr_pytorch_distributed_tpu_torch.train.supcon import compute_dtype
+    from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
+        load_classifier,
+        load_model_state,
+    )
+    name = f"probe resnet50 {'bf16' if bf16 else 'fp32'}"
+    before = load_model_state(ckpt)
+    counters = kernel_counters()
+    for mod, counter in counters:
+        setattr(mod, counter, 0)
+    t0 = time.time()
+    result = linear.main([
+        "--model", "resnet50", "--dataset", "synthetic", "--epochs", "1", "--batch_size", "512",
+        "--ckpt", ckpt, "--print_freq", "1",
+        "--workdir", tempfile.mkdtemp(prefix="probe_", dir=workdir),
+    ] + (["--bf16"] if bf16 else []))
+    wall = time.time() - t0
+    launches = {counter: getattr(mod, counter) for mod, counter in counters}
+    val = result.val_history[0]
+    losses = [h["loss"] for h in result.history]
+    print(f"{name}: {len(losses)} steps, losses {losses}, validation {val}, best top-1 "
+          f"{result.best_acc} top-5 {result.best_acc5}, run wall {wall:.2f} s")
+    failures = []
+    if any(launches.values()):
+        failures.append(f"kernel launches in the probe: {launches}")
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses + [val["loss"]]):
+        failures.append("expected 3 finite step losses and a finite validation loss")
+    if not all(0.0 <= x <= 100.0 for x in (val["top1"], val["top5"], result.best_acc,
+                                           result.best_acc5)):
+        failures.append("top-1 or top-5 outside [0, 100]")
+    after = result.model.state_dict()
+    changed = [k for k in before if k.startswith("encoder.")
+               and not torch.equal(after[k].cpu(), before[k])]
+    print(f"{name}: encoder tensors changed by the probe: {len(changed)} of "
+          f"{sum(k.startswith('encoder.') for k in before)}")
+    if changed:
+        failures.append(f"the probe changed encoder tensors {changed[:4]}")
+    if result.classifier_path is None:
+        failures.append("no classifier_best.pth was written")
+        raise AssertionError(f"{name}:\n" + "\n".join(failures))
+    reloaded = LinearClassifier("resnet50", 10).to(dev)
+    reloaded.load_state_dict(load_classifier(result.classifier_path))
+    data, test = synthetic_dataset()
+    mean, std = linear.stats_for("synthetic")
+    aug_cfg = AugmentConfig(mean=mean, std=std, color_ops=False)
+    x = torch.from_numpy(test["images"][:PROBE_ROWS]).to(dev)
+    feats = linear.encode(result.model, eval_batch(x, aug_cfg))
+    with torch.no_grad():
+        card = result.state.model(feats)
+        if not torch.equal(reloaded(feats), card):
+            failures.append("classifier_best.pth does not reload to the same logits")
+    cpu_model = SupConResNet("resnet50")
+    linear.load_encoder(cpu_model, before)
+    cpu_model.encoder.set_compute_dtype(compute_dtype(bf16))
+    cpu_model.eval().requires_grad_(False)
+    cpu_clf = LinearClassifier("resnet50", 10)
+    cpu_clf.load_state_dict({k: v.cpu() for k, v in result.state.model.state_dict().items()})
+    with torch.no_grad():
+        host = cpu_clf(linear.encode(cpu_model, eval_batch(x.cpu(), aug_cfg)))
+    rel = (torch.linalg.norm(card.cpu() - host) / torch.linalg.norm(host)).item()
+    print(f"{name}: {PROBE_ROWS} eval rows' logits, card vs the port on the CPU: relative L2 "
+          f"{rel:.3e} (bound {PROBE_LOGITS_REL_L2[bf16]}), top-1 agreement "
+          f"{(card.cpu().argmax(1) == host.argmax(1)).float().mean().item():.4f}")
+    if not rel <= PROBE_LOGITS_REL_L2[bf16]:
+        failures.append(f"card vs CPU logits relative L2 {rel:.3e}")
+    if failures:
+        raise AssertionError(f"{name}:\n" + "\n".join(failures))
+    # times: one probe step as the driver runs it, and one validation pass
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = torch.from_numpy(data["images"][:512]).to(dev)
+    y = torch.from_numpy(data["labels"][:512]).to(dev).long()
+    step_ms = cuda_call_ms(
+        lambda: linear.probe_step(result.model, result.state, augment_batch(gen, x, aug_cfg), y))
+    val_ms = cuda_call_ms(lambda: linear.run_validation(
+        result.model, result.state.model, test["images"], test["labels"], 256, aug_cfg, dev),
+        calls=5, warmup=1)
+    steps_ms = [h["step_time"] * 1e3 for h in result.history]
+    print(f"{name} step (augment, frozen eval-mode encoder, classifier, loss, SGD; batch 512, "
+          f"32 px) median of 20 {step_ms:.2f} ms by CUDA events; the run's step wall times "
+          f"{[round(t, 2) for t in steps_ms]} ms; validation pass over the {len(test['images'])}"
+          f"-image test split at batch 256 {val_ms:.2f} ms (median of 5), the run's "
+          f"{val['seconds'] * 1e3:.2f} ms {where}")
+
+
+RESUME_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from simclr_pytorch_distributed_tpu_torch.train import supcon
+from simclr_pytorch_distributed_tpu_torch.train.supcon_step import train_step
+from simclr_pytorch_distributed_tpu_torch.utils import preempt
+losses = []
+def step(state, cfg, views, labels):
+    metrics = train_step(state, cfg, views, labels)
+    losses.append(metrics["loss"].item())
+    if len(losses) == 3:
+        # hold after step 3 until the parent's SIGTERM sets the flag
+        print("STEP3", flush=True)
+        deadline = time.time() + 120
+        while not preempt.requested():
+            if time.time() > deadline:
+                raise RuntimeError("no SIGTERM came")
+            time.sleep(0.01)
+    return metrics
+supcon.train_step = step
+try:
+    supcon.main(json.loads(sys.argv[3]))
+finally:
+    with open(sys.argv[2], "w") as fh:
+        json.dump(losses, fh)
+"""
+
+
+def same_run(name, got, got_losses, want, want_losses):
+    """Raises unless two pretrain runs ended bitwise equal: every step's
+    loss, model parameters and BN buffers, SGD momentum, ``step`` and
+    ``record_norm_mean``."""
+    bad = []
+    if got_losses != want_losses:
+        bad.append(f"losses {got_losses} vs {want_losses}")
+    if got.state.step != want.state.step:
+        bad.append(f"step {got.state.step} vs {want.state.step}")
+    if not torch.equal(got.state.record_norm_mean, want.state.record_norm_mean):
+        bad.append("record_norm_mean")
+    gs, ws = got.state.model.state_dict(), want.state.model.state_dict()
+    bad += [k for k in ws if not torch.equal(gs[k], ws[k])]
+    go = got.state.optimizer.state_dict()["state"]
+    wo = want.state.optimizer.state_dict()["state"]
+    bad += [f"momentum {k}" for k in wo
+            if not torch.equal(go[k]["momentum_buffer"], wo[k]["momentum_buffer"])]
+    print(f"resume: {name} vs straight: {len(got_losses)} losses, {len(ws)} model tensors, "
+          f"{len(wo)} momentum buffers, step {got.state.step}: "
+          + ("bitwise equal" if not bad else f"{len(bad)} differ"))
+    if bad:
+        raise AssertionError(f"resume: {name} differs from the straight run: {bad[:8]}")
+
+
+def resume_phase(workdir):
+    """rn18 at full width (batch 256, 32 px) with ``--conv_impl fused
+    --loss_impl fused`` through ``train.supcon.main``: two epochs straight;
+    one epoch, then ``--resume`` for the second; a subprocess that gets
+    SIGTERM after step 3 of epoch 1, must exit 75, and whose ``--resume``
+    finishes the two epochs. All three must end bitwise equal. Then a
+    non-finite loss (``--learning_rate inf``) must exit 1 with
+    ``crash_epoch_1.pth`` holding the epoch-top state (the seed's init).
+    No ``--cosine``: its schedule depends on ``--epochs``, and the
+    one-epoch run must follow the two-epoch run's."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import load_model_state
+    base = ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet18",
+            "--batch_size", "256", "--size", "32", "--method", "SimCLR", "--temp", str(TEMP),
+            "--learning_rate", "0.5", "--loss_impl", "fused", "--conv_impl", "fused",
+            "--print_freq", "1"]
+
+    def fresh():
+        return ["--workdir", tempfile.mkdtemp(prefix="resume_", dir=workdir)]
+
+    straight = supcon.main(base + ["--epochs", "2"] + fresh())
+    want = [h["loss"] for h in straight.history]
+    first = supcon.main(base + ["--epochs", "1"] + fresh())
+    resumed = supcon.main(base + ["--epochs", "2", "--resume", first.save_folder] + fresh())
+    same_run("one epoch, then --resume", resumed,
+             [h["loss"] for h in first.history + resumed.history], straight, want)
+
+    child_dir = fresh()
+    losses_path = os.path.join(workdir, "preempted_losses.json")
+    argv = base + ["--epochs", "2"] + child_dir
+    proc = subprocess.Popen([sys.executable, "-c", RESUME_CHILD, REPO, losses_path,
+                             json.dumps(argv)], stdout=subprocess.PIPE, text=True)
+    try:
+        for line in proc.stdout:
+            if line.strip() == "STEP3":
+                proc.send_signal(signal.SIGTERM)
+                break
+        proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    saved = glob.glob(os.path.join(child_dir[1], "*", "*", "*.pth"))
+    print(f"resume: the SIGTERM'd run exited {proc.returncode}, saved "
+          f"{[os.path.basename(p) for p in saved]}")
+    if proc.returncode != 75 or [os.path.basename(p) for p in saved] != [
+            "preempt_epoch_1_step_3.pth"]:
+        raise AssertionError("the SIGTERM'd run must exit 75 with preempt_epoch_1_step_3.pth")
+    with open(losses_path) as fh:
+        child_losses = json.load(fh)
+    again = supcon.main(base + ["--epochs", "2", "--resume", os.path.dirname(saved[0])]
+                        + fresh())
+    same_run("SIGTERM after step 3, then --resume", again,
+             child_losses + [h["loss"] for h in again.history], straight, want)
+
+    crash_dir = fresh()
+    try:
+        supcon.main(base + ["--epochs", "1", "--learning_rate", "inf"] + crash_dir)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    crash = glob.glob(os.path.join(crash_dir[1], "*", "*", "crash_epoch_1.pth"))
+    print(f"resume: a non-finite loss exited {code}, saved {[os.path.basename(p) for p in crash]}")
+    if code != 1 or len(crash) != 1:
+        raise AssertionError("a non-finite loss must exit 1 with crash_epoch_1.pth")
+    meta = torch.load(crash[0], map_location="cpu", weights_only=True)
+    torch.manual_seed(0)
+    init = SupConResNet("resnet18").state_dict()
+    top = load_model_state(crash[0])
+    if ((meta["epoch"], meta["step"], meta["step_in_epoch"]) != (0, 0, 0)
+            or any(not torch.equal(top[k], v) for k, v in init.items())):
+        raise AssertionError("crash_epoch_1.pth does not hold the epoch-top state")
+    print("resume: crash_epoch_1.pth holds epoch 0, step 0, step_in_epoch 0 and the seed's "
+          "init, bitwise")
 
 
 def split_only() -> int:
@@ -1526,6 +1806,17 @@ def main(argv=None) -> int:
     step_check_bf16("resnet50", model, views, labels)
     step_check_bf16("resnet18", rn18, views, labels)
     done("train", t0)
+
+    # -- probe: the linear probe's entry point from each rn50 run -----------
+    t0 = phase("probe")
+    for bf16, run in ((False, result), (True, bf16_runs["resnet50"][0])):
+        probe_run(dev, workdir, os.path.join(run.save_folder, "last.pth"), bf16, f"on {card}")
+    done("probe", t0)
+
+    # -- resume: straight = resumed = preempted and resumed, exit 75 and 1 --
+    t0 = phase("resume")
+    resume_phase(workdir)
+    done("resume", t0)
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")

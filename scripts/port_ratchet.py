@@ -1,0 +1,109 @@
+"""Pretrain-and-probe accuracy of the PyTorch/CUDA port, with the JAX
+package's ratchet recipe.
+
+    python3 scripts/port_ratchet.py [--configs rn50_100ep rn18_100ep ...]
+
+For each configuration, on one CUDA card and through the port's entry
+points: ``train.supcon.main`` pretrains SimCLR on ``--dataset
+synthetic_hard32`` with the argv of ``scripts/ratchet.py`` (batch 256, lr
+0.1, ``--warm``, tau 0.5, ``--cosine``, seed 0; ``--bf16`` unless the
+configuration says fp32; the default ``--conv_impl auto`` / ``--loss_impl
+auto``, so the fused kernels on the card), then ``train.linear.main``
+probes the run's ``last.pth`` (60 epochs, lr 5, batch 256, fp32). Prints
+the card's name and power limit, then one JSON line per configuration:
+the probe's best top-1 and top-5 beside the JAX package's bar
+(``RATCHET_r05.json``), the final pretrain loss and both runs' wall
+times. ``--epochs`` shortens the pretrain for a trial run (the bar then
+means nothing). Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+# name -> (model, --bf16 pretrain, the JAX package's bar; scripts/ratchet.py
+# CONFIGS, the JAX package measured 96.09 and 96.43 in RATCHET_r05.json)
+CONFIGS = {
+    "rn50_100ep": ("resnet50", True, 95.7),
+    "rn18_100ep": ("resnet18", True, 95.4),
+    "rn50_100ep_fp32": ("resnet50", False, 95.7),
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def run_config(name: str, epochs: int, workdir: str, seed: int) -> dict:
+    from simclr_pytorch_distributed_tpu_torch.train import linear, supcon
+
+    model, bf16, bar = CONFIGS[name]
+    t0 = time.time()
+    pre = supcon.main([
+        "--dataset", "synthetic_hard32", "--model", model, "--epochs", str(epochs),
+        "--batch_size", "256", "--learning_rate", "0.1", "--warm", "--temp", "0.5",
+        "--cosine", "--method", "SimCLR", "--save_freq", str(epochs), "--print_freq", "20",
+        "--workdir", workdir, "--seed", str(seed), "--trial", name,
+    ] + (["--bf16"] if bf16 else []))
+    pretrain_s = time.time() - t0
+    t1 = time.time()
+    probe = linear.main([
+        "--dataset", "synthetic_hard32", "--model", model, "--epochs", "60",
+        "--learning_rate", "5", "--batch_size", "256", "--print_freq", "20",
+        "--ckpt", os.path.join(pre.save_folder, "last.pth"), "--workdir", workdir,
+        "--trial", name,
+    ])
+    return {
+        "metric": f"port_ratchet_synthetic_hard32_probe_top1_{name}",
+        "value": probe.best_acc, "top5": probe.best_acc5, "bar": bar,
+        "ok": probe.best_acc >= bar, "model": model, "pretrain_bf16": bf16,
+        "epochs": epochs, "seed": seed, "final_pretrain_loss": pre.history[-1]["loss"],
+        "pretrain_s": pretrain_s, "probe_s": time.time() - t1,
+        "pretrain_run": pre.save_folder, "probe_run": probe.save_folder,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--configs", nargs="+", default=["rn50_100ep", "rn18_100ep"],
+                    choices=sorted(CONFIGS))
+    ap.add_argument("--epochs", type=int, default=100, help="pretrain epochs")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--workdir", default=os.path.join(REPO, "work_space", "port_ratchet"))
+    ap.add_argument("--json", default="", help="also append the records to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("port_ratchet: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(f"nvidia-smi name, power.limit: {card}", flush=True)
+    for name in args.configs:
+        record = dict(run_config(name, args.epochs, args.workdir, args.seed), card=card)
+        root = logging.getLogger()
+        for handler in [h for h in root.handlers if isinstance(h, logging.FileHandler)]:
+            root.removeHandler(handler)  # each run's log-ing holds its own lines only
+            handler.close()
+        print(json.dumps(record), flush=True)
+        if args.json:
+            with open(args.json, "a") as fh:
+                fh.write(json.dumps(record) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,17 +1,24 @@
-"""Pretraining configuration: the flags this port honours, with the JAX
-package's names, defaults and derived fields (reference
-``main_supcon.py:22-152``).
+"""Pretraining and linear-probe configuration: the flags this port
+honours, with the JAX package's names, defaults and derived fields
+(reference ``main_supcon.py:22-152``, ``main_linear.py:21-116``).
 
 Derived fields: the ``model_name`` run string (``main_supcon.py:109-117``),
 auto-warmup when ``batch_size > 256`` (``:120-121``), the closed-form
-``warmup_to`` (``:124-131``) and the timestamped save folder (``:133-142``).
+``warmup_to`` (``:124-131``) and the timestamped save folder (``:133-142``);
+for the probe, ``n_cls`` per dataset and the ``classifier_<time>_<model_name>``
+run folder (``main_linear.py:65-114``).
 
-Flags the port does not implement yet are absent, so argparse rejects them.
-Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
+Flags the port does not implement yet are absent, so argparse rejects them
+(the JAX package's observability, telemetry and data-placement flags, and
+``--nan_policy``: a non-finite loss aborts, the JAX default). Added here:
+``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
 {dense,fused,auto}`` and ``--conv_impl {eager,fused,auto}`` (the JAX
-package's ``--conv_impl {xla,pallas,auto}``). ``--bf16`` is the JAX
-package's (``config.py:85, 348``): bf16 activations and conv/linear
-operands with fp32 accumulation, fp32 parameters, BN statistics and loss.
+package's ``--conv_impl {xla,pallas,auto}``).
+``--bf16`` is the JAX package's (``config.py:85, 348``): bf16 activations
+and conv/linear operands with fp32 accumulation, fp32 parameters, BN
+statistics and loss. ``--ckpt`` (a warm start of the model's weights and
+BN buffers), ``--resume`` (the full training state) and ``--nan_guard``
+are the JAX package's pretrain flags (``config.py:342, 349, 370``).
 """
 
 from __future__ import annotations
@@ -62,12 +69,25 @@ class SupConConfig:
     conv_impl: str = "auto"
     device: str = "cuda"
     bf16: bool = False
+    ckpt: str = ""
+    resume: str = ""
+    nan_guard: bool = True
     # derived (finalize_supcon)
     warm_epochs: int = 10
     warmup_from: float = 0.01
     warmup_to: float = 0.0
     model_name: str = ""
     save_folder: str = ""
+
+
+def parse_bool(s: str) -> bool:
+    """A boolean flag value: 1/true/yes/on or 0/false/no/off."""
+    v = s.lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
 
 
 def ngpu_arg(s: str):
@@ -134,6 +154,16 @@ def supcon_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 compute: activations and conv/linear operands in bf16 with "
                         "fp32 accumulation; parameters, BN statistics and the loss fp32")
+    p.add_argument("--ckpt", type=str, default=d.ckpt,
+                   help="warm start: a .pth (or run folder) whose model weights and BN "
+                        "buffers initialize the model; the optimizer starts fresh")
+    p.add_argument("--resume", type=str, default=d.resume,
+                   help="a full-state .pth, or a run folder (its latest complete "
+                        "checkpoint): model, SGD buffers, step, record_norm_mean and "
+                        "the augmentation generator; the run continues where it stopped")
+    p.add_argument("--nan_guard", type=parse_bool, default=d.nan_guard,
+                   help="on a non-finite loss, save crash_epoch_N.pth from the epoch-top "
+                        "state and exit with code 1")
     return p
 
 
@@ -168,6 +198,121 @@ def finalize_supcon(cfg: SupConConfig) -> SupConConfig:
         cfg.workdir, f"{cfg.dataset}_models", f"{cfg.dataset}_{now_time}_{cfg.model_name}"
     )
     return cfg
+
+
+@dataclasses.dataclass
+class LinearConfig:
+    """The probe's configuration (JAX ``config.py:688``, reference
+    ``main_linear.py:21-116``)."""
+
+    print_freq: int = 10
+    batch_size: int = 512
+    epochs: int = 100
+    learning_rate: float = 0.1
+    lr_decay_epochs: Tuple[int, ...] = (60, 75, 90)
+    lr_decay_rate: float = 0.2
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    model: str = "resnet50"
+    dataset: str = "cifar10"
+    cosine: bool = False
+    warm: bool = False
+    ckpt: str = ""
+    # accepted for the exit-75 relaunch contract: the probe keeps no
+    # full-state checkpoints, so it retrains from scratch
+    resume: str = ""
+    data_folder: str = "./datasets/"
+    size: int = 32
+    val_batch_size: int = 256  # main_ce.py:64-66
+    bf16: bool = False
+    seed: int = 0
+    workdir: str = "./work_space"
+    trial: str = "0"
+    device: str = "cuda"
+    # derived (finalize_linear)
+    n_cls: int = 10
+    warm_epochs: int = 10
+    warmup_from: float = 0.01
+    warmup_to: float = 0.0
+    model_name: str = ""
+    save_folder: str = ""
+
+
+N_CLASSES = {"cifar10": 10, "cifar100": 100, "synthetic": 10, "synthetic_hard": 10,
+             "synthetic_hard32": 32}
+
+
+def linear_parser() -> argparse.ArgumentParser:
+    """The probe's flags (JAX ``config.py:746``)."""
+    d = LinearConfig()
+    p = argparse.ArgumentParser("argument for training")
+    p.add_argument("--print_freq", type=int, default=d.print_freq)
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--epochs", type=int, default=d.epochs)
+    p.add_argument("--learning_rate", type=float, default=d.learning_rate)
+    p.add_argument("--lr_decay_epochs", type=str, default="60,75,90")
+    p.add_argument("--lr_decay_rate", type=float, default=d.lr_decay_rate)
+    p.add_argument("--weight_decay", type=float, default=d.weight_decay)
+    p.add_argument("--momentum", type=float, default=d.momentum)
+    p.add_argument("--model", type=str, default=d.model)
+    p.add_argument("--dataset", type=str, default=d.dataset, choices=list(DATASETS))
+    p.add_argument("--cosine", action="store_true")
+    p.add_argument("--warm", action="store_true")
+    p.add_argument("--ckpt", type=str, default=d.ckpt,
+                   help="the pretrained encoder: a .pth in the reference layout, or a "
+                        "run folder (its last.pth)")
+    p.add_argument("--resume", type=str, default=d.resume,
+                   help="accepted for the exit-75 relaunch contract (re-run the same "
+                        "command with --resume); the probe keeps no full-state "
+                        "checkpoints, so it retrains from scratch")
+    p.add_argument("--data_folder", type=str, default=d.data_folder)
+    p.add_argument("--val_batch_size", type=int, default=d.val_batch_size)
+    p.add_argument("--bf16", action="store_true",
+                   help="run the frozen encoder in bf16 compute; features, classifier "
+                        "and loss fp32")
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--workdir", type=str, default=d.workdir)
+    p.add_argument("--trial", type=str, default=d.trial)
+    p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
+    return p
+
+
+def parse_linear(argv=None) -> LinearConfig:
+    kwargs = vars(linear_parser().parse_args(argv))
+    kwargs["lr_decay_epochs"] = tuple(int(x) for x in kwargs["lr_decay_epochs"].split(","))
+    return finalize_linear(LinearConfig(**kwargs))
+
+
+def finalize_linear(cfg: LinearConfig) -> LinearConfig:
+    """Derived fields, replicating main_linear.py:65-114 (JAX
+    ``config.py:797``). The save folder is named here and created by the
+    driver."""
+    cfg.model_name = (
+        f"{cfg.dataset}_{cfg.model}_lr_{cfg.learning_rate}"
+        f"_decay_{cfg.weight_decay}_bsz_{cfg.batch_size}"
+    )
+    if cfg.cosine:
+        cfg.model_name = f"{cfg.model_name}_cosine"
+    if cfg.warm:
+        cfg.model_name = f"{cfg.model_name}_warm"
+        cfg.warmup_from = 0.01
+        cfg.warm_epochs = 10
+        cfg.warmup_to = warmup_to_value(
+            cfg.learning_rate, cfg.lr_decay_rate, cfg.warm_epochs, cfg.epochs, cfg.cosine
+        )
+    cfg.n_cls = N_CLASSES[cfg.dataset]
+    now_time = datetime.datetime.now().strftime("%m%d_%H%M")
+    cfg.save_folder = os.path.join(
+        cfg.workdir, f"{cfg.dataset}_models", f"classifier_{now_time}_{cfg.model_name}"
+    )
+    return cfg
+
+
+def config_dict(cfg) -> dict:
+    """The configuration as plain types (tuples as lists), for a
+    checkpoint's ``opt`` entry: ``torch.load(weights_only=True)`` reads it."""
+    return {k: list(v) if isinstance(v, tuple) else v
+            for k, v in dataclasses.asdict(cfg).items()}
 
 
 def impl_resolution_banner(flag: str, requested: str, resolved: str, reason: str) -> str:

@@ -1,4 +1,5 @@
-"""Projection head and the SupCon encoder+head model (reference resnet_big.py:159-181).
+"""Projection head, the SupCon encoder+head model (reference
+resnet_big.py:159-181) and the probe's linear classifier (resnet_big.py:196-204).
 
 ``SupConResNet`` returns the UNNORMALIZED embedding; L2 normalization happens
 in the train step, as in the JAX package and the reference driver. Linear
@@ -69,3 +70,17 @@ class SupConResNet(nn.Module):
         """``(projection, encoder_features)`` from one backbone forward."""
         h = self.encoder(x)
         return head_forward(self.head, h, self.encoder.compute_dtype), h
+
+
+class LinearClassifier(nn.Module):
+    """The linear probe over encoder features (JAX ``models/heads.py:234``):
+    one ``nn.Linear`` named ``fc`` (state-dict names ``fc.weight`` and
+    ``fc.bias``), torch's default init, fp32."""
+
+    def __init__(self, model_name: str = "resnet50", num_classes: int = 10):
+        super().__init__()
+        _, feat_dim = MODEL_DICT[model_name]
+        self.fc = nn.Linear(feat_dim, num_classes)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        return self.fc(features)

@@ -19,6 +19,11 @@ The generators of JAX and torch give different numbers from one seed, so the
 tests hand both packages the same explicit parameters and check the
 samplers by distribution.
 
+The probe's stack (``color_ops=False``, reference ``main_ce.py:31-41``) is
+the crop and the flip alone, one view per image (:func:`augment_batch`);
+its validation transform is to-float and normalize only
+(:func:`eval_batch`).
+
 Images are NHWC; ops take and return floats in [0, 1] until normalization.
 The crop+resize is two interpolation matmuls (half-pixel centers, samples
 clamped to the crop box), as in the JAX package.
@@ -54,6 +59,8 @@ class AugmentConfig:
     grayscale_prob: float = 0.2
     mean: Tuple[float, ...] = DATASET_STATS["cifar10"][0]
     std: Tuple[float, ...] = DATASET_STATS["cifar10"][1]
+    # the probe's stack drops jitter and grayscale (main_ce.py:31-36)
+    color_ops: bool = True
 
 
 def _uniform(gen, shape, lo, hi, device):
@@ -69,7 +76,8 @@ def sample_view_params(
     Returns ``top, left, h, w`` (crop box, float ``[n]``), ``flip``,
     ``jitter``, ``gray`` (bool ``[n]``), ``factors`` (``[n, 4]``:
     brightness, contrast, saturation, hue) and ``order`` (``[n, 4]``, a
-    permutation of the op indices 0..3 per view).
+    permutation of the op indices 0..3 per view). Without
+    ``cfg.color_ops`` only the crop box and ``flip`` are drawn.
     """
     dev = generator.device
     area = float(height * width)
@@ -104,6 +112,8 @@ def sample_view_params(
         any_valid, torch.floor(u[:, 1] * (width - w + 1)), torch.round((width - w) / 2.0)
     )
     flip = torch.rand(n, generator=generator, device=dev) < 0.5
+    if not cfg.color_ops:
+        return {"top": top, "left": left, "h": h, "w": w, "flip": flip}
     jitter = torch.rand(n, generator=generator, device=dev) < cfg.jitter_prob
     b, c, s, hue = cfg.jitter_strength
     factors = torch.stack(
@@ -238,9 +248,10 @@ def apply_views(images_u8: torch.Tensor, params: Dict[str, torch.Tensor], cfg: A
     img = images_u8.to(torch.float32) / 255.0
     img = crop_and_resize(img, params["top"], params["left"], params["h"], params["w"], cfg.size)
     img = torch.where(_per_view(params["flip"]), img.flip(2), img)
-    jittered = color_jitter(img, params["factors"], params["order"])
-    img = torch.where(_per_view(params["jitter"]), jittered, img)
-    img = torch.where(_per_view(params["gray"]), _grayscale(img).expand_as(img), img)
+    if cfg.color_ops:
+        jittered = color_jitter(img, params["factors"], params["order"])
+        img = torch.where(_per_view(params["jitter"]), jittered, img)
+        img = torch.where(_per_view(params["gray"]), _grayscale(img).expand_as(img), img)
     return normalize(img, cfg.mean, cfg.std)
 
 
@@ -251,3 +262,16 @@ def two_crop_batch(generator: torch.Generator, images_u8: torch.Tensor, cfg: Aug
     params = sample_view_params(generator, 2 * b, height, width, cfg)
     views = apply_views(images_u8.repeat_interleave(2, dim=0), params, cfg)
     return views.reshape((b, 2) + views.shape[1:])
+
+
+def augment_batch(generator: torch.Generator, images_u8: torch.Tensor, cfg: AugmentConfig):
+    """One augmented view per image (the probe's train transform): uint8
+    ``[B, H, W, C]`` -> ``[B, size, size, C]`` float."""
+    b, height, width = images_u8.shape[0], images_u8.shape[1], images_u8.shape[2]
+    return apply_views(images_u8, sample_view_params(generator, b, height, width, cfg), cfg)
+
+
+def eval_batch(images_u8: torch.Tensor, cfg: AugmentConfig):
+    """The validation transform: to-float and normalize only
+    (``main_ce.py:38-41``)."""
+    return normalize(images_u8.to(torch.float32) / 255.0, cfg.mean, cfg.std)

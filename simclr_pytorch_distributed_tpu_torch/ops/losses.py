@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def supcon_loss(
@@ -81,3 +82,9 @@ def supcon_loss(
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Row-wise L2 normalization with a zero-row guard."""
     return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=eps)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy with integer labels, the probe's loss
+    (JAX ``ops/losses.py:246``; reference ``main_linear.py:121, 173``)."""
+    return F.cross_entropy(logits, labels.long())

@@ -1,0 +1,276 @@
+"""Linear-probe driver (reference ``main_linear.py``) on one device.
+
+    python -m simclr_pytorch_distributed_tpu_torch.train.linear \\
+        --dataset synthetic --model resnet50 --ckpt <pretrain run>/last.pth
+
+The JAX package's ``train/linear.py`` (``stats_for :95``, ``build_probe
+:101``, the train step ``:197``, the eval step ``:219``, ``run_validation
+:242``, ``run :273``, ``main :533``), eagerly:
+
+- the pretrained encoder is frozen and in eval mode: BN normalizes with its
+  running statistics and nothing in it updates (``model.eval()``, its
+  parameters ``requires_grad_(False)``, features under ``torch.no_grad()``,
+  cast to fp32). The eval-mode encoder never reaches the fused conv kernels
+  (they serve train mode only), as the JAX model's Pallas branches are
+  gated on ``train``;
+- the train transform is the crop and flip alone, one view an image, the
+  validation transform normalize only (``main_ce.py:31-41``);
+- SGD on the classifier alone, with the per-iteration schedule (step decay
+  60/75/90 x 0.2 by default), cross-entropy, top-1/top-5 per step from one
+  readback;
+- validation over the whole test split every epoch, the tail batch as it
+  is; the best top-1 and its top-5 are kept, the best classifier is saved
+  as ``classifier_best.pth`` and ``best accuracy: X, accuracy5: Y`` is
+  logged at the end (the line ``scripts/ratchet.py`` reads).
+
+The probe keeps no full-state checkpoints: ``--resume`` is accepted and
+retrains from scratch. SIGTERM/SIGINT stop it after the step in flight; it
+saves the best classifier so far and exits 75. The run is on ``cuda``
+unless ``--device cpu`` is given, and raises when CUDA is asked for and
+absent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from simclr_pytorch_distributed_tpu_torch import config as config_lib
+from simclr_pytorch_distributed_tpu_torch.data.cifar import load_dataset
+from simclr_pytorch_distributed_tpu_torch.data.pipeline import EpochLoader
+from simclr_pytorch_distributed_tpu_torch.models import LinearClassifier, SupConResNet
+from simclr_pytorch_distributed_tpu_torch.ops.augment import (
+    DATASET_STATS,
+    AugmentConfig,
+    augment_batch,
+    eval_batch,
+)
+from simclr_pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss
+from simclr_pytorch_distributed_tpu_torch.ops.metrics import AverageMeter, topk_correct
+from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
+from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+from simclr_pytorch_distributed_tpu_torch.train.supcon import compute_dtype, resolve_device
+from simclr_pytorch_distributed_tpu_torch.utils import preempt
+from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
+    load_model_state,
+    save_classifier,
+)
+from simclr_pytorch_distributed_tpu_torch.utils.guard import exit_with_code
+from simclr_pytorch_distributed_tpu_torch.utils.logging_utils import setup_logging
+
+
+def stats_for(dataset: str) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+    if dataset in DATASET_STATS:
+        return DATASET_STATS[dataset]
+    return ((0.5, 0.5, 0.5), (0.25, 0.25, 0.25))  # the synthetic sets
+
+
+def load_encoder(model: SupConResNet, state_dict: Dict[str, torch.Tensor]) -> None:
+    """The ``encoder.`` entries of a ``SupConResNet`` state dict into
+    ``model.encoder`` (strict); the projection head is not the probe's."""
+    prefix = "encoder."
+    model.encoder.load_state_dict(
+        {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    )
+
+
+def build_probe(
+    cfg: config_lib.LinearConfig, steps_per_epoch: int, device: torch.device
+) -> Tuple[SupConResNet, TrainState]:
+    """``(model, state)``: the frozen eval-mode encoder (from ``--ckpt``,
+    else a random init from ``cfg.seed``) in the compute dtype of
+    ``--bf16`` on ``device``, and the classifier's train state (its SGD
+    and the per-iteration schedule)."""
+    torch.manual_seed(cfg.seed)
+    model = SupConResNet(cfg.model)
+    if cfg.ckpt:
+        load_encoder(model, load_model_state(cfg.ckpt))
+        logging.info("loaded encoder from %s", cfg.ckpt)
+    else:
+        logging.warning("--ckpt not given: probing a RANDOM encoder")
+    model.encoder.set_compute_dtype(compute_dtype(cfg.bf16))
+    model = model.to(device=device, memory_format=torch.channels_last).eval()
+    model.requires_grad_(False)
+    classifier = LinearClassifier(cfg.model, cfg.n_cls).to(device)
+    schedule = make_lr_schedule(
+        learning_rate=cfg.learning_rate, epochs=cfg.epochs,
+        steps_per_epoch=steps_per_epoch, cosine=cfg.cosine,
+        lr_decay_rate=cfg.lr_decay_rate, lr_decay_epochs=cfg.lr_decay_epochs,
+        warm=cfg.warm, warm_epochs=cfg.warm_epochs, warmup_from=cfg.warmup_from,
+    )
+    optimizer = make_optimizer(classifier, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    return model, TrainState(model=classifier, optimizer=optimizer, schedule=schedule)
+
+
+def encode(model: SupConResNet, images: torch.Tensor) -> torch.Tensor:
+    """Frozen fp32 features of normalized NHWC ``images``; no graph."""
+    with torch.no_grad():
+        return model.encode(images).float()
+
+
+def probe_step(
+    model: SupConResNet, state: TrainState, images: torch.Tensor, labels: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """One classifier update on augmented ``images`` (JAX
+    ``train/linear.py:197``). Returns ``loss`` and the top-1/top-5 correct
+    counts as 0-dim tensors on the device; nothing here waits for it."""
+    logits = state.model(encode(model, images))
+    loss = cross_entropy_loss(logits, labels)
+    state.set_learning_rate()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    correct = topk_correct(logits.detach(), labels)
+    return {"loss": loss.detach(), "top1": correct[1], "top5": correct[5]}
+
+
+def run_validation(
+    model: SupConResNet, classifier: torch.nn.Module, images: np.ndarray, labels: np.ndarray,
+    batch_size: int, aug_cfg: AugmentConfig, device: torch.device,
+) -> Dict[str, float]:
+    """Loss, top-1 and top-5 (percent) over the whole split (reference
+    ``validate()``, ``main_linear.py:204-244``): every example counts once,
+    the tail batch as it is; the sums stay on the device until one
+    readback."""
+    sums = torch.zeros(3, dtype=torch.float64, device=device)
+    with torch.no_grad():
+        for lo in range(0, len(images), batch_size):
+            x = torch.from_numpy(images[lo:lo + batch_size]).to(device, non_blocking=True)
+            y = torch.from_numpy(labels[lo:lo + batch_size]).to(device, non_blocking=True).long()
+            logits = classifier(encode(model, eval_batch(x, aug_cfg)))
+            correct = topk_correct(logits, y)
+            sums += torch.stack([F.cross_entropy(logits, y, reduction="sum").double(),
+                                 correct[1].double(), correct[5].double()])
+    loss_sum, top1, top5 = sums.tolist()
+    n = len(images)
+    return {"loss": loss_sum / n, "top1": 100.0 * top1 / n, "top5": 100.0 * top5 / n}
+
+
+@dataclasses.dataclass
+class ProbeResult:
+    """``best_acc``/``best_acc5`` are the JAX driver's return pair.
+    ``history`` has one entry a step (``loss``, ``top1``/``top5`` in
+    percent, ``step_time`` from the batch's copy to the readback),
+    ``val_history`` one an epoch (``loss``, ``top1``, ``top5``,
+    ``seconds``)."""
+
+    best_acc: float
+    best_acc5: float
+    model: SupConResNet
+    state: TrainState
+    history: List[Dict[str, float]]
+    val_history: List[Dict[str, float]]
+    save_folder: str
+    classifier_path: Optional[str]
+
+
+def train_epoch(
+    epoch: int, loader: EpochLoader, model: SupConResNet, state: TrainState,
+    aug_cfg: AugmentConfig, generator: torch.Generator, cfg: config_lib.LinearConfig,
+    device: torch.device, history: List[Dict[str, float]],
+) -> Tuple[float, bool]:
+    """One probe epoch. Returns ``(train top-1 average, preempted)``;
+    ``preempted`` when a signal arrived, after the step in flight."""
+    batch_time, losses, top1 = AverageMeter(), AverageMeter(), AverageMeter()
+    steps = len(loader)
+    end = time.time()
+    for idx, (images_u8, labels) in enumerate(loader.epoch(epoch)):
+        t0 = time.time()
+        x = torch.from_numpy(images_u8).to(device, non_blocking=True)
+        y = torch.from_numpy(labels).to(device, non_blocking=True).long()
+        m = probe_step(model, state, augment_batch(generator, x, aug_cfg), y)
+        loss, c1, c5 = torch.stack([m["loss"], m["top1"].float(), m["top5"].float()]).tolist()
+        bsz = len(labels)
+        history.append({"epoch": epoch, "step": state.step - 1, "loss": loss,
+                        "top1": 100.0 * c1 / bsz, "top5": 100.0 * c5 / bsz,
+                        "step_time": time.time() - t0})
+        losses.update(loss, bsz)
+        top1.update(100.0 * c1 / bsz, bsz)
+        batch_time.update(time.time() - end)
+        if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
+            logging.info(
+                "Train: [%d][%d/%d]\tBT %.3f (%.3f)\tloss %.3f (%.3f)\tAcc@1 %.3f (%.3f)",
+                epoch, idx + 1, steps, batch_time.val, batch_time.avg,
+                losses.val, losses.avg, top1.val, top1.avg,
+            )
+        if preempt.requested():
+            return top1.avg, True
+        end = time.time()
+    return top1.avg, False
+
+
+def run(cfg: config_lib.LinearConfig) -> ProbeResult:
+    device = resolve_device(cfg.device)
+    setup_logging(cfg.save_folder)
+    logging.info(
+        "device: %s (%s)", device,
+        torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU",
+    )
+    train_data, test_data, cfg.n_cls = load_dataset(cfg.dataset, cfg.data_folder)
+    loader = EpochLoader(
+        train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed
+    )
+    model, state = build_probe(cfg, len(loader), device)
+    mean, std = stats_for(cfg.dataset)
+    aug_cfg = AugmentConfig(size=cfg.size, mean=mean, std=std, color_ops=False)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed + 1)
+    if cfg.resume:
+        logging.warning("--resume %s: the probe keeps no full-state checkpoints; "
+                        "retraining from scratch", cfg.resume)
+    best_acc, best_acc5, best_state = 0.0, 0.0, None
+    history: List[Dict[str, float]] = []
+    val_history: List[Dict[str, float]] = []
+    preempted = False
+    preempt.install()
+    try:
+        for epoch in range(1, cfg.epochs + 1):
+            t1 = time.time()
+            train_top1, preempted = train_epoch(
+                epoch, loader, model, state, aug_cfg, generator, cfg, device, history
+            )
+            if preempted:
+                logging.warning("preempted (%s) during epoch %d: stopping the probe",
+                                preempt.signal_name(), epoch)
+                break
+            logging.info("Train epoch %d, total time %.2f, accuracy:%.2f",
+                         epoch, time.time() - t1, train_top1)
+            t2 = time.time()
+            val = run_validation(model, state.model, test_data["images"], test_data["labels"],
+                                 cfg.val_batch_size, aug_cfg, device)
+            val["seconds"] = time.time() - t2
+            val_history.append(val)
+            logging.info(" * Acc@1 %.3f, Acc@5 %.3f", val["top1"], val["top5"])
+            if val["top1"] > best_acc:
+                best_acc, best_acc5 = val["top1"], val["top5"]
+                best_state = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    finally:
+        preempt.uninstall()
+    path = None
+    if best_state is not None:
+        path = save_classifier(cfg.save_folder, best_state, best_acc)
+        logging.info("saved best classifier to %s", path)
+    logging.info("best accuracy: %.2f, accuracy5: %.2f", best_acc, best_acc5)
+    if preempted:
+        raise SystemExit(preempt.EXIT_PREEMPTED)
+    return ProbeResult(best_acc=best_acc, best_acc5=best_acc5, model=model, state=state,
+                       history=history, val_history=val_history,
+                       save_folder=cfg.save_folder, classifier_path=path)
+
+
+def main(argv=None) -> ProbeResult:
+    """Exit codes: 0 a clean run, 75 preempted (the best classifier so far
+    saved)."""
+    cfg = config_lib.parse_linear(argv)
+    return exit_with_code(lambda: run(cfg))
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,21 @@ step (forward, loss, backward, SGD) -> one readback of the step's metrics
 for the meters and the progress line -> checkpoints at ``--save_freq`` and
 as ``last.pth``. The run is on ``cuda`` unless ``--device cpu`` is given,
 and raises when CUDA is asked for and absent.
+
+Warm start, resume and exits (JAX ``train/supcon.py:770-798, 905-1010``):
+
+- ``--ckpt``: the model's weights and BN buffers from a ``.pth``; SGD,
+  step and generator start fresh.
+- ``--resume``: the full training state (``utils/checkpoint.py``); the
+  run re-enters the epoch at the first step not taken, and goes on as the
+  run that did not stop would have, bit for bit.
+- ``--nan_guard`` (on by default): a non-finite loss saves
+  ``crash_epoch_{e}.pth`` from a copy of the epoch-top state held on the
+  device and exits 1.
+- SIGTERM/SIGINT: the step in flight finishes, the state is saved as
+  ``preempt_epoch_{e}_step_{k}.pth`` (or at an epoch boundary as
+  ``preempt_epoch_{e}.pth``, unless the scheduled save covers it) and the
+  run exits 75 (``utils/preempt.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +33,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -40,7 +55,20 @@ from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
     SupConStepConfig,
     train_step,
 )
-from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import save_model
+from simclr_pytorch_distributed_tpu_torch.utils import preempt
+from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
+    capture_state,
+    load_model_state,
+    restore_checkpoint,
+    resolve_resume_path,
+    resume_position,
+    save_checkpoint,
+)
+from simclr_pytorch_distributed_tpu_torch.utils.guard import (
+    NonFiniteLossError,
+    check_finite_loss,
+    exit_with_code,
+)
 from simclr_pytorch_distributed_tpu_torch.utils.logging_utils import setup_logging
 
 
@@ -193,10 +221,13 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
 def train_one_epoch(
     epoch: int, loader: EpochLoader, state: TrainState, step_cfg: SupConStepConfig,
     aug_cfg: AugmentConfig, generator: torch.Generator, cfg: config_lib.SupConConfig,
-    device: torch.device, history: List[Dict[str, float]],
-) -> None:
-    """One epoch (reference ``train()``, ``main_supcon.py:242-351``); appends
-    each step's metrics, as floats, to ``history``.
+    device: torch.device, history: List[Dict[str, float]], start_step: int = 0,
+) -> Optional[int]:
+    """One epoch from its step ``start_step`` (reference ``train()``,
+    ``main_supcon.py:242-351``); appends each step's metrics, as floats, to
+    ``history``. Raises ``NonFiniteLossError`` on a non-finite loss under
+    ``--nan_guard``. Returns the steps of the epoch taken when a preemption
+    was requested before its last step, else ``None``.
 
     ``step_time`` in a history entry is the wall time from the batch's copy
     to the device to the readback of the step's metrics, which waits for the
@@ -205,7 +236,8 @@ def train_one_epoch(
     steps = len(loader)
     device_keys = [k for k in METRIC_KEYS if k != "learning_rate"]
     end = time.time()
-    for idx, (images_u8, labels) in enumerate(loader.epoch(epoch)):
+    batches = enumerate(loader.epoch(epoch, start_step), start=start_step)
+    for idx, (images_u8, labels) in batches:
         data_time.update(time.time() - end)
         t0 = time.time()
         images = torch.from_numpy(images_u8).to(device, non_blocking=True)
@@ -216,6 +248,7 @@ def train_one_epoch(
         host = dict(zip(device_keys, values), learning_rate=float(metrics["learning_rate"]))
         host.update(epoch=epoch, step=state.step - 1, step_time=time.time() - t0)
         history.append(host)
+        check_finite_loss(host["loss"], state.step - 1, cfg.nan_guard)
         losses.update(host["loss"], cfg.batch_size)
         batch_time.update(time.time() - end)
         if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
@@ -226,7 +259,10 @@ def train_one_epoch(
                 data_time.val, data_time.avg, losses.val, losses.avg,
                 host["norm_mean"], host["record_norm_mean"], host["norm_var"],
             )
+        if idx + 1 < steps and preempt.requested():
+            return idx + 1
         end = time.time()
+    return None
 
 
 @dataclasses.dataclass
@@ -251,27 +287,70 @@ def run(cfg: config_lib.SupConConfig) -> RunResult:
     aug_cfg = make_augment_config(cfg)
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed + 1)
+    start_epoch, start_step = 1, 0
+    if cfg.ckpt:
+        # warm start: weights and BN buffers only (main_supcon.py:216-220)
+        state.model.load_state_dict(load_model_state(cfg.ckpt))
+        logging.info("load model from %s ...", cfg.ckpt)
+    if cfg.resume:
+        resume_path = resolve_resume_path(cfg.resume)
+        meta = restore_checkpoint(resume_path, state, generator)
+        start_epoch, start_step = resume_position(meta, len(loader))
+        logging.info("resumed from %s at epoch %d step %d",
+                     resume_path, start_epoch, start_step)
+
+    def save(name: str, snapshot: dict, epoch: int, step_in_epoch: int = 0) -> str:
+        return save_checkpoint(os.path.join(cfg.save_folder, name), snapshot, cfg,
+                               epoch, step_in_epoch)
+
+    def exit_preempted(path: str) -> None:
+        logging.warning("preempted (%s): state saved at %s; exiting %d (resume with "
+                        "--resume %s)", preempt.signal_name(), path,
+                        preempt.EXIT_PREEMPTED, cfg.save_folder)
+        raise SystemExit(preempt.EXIT_PREEMPTED)
+
     history: List[Dict[str, float]] = []
-    for epoch in range(1, cfg.epochs + 1):
-        t1 = time.time()
-        train_one_epoch(
-            epoch, loader, state, step_cfg, aug_cfg, generator, cfg, device, history
-        )
-        logging.info("epoch %d, total time %.2f", epoch, time.time() - t1)
-        if epoch % cfg.save_freq == 0:
-            save_model(
-                state.model, state.optimizer, cfg, epoch,
-                os.path.join(cfg.save_folder, f"ckpt_epoch_{epoch}.pth"),
-            )
-    save_model(
-        state.model, state.optimizer, cfg, cfg.epochs,
-        os.path.join(cfg.save_folder, "last.pth"),
-    )
+    preempt.install()
+    try:
+        for epoch in range(start_epoch, cfg.epochs + 1):
+            t1 = time.time()
+            ss = start_step if epoch == start_epoch else 0
+            # the step updates the state in place: the crash save needs a
+            # copy of the epoch top, taken on the device
+            backup = capture_state(state, generator, copy=True) if cfg.nan_guard else None
+            try:
+                stopped_at = train_one_epoch(
+                    epoch, loader, state, step_cfg, aug_cfg, generator, cfg, device,
+                    history, start_step=ss,
+                )
+            except NonFiniteLossError:
+                # step_in_epoch = ss: after a mid-epoch resume the backup
+                # sits mid-epoch, and its resume must not replay those steps
+                path = save(f"crash_epoch_{epoch}.pth", backup, epoch - 1, ss)
+                logging.error("non-finite loss: saved %s", path)
+                raise
+            if stopped_at is not None:
+                exit_preempted(save(f"preempt_epoch_{epoch}_step_{stopped_at}.pth",
+                                    capture_state(state, generator), epoch - 1, stopped_at))
+            logging.info("epoch %d, total time %.2f", epoch, time.time() - t1)
+            path = None
+            if epoch % cfg.save_freq == 0:
+                path = save(f"ckpt_epoch_{epoch}.pth", capture_state(state, generator), epoch)
+            if preempt.requested():
+                # the signal came during the epoch's last step
+                exit_preempted(path or save(f"preempt_epoch_{epoch}.pth",
+                                            capture_state(state, generator), epoch))
+        save("last.pth", capture_state(state, generator), cfg.epochs)
+    finally:
+        preempt.uninstall()
     return RunResult(state=state, history=history, save_folder=cfg.save_folder)
 
 
 def main(argv=None) -> RunResult:
-    return run(config_lib.parse_supcon(argv))
+    """Exit codes (``utils/guard.py``): 0 a clean run, 1 a non-finite loss,
+    75 preempted with the state saved."""
+    cfg = config_lib.parse_supcon(argv)
+    return exit_with_code(lambda: run(cfg))
 
 
 if __name__ == "__main__":

@@ -1,34 +1,215 @@
-"""Checkpoints in the reference's ``.pth`` layout (reference ``util.py:87-96``).
+"""Checkpoints in the reference's ``.pth`` layout (reference ``util.py:87-96``),
+with the full training state a resume needs.
 
-``{'opt', 'model', 'optimizer', 'epoch'}`` via ``torch.save``: ``'model'``
-is the ``SupConResNet`` state dict with the ``'module.'`` prefix the
-reference's DDP-wrapped model carries, ``'optimizer'`` the SGD state dict,
-``'opt'`` the run's configuration as a plain dict. The JAX package's
-``convert_reference_checkpoint`` reads such a file as it is.
+A pretrain checkpoint is ``torch.save`` of a dict holding the reference's
+four keys, ``'opt'`` (the run's configuration as plain types), ``'model'``
+(the ``SupConResNet`` state dict with the ``'module.'`` prefix of the
+reference's DDP-wrapped model), ``'optimizer'`` (the SGD state dict) and
+``'epoch'`` (completed epochs), so the JAX package's
+``convert_reference_checkpoint`` reads it as it is. Beside them:
+``'step'`` (the global step), ``'step_in_epoch'`` (steps of the next epoch
+already taken; nonzero only in a mid-epoch preemption or crash save),
+``'record_norm_mean'``, ``'generator'`` (the augmentation generator's
+``get_state()``) with ``'generator_device'``, and ``'seed'``. Every value is
+a tensor or a plain type, so ``torch.load(weights_only=True)`` reads it.
+
+Files are written through a temporary name and renamed, so a crash
+mid-write never leaves a truncated file under a checkpoint's name. The
+JAX counterparts: ``resume_position`` ``utils/checkpoint.py:96``,
+``resolve_resume_path :372``, ``restore_checkpoint :428``,
+``save_classifier :567``, ``load_classifier :577``.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import glob
+import logging
 import os
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from simclr_pytorch_distributed_tpu_torch.config import config_dict
 
-def save_model(model, optimizer, cfg, epoch: int, path: str) -> None:
-    """Write the checkpoint to ``path`` through a temporary file, so a
-    crash mid-write never leaves a truncated file under the final name."""
-    opt = {
-        k: list(v) if isinstance(v, tuple) else v
-        for k, v in dataclasses.asdict(cfg).items()
-    }
-    state = {
-        "opt": opt,
-        "model": {f"module.{k}": v.detach().cpu() for k, v in model.state_dict().items()},
-        "optimizer": optimizer.state_dict(),
-        "epoch": int(epoch),
-    }
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+CLASSIFIER_FILE = "classifier_best.pth"
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
+
+
+def _atomic_save(obj, path: str) -> str:
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp"
-    torch.save(state, tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
+    return path
+
+
+def _load(path: str, mmap: bool = False) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=mmap)
+
+
+def _strip_module(state_dict) -> Dict[str, torch.Tensor]:
+    return {k.removeprefix("module."): v for k, v in state_dict.items()}
+
+
+def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict:
+    """What a resume needs of ``state`` (a ``train.state.TrainState``) and
+    the augmentation ``generator``. ``copy=True`` clones every tensor where
+    it lies (the drivers' epoch-top backup, held on the device); otherwise
+    the entries alias the live tensors and must be saved before the next
+    step."""
+    clone = (lambda t: t.detach().clone()) if copy else (lambda t: t.detach())
+    record = state.record_norm_mean
+    return {
+        "model": _tree_map(clone, state.model.state_dict()),
+        "optimizer": _tree_map(clone, state.optimizer.state_dict()),
+        "step": int(state.step),
+        "record_norm_mean": None if record is None else clone(record),
+        "generator": generator.get_state(),
+        "generator_device": generator.device.type,
+    }
+
+
+def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: int = 0) -> str:
+    """Write ``snapshot`` (:func:`capture_state`) with the run's ``cfg`` to
+    ``path``; ``epoch`` counts completed epochs, ``step_in_epoch`` the
+    steps of the next one already taken. Returns the absolute path."""
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    record = snapshot["record_norm_mean"]
+    payload = {
+        "opt": config_dict(cfg),
+        "model": {f"module.{k}": cpu(v) for k, v in snapshot["model"].items()},
+        "optimizer": _tree_map(cpu, snapshot["optimizer"]),
+        "epoch": int(epoch),
+        "step": int(snapshot["step"]),
+        "step_in_epoch": int(step_in_epoch),
+        "record_norm_mean": None if record is None else cpu(record),
+        "generator": snapshot["generator"].cpu(),
+        "generator_device": snapshot["generator_device"],
+        "seed": int(cfg.seed),
+    }
+    return _atomic_save(payload, path)
+
+
+def load_model_state(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict (CPU tensors, ``'module.'`` stripped) of a
+    ``.pth`` in the reference layout: one this package writes, the
+    reference's own, or the JAX package's ``export_reference_checkpoint``.
+    A run folder resolves to its ``last.pth``."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "last.pth")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    ckpt = _load(path)
+    state_dict = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
+    return _strip_module(state_dict)
+
+
+def resume_position(meta: dict, steps_per_epoch: int) -> Tuple[int, int]:
+    """``(start_epoch, start_step)`` from a checkpoint's ``epoch`` and
+    ``step_in_epoch``. An offset at or past ``steps_per_epoch`` (the
+    configuration changed across the resume) and an unparsable one both
+    degrade, with a warning, to the next epoch boundary and the epoch's
+    start."""
+    start_epoch = int(meta.get("epoch", 0)) + 1
+    try:
+        start_step = int(meta.get("step_in_epoch") or 0)
+    except (TypeError, ValueError):
+        logging.warning(
+            "unparseable step_in_epoch %r in checkpoint meta; resuming at "
+            "the epoch boundary", meta.get("step_in_epoch"),
+        )
+        start_step = 0
+    if start_step >= steps_per_epoch:
+        logging.warning(
+            "checkpoint step_in_epoch %d >= %d steps/epoch (config changed "
+            "across resume?); starting at the next epoch",
+            start_step, steps_per_epoch,
+        )
+        start_epoch += 1
+        start_step = 0
+    return start_epoch, start_step
+
+
+def _progress(meta: dict) -> Optional[Tuple[int, int]]:
+    if "epoch" not in meta or "step" not in meta:
+        return None  # not a full-state checkpoint
+    try:
+        step = int(meta.get("step_in_epoch") or 0)
+    except (TypeError, ValueError):
+        step = 0
+    return int(meta["epoch"]), step
+
+
+def resolve_resume_path(path: str) -> str:
+    """A full-state ``.pth`` as it is, or a run folder's latest complete
+    checkpoint: the one with the most progress, ``(epoch, step_in_epoch)``
+    in order, a scheduled save (``ckpt_epoch_N``, ``last``) winning a tie
+    with a crash or preemption save. A file that does not load (a torn
+    write) never wins."""
+    path = os.path.abspath(path)
+    if os.path.isfile(path):
+        return path
+    candidates = []
+    for name in sorted(glob.glob(os.path.join(path, "*.pth"))):
+        try:
+            progress = _progress(_load(name, mmap=True))
+        except Exception:  # noqa: BLE001 - a torn or foreign file is skipped
+            continue
+        if progress is not None:
+            scheduled = 0 if os.path.basename(name).startswith(("crash", "preempt")) else 1
+            candidates.append((*progress, scheduled, name))
+    if not candidates:
+        raise FileNotFoundError(f"{path} holds no complete full-state checkpoint (*.pth)")
+    return max(candidates)[3]
+
+
+def restore_checkpoint(path: str, state, generator: torch.Generator) -> dict:
+    """Restore the model, the SGD buffers, ``step``, ``record_norm_mean``
+    and the augmentation generator from ``path`` into ``state`` (a
+    ``train.state.TrainState`` built as the saving run built it) and
+    ``generator``. Returns the checkpoint's ``epoch``, ``step_in_epoch``,
+    ``step`` and ``seed``."""
+    ckpt = _load(path)
+    if _progress(ckpt) is None or "generator" not in ckpt:
+        raise ValueError(f"{path} holds no full training state (keys {sorted(ckpt)}); "
+                         "warm-start from it with --ckpt instead")
+    if ckpt["generator_device"] != generator.device.type:
+        raise ValueError(f"{path} holds a {ckpt['generator_device']} generator state; this "
+                         f"run's augmentation generator is on {generator.device.type}")
+    state.model.load_state_dict(_strip_module(ckpt["model"]))
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step"])
+    record = ckpt["record_norm_mean"]
+    device = next(state.model.parameters()).device
+    state.record_norm_mean = None if record is None else record.to(device)
+    generator.set_state(ckpt["generator"])
+    return {k: ckpt[k] for k in ("epoch", "step_in_epoch", "step", "seed")}
+
+
+def save_classifier(save_folder: str, classifier_state: Dict[str, torch.Tensor],
+                    best_acc: float) -> str:
+    """Write the best probe classifier's state dict and its top-1 to
+    ``<save_folder>/classifier_best.pth``; returns the path."""
+    payload = {
+        "model": {k: v.detach().cpu() for k, v in classifier_state.items()},
+        "best_acc": float(best_acc),
+    }
+    return _atomic_save(payload, os.path.join(save_folder, CLASSIFIER_FILE))
+
+
+def load_classifier(path: str) -> Dict[str, torch.Tensor]:
+    """The classifier state dict :func:`save_classifier` wrote (``path`` is
+    the file or its run folder)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, CLASSIFIER_FILE)
+    return _load(path)["model"]

@@ -13,7 +13,10 @@ copy of that mapping (the port imports nothing of the JAX package):
 - ``encoder/layer{L}_block{i}/Conv_{k-1}`` <-> ``encoder.layer{L}.{i}.conv{k}``,
   ``shortcut_conv``/``shortcut_bn`` <-> ``shortcut.0``/``shortcut.1``;
 - ``proj_head/fc1|fc2`` <-> ``head.0|head.2`` (mlp), ``proj_head/fc`` <->
-  ``head`` (linear).
+  ``head`` (linear);
+- the probe's ``LinearClassifier`` params ``fc/kernel [in, out]``, ``fc/bias``
+  <-> ``fc.weight [out, in]``, ``fc.bias`` (:func:`classifier_params_to_state_dict`
+  and back).
 """
 
 from __future__ import annotations
@@ -164,3 +167,26 @@ def state_dict_to_variables(state_dict) -> dict:
     if leftover:
         raise ValueError(f"unmapped state-dict keys: {sorted(leftover)[:8]}")
     return {"params": params, "batch_stats": stats}
+
+
+def classifier_params_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``LinearClassifier`` param tree ``{'fc': {'kernel', 'bias'}}``
+    -> the port's ``LinearClassifier`` state dict (CPU tensors, copies)."""
+    fc = params["fc"]
+    return {
+        "fc.weight": torch.from_numpy(np.array(np.asarray(fc["kernel"], np.float32).T)),
+        "fc.bias": torch.from_numpy(np.array(fc["bias"], dtype=np.float32)),
+    }
+
+
+def classifier_state_dict_to_params(state_dict) -> dict:
+    """The inverse: ``fc.weight``/``fc.bias`` -> ``{'fc': {'kernel', 'bias'}}``
+    of numpy copies. Raises on any other key."""
+    extra = set(state_dict) - {"fc.weight", "fc.bias"}
+    if extra:
+        raise ValueError(f"unmapped classifier keys: {sorted(extra)}")
+    weight = state_dict["fc.weight"].detach().cpu().numpy()
+    return {"fc": {
+        "kernel": np.ascontiguousarray(weight.T, dtype=np.float32),
+        "bias": np.array(state_dict["fc.bias"].detach().cpu().numpy(), dtype=np.float32),
+    }}

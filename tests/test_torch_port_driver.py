@@ -3,7 +3,8 @@
 ``train.supcon.main`` runs one epoch of rn10 at 8 px with the fused loss
 (on CPU tensors its plain forms), writes the reference ``log-ing`` lines
 and a ``last.pth`` in the reference ``.pth`` layout. The JAX package reads
-that file, both through ``torch_state_dict_to_variables`` and through
+that file (the reference layout's four keys beside the resume state),
+both through ``torch_state_dict_to_variables`` and through
 ``convert_reference_checkpoint``, and its eval forward of the tree matches
 the port's (rtol 1e-3 / atol 1e-4). Without ``--device cpu`` on a host with
 no CUDA, ``main`` raises.
@@ -51,7 +52,9 @@ def test_runs_an_epoch_and_logs_like_the_reference(run):
 def test_last_checkpoint_loads_into_the_jax_package(run, tmp_path):
     path = os.path.join(run.save_folder, "last.pth")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    assert sorted(ckpt) == ["epoch", "model", "opt", "optimizer"]
+    # the reference layout's four keys, and the full state a resume needs
+    assert sorted(ckpt) == ["epoch", "generator", "generator_device", "model", "opt",
+                            "optimizer", "record_norm_mean", "seed", "step", "step_in_epoch"]
     assert ckpt["epoch"] == 1 and ckpt["opt"]["model"] == "resnet10"
     assert all(k.startswith("module.") for k in ckpt["model"])
 
@@ -82,4 +85,4 @@ def test_cuda_default_raises_without_a_card(tmp_path):
 
 def test_unimplemented_flags_are_rejected(tmp_path):
     with pytest.raises(SystemExit):
-        supcon.main(ARGV + ["--workdir", str(tmp_path), "--resume", "x"])
+        supcon.main(ARGV + ["--workdir", str(tmp_path), "--nan_policy", "rollback"])
