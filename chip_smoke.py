@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from this checkout (one nvcc per source, all
 started together), holds each against its plain PyTorch version on the card
 (the loss pair at ``LOSS_CASES``: N = 512 SimCLR and SupCon, 74 rows,
-the sharded form's row offset, D = 18 and nr = nc = 2; the stem,
+a row offset, D = 18, nr = nc = 2, and the data-parallel sharded form's
+two-slab rows of processes 1 of 2 and 2 of 4; the stem,
 Bottleneck, BasicBlock and projection-block pairs at every distinct
 geometry of the ResNet-50 and ResNet-18 recipe sites and at ragged shapes,
 in fp32 and, for the conv kernels, in bf16 against both their bf16 and
@@ -38,8 +39,17 @@ step and the validation pass), and proves resume on ResNet-18 at full
 width: two epochs straight, one epoch then ``--resume``, and a run
 SIGTERM'd after step 3 (exit 75) then resumed end bitwise equal, and a
 non-finite loss exits 1 with ``crash_epoch_1.pth``.
-Phases: device, build, kernel_parity, train, probe, resume, timing. Any
-failure raises and the script exits non-zero.
+Then the data-parallel path (``distributed``): (a) the pretraining entry
+point under torchrun's environment at world size 1 (NCCL) for the
+ResNet-50 fp32 epoch with ``--syncBN``, through the process group, the
+feature gather, the sharded fused loss and the gradient mean, bitwise equal
+to the train phase's run; (b) two processes on the one card over gloo
+(NCCL takes one process a card), one ResNet-50 step at the recipe's width
+with ``--syncBN``, eager convs and the sharded fused loss against the
+one-process step on the global batch, both processes launching both loss
+kernels; with the step and collective times of both.
+Phases: device, build, kernel_parity, train, probe, resume, distributed,
+timing. Any failure raises and the script exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
@@ -210,10 +220,31 @@ def loss_inputs(batch, seed, device, n_classes=None, dim=DIM):
 # pair; each row has one positive of two columns; the column lse/cnt from
 # the columns as anchors against the rows). Square, nr = nc = 2 leaves each
 # row one live column: its positive (loss and dF exactly 0, so the pins
-# have no scale) or not (cnt 0).
+# have no scale) or not (cnt 0). g and h the data-parallel sharded form
+# (ops/fused_loss.fused_sharded_supcon_loss): a process's rows are two slabs
+# of the global view-major rows, its first views and its second views, fed
+# with their global ids; g is process 1 of 2 (rows 128..255 and 384..511 of
+# N = 512, SimCLR), h process 2 of 4 (rows 128..191 and 384..447, SupCon).
 LOSS_CASES = (("a", 256, None, DIM, None, None), ("b", 256, 10, DIM, None, None),
               ("c", 37, None, DIM, None, None), ("d", 256, 10, DIM, (128, 256), None),
-              ("e", 37, None, 18, None, None), ("f", 2, None, DIM, (0, 2), (2, 4)))
+              ("e", 37, None, 18, None, None), ("f", 2, None, DIM, (0, 2), (2, 4)),
+              ("g", 256, None, DIM, ((128, 256), (384, 512)), None),
+              ("h", 256, 10, DIM, ((128, 192), (384, 448)), None))
+
+
+def row_index(spec, n, dev):
+    """A loss case's rows: all ``n`` (None), one ``(lo, hi)`` slice, or a
+    tuple of such slabs (an index tensor)."""
+    if spec is None:
+        return slice(0, n)
+    if isinstance(spec[0], tuple):
+        return torch.cat([torch.arange(lo, hi) for lo, hi in spec]).to(dev)
+    return slice(*spec)
+
+
+def rows_label(spec):
+    slabs = spec if isinstance(spec[0], tuple) else (spec,)
+    return "+".join(f"{lo}..{hi - 1}" for lo, hi in slabs)
 
 
 def loss_case(fused_loss, dev, batch, classes, dim, rows, cols, seed=1):
@@ -221,7 +252,7 @@ def loss_case(fused_loss, dev, batch, classes, dim, rows, cols, seed=1):
     anchor rows against the contrast columns, and for the backward the
     plain forward's lse/cnt of the rows and of the columns."""
     f, ids, gid = loss_inputs(batch, seed, dev, classes, dim)
-    r, c = slice(*(rows or (0, f.shape[0]))), slice(*(cols or (0, f.shape[0])))
+    r, c = row_index(rows, f.shape[0], dev), row_index(cols, f.shape[0], dev)
     args = (f[r], f[c], ids[r], ids[c], gid[r], gid[c])
     if cols is None:  # the columns' statistics over every row
         _, lse, cnt = fused_loss.fused_rows_reference(f, f, ids, ids, gid, gid, TEMP, BASE_TEMP)
@@ -247,8 +278,8 @@ def loss_parity(fused_loss, dev):
         d_ref = fused_loss.fused_bwd_reference(*bwd_args)
         torch.cuda.synchronize()
         n = 2 * batch
-        shape = (f"N={n}" if rows is None else f"rows {rows[0]}..{rows[1] - 1} of N={n}"
-                 + ("" if cols is None else f" against columns {cols[0]}..{cols[1] - 1}"))
+        shape = (f"N={n}" if rows is None else f"rows {rows_label(rows)} of N={n}"
+                 + ("" if cols is None else f" against columns {rows_label(cols)}"))
         line = [f"case {case}: {shape} D={dim} "
                 f"{'SupCon %d classes' % classes if classes else 'SimCLR'}"]
         for name, g, r in zip(("loss_row", "lse", "cnt"), got, ref):
@@ -273,10 +304,11 @@ def loss_parity(fused_loss, dev):
 
 def loss_determinism(fused_loss, dev):
     """Two forward and two backward calls of the loss kernels on the same
-    inputs, at N = 512 (case a) and in the sharded form (case d): every
-    output bitwise equal, or raise. The splits combine in rank order and
-    no kernel uses atomics."""
-    for case, batch, classes, dim, rows, cols in (LOSS_CASES[0], LOSS_CASES[3]):
+    inputs, at N = 512 (case a), at a row offset (case d) and in the
+    data-parallel sharded form (cases g and h): every output bitwise equal,
+    or raise. The splits combine in rank order and no kernel uses
+    atomics."""
+    for case, batch, classes, dim, rows, cols in (LOSS_CASES[i] for i in (0, 3, 6, 7)):
         args, bwd_args = loss_case(fused_loss, dev, batch, classes, dim, rows, cols)
         for entry, call, names in (
                 ("loss_fwd", lambda: fused_loss.fused_rows(*args, TEMP, BASE_TEMP),
@@ -1141,6 +1173,22 @@ def kernel_counters():
             + [(fused_conv, name) for name in CONV_COUNTERS + BF16_COUNTERS])
 
 
+def recipe_argv(model, workdir, bf16=False):
+    """``train.supcon.main``'s arguments for one 7-step epoch of ``model`` at
+    the recipe's width with ``--conv_impl fused --loss_impl fused``, in a
+    new directory under ``workdir``."""
+    return [
+        "--device", "cuda", "--dataset", "synthetic", "--model", model,
+        "--batch_size", "256", "--size", "32", "--epochs", "1",
+        "--method", "SimCLR", "--temp", str(TEMP), "--learning_rate", "0.5",
+        "--cosine", "--loss_impl", "fused", "--conv_impl", "fused", "--print_freq", "1",
+        "--save_freq", "1",
+        # a directory of its own: the run folder is named by the model and
+        # the minute, not the dtype, so two runs in one minute would share it
+        "--workdir", tempfile.mkdtemp(prefix=f"{model}_", dir=workdir),
+    ] + (["--bf16"] if bf16 else [])
+
+
 def train_epochs(model, workdir, expected, banner_sites, bf16=False):
     """One 7-step epoch of ``model`` at the recipe's width through
     ``train.supcon.main`` with ``--conv_impl fused --loss_impl fused`` (and
@@ -1152,16 +1200,7 @@ def train_epochs(model, workdir, expected, banner_sites, bf16=False):
     count), and under ``bf16`` naming ``compute dtype bf16``. Returns
     ``(fused_result, eager_result, launches)``."""
     from simclr_pytorch_distributed_tpu_torch.train import supcon
-    argv = [
-        "--device", "cuda", "--dataset", "synthetic", "--model", model,
-        "--batch_size", "256", "--size", "32", "--epochs", "1",
-        "--method", "SimCLR", "--temp", str(TEMP), "--learning_rate", "0.5",
-        "--cosine", "--loss_impl", "fused", "--conv_impl", "fused", "--print_freq", "1",
-        "--save_freq", "1",
-        # a directory of its own: the run folder is named by the model and
-        # the minute, not the dtype, so two runs in one minute would share it
-        "--workdir", tempfile.mkdtemp(prefix=f"{model}_", dir=workdir),
-    ] + (["--bf16"] if bf16 else [])
+    argv = recipe_argv(model, workdir, bf16)
     model = f"{model}{' bf16' if bf16 else ''}"
     counters = kernel_counters()
     for mod, name in counters:
@@ -1516,7 +1555,7 @@ finally:
 """
 
 
-def same_run(name, got, got_losses, want, want_losses):
+def same_run(name, got, got_losses, want, want_losses, phase="resume", want_name="straight"):
     """Raises unless two pretrain runs ended bitwise equal: every step's
     loss, model parameters and BN buffers, SGD momentum, ``step`` and
     ``record_norm_mean``."""
@@ -1533,11 +1572,11 @@ def same_run(name, got, got_losses, want, want_losses):
     wo = want.state.optimizer.state_dict()["state"]
     bad += [f"momentum {k}" for k in wo
             if not torch.equal(go[k]["momentum_buffer"], wo[k]["momentum_buffer"])]
-    print(f"resume: {name} vs straight: {len(got_losses)} losses, {len(ws)} model tensors, "
-          f"{len(wo)} momentum buffers, step {got.state.step}: "
+    print(f"{phase}: {name} vs {want_name}: {len(got_losses)} losses, {len(ws)} model "
+          f"tensors, {len(wo)} momentum buffers, step {got.state.step}: "
           + ("bitwise equal" if not bad else f"{len(bad)} differ"))
     if bad:
-        raise AssertionError(f"resume: {name} differs from the straight run: {bad[:8]}")
+        raise AssertionError(f"{phase}: {name} differs from the {want_name} run: {bad[:8]}")
 
 
 def resume_phase(workdir):
@@ -1617,6 +1656,285 @@ def resume_phase(workdir):
           "init, bitwise")
 
 
+def recipe_batch(dev, batch_size=256):
+    """The step checks' batch: the first ``batch_size`` synthetic images and
+    labels on the card, the generator (seeded 3) and its two crops
+    ``[batch_size, 2, 32, 32, 3]``; the same on every call."""
+    from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
+    from simclr_pytorch_distributed_tpu_torch.ops.augment import AugmentConfig, two_crop_batch
+    data, _ = synthetic_dataset()
+    images = torch.from_numpy(data["images"][:batch_size]).to(dev)
+    labels = torch.from_numpy(data["labels"][:batch_size]).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    views = two_crop_batch(gen, images, AugmentConfig(mean=(0.5,) * 3, std=(0.25,) * 3))
+    return images, labels, gen, views
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+# (b)'s ranks: two processes on the one card, gloo over CUDA tensors
+GLOO_WORLD = 2
+GLOO_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+"""
+COLLECTIVES = ("all_reduce", "all_gather", "broadcast")
+
+
+def time_collectives(fn):
+    """Run ``fn`` with every ``torch.distributed`` collective the port calls
+    timed on the host clock, the card synchronized before and after each
+    call. Returns ``(total_s, {name: [calls, seconds, longest call's
+    seconds]})``."""
+    import torch.distributed as dist
+    spent = {name: [0, 0.0, 0.0] for name in COLLECTIVES}
+    originals = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def timed(name, call):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(*args, **kwargs)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            spent[name][0] += 1
+            spent[name][1] += took
+            spent[name][2] = max(spent[name][2], took)
+            return out
+        return run
+
+    for name, call in originals.items():
+        setattr(dist, name, timed(name, call))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name, call in originals.items():
+            setattr(dist, name, call)
+    return total, spent
+
+
+def gloo_rank(rank, world, outdir):
+    """One process of the distributed phase's run (b): process ``rank`` of
+    ``world`` on the one card, gloo over CUDA tensors, rendezvous through
+    ``file://outdir/store``. One ResNet-50 step at the recipe's width with
+    ``--syncBN``, eager convs and the sharded fused loss on its slice of
+    the global batch of 256; then three timed steps and one with its
+    collectives timed. Writes its state after the first step and a JSON
+    summary into ``outdir``."""
+    import datetime
+    import torch.distributed as dist
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_loss
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        SupConStepConfig,
+        train_step,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh.setup_distributed("cuda", init_method=f"file://{os.path.join(outdir, 'store')}",
+                           rank=rank, world_size=world, backend="gloo",
+                           timeout=datetime.timedelta(seconds=300))
+    _, labels, _, views = recipe_batch(dev)
+    b = views.shape[0] // world
+    mine = (views[rank * b:(rank + 1) * b], labels[rank * b:(rank + 1) * b])
+    torch.manual_seed(0)
+    model = SupConResNet("resnet50").to(dev, memory_format=torch.channels_last)
+    model.encoder.set_conv_impl("eager").set_bn_sync(dist.group.WORLD)
+    state = TrainState(model=model, optimizer=make_optimizer(model), schedule=lambda s: 0.5)
+    cfg = SupConStepConfig(temperature=TEMP, loss_impl="fused", epochs=1, steps_per_epoch=7)
+    fused_loss.fwd_launches = fused_loss.bwd_launches = 0
+    loss = train_step(state, cfg, *mine)["loss"].item()
+    launches = [fused_loss.fwd_launches, fused_loss.bwd_launches]
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(outdir, f"state{rank}.pt"))
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, cfg, *mine)["loss"].item()
+        times.append(time.perf_counter() - t0)
+    total, spent = time_collectives(lambda: train_step(state, cfg, *mine)["loss"].item())
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json.dump({"loss": loss, "launches": launches, "step_s": times,
+                   "timed_step_s": total, "collectives": spent}, fh)
+    mesh.teardown_distributed()
+
+
+def run_gloo_ranks(outdir, world=GLOO_WORLD, timeout=600):
+    """Run :func:`gloo_rank` in ``world`` processes to the end; a failed or
+    overrunning process kills its peers, and the phase fails."""
+    procs = [subprocess.Popen([sys.executable, "-c", GLOO_CHILD, REPO, str(r), str(world),
+                               outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            out, _ = proc.communicate(timeout=timeout)
+            outs.append(out)
+            if proc.returncode != 0:
+                raise AssertionError(f"distributed (b): rank {r} exited {proc.returncode}:\n"
+                                     f"{out[-6000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    summaries = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"rank{r}.json")) as fh:
+            summaries.append(json.load(fh))
+    return summaries
+
+
+def distributed_phase(workdir, result, expected, model, views, labels, where):
+    """The data-parallel path on the card.
+
+    (a) ``train.supcon.main`` under torchrun's environment at world size 1
+    (NCCL), one epoch of ResNet-50 fp32 at the recipe's width with
+    ``--conv_impl fused --loss_impl fused --syncBN``: it goes through the
+    process group, the feature gather, the sharded loss and the gradient
+    mean, and must end bitwise equal to the train phase's run ``result``
+    (the same arguments without a process group), launching ``expected``.
+    (b) Two processes on the one card over gloo (NCCL takes one process a
+    card): one step of ResNet-50 at the recipe's width, 128 rows a process,
+    ``--syncBN``, eager convs, the sharded fused loss, against the
+    one-process eager step on the global batch from the same init (``model``,
+    ``views``, ``labels``) at the step pins; both processes launch both loss
+    kernels once and end equal. Its times go through host memory: context,
+    no measure of scaling."""
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_loss
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        SupConStepConfig,
+        train_step,
+    )
+    # (a) world size 1 through NCCL
+    def world1_run():
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            return supcon.main(recipe_argv("resnet50", workdir) + ["--syncBN"])
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    counters = kernel_counters()
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    world1 = world1_run()
+    launches = {name: getattr(mod, name) for mod, name in counters}
+    print(f"distributed (a): world size 1 (NCCL) kernel launches in the run: {launches}; "
+          f"the loss's {launches['fwd_launches']} forward and {launches['bwd_launches']} "
+          f"backward launches all through the sharded form (fused_sharded_supcon_loss)")
+    if launches != expected:
+        raise AssertionError(f"distributed (a): expected launches {expected}, got {launches}")
+    with open(os.path.join(world1.save_folder, "log-ing")) as fh:
+        banner = [line.strip() for line in fh if "[loss_impl]" in line]
+    print(f"distributed (a) banner: {banner}")
+    if len(banner) != 1 or "sharded over 1 process(es)" not in banner[0]:
+        raise AssertionError(f"distributed (a): the [loss_impl] banner does not name the "
+                             f"sharded form: {banner}")
+    same_run("world size 1 under torchrun's environment, --syncBN", world1,
+             [h["loss"] for h in world1.history], result, [h["loss"] for h in result.history],
+             phase="distributed (a)", want_name="the train phase's run without a process group")
+    # the step times in turns: without, with, with, without a process group
+    runs = [result, world1, world1_run(), supcon.main(recipe_argv("resnet50", workdir))]
+    ms = [statistics.median(h["step_time"] for h in run.history[2:7]) * 1e3 for run in runs]
+    print(f"distributed (a): ResNet-50 fp32 fused step, median of steps 3-7, runs in turns "
+          f"without / with / with / without a process group: "
+          f"{' / '.join(f'{t:.2f}' for t in ms)} ms; with minus without "
+          f"{(ms[1] + ms[2] - ms[0] - ms[3]) / 2:+.2f} ms {where}")
+    del world1, runs
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the one card over gloo
+    outdir = tempfile.mkdtemp(prefix="gloo_", dir=workdir)
+    ranks = run_gloo_ranks(outdir)
+    states = [torch.load(os.path.join(outdir, f"state{r}.pt"), map_location="cpu",
+                         weights_only=True) for r in range(GLOO_WORLD)]
+    bad = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    print(f"distributed (b): {GLOO_WORLD} processes on one card (gloo): loss kernel launches "
+          f"per rank in the step {[r['launches'] for r in ranks]}, losses "
+          f"{[r['loss'] for r in ranks]}, rank 1's state after the step equal to rank 0's on "
+          f"{len(states[0]) - len(bad)} of {len(states[0])} tensors")
+    failures = []
+    if any(r["launches"] != [1, 1] for r in ranks):
+        failures.append("a rank did not launch both loss kernels once")
+    if bad or len({r["loss"] for r in ranks}) != 1:
+        failures.append(f"the ranks differ: {bad[:8]}")
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = {k for k, _ in model.named_parameters()}
+    m = copy.deepcopy(model)
+    m.encoder.set_conv_impl("eager")
+    st = TrainState(model=m, optimizer=make_optimizer(m), schedule=lambda s: 0.5)
+    cfg = SupConStepConfig(temperature=TEMP, loss_impl="fused", epochs=1, steps_per_epoch=7)
+    ref_loss = train_step(st, cfg, views, labels)["loss"].item()
+    ref = {k: v.detach().double().cpu() for k, v in m.state_dict().items()}
+    del m, st
+    torch.cuda.empty_cache()
+    rel = abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss)
+    got = {k: v.double() if v.is_floating_point() else v for k, v in states[0].items()}
+    upd_err = []
+    buf_worst = (0.0, None)
+    for key, want in ref.items():
+        if key in params:
+            upd = want - init[key].double().cpu()
+            err = ((got[key] - init[key].double().cpu()) - upd).norm() / upd.norm()
+            upd_err.append((err.item(), key))
+        elif want.is_floating_point():
+            buf_worst = max(buf_worst, ((got[key] - want).abs().max().item(), key))
+            if ((got[key] - want).abs() - STEP_BUF_TOL * (1 + want.abs())).max().item() > 0:
+                failures.append(f"buffer {key} off by more than rtol/atol {STEP_BUF_TOL}")
+        elif not torch.equal(got[key], want):
+            failures.append(f"buffer {key}: {got[key]} != {want}")
+    worst = max(upd_err)
+    print(f"distributed (b) vs the one-process eager --syncBN step on the global batch: loss "
+          f"{ranks[0]['loss']!r} vs {ref_loss!r}, rel diff {rel:.3e} (bound 1e-4); update "
+          f"relative L2 worst {worst[0]:.3e} at {worst[1]}, median "
+          f"{statistics.median(e for e, _ in upd_err):.3e} over {len(upd_err)} parameters "
+          f"(bound {STEP_UPDATE_REL_L2}); BN buffers max abs diff {buf_worst[0]:.3e} at "
+          f"{buf_worst[1]} (bound rtol/atol {STEP_BUF_TOL})")
+    if not rel <= 1e-4:
+        failures.append(f"loss off by {rel}")
+    if not worst[0] <= STEP_UPDATE_REL_L2:
+        failures.append(f"update relative L2 {worst}")
+    for r, summary in enumerate(ranks):
+        spent = summary["collectives"]
+        print(f"distributed (b) rank {r}: step {statistics.median(summary['step_s']) * 1e3:.2f} "
+              f"ms (median of 3; all {[round(t * 1e3, 2) for t in summary['step_s']]}); a step "
+              f"with each collective synchronized and timed {summary['timed_step_s'] * 1e3:.2f} "
+              f"ms, of which " + ", ".join(
+                  f"{name} {calls} calls {sec * 1e3:.2f} ms (longest {top * 1e3:.2f})"
+                  for name, (calls, sec, top) in spent.items())
+              + f" {where}; gloo stages CUDA tensors through host memory on "
+              "one card: context, not a measure of scaling")
+    if failures:
+        raise AssertionError("distributed (b):\n" + "\n".join(failures))
+
+
 def split_only() -> int:
     """The ``--split-only`` run: the build, the loss split
     (:func:`loss_split`) and the per-kernel splits of ``SPLITS`` (the
@@ -1662,7 +1980,6 @@ def main(argv=None) -> int:
     from simclr_pytorch_distributed_tpu_torch.ops import fused_loss, native
     from simclr_pytorch_distributed_tpu_torch.ops.augment import AugmentConfig, two_crop_batch
     from simclr_pytorch_distributed_tpu_torch.ops.losses import supcon_loss
-    from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
     from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
     from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
         SupConStepConfig,
@@ -1749,12 +2066,7 @@ def main(argv=None) -> int:
     launches = {"fwd": main_path["fwd_launches"], "bwd": main_path["bwd_launches"]}
 
     # one step, dense against fused, from one seeded init on one batch
-    data, _ = synthetic_dataset()
-    images = torch.from_numpy(data["images"][:batch_size]).to(dev)
-    labels = torch.from_numpy(data["labels"][:batch_size]).to(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    views = two_crop_batch(gen, images, AugmentConfig(mean=(0.5,) * 3, std=(0.25,) * 3))
+    images, labels, gen, views = recipe_batch(dev, batch_size)
     torch.manual_seed(0)
     model = SupConResNet("resnet50").to(dev, memory_format=torch.channels_last)
     step_loss, stepped = {}, {}
@@ -1817,6 +2129,11 @@ def main(argv=None) -> int:
     t0 = phase("resume")
     resume_phase(workdir)
     done("resume", t0)
+
+    # -- distributed: world size 1 over NCCL, two ranks over gloo ----------
+    t0 = phase("distributed")
+    distributed_phase(workdir, result, rn50_expected, model, views, labels, f"on {card}")
+    done("distributed", t0)
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")

@@ -19,6 +19,10 @@ and conv/linear operands with fp32 accumulation, fp32 parameters, BN
 statistics and loss. ``--ckpt`` (a warm start of the model's weights and
 BN buffers), ``--resume`` (the full training state) and ``--nan_guard``
 are the JAX package's pretrain flags (``config.py:342, 349, 370``).
+``--syncBN`` is the reference's and the JAX package's (``config.py:64``):
+cross-replica BN over every process of a ``torchrun`` launch; without it
+each process normalizes over its own slice of the batch. ``--ngpu auto``
+is the launch's world size.
 """
 
 from __future__ import annotations
@@ -59,8 +63,9 @@ class SupConConfig:
     l2reg: bool = False
     l2reg_wei: float = 0.0
     # the DDP gradient-mean divisor of the reference's --ngpu runs
-    # (train/supcon_step.py); 'auto' = the number of devices (1 here)
+    # (train/supcon_step.py); 'auto' = the world size
     ngpu: object = 2
+    syncBN: bool = False
     head: str = "mlp"
     feat_dim: int = 128
     seed: int = 0
@@ -106,7 +111,30 @@ def ngpu_arg(s: str):
 
 
 def resolve_ngpu(ngpu, n_devices: int) -> int:
+    """``--ngpu``: 'auto' is the world size ``n_devices``."""
     return int(n_devices) if ngpu == "auto" else int(ngpu)
+
+
+def ngpu_mismatch_banner(ngpu: int, data_parallel: int, learning_rate: float) -> str:
+    """Startup banner for an explicit ``--ngpu`` that differs from the world
+    size (JAX ``config.py:277``): the step divides the exact global
+    gradient by ``ngpu``, which then rescales the effective learning
+    rate."""
+    eff = learning_rate * data_parallel / ngpu
+    bar = "=" * 72
+    return (
+        f"\n{bar}\n"
+        f"  --ngpu {ngpu} but the run is data-parallel over {data_parallel} "
+        f"device(s).\n"
+        f"  Gradients are divided by {ngpu} (recipe fidelity with the "
+        f"reference's {ngpu}-GPU runs): relative to world-matched scaling the "
+        f"applied update is {data_parallel}/{ngpu} = "
+        f"{data_parallel / ngpu:.3g}x, i.e. an EFFECTIVE learning rate of "
+        f"~{eff:.4g} instead of the configured {learning_rate:g}.\n"
+        f"  Pass --ngpu auto (or --ngpu {data_parallel}) to scale with this "
+        f"run instead.\n"
+        f"{bar}"
+    )
 
 
 def supcon_parser() -> argparse.ArgumentParser:
@@ -136,7 +164,11 @@ def supcon_parser() -> argparse.ArgumentParser:
     p.add_argument("--l2reg", action="store_true")
     p.add_argument("--l2reg_wei", type=float, default=d.l2reg_wei)
     p.add_argument("--ngpu", type=ngpu_arg, default=d.ngpu,
-                   help="DDP grad-mean divisor (reference fidelity), or 'auto'")
+                   help="DDP grad-mean divisor (reference fidelity), or 'auto' (the "
+                        "world size)")
+    p.add_argument("--syncBN", action="store_true",
+                   help="cross-replica BatchNorm over every process of the launch "
+                        "(default: each process normalizes over its own batch slice)")
     p.add_argument("--head", type=str, default=d.head, choices=["mlp", "linear"])
     p.add_argument("--feat_dim", type=int, default=d.feat_dim)
     p.add_argument("--seed", type=int, default=d.seed)

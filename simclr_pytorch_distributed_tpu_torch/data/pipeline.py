@@ -1,12 +1,14 @@
-"""Host-side batch iteration: the DistributedSampler + DataLoader equivalent
-for one process.
+"""Host-side batch iteration: the DistributedSampler + DataLoader equivalent.
 
 Batch composition is byte-identical to the JAX package's ``EpochLoader``
 (shuffled, ``drop_last``): one numpy permutation per epoch seeded with
-``base_seed + epoch``, truncation to whole batches, and ``start_step``
-skipping the already-consumed prefix of that permutation. A background
-thread assembles batch k+1 (a numpy row gather) while the device runs
-step k.
+``base_seed + epoch``, truncation to whole global batches, and
+``start_step`` skipping the already-consumed prefix of that permutation.
+Process ``r`` of ``P`` takes rows ``r * b .. (r + 1) * b - 1`` of every
+global batch, ``b = batch_size / P`` (JAX ``data/pipeline.py:207-213``), so
+the processes together see the global batch the one-process run sees. A
+background thread assembles batch k+1 (a numpy row gather) while the
+device runs step k.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import numpy as np
 
 
 class EpochLoader:
-    """Iterates ``(images_u8, labels)`` batches of one epoch at a time."""
+    """Iterates this process's ``(images_u8, labels)`` slices of the global
+    batches of one epoch at a time; ``batch_size`` is the global batch."""
 
     def __init__(
         self,
@@ -29,9 +32,18 @@ class EpochLoader:
         *,
         base_seed: int = 0,
         prefetch: int = 2,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
+        self.local_batch = batch_size // process_count
+        self._lo = process_index * self.local_batch
         self.images = np.ascontiguousarray(images)
         self.labels = np.ascontiguousarray(labels)
         self.batch_size = batch_size
@@ -46,6 +58,7 @@ class EpochLoader:
         order = np.random.default_rng(self.base_seed + epoch).permutation(len(self.images))
         for step in range(start_step, self.steps_per_epoch):
             sel = order[step * self.batch_size:(step + 1) * self.batch_size]
+            sel = sel[self._lo:self._lo + self.local_batch]
             yield self.images[sel], self.labels[sel].astype(np.int32, copy=False)
 
     def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:

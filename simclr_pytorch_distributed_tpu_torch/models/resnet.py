@@ -45,6 +45,13 @@ bf16, BN runs on bf16 activations with fp32 statistics and buffers
 the fp32 weights (the ops cast them), and the pooled features come back in
 fp32. Parameters and buffers stay fp32, so checkpoints move between the
 two dtypes.
+
+``bn_group`` (``ResNet.set_bn_sync``, beside the two above): a
+``torch.distributed`` process group makes every eager BN cross-replica in
+train mode (``models/norm.batch_norm``, ``--syncBN``); ``None`` (the
+default) keeps each process's BN over its own batch. The fused sites
+compute whole-batch statistics inside their kernels, so the driver runs
+them on one process only (``train/supcon.resolve_conv_impl``).
 """
 
 from __future__ import annotations
@@ -55,7 +62,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from simclr_pytorch_distributed_tpu_torch.models.norm import apply_running_update, batch_norm
+from simclr_pytorch_distributed_tpu_torch.models.norm import (
+    apply_running_update,
+    batch_norm,
+    sync_active,
+)
 from simclr_pytorch_distributed_tpu_torch.ops import fused_conv
 
 CONV_IMPLS = ("eager", "fused")
@@ -84,9 +95,10 @@ class BasicBlock(nn.Module):
         self.shortcut = _shortcut(in_planes, planes * self.expansion, stride)
         self.stride = stride
 
-    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = False, bn_group=None) -> torch.Tensor:
         """``fused``: run a train-mode forward through the fused kernels
-        where ``supports_block`` admits this geometry."""
+        where ``supports_block`` admits this geometry; ``bn_group``: the
+        eager BN's process group (``models/norm.batch_norm``)."""
         n, cin, h, w = x.shape
         if (
             fused
@@ -96,9 +108,9 @@ class BasicBlock(nn.Module):
             )
         ):
             return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        out = torch.relu(batch_norm(self.bn1, conv(self.conv1, x)))
-        out = batch_norm(self.bn2, conv(self.conv2, out))
-        return torch.relu(out + _shortcut_forward(self.shortcut, x))
+        out = torch.relu(batch_norm(self.bn1, conv(self.conv1, x), bn_group))
+        out = batch_norm(self.bn2, conv(self.conv2, out), bn_group)
+        return torch.relu(out + _shortcut_forward(self.shortcut, x, bn_group))
 
     def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC train-mode forward through ``fused_basic_block`` (identity
@@ -143,9 +155,10 @@ class Bottleneck(nn.Module):
         self.shortcut = _shortcut(in_planes, planes * self.expansion, stride)
         self.stride = stride
 
-    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = False, bn_group=None) -> torch.Tensor:
         """``fused``: run a train-mode forward through the fused kernels
-        where ``supports_bottleneck`` admits this geometry."""
+        where ``supports_bottleneck`` admits this geometry; ``bn_group``:
+        the eager BN's process group (``models/norm.batch_norm``)."""
         n, cin, h, w = x.shape
         if (
             fused
@@ -155,10 +168,10 @@ class Bottleneck(nn.Module):
             )
         ):
             return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        out = torch.relu(batch_norm(self.bn1, conv(self.conv1, x)))
-        out = torch.relu(batch_norm(self.bn2, conv(self.conv2, out)))
-        out = batch_norm(self.bn3, conv(self.conv3, out))
-        return torch.relu(out + _shortcut_forward(self.shortcut, x))
+        out = torch.relu(batch_norm(self.bn1, conv(self.conv1, x), bn_group))
+        out = torch.relu(batch_norm(self.bn2, conv(self.conv2, out), bn_group))
+        out = batch_norm(self.bn3, conv(self.conv3, out), bn_group)
+        return torch.relu(out + _shortcut_forward(self.shortcut, x, bn_group))
 
     def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC train-mode forward through ``fused_bottleneck_block``, then
@@ -196,12 +209,12 @@ def _shortcut(in_planes: int, out_planes: int, stride: int) -> nn.Sequential:
     )
 
 
-def _shortcut_forward(shortcut: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+def _shortcut_forward(shortcut: nn.Sequential, x: torch.Tensor, bn_group=None) -> torch.Tensor:
     """The eager shortcut: ``x`` itself, or its 1x1/s conv + BN."""
     if not len(shortcut):
         return x
     conv_s, bn_s = shortcut
-    return batch_norm(bn_s, conv(conv_s, x))
+    return batch_norm(bn_s, conv(conv_s, x), bn_group)
 
 
 Block = Union[Type[BasicBlock], Type[Bottleneck]]
@@ -228,6 +241,7 @@ class ResNet(nn.Module):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
         self.conv_impl = "eager"
         self.compute_dtype = torch.float32
+        self.bn_group = None
 
     def set_conv_impl(self, conv_impl: str) -> "ResNet":
         """Route train-mode forwards through ``conv_impl`` ('eager' or
@@ -246,7 +260,17 @@ class ResNet(nn.Module):
         self.compute_dtype = dtype
         return self
 
+    def set_bn_sync(self, group) -> "ResNet":
+        """Make every eager BN cross-replica over the process group
+        ``group`` in train mode (``--syncBN``); ``None`` for per-process
+        BN."""
+        self.bn_group = group
+        return self
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv_impl == "fused" and self.training and sync_active(self.bn_group):
+            raise ValueError("cross-replica BN runs on the eager path only: the fused "
+                             "kernels normalize over this process's batch")
         if self.compute_dtype == torch.bfloat16:
             x = x.to(torch.bfloat16)
         n, h, w, cin = x.shape
@@ -263,11 +287,11 @@ class ResNet(nn.Module):
             x = out.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
         else:
             x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
-            x = torch.relu(batch_norm(self.bn1, conv(self.conv1, x)))
+            x = torch.relu(batch_norm(self.bn1, conv(self.conv1, x), self.bn_group))
         fused = self.conv_impl == "fused"
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
-                x = block(x, fused)
+                x = block(x, fused, self.bn_group)
         feats = x.mean(dim=(2, 3))
         return feats.float() if feats.dtype == torch.bfloat16 else feats
 

@@ -255,11 +255,22 @@ def apply_views(images_u8: torch.Tensor, params: Dict[str, torch.Tensor], cfg: A
     return normalize(img, cfg.mean, cfg.std)
 
 
-def two_crop_batch(generator: torch.Generator, images_u8: torch.Tensor, cfg: AugmentConfig):
+def two_crop_batch(generator: torch.Generator, images_u8: torch.Tensor, cfg: AugmentConfig,
+                   *, process_index: int = 0, process_count: int = 1):
     """TwoCropTransform over a batch: uint8 ``[B, H, W, C]`` ->
-    ``[B, 2, size, size, C]`` float, two independent draws per image."""
+    ``[B, 2, size, size, C]`` float, two independent draws per image.
+
+    Under data parallelism ``images_u8`` is process ``process_index``'s
+    slice of a global batch ``process_count`` times its size: the view
+    parameters are drawn for the whole global batch, as the one-process
+    run draws them, and this process applies its own rows. So P processes
+    see the crops one process sees, and every process's generator stays in
+    the same state (rank 0's saved state resumes them all)."""
     b, height, width = images_u8.shape[0], images_u8.shape[1], images_u8.shape[2]
-    params = sample_view_params(generator, 2 * b, height, width, cfg)
+    params = sample_view_params(generator, 2 * b * process_count, height, width, cfg)
+    if process_count > 1:
+        lo = 2 * b * process_index
+        params = {k: v[lo:lo + 2 * b] for k, v in params.items()}
     views = apply_views(images_u8.repeat_interleave(2, dim=0), params, cfg)
     return views.reshape((b, 2) + views.shape[1:])
 

@@ -20,6 +20,14 @@ fallback from the kernel to the plain version.
 ``fwd_launches`` / ``bwd_launches`` count kernel launches (only the CUDA
 branch adds to them), so a run can show that its main path went through the
 kernels.
+
+The sharded form (:func:`fused_sharded_supcon_loss`, JAX
+``ops/pallas_loss.py:298-357, :417``) runs the same two kernels over a
+process group: each process's anchor rows against the all-gathered global
+columns, with the rows' global ids. The backward kernel returns the full
+gradient of each anchor row (its row and its column terms), so the
+backward needs only the O(N) ``lse``/``cnt`` of every row and no exchange
+of gradients.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from typing import Optional, Tuple
 import torch
 
 from simclr_pytorch_distributed_tpu_torch.ops import native
+from simclr_pytorch_distributed_tpu_torch.parallel import collectives
+from simclr_pytorch_distributed_tpu_torch.parallel.mesh import world_size
 
 fwd_launches = 0
 bwd_launches = 0
@@ -190,4 +200,75 @@ def fused_supcon_loss(
     ids = base.repeat(n_views)
     return FusedSupConLoss.apply(
         feats, ids, float(temperature), float(base_temperature)
+    )
+
+
+class FusedShardedSupConLoss(torch.autograd.Function):
+    """The mean loss over the global view-major rows, from this process's
+    rows ``feats`` ``[V * b, D]`` (view-major over its ``b`` samples) with
+    global row ids ``grow`` and the global sample ids ``ids`` ``[V * B]``.
+    Every process returns the same value; the backward gives the gradient
+    of that value with respect to this process's rows."""
+
+    @staticmethod
+    def forward(ctx, feats, ids, grow, views, temperature, base_temperature):
+        cols = collectives.view_major(collectives.all_gather(feats), views)
+        gcol = torch.arange(cols.shape[0], dtype=torch.int32, device=feats.device)
+        idr = ids[grow.long()]
+        loss_row, lse, cnt = fused_rows(
+            feats, cols, idr, ids, grow, gcol, temperature, base_temperature
+        )
+        n_procs = cols.shape[0] // feats.shape[0]
+        loss = collectives.rank_ordered_sum(loss_row.mean()) / n_procs
+        ctx.save_for_backward(feats, cols, idr, ids, grow, gcol, lse, cnt)
+        ctx.views = views
+        ctx.temperature = temperature
+        ctx.base_temperature = base_temperature
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, cols, idr, ids, grow, gcol, lse, cnt = ctx.saved_tensors
+        # the column statistics: every process's (lse, cnt), one gather
+        stats = collectives.view_major(
+            collectives.all_gather(torch.stack([lse, cnt], dim=1)), ctx.views
+        )
+        lse_c, cnt_c = stats[:, 0].contiguous(), stats[:, 1].contiguous()
+        coeff = (ctx.temperature / ctx.base_temperature) / cols.shape[0]
+        dfeats = fused_bwd(
+            feats, cols, idr, ids, grow, gcol, lse, lse_c, cnt, cnt_c,
+            ctx.temperature, coeff,
+        )
+        return g * dfeats, None, None, None, None, None
+
+
+def fused_sharded_supcon_loss(
+    features: torch.Tensor,
+    labels: Optional[torch.Tensor] = None,
+    *,
+    temperature: float = 0.07,
+    base_temperature: float = 0.07,
+) -> torch.Tensor:
+    """:func:`fused_supcon_loss` over the process group: ``features``
+    ``[b, V, D]`` are this process's ``b`` samples of the global batch of
+    ``B = P * b`` (process ``r`` holds samples ``r * b .. (r + 1) * b - 1``),
+    L2-normalized; ``labels`` the GLOBAL ``[B]`` labels for SupCon,
+    ``None`` for SimCLR. Returns the loss over the global batch, the same
+    on every process, differentiable with respect to ``features``.
+
+    This process's rows are two slabs of the global view-major matrix
+    (ids ``v * B + r * b + i``); the kernels take them as they are."""
+    b, views = features.shape[0], features.shape[1]
+    feats = features.transpose(0, 1).reshape(views * b, -1).to(torch.float32).contiguous()
+    n_samples = b * world_size()
+    if labels is None:
+        base = torch.arange(n_samples, dtype=torch.int32, device=features.device)
+    else:
+        base = labels.reshape(-1).to(device=features.device, dtype=torch.int32)
+        if base.shape[0] != n_samples:
+            raise ValueError(f"labels must be the global [{n_samples}] vector, "
+                             f"got {tuple(labels.shape)}")
+    grow = collectives.own_row_ids(b, views, device=features.device)
+    return FusedShardedSupConLoss.apply(
+        feats, base.repeat(views), grow, views, float(temperature), float(base_temperature)
     )

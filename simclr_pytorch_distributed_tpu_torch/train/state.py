@@ -7,6 +7,12 @@ too) applies ``d = g + wd*p; buf = mu*buf + d; p -= lr*buf`` with
 ``add_decayed_weights -> trace -> scale_by_learning_rate`` chain step for
 step. The learning rate is set before every step from the schedule at the
 state's step count.
+
+Under data parallelism every process holds its own state: the driver
+starts them all from rank 0's weights (``train/supcon.build``), SGD is
+unchanged and sees the gradient averaged over the processes
+(``parallel/collectives.mean_gradients``), so the states stay equal and a
+checkpoint is rank 0's model itself, in the reference layout.
 """
 
 from __future__ import annotations

@@ -1,8 +1,23 @@
-"""Contrastive pretraining driver (reference ``main_supcon.py``) on one device.
+"""Contrastive pretraining driver (reference ``main_supcon.py``), on one
+device or data parallel over several.
 
     python -m simclr_pytorch_distributed_tpu_torch.train.supcon \\
         --dataset synthetic --model resnet50 --batch_size 256 --epochs 1 \\
         --method SimCLR --temp 0.5 --learning_rate 0.5 --cosine
+
+    torchrun --nproc_per_node P -m simclr_pytorch_distributed_tpu_torch.train.supcon \\
+        --dataset synthetic --model resnet50 --batch_size 256 --epochs 1 \\
+        --method SimCLR --temp 0.5 --learning_rate 0.5 --cosine --syncBN
+
+Under ``torchrun`` (``WORLD_SIZE`` set) each process joins the process group
+(``parallel/mesh.py``: NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+cpu``), takes its slice of every global batch of ``--batch_size``, and runs
+the data-parallel step (``train/supcon_step.py``): the feature gather, the
+loss over the global batch (the fused loss in its sharded form), the
+gradient mean, and with ``--syncBN`` cross-replica BN. Every process starts
+from rank 0's weights; rank 0 alone logs and writes checkpoints into its
+run folder, which every process adopts. The fused conv kernels stay
+single-process (:func:`resolve_conv_impl`).
 
 Loop: the host loader gathers a uint8 batch (prefetched on a thread) ->
 one copy to the device -> two-crop augmentation on the device -> the train
@@ -49,6 +64,7 @@ from simclr_pytorch_distributed_tpu_torch.ops.augment import (
 )
 from simclr_pytorch_distributed_tpu_torch.ops.metrics import AverageMeter
 from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
+from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
 from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
     METRIC_KEYS,
@@ -86,20 +102,28 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
 
 
-def resolve_loss_impl_reasoned(loss_impl: str, device: torch.device) -> tuple:
+def resolve_loss_impl_reasoned(loss_impl: str, device: torch.device,
+                               data_parallel: Optional[int] = None) -> tuple:
     """``(resolved_impl, reason)``: 'auto' is the fused kernels on CUDA and
-    the dense form on the CPU."""
+    the dense form on the CPU. With a process group of ``data_parallel``
+    processes the fused loss runs in its sharded form, and the reason says
+    so."""
     if loss_impl != "auto":
-        reason = "explicit request"
+        resolved, reason = loss_impl, "explicit request"
         if loss_impl == "fused" and device.type == "cpu":
             reason += " (on cpu the kernels' plain PyTorch forms run)"
-        return loss_impl, reason
-    if device.type == "cuda":
-        return "fused", "CUDA device: hand-written sm_90a kernels (ops/fused_loss.py)"
-    return "dense", (
-        f"{device.type} device: the fused kernels run on CUDA only, so the "
-        "dense PyTorch loss"
-    )
+    elif device.type == "cuda":
+        resolved = "fused"
+        reason = "CUDA device: hand-written sm_90a kernels (ops/fused_loss.py)"
+    else:
+        resolved = "dense"
+        reason = (f"{device.type} device: the fused kernels run on CUDA only, so the "
+                  "dense PyTorch loss")
+    if resolved == "fused" and data_parallel is not None:
+        reason += (f"; sharded over {data_parallel} process(es): this process's anchor "
+                   "rows against the all-gathered columns "
+                   "(ops/fused_loss.fused_sharded_supcon_loss)")
+    return resolved, reason
 
 
 def conv_fused_sites(model: str, rows: int, size: int,
@@ -118,7 +142,7 @@ def compute_dtype(bf16: bool) -> torch.dtype:
 
 def resolve_conv_impl(
     conv_impl: str, model: str, batch_size: int, size: int, device: torch.device,
-    bf16: bool = False,
+    bf16: bool = False, world_size: int = 1,
 ) -> tuple:
     """``(resolved_impl, reason)`` for ``--conv_impl``, the JAX package's
     ladder (``train/supcon.py:197-268``) on the port's devices.
@@ -131,10 +155,24 @@ def resolve_conv_impl(
     gates reject stay eager; the banner lists the ones that fuse. Under
     ``bf16`` the reason names the compute dtype, as the JAX banner does
     (``compute dtype bf16``).
+
+    Over a process group of ``world_size`` > 1 the kernels, which compute
+    whole-batch BN statistics in one program, do not run: explicit 'fused'
+    raises and 'auto' resolves to eager, saying why (JAX
+    ``train/supcon.py:224-231, 254-258``).
     """
     tag = ", compute dtype bf16" if bf16 else ""
     if conv_impl == "eager":
         return "eager", f"explicit request: cuDNN convs and nn.BatchNorm2d{tag}"
+    if conv_impl not in ("fused", "auto"):
+        raise ValueError(f"conv_impl must be 'eager', 'fused' or 'auto', got {conv_impl!r}")
+    single = ("the fused conv kernels compute whole-batch BN statistics inside one "
+              "process (per-process BN groups and cross-replica BN run eager)")
+    if world_size > 1:
+        if conv_impl == "fused":
+            raise ValueError(f"--conv_impl fused needs a single process, got a world of "
+                             f"{world_size}: {single}; use auto or eager")
+        return "eager", f"data parallel over {world_size} processes: {single}{tag}"
     rows = 2 * batch_size
     sites = conv_fused_sites(model, rows, size, compute_dtype(bf16))
     if conv_impl == "fused":
@@ -148,8 +186,6 @@ def resolve_conv_impl(
             if device.type == "cpu" else "hand-written sm_90a kernels"
         )
         return "fused", f"explicit request ({where}){tag}; fused sites: {', '.join(sites)}"
-    if conv_impl != "auto":
-        raise ValueError(f"conv_impl must be 'eager', 'fused' or 'auto', got {conv_impl!r}")
     if device.type != "cuda":
         return "eager", (
             f"{device.type} device: the fused conv kernels run on CUDA only, so "
@@ -176,11 +212,14 @@ def make_augment_config(cfg: config_lib.SupConConfig) -> AugmentConfig:
 
 def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.device):
     """``(TrainState, SupConStepConfig)``: the model from ``cfg.seed``
-    (built on the CPU, so an init is the same on every device) with the
-    resolved conv path and the compute dtype (``--bf16``), SGD, the
+    (built on the CPU, so an init is the same on every device; under data
+    parallelism every process then takes rank 0's) with the resolved conv
+    path, the compute dtype (``--bf16``) and ``--syncBN``, SGD, the
     schedule, and the step configuration with the resolved loss path."""
+    world, distributed = mesh.world_size(), mesh.is_distributed()
     conv_impl, conv_reason = resolve_conv_impl(
-        cfg.conv_impl, cfg.model, cfg.batch_size, cfg.size, device, bf16=cfg.bf16
+        cfg.conv_impl, cfg.model, cfg.batch_size, cfg.size, device, bf16=cfg.bf16,
+        world_size=world,
     )
     logging.info(
         "%s",
@@ -189,14 +228,14 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
     torch.manual_seed(cfg.seed)
     model = SupConResNet(cfg.model, cfg.head, cfg.feat_dim)
     model.encoder.set_conv_impl(conv_impl).set_compute_dtype(compute_dtype(cfg.bf16))
+    model.encoder.set_bn_sync(torch.distributed.group.WORLD if cfg.syncBN and distributed
+                              else None)
     model = model.to(device=device, memory_format=torch.channels_last)
-    grad_div = config_lib.resolve_ngpu(cfg.ngpu, 1)
-    if grad_div != 1:
+    collectives.broadcast_from_rank0(model)
+    grad_div = config_lib.resolve_ngpu(cfg.ngpu, world)
+    if grad_div != world:
         logging.warning(
-            "--ngpu %d on one device: gradients are divided by %d (the "
-            "reference's %d-GPU gradient mean), an effective learning rate "
-            "of %.4g; pass --ngpu auto to scale with this device",
-            grad_div, grad_div, grad_div, cfg.learning_rate / grad_div,
+            "%s", config_lib.ngpu_mismatch_banner(grad_div, world, cfg.learning_rate)
         )
     schedule = make_lr_schedule(
         learning_rate=cfg.learning_rate, epochs=cfg.epochs,
@@ -205,7 +244,9 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
         warm=cfg.warm, warm_epochs=cfg.warm_epochs, warmup_from=cfg.warmup_from,
     )
     optimizer = make_optimizer(model, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
-    loss_impl, reason = resolve_loss_impl_reasoned(cfg.loss_impl, device)
+    loss_impl, reason = resolve_loss_impl_reasoned(
+        cfg.loss_impl, device, world if distributed else None
+    )
     logging.info(
         "%s", config_lib.impl_resolution_banner("loss_impl", cfg.loss_impl, loss_impl, reason)
     )
@@ -242,7 +283,8 @@ def train_one_epoch(
         t0 = time.time()
         images = torch.from_numpy(images_u8).to(device, non_blocking=True)
         labels_d = torch.from_numpy(labels).to(device, non_blocking=True)
-        views = two_crop_batch(generator, images, aug_cfg)
+        views = two_crop_batch(generator, images, aug_cfg,
+                               process_index=mesh.rank(), process_count=mesh.world_size())
         metrics = train_step(state, step_cfg, views, labels_d)
         values = torch.stack([metrics[k] for k in device_keys]).tolist()
         host = dict(zip(device_keys, values), learning_rate=float(metrics["learning_rate"]))
@@ -259,7 +301,7 @@ def train_one_epoch(
                 data_time.val, data_time.avg, losses.val, losses.avg,
                 host["norm_mean"], host["record_norm_mean"], host["norm_var"],
             )
-        if idx + 1 < steps and preempt.requested():
+        if idx + 1 < steps and preempt.requested_global():
             return idx + 1
         end = time.time()
     return None
@@ -273,15 +315,31 @@ class RunResult:
 
 
 def run(cfg: config_lib.SupConConfig) -> RunResult:
+    """The run, inside the process group when ``torchrun`` launched it (the
+    group is left at the end if this call joined it)."""
+    joined = mesh.setup_distributed(cfg.device)
+    try:
+        return _train(cfg)
+    finally:
+        if joined:
+            mesh.teardown_distributed()
+
+
+def _train(cfg: config_lib.SupConConfig) -> RunResult:
     device = resolve_device(cfg.device)
-    setup_logging(cfg.save_folder)
+    # the minute-stamped folder: every process writes into rank 0's
+    cfg.save_folder = mesh.broadcast_from_main(cfg.save_folder)
+    main_process = mesh.is_main_process()
+    setup_logging(cfg.save_folder, main_process)
     logging.info(
-        "device: %s (%s)", device,
+        "device: %s (%s), process %d of %d", device,
         torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU",
+        mesh.rank(), mesh.world_size(),
     )
     train_data, _, _ = load_dataset(cfg.dataset, cfg.data_folder)
     loader = EpochLoader(
-        train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed
+        train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
+        process_index=mesh.rank(), process_count=mesh.world_size(),
     )
     state, step_cfg = build(cfg, len(loader), device)
     aug_cfg = make_augment_config(cfg)
@@ -304,6 +362,8 @@ def run(cfg: config_lib.SupConConfig) -> RunResult:
                                epoch, step_in_epoch)
 
     def exit_preempted(path: str) -> None:
+        # every process leaves at this step; none before rank 0's save
+        mesh.sync_processes("preempted")
         logging.warning("preempted (%s): state saved at %s; exiting %d (resume with "
                         "--resume %s)", preempt.signal_name(), path,
                         preempt.EXIT_PREEMPTED, cfg.save_folder)
@@ -316,8 +376,9 @@ def run(cfg: config_lib.SupConConfig) -> RunResult:
             t1 = time.time()
             ss = start_step if epoch == start_epoch else 0
             # the step updates the state in place: the crash save needs a
-            # copy of the epoch top, taken on the device
-            backup = capture_state(state, generator, copy=True) if cfg.nan_guard else None
+            # copy of the epoch top, taken on the device (by the writer)
+            backup = (capture_state(state, generator, copy=True)
+                      if cfg.nan_guard and main_process else None)
             try:
                 stopped_at = train_one_epoch(
                     epoch, loader, state, step_cfg, aug_cfg, generator, cfg, device,
@@ -328,6 +389,7 @@ def run(cfg: config_lib.SupConConfig) -> RunResult:
                 # sits mid-epoch, and its resume must not replay those steps
                 path = save(f"crash_epoch_{epoch}.pth", backup, epoch - 1, ss)
                 logging.error("non-finite loss: saved %s", path)
+                mesh.sync_processes("non-finite loss")
                 raise
             if stopped_at is not None:
                 exit_preempted(save(f"preempt_epoch_{epoch}_step_{stopped_at}.pth",
@@ -336,11 +398,12 @@ def run(cfg: config_lib.SupConConfig) -> RunResult:
             path = None
             if epoch % cfg.save_freq == 0:
                 path = save(f"ckpt_epoch_{epoch}.pth", capture_state(state, generator), epoch)
-            if preempt.requested():
+            if preempt.requested_global():
                 # the signal came during the epoch's last step
                 exit_preempted(path or save(f"preempt_epoch_{epoch}.pth",
                                             capture_state(state, generator), epoch))
         save("last.pth", capture_state(state, generator), cfg.epochs)
+        mesh.sync_processes("end of run")
     finally:
         preempt.uninstall()
     return RunResult(state=state, history=history, save_folder=cfg.save_folder)

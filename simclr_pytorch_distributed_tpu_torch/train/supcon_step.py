@@ -1,4 +1,4 @@
-"""The SimCLR/SupCon train step on one device.
+"""The SimCLR/SupCon train step, on one device or data parallel.
 
 The step of ``simclr_pytorch_distributed_tpu/train/supcon_step.py``
 (reference hot loop ``main_supcon.py:242-351``), eagerly:
@@ -15,6 +15,20 @@ The step of ``simclr_pytorch_distributed_tpu/train/supcon_step.py``
   averages gradients over its ``--ngpu`` ranks, each of which backpropagates
   through its own rows only, so the applied gradient is ``1/ngpu`` of the
   global one; weight decay is not scaled.
+
+Data parallel (a ``torch.distributed`` process group of ``P`` processes, one
+included, ``parallel/mesh.py``): each process forwards its own slice of the
+global batch, then ``parallel/collectives.gather_features`` assembles the
+global view-major rows, and the norm statistics, SEC, l2reg and the loss
+run over them. The fused loss runs in its sharded form
+(``fused_sharded_supcon_loss``: this process's anchor rows against the
+global columns; JAX ``train/supcon_step.py:352-373``). The loss is scaled
+by ``P / grad_div`` and the gradients averaged over the processes
+(``mean_gradients``): each process's gradient is the share of the global
+gradient that flows through its rows, so the applied gradient is the exact
+global gradient over ``grad_div`` whatever ``P`` is, and at ``P = 1`` the
+step is the one-device step bit for bit. Without ``--syncBN`` each process
+normalizes over its own rows, and the BN running buffers follow rank 0.
 """
 
 from __future__ import annotations
@@ -24,8 +38,13 @@ from typing import Dict, Optional
 
 import torch
 
-from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import fused_supcon_loss
+from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import (
+    fused_sharded_supcon_loss,
+    fused_supcon_loss,
+)
 from simclr_pytorch_distributed_tpu_torch.ops.losses import supcon_loss
+from simclr_pytorch_distributed_tpu_torch.parallel import collectives
+from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_distributed, world_size
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState
 
 # the loss's fixed final-scale denominator, whatever the temperature
@@ -65,8 +84,16 @@ def two_view_forward(model: torch.nn.Module, images: torch.Tensor) -> torch.Tens
 def contrastive_loss_terms(
     cfg: SupConStepConfig, n_fea: torch.Tensor, labels: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """The contrastive term over the normalized view-major ``[2B, D]`` rows;
-    ``labels`` for SupCon, ``None`` for SimCLR."""
+    """The contrastive term over the normalized view-major ``[2B, D]`` rows
+    (the global rows under a process group); ``labels`` ``[B]`` for SupCon,
+    ``None`` for SimCLR."""
+    if cfg.loss_impl == "fused" and is_distributed():
+        mine = collectives.own_rows(n_fea)
+        b = mine.shape[0] // 2
+        return fused_sharded_supcon_loss(
+            torch.stack([mine[:b], mine[b:]], dim=1), labels,
+            temperature=cfg.temperature, base_temperature=BASE_TEMPERATURE,
+        )
     b = n_fea.shape[0] // 2
     n_features = torch.stack([n_fea[:b], n_fea[b:]], dim=1)
     if cfg.loss_impl == "fused":
@@ -83,15 +110,23 @@ def contrastive_loss_terms(
 def train_step(
     state: TrainState, cfg: SupConStepConfig, images: torch.Tensor, labels: torch.Tensor
 ) -> Dict[str, torch.Tensor]:
-    """One update of ``state`` on two-crop ``images`` ``[B, 2, H, W, C]``.
+    """One update of ``state`` on two-crop ``images`` ``[B, 2, H, W, C]``
+    (this process's slice of the global batch under a process group, with
+    its ``labels``).
 
     Returns the step's metrics (:data:`METRIC_KEYS`) as 0-dim tensors on the
-    device; nothing here waits for the device.
+    device, those of the global batch; nothing here waits for the device
+    but the collectives.
     """
     if cfg.method not in ("SupCon", "SimCLR"):
         raise ValueError(f"contrastive method not supported: {cfg.method}")
     state.model.train()
+    distributed = is_distributed()
     feats = two_view_forward(state.model, images).to(torch.float32)
+    if distributed:
+        feats = collectives.gather_features(feats)
+        if cfg.method == "SupCon":
+            labels = collectives.gather_global_labels(labels)
 
     norms = torch.linalg.norm(feats, dim=1)
     norm_mean = norms.mean()
@@ -119,8 +154,14 @@ def train_step(
 
     lr = state.set_learning_rate()
     state.optimizer.zero_grad(set_to_none=True)
-    (loss / cfg.grad_div).backward()
+    if distributed:
+        (loss * world_size() / cfg.grad_div).backward()
+        collectives.mean_gradients(state.model.parameters())
+    else:
+        (loss / cfg.grad_div).backward()
     state.optimizer.step()
+    if distributed:  # BN buffers follow rank 0 (equal already under --syncBN)
+        collectives.broadcast_from_rank0(state.model, parameters=False)
     state.step += 1
     state.record_norm_mean = record
     return {

@@ -14,7 +14,11 @@ already taken; nonzero only in a mid-epoch preemption or crash save),
 a tensor or a plain type, so ``torch.load(weights_only=True)`` reads it.
 
 Files are written through a temporary name and renamed, so a crash
-mid-write never leaves a truncated file under a checkpoint's name. The
+mid-write never leaves a truncated file under a checkpoint's name. In a
+data-parallel run rank 0 writes and every process reads: each process holds
+the same state (the same initial weights, averaged gradients, and an
+augmentation generator in the same state), so rank 0's file resumes all of
+them. The
 JAX counterparts: ``resume_position`` ``utils/checkpoint.py:96``,
 ``resolve_resume_path :372``, ``restore_checkpoint :428``,
 ``save_classifier :567``, ``load_classifier :577``.
@@ -30,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from simclr_pytorch_distributed_tpu_torch.config import config_dict
+from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_main_process
 
 CLASSIFIER_FILE = "classifier_best.pth"
 
@@ -82,7 +87,10 @@ def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict
 def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: int = 0) -> str:
     """Write ``snapshot`` (:func:`capture_state`) with the run's ``cfg`` to
     ``path``; ``epoch`` counts completed epochs, ``step_in_epoch`` the
-    steps of the next one already taken. Returns the absolute path."""
+    steps of the next one already taken. Returns the absolute path. Only
+    rank 0 writes; the other processes return the path it writes."""
+    if not is_main_process():
+        return os.path.abspath(path)
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     record = snapshot["record_norm_mean"]
     payload = {

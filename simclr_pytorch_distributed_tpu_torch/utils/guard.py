@@ -11,6 +11,9 @@ drivers use. A non-finite loss seen at a step's metrics readback raises
 - 75 (``utils/preempt.EXIT_PREEMPTED``): preempted, state saved;
 - any other exception propagates (the interpreter's 1).
 
+In a data-parallel run the loss is the global batch's, the same on every
+process, so every process raises at the same step and exits 1.
+
 The JAX package's codes 2 (a telemetry flush failure) and 3 (a
 representation-health abort) wait for the port of the telemetry flush and
 ``HealthMonitor``.

@@ -10,8 +10,12 @@ is bitwise equal to the run that did not stop: the epoch's batch order is a
 function of (seed, epoch, start_step) and the checkpoint carries the
 augmentation generator's state.
 
-``requested_global`` is ``requested`` at world size 1: the cross-process
-agreement on the flags waits for the port's ``parallel/``.
+Under data parallelism a signal may reach one process only, or reach them
+at different steps. :func:`requested_global` is every process's agreement
+on the flags, an all-reduce (MAX) over the process group: every process
+calls it at the same step boundary (JAX ``utils/preempt.py:91``), so all of
+them stop at the same step and exit 75, where one process alone would
+leave its peers waiting in the next step's collectives.
 """
 
 from __future__ import annotations
@@ -19,6 +23,11 @@ from __future__ import annotations
 import logging
 import signal
 from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from simclr_pytorch_distributed_tpu_torch.parallel.mesh import collective_device, world_size
 
 # EX_TEMPFAIL from sysexits.h: "temporary failure, retry later": state was
 # saved cleanly, re-run the same command with --resume <run folder>.
@@ -70,8 +79,14 @@ def requested() -> bool:
 
 
 def requested_global() -> bool:
-    """Whether any process saw a signal; one process here."""
-    return requested()
+    """Whether any process of the group saw a signal: an all-reduce (MAX)
+    of the local flags, which every process must call at the same step
+    boundary. Without a group of more than one process, the local flag."""
+    if world_size() == 1:
+        return requested()
+    flag = torch.tensor([float(requested())], device=collective_device())
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 def signal_name() -> str:

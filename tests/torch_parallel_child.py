@@ -1,0 +1,285 @@
+"""One process of the port's data-parallel CPU tests (gloo).
+
+    python tests/torch_parallel_child.py RANK WORLD OUTDIR
+
+Joins a gloo process group of WORLD processes through ``file://OUTDIR/store``,
+runs every case of ``tests/test_torch_port_parallel.py`` on its slice of the
+inputs, and writes what it computed to ``OUTDIR/rank{RANK}.pt``; the test
+compares. The inputs are made here from numpy seeds, by functions the test
+imports too. At WORLD = 1 the process also runs each case without a process
+group (the one-process references), after leaving the group.
+"""
+
+import datetime
+import glob
+import os
+import sys
+
+import numpy as np
+import torch
+from torch import nn
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from simclr_pytorch_distributed_tpu_torch.models import SupConResNet  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.models.norm import batch_norm  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import (  # noqa: E402
+    fused_sharded_supcon_loss,
+    fused_supcon_loss,
+)
+from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.train import supcon  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.train.state import (  # noqa: E402
+    TrainState,
+    make_optimizer,
+)
+from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (  # noqa: E402
+    SupConStepConfig,
+    train_step,
+)
+from simclr_pytorch_distributed_tpu_torch.utils import checkpoint, preempt  # noqa: E402
+
+TIMEOUT = datetime.timedelta(seconds=90)
+B, SIZE, FEAT, STEPS = 16, 16, 16, 2  # global batch, image size, feat_dim, steps
+TEMP, BASE_TEMP = 0.5, 0.07
+BN_SHAPE = (16, 6, 5, 5)  # the sync-BN case's global batch, NCHW
+# name -> (--syncBN, loss_impl, method)
+STEP_CASES = {
+    "sync_fused_simclr": (True, "fused", "SimCLR"),
+    "sync_dense_supcon": (True, "dense", "SupCon"),
+    "local_fused_simclr": (False, "fused", "SimCLR"),
+    "local_dense_simclr": (False, "dense", "SimCLR"),
+}
+SCHED = dict(learning_rate=0.1, epochs=1, steps_per_epoch=STEPS, cosine=True)
+STEP_KW = dict(temperature=TEMP, sec=True, sec_wei=0.5, l2reg=True, l2reg_wei=0.05,
+               norm_momentum=0.6, epochs=1, steps_per_epoch=STEPS, grad_div=2.0)
+DRIVER_ARGV = [
+    "--device", "cpu", "--dataset", "synthetic", "--model", "resnet10", "--size", "16",
+    "--batch_size", "16", "--learning_rate", "0.5", "--temp", "0.5", "--print_freq", "100",
+    "--feat_dim", "16", "--loss_impl", "fused", "--epochs", "1", "--syncBN", "--seed", "3",
+]
+
+
+def bn_inputs():
+    """``(x, dy, weight, bias, running_mean, running_var)`` of the sync-BN case."""
+    rng = np.random.default_rng(21)
+    c = BN_SHAPE[1]
+    arrays = (rng.normal(0.3, 1.2, BN_SHAPE), rng.normal(0, 1, BN_SHAPE),
+              rng.uniform(0.5, 1.5, c), rng.normal(0, 0.2, c),
+              rng.normal(0, 0.1, c), rng.uniform(0.5, 1.5, c))
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in arrays)
+
+
+def loss_inputs():
+    """Unit ``[B, 2, D]`` features and ``[B]`` labels of the loss case."""
+    rng = np.random.default_rng(31)
+    f = rng.standard_normal((B, 2, FEAT)).astype(np.float32)
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    return torch.from_numpy(f), torch.from_numpy(rng.integers(0, 4, B).astype(np.int32))
+
+
+def gather_inputs():
+    """Global view-major rows ``[2B, D]`` and a cotangent of that shape."""
+    rng = np.random.default_rng(41)
+    return tuple(torch.from_numpy(rng.standard_normal((2 * B, FEAT)).astype(np.float32))
+                 for _ in range(2))
+
+
+def step_inputs():
+    """``STEPS`` global batches of views ``[B, 2, SIZE, SIZE, 3]``, and labels."""
+    rng = np.random.default_rng(11)
+    views = rng.standard_normal((STEPS, B, 2, SIZE, SIZE, 3)).astype(np.float32)
+    return torch.from_numpy(views), torch.from_numpy(rng.integers(0, 4, B).astype(np.int32))
+
+
+def init_model():
+    """The rn10 of every step case, BN running buffers away from their init."""
+    torch.manual_seed(5)
+    model = SupConResNet("resnet10", "mlp", FEAT)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, c).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(
+                    rng.uniform(0.5, 1.5, c).astype(np.float32)))
+    return model
+
+
+def tiny_dataset(dataset, data_folder):
+    """64 training images of uniform noise (4 steps of the driver case's
+    batch of 16)."""
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (80, 32, 32, 3)).astype(np.uint8)
+    labels = rng.integers(0, 10, 80).astype(np.int32)
+    return ({"images": images[:64], "labels": labels[:64]},
+            {"images": images[64:], "labels": labels[64:]}, 10)
+
+
+def local_slice(t, rank, world):
+    b = t.shape[0] // world
+    return t[rank * b:(rank + 1) * b]
+
+
+def sync_bn_case(rank, world):
+    x, dy, weight, bias, ra_mean, ra_var = bn_inputs()
+    bn = nn.BatchNorm2d(BN_SHAPE[1]).train()
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+        bn.running_mean.copy_(ra_mean)
+        bn.running_var.copy_(ra_var)
+    xl = local_slice(x, rank, world).clone().requires_grad_()
+    y = batch_norm(bn, xl, torch.distributed.group.WORLD)
+    y.backward(local_slice(dy, rank, world))
+    return {"y": y.detach(), "dx": xl.grad, "dweight": bn.weight.grad, "dbias": bn.bias.grad,
+            "running_mean": bn.running_mean.clone(), "running_var": bn.running_var.clone(),
+            "num_batches_tracked": bn.num_batches_tracked.clone()}
+
+
+def gather_case():
+    rows, cot = gather_inputs()
+    local = collectives.own_rows(rows).clone().requires_grad_()
+    out = collectives.gather_features(local)
+    (out * cot).sum().backward()
+    return {"out": out.detach(), "grad": local.grad}
+
+
+def loss_case(rank, world, method):
+    f, labels = loss_inputs()
+    local = local_slice(f, rank, world).clone().requires_grad_()
+    loss = fused_sharded_supcon_loss(local, labels if method == "SupCon" else None,
+                                     temperature=TEMP, base_temperature=BASE_TEMP)
+    loss.backward()
+    out = {"loss": loss.detach(), "grad": local.grad}
+    if world == 1:
+        whole = f.clone().requires_grad_()
+        ref = fused_supcon_loss(whole, labels if method == "SupCon" else None,
+                                temperature=TEMP, base_temperature=BASE_TEMP)
+        ref.backward()
+        out.update(unsharded_loss=ref.detach(), unsharded_grad=whole.grad)
+    return out
+
+
+def step_case(name, rank, world, distributed):
+    """``STEPS`` steps of a step case: this process's slice under the process
+    group (``distributed``), or the global batch without one."""
+    sync, loss_impl, method = STEP_CASES[name]
+    views, labels = step_inputs()
+    model = init_model()
+    if distributed and sync:
+        model.encoder.set_bn_sync(torch.distributed.group.WORLD)
+    state = TrainState(model, make_optimizer(model), make_lr_schedule(**SCHED))
+    cfg = SupConStepConfig(method=method, loss_impl=loss_impl, **STEP_KW)
+    history = []
+    for i in range(STEPS):
+        imgs, labs = views[i], labels
+        if distributed:
+            imgs, labs = local_slice(imgs, rank, world), local_slice(labs, rank, world)
+        metrics = train_step(state, cfg, imgs, labs)
+        history.append({k: v.item() for k, v in metrics.items()})
+    out = {"history": history, "state": model.state_dict()}
+    if distributed:
+        flat = torch.cat([t.reshape(-1).float() for t in model.state_dict().values()])
+        out["same_on_every_rank"] = all(torch.equal(p, flat) for p in collectives.all_gather(flat))
+    return out
+
+
+def driver_run(workdir, *extra):
+    """``train.supcon.main`` on the 64-image set; ``(exit code, result)``."""
+    argv = DRIVER_ARGV + ["--workdir", workdir] + list(extra)
+    try:
+        result = supcon.main(argv)
+    except SystemExit as e:
+        return e.code, None
+    return 0, result
+
+
+def driver_summary(result):
+    return {"losses": [h["loss"] for h in result.history], "state": result.state.model.state_dict(),
+            "save_folder": result.save_folder, "step": result.state.step}
+
+
+def driver_cases(rank, world, outdir):
+    out = {}
+    code, result = driver_run(os.path.join(outdir, "work_sync"))
+    out["driver"] = dict(driver_summary(result), code=code)
+    if world == 2:
+        # a signal that reaches the last rank only, after global step 2
+        losses = []
+
+        def flag_after_two(state, cfg, views, labels):
+            metrics = train_step(state, cfg, views, labels)
+            losses.append(metrics["loss"].item())
+            if state.step == 2 and rank == world - 1:
+                preempt.request()
+            return metrics
+
+        supcon.train_step = flag_after_two
+        try:
+            out["preempt_code"], _ = driver_run(os.path.join(outdir, "work_preempt"))
+        finally:
+            supcon.train_step = train_step
+        # every rank resumes from rank 0's preemption save
+        folder = glob.glob(os.path.join(outdir, "work_preempt", "*", "*"))[0]
+        code, result = driver_run(os.path.join(outdir, "work_resume"), "--resume", folder)
+        out["resumed"] = dict(driver_summary(result), code=code)
+        out["resumed"]["losses"] = losses + out["resumed"]["losses"]
+        out["nonfinite_code"], _ = driver_run(os.path.join(outdir, "work_nan"),
+                                              "--learning_rate", "inf")
+    return out
+
+
+def flags_case(world):
+    out = {"none": preempt.requested_global()}
+    if mesh.rank() == world - 1:
+        preempt.request()
+    out["last_rank"] = preempt.requested_global()
+    preempt.uninstall()  # clears the flag
+    return out
+
+
+def count_writes():
+    """Count this process's checkpoint file writes in ``writes``."""
+    writes = []
+    atomic_save = checkpoint._atomic_save
+
+    def counted(obj, path):
+        writes.append(os.path.basename(path))
+        return atomic_save(obj, path)
+
+    checkpoint._atomic_save = counted
+    return writes
+
+
+def main(rank, world, outdir):
+    torch.set_num_threads(1)
+    supcon.load_dataset = tiny_dataset
+    writes = count_writes()
+    mesh.setup_distributed("cpu", init_method=f"file://{os.path.join(outdir, 'store')}",
+                           rank=rank, world_size=world, timeout=TIMEOUT)
+    results = {
+        "world": mesh.world_size(), "rank": mesh.rank(),
+        "sync_bn": sync_bn_case(rank, world),
+        "gather": gather_case(),
+        "loss": {m: loss_case(rank, world, m) for m in ("SimCLR", "SupCon")},
+        "flags": flags_case(world),
+        "step": {name: step_case(name, rank, world, True) for name in STEP_CASES},
+    }
+    results.update(driver_cases(rank, world, outdir))
+    results["writes"] = list(writes)
+    mesh.teardown_distributed()
+    if world == 1:
+        # the one-process references, with no process group
+        results["step_single"] = {name: step_case(name, 0, 1, False) for name in STEP_CASES}
+        code, result = driver_run(os.path.join(outdir, "work_single"))
+        results["driver_single"] = dict(driver_summary(result), code=code)
+    torch.save(results, os.path.join(outdir, f"rank{rank}.pt"))
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
