@@ -48,8 +48,17 @@ to the train phase's run; (b) two processes on the one card over gloo
 with ``--syncBN``, eager convs and the sharded fused loss against the
 one-process step on the global batch, both processes launching both loss
 kernels; with the step and collective times of both.
+Then the large-batch composition and the resilience of a multi-process
+run (``large_batch``): (a) the ResNet-50 fp32 fused epoch at world size 1
+(NCCL) with ``--syncBN --optimizer lars`` and ``--loss_impl ring``, against
+the same with ``--loss_impl fused``; in two processes on the one card over
+gloo, each against one process, (b) the ring loss alone at N = 8192 with
+its peak memory beside the dense loss's, (c) one ResNet-18 LARS ring step,
+(d) the probe, (e) a ResNet-18 run SIGTERM'd after step 3 and resumed at
+world size 1 (elastic resume); and (f) ``--nan_policy rollback`` with a
+non-finite loss injected in epoch 1 of 2.
 Phases: device, build, kernel_parity, train, probe, resume, distributed,
-timing. Any failure raises and the script exits non-zero.
+large_batch, timing. Any failure raises and the script exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
@@ -1684,7 +1693,7 @@ GLOO_CHILD = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-chip_smoke.gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+getattr(chip_smoke, sys.argv[5])(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
 """
 COLLECTIVES = ("all_reduce", "all_gather", "broadcast")
 
@@ -1723,6 +1732,24 @@ def time_collectives(fn):
         for name, call in originals.items():
             setattr(dist, name, call)
     return total, spent
+
+
+def torchrun_world1(argv):
+    """``train.supcon.main(argv)`` under torchrun's environment for a world
+    of one process: the entry point joins a process group over NCCL."""
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return supcon.main(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def gloo_rank(rank, world, outdir):
@@ -1776,12 +1803,14 @@ def gloo_rank(rank, world, outdir):
     mesh.teardown_distributed()
 
 
-def run_gloo_ranks(outdir, world=GLOO_WORLD, timeout=600):
-    """Run :func:`gloo_rank` in ``world`` processes to the end; a failed or
-    overrunning process kills its peers, and the phase fails."""
+def run_gloo_ranks(outdir, world=GLOO_WORLD, timeout=600, target="gloo_rank",
+                   label="distributed (b)"):
+    """Run ``target`` (:func:`gloo_rank` unless named) in ``world``
+    processes to the end; a failed or overrunning process kills its peers,
+    and the phase fails. Returns each rank's ``rank{r}.json``."""
     procs = [subprocess.Popen([sys.executable, "-c", GLOO_CHILD, REPO, str(r), str(world),
-                               outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
+                               outdir, target], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     outs = []
     try:
@@ -1789,7 +1818,7 @@ def run_gloo_ranks(outdir, world=GLOO_WORLD, timeout=600):
             out, _ = proc.communicate(timeout=timeout)
             outs.append(out)
             if proc.returncode != 0:
-                raise AssertionError(f"distributed (b): rank {r} exited {proc.returncode}:\n"
+                raise AssertionError(f"{label}: rank {r} exited {proc.returncode}:\n"
                                      f"{out[-6000:]}")
     finally:
         for proc in procs:
@@ -1828,18 +1857,7 @@ def distributed_phase(workdir, result, expected, model, views, labels, where):
     )
     # (a) world size 1 through NCCL
     def world1_run():
-        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        try:
-            return supcon.main(recipe_argv("resnet50", workdir) + ["--syncBN"])
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+        return torchrun_world1(recipe_argv("resnet50", workdir) + ["--syncBN"])
 
     counters = kernel_counters()
     for mod, name in counters:
@@ -1933,6 +1951,403 @@ def distributed_phase(workdir, result, expected, model, views, labels, where):
               "one card: context, not a measure of scaling")
     if failures:
         raise AssertionError("distributed (b):\n" + "\n".join(failures))
+
+
+# The large-batch phase: the ring loss, LARS, the probe over processes,
+# elastic resume and NaN rollback (lines ``large_batch (a)`` to ``(f)``).
+RING_BATCH = 4096  # the BASELINE bs = 4096 geometry: N = 8192 rows, D = 128
+RING_LOSS_RTOL, RING_GRAD_SCALED = 2e-5, 1e-5  # the JAX ring pin; the dF pin
+LARGE_STEP_LOSS_RTOL = 1e-5  # (c) and (e): the loss, as the dense-vs-fused step
+PROBE_CLASSIFIER_REL = 1e-5
+ELASTIC_STOP_AFTER = 3  # (e): the two-process run gets SIGTERM after this step
+
+
+def elastic_argv(workdir, name):
+    """(e)'s run: rn18 eager at the recipe's width, ``--syncBN --ngpu 2``,
+    one 7-step epoch, in a new directory under ``workdir``."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet18",
+            "--batch_size", "256", "--size", "32", "--epochs", "1", "--method", "SimCLR",
+            "--temp", str(TEMP), "--learning_rate", "0.5", "--cosine", "--loss_impl", "fused",
+            "--conv_impl", "eager", "--syncBN", "--ngpu", "2", "--print_freq", "1",
+            "--workdir", tempfile.mkdtemp(prefix=f"{name}_", dir=workdir)]
+
+
+def large_step(model_name, optimizer, loss_impl, views, labels, sync=None):
+    """One eager step of ``model_name`` from the seed-0 init on ``views``
+    (this process's slice under a group), with ``optimizer`` and
+    ``loss_impl``; returns ``(loss, init state, state after)``."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        SupConStepConfig,
+        train_step,
+    )
+    torch.manual_seed(0)
+    model = SupConResNet(model_name).to(views.device, memory_format=torch.channels_last)
+    model.encoder.set_conv_impl("eager").set_bn_sync(sync)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    state = TrainState(model=model, optimizer=make_optimizer(model, optimizer=optimizer),
+                       schedule=lambda s: 0.5)
+    cfg = SupConStepConfig(temperature=TEMP, loss_impl=loss_impl, epochs=1, steps_per_epoch=7)
+    loss = train_step(state, cfg, views, labels)["loss"].item()
+    return loss, init, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def large_batch_rank(rank, world, outdir):
+    """One process of the large-batch phase's two on the one card (gloo
+    over CUDA tensors, rendezvous through ``file://outdir/store``): (b) the
+    ring loss alone at N = 8192 on its slice, with its peak memory; (c) one
+    rn18 ``--optimizer lars --loss_impl ring --syncBN`` eager step at the
+    recipe's width; (d) the probe's entry point from ``spec.json``'s
+    checkpoint; (e) the elastic run straight, then again with SIGTERM after
+    step ``ELASTIC_STOP_AFTER`` on the last rank. Writes its tensors and a
+    JSON summary into ``outdir``."""
+    import datetime
+    import torch.distributed as dist
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    from simclr_pytorch_distributed_tpu_torch.parallel.collectives import ring_supcon_loss
+    from simclr_pytorch_distributed_tpu_torch.train import linear, supcon
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh.setup_distributed("cuda", init_method=f"file://{os.path.join(outdir, 'store')}",
+                           rank=rank, world_size=world, backend="gloo",
+                           timeout=datetime.timedelta(seconds=300))
+    with open(os.path.join(outdir, "spec.json")) as fh:
+        spec = json.load(fh)
+    out = {}
+
+    # (b) the ring loss alone
+    f, _, _ = loss_inputs(RING_BATCH, seed=9, device=dev)
+    b = RING_BATCH // world
+    feats = f.reshape(2, RING_BATCH, DIM).transpose(0, 1)
+    local = feats[rank * b:(rank + 1) * b].clone().requires_grad_()
+    ring_supcon_loss(local, None, temperature=TEMP, base_temperature=BASE_TEMP).backward()
+    local.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss = ring_supcon_loss(local, None, temperature=TEMP, base_temperature=BASE_TEMP)
+    loss.backward()
+    torch.cuda.synchronize()
+    out["ring"] = {"loss": loss.item(), "s": time.perf_counter() - t0,
+                   "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    torch.save(local.grad.cpu(), os.path.join(outdir, f"ring_grad{rank}.pt"))
+    del f, feats, local, loss
+    torch.cuda.empty_cache()
+
+    # (c) one rn18 LARS ring step
+    _, labels, _, views = recipe_batch(dev)
+    b = views.shape[0] // world
+    loss, _, after = large_step("resnet18", "lars", "ring", views[rank * b:(rank + 1) * b],
+                                labels[rank * b:(rank + 1) * b], dist.group.WORLD)
+    out["step_loss"] = loss
+    torch.save(after, os.path.join(outdir, f"step_state{rank}.pt"))
+
+    # (d) the probe's entry point
+    probe = linear.main(["--model", "resnet50", "--dataset", "synthetic", "--epochs", "1",
+                         "--batch_size", "512", "--ckpt", spec["ckpt"], "--print_freq", "1",
+                         "--workdir", os.path.join(outdir, "probe")])
+    out["probe"] = {"val": probe.val_history, "best": [probe.best_acc, probe.best_acc5],
+                    "losses": [h["loss"] for h in probe.history],
+                    "path": probe.classifier_path}
+    torch.save({k: v.cpu() for k, v in probe.state.model.state_dict().items()},
+               os.path.join(outdir, f"classifier{rank}.pt"))
+    del probe
+    torch.cuda.empty_cache()
+
+    # (e) the elastic run straight, then SIGTERM'd
+    straight = supcon.main(elastic_argv(outdir, f"straight{rank}"))
+    out["straight"] = {"losses": [h["loss"] for h in straight.history],
+                       "folder": straight.save_folder}
+    del straight
+    losses = []
+
+    def step(state, cfg, views, labels):
+        metrics = train_step(state, cfg, views, labels)
+        losses.append(metrics["loss"].item())
+        if state.step == ELASTIC_STOP_AFTER and rank == world - 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return metrics
+
+    supcon.train_step = step
+    try:
+        supcon.main(elastic_argv(outdir, f"preempt{rank}"))
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        supcon.train_step = train_step
+    saved = glob.glob(os.path.join(outdir, "preempt0_*", "*", "*", "*.pth"))
+    out["preempt"] = {"code": code, "losses": losses, "saved": saved}
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    mesh.teardown_distributed()
+
+
+def relative_l2(got, want):
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+def updates_within(name, got, want, init, params, failures):
+    """Each parameter's update of ``got`` against ``want``'s (relative L2,
+    ``STEP_UPDATE_REL_L2``), buffers at ``STEP_BUF_TOL``; prints the worst."""
+    errs, buf_worst = [], (0.0, None)
+    for key, ref in want.items():
+        if key in params:
+            errs.append((relative_l2(got[key] - init[key], ref - init[key]), key))
+        elif ref.is_floating_point():
+            diff = (got[key].double() - ref.double()).abs()
+            buf_worst = max(buf_worst, (diff.max().item(), key))
+            if (diff - STEP_BUF_TOL * (1 + ref.double().abs())).max().item() > 0:
+                failures.append(f"{name}: buffer {key} off by more than {STEP_BUF_TOL}")
+        elif not torch.equal(got[key], ref):
+            failures.append(f"{name}: buffer {key} differs")
+    worst = max(errs)
+    print(f"{name}: update relative L2 worst {worst[0]:.3e} at {worst[1]}, median "
+          f"{statistics.median(e for e, _ in errs):.3e} over {len(errs)} parameters (bound "
+          f"{STEP_UPDATE_REL_L2}); buffers max abs diff {buf_worst[0]:.3e} at {buf_worst[1]} "
+          f"(bound rtol/atol {STEP_BUF_TOL})")
+    if not worst[0] <= STEP_UPDATE_REL_L2:
+        failures.append(f"{name}: update relative L2 {worst}")
+
+
+def large_batch_phase(workdir, result, rn50_expected, rn18_expected, where):
+    """The large-batch composition (``--optimizer lars --loss_impl ring``)
+    and the multi-process resilience on the card.
+
+    (a) ``train.supcon.main`` under torchrun's environment at world size 1
+    (NCCL): one 7-step epoch of ResNet-50 fp32 at the recipe's width with
+    ``--syncBN --optimizer lars --loss_impl ring --conv_impl fused``, and the
+    same with ``--loss_impl fused``: the step-1 losses within rtol 1e-5,
+    every loss finite, the conv kernels 7 stem and 112 Bottleneck launches
+    each way in both runs (the loss kernels none in the ring's), and the
+    step medians beside the train phase's SGD epoch (``result``).
+    (b)-(e) in two processes on the one card over gloo
+    (:func:`large_batch_rank`), each held here against one process:
+    (b) the ring loss at N = 8192 against the dense loss (rtol 2e-5, dF at
+    1e-5 x max|dF|), with each process's peak memory beside the dense
+    loss's; (c) one rn18 LARS ring step against the one-process LARS step
+    with the fused loss (loss 1e-5, updates at ``STEP_UPDATE_REL_L2``); (d)
+    the probe against the one-process probe (classifier within 1e-5
+    relative, top-1/top-5 equal); (e) the elastic run, SIGTERM'd after step
+    3 (both exit 75), resumed at world size 1 over NCCL, against the
+    straight two-process run at (c)'s pins, the warning in its log.
+    (f) ``--nan_policy rollback``: rn18 fp32 fused at world size 1 over 2
+    epochs with a non-finite loss injected at global step 0 (the driver's
+    finite check raises there, as the CPU tests inject it): exit 0, the
+    steps after the skip at 0.5 x the schedule, ``last.pth`` holding
+    ``lr_scale`` 0.5 and ``rollbacks`` 1."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.ops.losses import supcon_loss
+    from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
+    from simclr_pytorch_distributed_tpu_torch.train import linear, supcon
+    from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import load_model_state
+    from simclr_pytorch_distributed_tpu_torch.utils.guard import NonFiniteLossError
+    dev = torch.device("cuda", 0)
+    failures = []
+
+    # (a) ResNet-50, LARS + ring against LARS + fused, world size 1 (NCCL)
+    counters = kernel_counters()
+    runs = {}
+    for loss_impl in ("ring", "fused"):
+        argv = recipe_argv("resnet50", workdir) + ["--syncBN", "--optimizer", "lars"]
+        argv[argv.index("--loss_impl") + 1] = loss_impl
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        run = torchrun_world1(argv)
+        launches = {name: getattr(mod, name) for mod, name in counters}
+        expected = (rn50_expected if loss_impl == "fused"
+                    else dict(rn50_expected, fwd_launches=0, bwd_launches=0))
+        losses = [h["loss"] for h in run.history]
+        with open(os.path.join(run.save_folder, "log-ing")) as fh:
+            banners = [line.split(" INFO ")[-1].strip() for line in fh
+                       if "[loss_impl]" in line or "[optimizer]" in line]
+        print(f"large_batch (a): rn50 fp32 --optimizer lars --loss_impl {loss_impl} world size "
+              f"1 (NCCL) losses {losses}; kernel launches {launches}; banners {banners}")
+        if launches != expected:
+            failures.append(f"(a) {loss_impl}: launches {launches}, expected {expected}")
+        if len(losses) != 7 or not all(math.isfinite(x) for x in losses):
+            failures.append(f"(a) {loss_impl}: expected 7 finite losses")
+        runs[loss_impl] = run
+    rel = abs(runs["ring"].history[0]["loss"] - runs["fused"].history[0]["loss"]) / abs(
+        runs["fused"].history[0]["loss"])
+    ms = {name: statistics.median(h["step_time"] for h in run.history[2:7]) * 1e3
+          for name, run in (("lars ring", runs["ring"]), ("lars fused", runs["fused"]),
+                            ("sgd fused (train phase)", result))}
+    print(f"large_batch (a): step-1 loss ring vs fused rel diff {rel:.3e} (bound "
+          f"{LARGE_STEP_LOSS_RTOL}); step median of steps 3-7: "
+          + ", ".join(f"{name} {t:.2f} ms" for name, t in ms.items()) + f" {where}")
+    if not rel <= LARGE_STEP_LOSS_RTOL:
+        failures.append(f"(a): step-1 loss ring vs fused {rel}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # (b)-(e): two processes on the one card
+    outdir = tempfile.mkdtemp(prefix="large_", dir=workdir)
+    with open(os.path.join(outdir, "spec.json"), "w") as fh:
+        json.dump({"ckpt": os.path.join(result.save_folder, "last.pth")}, fh)
+    ranks = run_gloo_ranks(outdir, target="large_batch_rank", label="large_batch")
+
+    # (b) the ring loss against the dense loss on one process
+    f, _, _ = loss_inputs(RING_BATCH, seed=9, device=dev)
+    feats = f.reshape(2, RING_BATCH, DIM).transpose(0, 1).clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dense = supcon_loss(feats, temperature=TEMP, base_temperature=BASE_TEMP)
+    dense.backward()
+    torch.cuda.synchronize()
+    dense_s, dense_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+    grad = feats.grad.cpu()
+    b = RING_BATCH // GLOO_WORLD
+    worst = 0.0
+    for r, summary in enumerate(ranks):
+        got = torch.load(os.path.join(outdir, f"ring_grad{r}.pt"), weights_only=True)
+        worst = max(worst, (got - grad[r * b:(r + 1) * b]).abs().max().item())
+        lrel = abs(summary["ring"]["loss"] - dense.item()) / abs(dense.item())
+        print(f"large_batch (b) rank {r}: ring loss N = {2 * RING_BATCH} D = {DIM} "
+              f"{summary['ring']['loss']!r} vs dense {dense.item()!r} rel {lrel:.3e} (bound "
+              f"{RING_LOSS_RTOL}); peak memory of the loss beyond its inputs "
+              f"{summary['ring']['peak_bytes'] / 2**20:.1f} MiB (the dense loss on one "
+              f"process: {dense_peak / 2**20:.1f} MiB, of which its [{2 * RING_BATCH}, "
+              f"{2 * RING_BATCH}] fp32 logits {4 * (2 * RING_BATCH) ** 2 / 2**20:.0f} MiB); "
+              f"forward+backward {summary['ring']['s'] * 1e3:.2f} ms through gloo on one card "
+              f"(dense {dense_s * 1e3:.2f} ms) {where}")
+        if not lrel <= RING_LOSS_RTOL:
+            failures.append(f"(b) rank {r}: ring loss rel {lrel}")
+    scale = grad.abs().max().item()
+    print(f"large_batch (b): dF max abs diff {worst:.3e} against 1e-5 x max|dF| = "
+          f"{RING_GRAD_SCALED * scale:.3e}")
+    if not worst <= RING_GRAD_SCALED * scale:
+        failures.append(f"(b): dF off by {worst}")
+    del f, feats, dense, grad
+    torch.cuda.empty_cache()
+
+    # (c) the rn18 LARS ring step against the one-process LARS fused step
+    _, labels, _, views = recipe_batch(dev)
+    ref_loss, init, ref = large_step("resnet18", "lars", "fused", views, labels)
+    params = {k for k, _ in SupConResNet("resnet18").named_parameters()}
+    states = [torch.load(os.path.join(outdir, f"step_state{r}.pt"), weights_only=True)
+              for r in range(GLOO_WORLD)]
+    lrel = abs(ranks[0]["step_loss"] - ref_loss) / abs(ref_loss)
+    same = all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+    print(f"large_batch (c): rn18 --optimizer lars --loss_impl ring --syncBN eager step, two "
+          f"processes: losses {[r['step_loss'] for r in ranks]} vs one process (fused loss) "
+          f"{ref_loss!r}, rel {lrel:.3e} (bound {LARGE_STEP_LOSS_RTOL}); ranks equal after the "
+          f"step: {same}")
+    if not lrel <= LARGE_STEP_LOSS_RTOL or not same:
+        failures.append(f"(c): loss rel {lrel}, ranks equal {same}")
+    updates_within("large_batch (c)", states[0], ref, init, params, failures)
+    del views
+
+    # (d) the probe in two processes against one
+    single = linear.main(["--model", "resnet50", "--dataset", "synthetic", "--epochs", "1",
+                          "--batch_size", "512", "--ckpt",
+                          os.path.join(result.save_folder, "last.pth"), "--print_freq", "1",
+                          "--workdir", tempfile.mkdtemp(prefix="probe1_", dir=workdir)])
+    want = {k: v.cpu() for k, v in single.state.model.state_dict().items()}
+    for r, summary in enumerate(ranks):
+        got = torch.load(os.path.join(outdir, f"classifier{r}.pt"), weights_only=True)
+        rels = {k: relative_l2(got[k], v) for k, v in want.items()}
+        val = [(v["top1"], v["top5"]) for v in summary["probe"]["val"]]
+        want_val = [(v["top1"], v["top5"]) for v in single.val_history]
+        print(f"large_batch (d) rank {r}: probe (rn50, batch 512, 3 steps) classifier relative "
+              f"L2 vs one process {rels} (bound {PROBE_CLASSIFIER_REL}); validation top-1/top-5 "
+              f"{val} vs {want_val}; losses {summary['probe']['losses']} vs "
+              f"{[h['loss'] for h in single.history]}; wrote {summary['probe']['path']}")
+        if max(rels.values()) > PROBE_CLASSIFIER_REL or val != want_val:
+            failures.append(f"(d) rank {r}: classifier {rels}, validation {val} vs {want_val}")
+    if ranks[0]["probe"]["path"] is None or ranks[1]["probe"]["path"] is not None:
+        failures.append("(d): only rank 0 must write classifier_best.pth")
+    del single
+    torch.cuda.empty_cache()
+
+    # (e) elastic: SIGTERM'd under two processes, resumed under one (NCCL)
+    codes = [r["preempt"]["code"] for r in ranks]
+    saved = ranks[0]["preempt"]["saved"]
+    print(f"large_batch (e): the two-process run SIGTERM'd after step {ELASTIC_STOP_AFTER} "
+          f"exited {codes}, saved {[os.path.basename(p) for p in saved]}")
+    if codes != [75, 75] or len(saved) != 1:
+        raise AssertionError("large_batch (e): both processes must exit 75 with one save:\n"
+                             + "\n".join(failures))
+    resumed = torchrun_world1(elastic_argv(workdir, "resumed")
+                              + ["--resume", os.path.dirname(saved[0])])
+    losses = ranks[0]["preempt"]["losses"] + [h["loss"] for h in resumed.history]
+    want_losses = ranks[0]["straight"]["losses"]
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    with open(os.path.join(resumed.save_folder, "log-ing")) as fh:
+        warning = [line.strip() for line in fh if "elastic resume" in line]
+    print(f"large_batch (e): resumed at world size 1 (NCCL): losses {losses} vs the straight "
+          f"two-process run {want_losses}, worst rel {worst_loss:.3e} (bound "
+          f"{LARGE_STEP_LOSS_RTOL}); warning {warning}")
+    if len(losses) != len(want_losses) or not worst_loss <= LARGE_STEP_LOSS_RTOL:
+        failures.append(f"(e): losses rel {worst_loss}")
+    if len(warning) != 1 or "saved under 2 process(es), restoring under 1" not in warning[0]:
+        failures.append("(e): the elastic-resume warning is missing")
+    straight = load_model_state(os.path.join(ranks[0]["straight"]["folder"], "last.pth"))
+    torch.manual_seed(0)  # the driver's init (seed 0)
+    init = SupConResNet("resnet18").state_dict()
+    updates_within("large_batch (e) resumed vs straight", {
+        k: v.cpu() for k, v in resumed.state.model.state_dict().items()}, straight, init,
+        params, failures)
+    del resumed
+    torch.cuda.empty_cache()
+
+    # (f) NaN rollback at world size 1
+    argv = ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet18",
+            "--batch_size", "256", "--size", "32", "--epochs", "2", "--method", "SimCLR",
+            "--temp", str(TEMP), "--learning_rate", "0.5", "--cosine", "--loss_impl", "fused",
+            "--conv_impl", "fused", "--nan_policy", "rollback", "--print_freq", "1",
+            "--workdir", tempfile.mkdtemp(prefix="rollback_", dir=workdir)]
+    check = supcon.check_finite_loss
+
+    def poisoned(loss, step, enabled=True):
+        if step == 0:
+            raise NonFiniteLossError(float("nan"), step)
+        return check(loss, step, enabled)
+
+    supcon.check_finite_loss = poisoned
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    try:
+        rolled = supcon.main(argv)
+        code = 0
+    except SystemExit as e:
+        code, rolled = e.code, None
+    finally:
+        supcon.check_finite_loss = check
+    launches = {name: getattr(mod, name) for mod, name in counters}
+    # the poisoned step ran too: 1 + 7 steps of rn18_expected's 7
+    expected = {name: n // 7 * 8 for name, n in rn18_expected.items()}
+    if launches != expected:
+        failures.append(f"(f): launches {launches}, expected {expected}")
+    if rolled is None:
+        raise AssertionError(f"large_batch (f): the rollback run exited {code}:\n"
+                             + "\n".join(failures))
+    sched = make_lr_schedule(learning_rate=0.5, epochs=2, steps_per_epoch=7, cosine=True)
+    steps = [h["step"] for h in rolled.history]
+    lr_rel = max(abs(h["learning_rate"] - 0.5 * sched(h["step"])) / (0.5 * sched(h["step"]))
+                 for h in rolled.history[1:])
+    last = torch.load(os.path.join(rolled.save_folder, "last.pth"), map_location="cpu",
+                      weights_only=True)
+    crash = os.path.isfile(os.path.join(rolled.save_folder, "crash_epoch_1.pth"))
+    print(f"large_batch (f): rollback run exited {code}; kernel launches {launches}; steps "
+          f"{steps}; learning rates after "
+          f"the skip vs 0.5 x the schedule worst rel {lr_rel:.3e}; last.pth lr_scale "
+          f"{last['lr_scale']} rollbacks {last['rollbacks']} step {last['step']}; "
+          f"crash_epoch_1.pth {'written' if crash else 'missing'}; losses "
+          f"{[h['loss'] for h in rolled.history]}")
+    if (steps != [0] + list(range(7, 14)) or not lr_rel <= 1e-6 or not crash
+            or (last["lr_scale"], last["rollbacks"], last["step"]) != (0.5, 1, 14)
+            or not all(math.isfinite(h["loss"]) for h in rolled.history[1:])):
+        failures.append("(f): the rollback run is not as expected")
+    if failures:
+        raise AssertionError("large_batch:\n" + "\n".join(failures))
 
 
 def split_only() -> int:
@@ -2134,6 +2549,11 @@ def main(argv=None) -> int:
     t0 = phase("distributed")
     distributed_phase(workdir, result, rn50_expected, model, views, labels, f"on {card}")
     done("distributed", t0)
+
+    # -- large_batch: LARS + ring, the probe over processes, elastic, rollback
+    t0 = phase("large_batch")
+    large_batch_phase(workdir, result, rn50_expected, rn18_expected, f"on {card}")
+    done("large_batch", t0)
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")

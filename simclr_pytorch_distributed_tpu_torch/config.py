@@ -9,11 +9,13 @@ for the probe, ``n_cls`` per dataset and the ``classifier_<time>_<model_name>``
 run folder (``main_linear.py:65-114``).
 
 Flags the port does not implement yet are absent, so argparse rejects them
-(the JAX package's observability, telemetry and data-placement flags, and
-``--nan_policy``: a non-finite loss aborts, the JAX default). Added here:
-``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
-{dense,fused,auto}`` and ``--conv_impl {eager,fused,auto}`` (the JAX
-package's ``--conv_impl {xla,pallas,auto}``).
+(the JAX package's observability, telemetry and data-placement flags).
+Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
+{dense,fused,ring,auto}`` (``ring`` only when asked for, as in JAX
+``config.py:92-96``) and ``--conv_impl {eager,fused,auto}`` (the JAX
+package's ``--conv_impl {xla,pallas,auto}``). ``--optimizer {sgd,lars}``
+and ``--nan_policy {abort,rollback}`` are the JAX package's
+(``config.py:366, 372``).
 ``--bf16`` is the JAX package's (``config.py:85, 348``): bf16 activations
 and conv/linear operands with fp32 accumulation, fp32 parameters, BN
 statistics and loss. ``--ckpt`` (a warm start of the model's weights and
@@ -77,6 +79,8 @@ class SupConConfig:
     ckpt: str = ""
     resume: str = ""
     nan_guard: bool = True
+    nan_policy: str = "abort"
+    optimizer: str = "sgd"
     # derived (finalize_supcon)
     warm_epochs: int = 10
     warmup_from: float = 0.01
@@ -174,9 +178,11 @@ def supcon_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--workdir", type=str, default=d.workdir)
     p.add_argument("--loss_impl", type=str, default=d.loss_impl,
-                   choices=["auto", "dense", "fused"],
+                   choices=["auto", "dense", "fused", "ring"],
                    help="contrastive loss: the fused CUDA kernels, the dense "
-                        "PyTorch form, or auto (fused on cuda, dense on cpu)")
+                        "PyTorch form, the ring (contrast blocks rotate between the "
+                        "processes, no feature gather), or auto (fused on cuda, dense on "
+                        "cpu; never ring)")
     p.add_argument("--conv_impl", type=str, default=d.conv_impl,
                    choices=["auto", "eager", "fused"],
                    help="encoder conv path in train mode: the fused conv+BN CUDA "
@@ -195,7 +201,16 @@ def supcon_parser() -> argparse.ArgumentParser:
                         "the augmentation generator; the run continues where it stopped")
     p.add_argument("--nan_guard", type=parse_bool, default=d.nan_guard,
                    help="on a non-finite loss, save crash_epoch_N.pth from the epoch-top "
-                        "state and exit with code 1")
+                        "state, then act by --nan_policy")
+    p.add_argument("--nan_policy", type=str, default=d.nan_policy,
+                   choices=["abort", "rollback"],
+                   help="on a non-finite loss: exit with code 1 after the crash save, or "
+                        "restore the epoch-top state on every process, skip the epoch, "
+                        "halve the learning rate and go on (at most 3 times)")
+    p.add_argument("--optimizer", type=str, default=d.optimizer, choices=["sgd", "lars"],
+                   help="sgd (the reference's), or lars: layer-adaptive scaling for large "
+                        "global batches (optax.lars: weight decay and trust ratio on "
+                        "kernels only)")
     return p
 
 

@@ -9,15 +9,68 @@ global batch, ``b = batch_size / P`` (JAX ``data/pipeline.py:207-213``), so
 the processes together see the global batch the one-process run sees. A
 background thread assembles batch k+1 (a numpy row gather) while the
 device runs step k.
+
+The bounds come from :func:`share_splits` (JAX ``data/pipeline.py:42-108``,
+copied here, since the port imports nothing of the JAX package), which
+takes a share hint ``host:factor`` (what the JAX package's fleet supervisor
+exports as ``FLEET_SHARE_HINT``): a straggling process hands part of its
+share to its peers, and the union of the slices stays the global batch.
+As in the JAX package, the trainers do not pass a hint: the train step
+needs equal slices. The port has no supervisor, and nothing in it reads
+that variable.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+def parse_share_hint(hint: Optional[str]) -> Optional[Tuple[int, float]]:
+    """A ``"host:factor"`` share hint as ``(host, factor)``; ``None`` for
+    anything malformed, which degrades to the uniform split rather than
+    raising (the hint is advisory input from the environment)."""
+    if not hint:
+        return None
+    try:
+        host_s, factor_s = str(hint).split(":", 1)
+        host, factor = int(host_s), float(factor_s)
+    except ValueError:
+        return None
+    if host < 0 or not (0.0 < factor <= 1.0) or factor != factor:
+        return None
+    return host, factor
+
+
+def share_splits(global_batch_size: int, process_count: int,
+                 hint: Optional[str] = None) -> List[Tuple[int, int]]:
+    """Per-process ``[lo, hi)`` bounds into each global batch: uniform
+    (``global_batch_size // process_count`` each) unless ``hint`` names a
+    valid process and factor; that process then keeps
+    ``round(per_proc * factor)`` rows (at least 1) and the deficit spreads
+    evenly over the others, the remainder to the lowest indices. The bounds
+    are contiguous, start at 0 and end at ``global_batch_size``."""
+    per_proc = global_batch_size // process_count
+    sizes = [per_proc] * process_count
+    parsed = parse_share_hint(hint)
+    if parsed is not None and process_count > 1:
+        host, factor = parsed
+        if host < process_count:
+            keep = max(1, int(round(per_proc * factor)))
+            deficit = per_proc - keep
+            if deficit > 0:
+                sizes[host] = keep
+                bump, rem = divmod(deficit, process_count - 1)
+                others = [i for i in range(process_count) if i != host]
+                for j, i in enumerate(others):
+                    sizes[i] += bump + (1 if j < rem else 0)
+    bounds, lo = [], 0
+    for size in sizes:
+        bounds.append((lo, lo + size))
+        lo += size
+    return bounds
 
 
 class EpochLoader:
@@ -34,6 +87,7 @@ class EpochLoader:
         prefetch: int = 2,
         process_index: int = 0,
         process_count: int = 1,
+        share_hint: Optional[str] = None,
     ):
         if prefetch < 1:
             raise ValueError(f"prefetch must be >= 1, got {prefetch}")
@@ -42,8 +96,10 @@ class EpochLoader:
                              f"{process_count} processes")
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} outside [0, {process_count})")
-        self.local_batch = batch_size // process_count
-        self._lo = process_index * self.local_batch
+        # this process's [lo, hi) window into every global batch
+        self.share_bounds = share_splits(batch_size, process_count, share_hint)
+        self._lo, self._hi = self.share_bounds[process_index]
+        self.local_batch = self._hi - self._lo
         self.images = np.ascontiguousarray(images)
         self.labels = np.ascontiguousarray(labels)
         self.batch_size = batch_size
@@ -58,7 +114,7 @@ class EpochLoader:
         order = np.random.default_rng(self.base_seed + epoch).permutation(len(self.images))
         for step in range(start_step, self.steps_per_epoch):
             sel = order[step * self.batch_size:(step + 1) * self.batch_size]
-            sel = sel[self._lo:self._lo + self.local_batch]
+            sel = sel[self._lo:self._hi]
             yield self.images[sel], self.labels[sel].astype(np.int32, copy=False)
 
     def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:

@@ -275,11 +275,26 @@ def two_crop_batch(generator: torch.Generator, images_u8: torch.Tensor, cfg: Aug
     return views.reshape((b, 2) + views.shape[1:])
 
 
-def augment_batch(generator: torch.Generator, images_u8: torch.Tensor, cfg: AugmentConfig):
+def skip_view_draws(generator: torch.Generator, steps: int, batch_size: int, height: int,
+                    width: int, cfg: AugmentConfig) -> None:
+    """Advance ``generator`` as ``steps`` calls of :func:`two_crop_batch` on
+    a global batch of ``batch_size`` images of ``height x width`` would,
+    without applying the views: the NaN rollback's skipped steps."""
+    for _ in range(steps):
+        sample_view_params(generator, 2 * batch_size, height, width, cfg)
+
+
+def augment_batch(generator: torch.Generator, images_u8: torch.Tensor, cfg: AugmentConfig,
+                  *, process_index: int = 0, process_count: int = 1):
     """One augmented view per image (the probe's train transform): uint8
-    ``[B, H, W, C]`` -> ``[B, size, size, C]`` float."""
+    ``[B, H, W, C]`` -> ``[B, size, size, C]`` float. Under data
+    parallelism the draws are the global batch's and this process applies
+    its rows, as in :func:`two_crop_batch`."""
     b, height, width = images_u8.shape[0], images_u8.shape[1], images_u8.shape[2]
-    return apply_views(images_u8, sample_view_params(generator, b, height, width, cfg), cfg)
+    params = sample_view_params(generator, b * process_count, height, width, cfg)
+    if process_count > 1:
+        params = {k: v[b * process_index:b * (process_index + 1)] for k, v in params.items()}
+    return apply_views(images_u8, params, cfg)
 
 
 def eval_batch(images_u8: torch.Tensor, cfg: AugmentConfig):

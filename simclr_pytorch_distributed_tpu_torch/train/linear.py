@@ -1,6 +1,10 @@
-"""Linear-probe driver (reference ``main_linear.py``) on one device.
+"""Linear-probe driver (reference ``main_linear.py``), on one device or data
+parallel over several.
 
     python -m simclr_pytorch_distributed_tpu_torch.train.linear \\
+        --dataset synthetic --model resnet50 --ckpt <pretrain run>/last.pth
+
+    torchrun --nproc_per_node P -m simclr_pytorch_distributed_tpu_torch.train.linear \\
         --dataset synthetic --model resnet50 --ckpt <pretrain run>/last.pth
 
 The JAX package's ``train/linear.py`` (``stats_for :95``, ``build_probe
@@ -22,6 +26,19 @@ The JAX package's ``train/linear.py`` (``stats_for :95``, ``build_probe
   is; the best top-1 and its top-5 are kept, the best classifier is saved
   as ``classifier_best.pth`` and ``best accuracy: X, accuracy5: Y`` is
   logged at the end (the line ``scripts/ratchet.py`` reads).
+
+Under ``torchrun`` (JAX ``train/linear.py:15-16, :242-300``) each process
+joins the process group (``parallel/mesh.py``), takes its slice of every
+global batch with the augmentation drawn for the global batch (so P
+processes see the one-process crops), and averages the classifier's
+gradient with one all-reduce (``collectives.mean_gradients``); the
+encoder is frozen and the loss a per-example mean, so the update is the
+one-process update. Validation splits every chunk of ``--val_batch_size``
+rows between the processes, the tail chunk padded to full size and its pad
+rows left out of the counts, and sums the counts in rank order. Each
+step's loss and counts are the global batch's. Rank 0 alone logs and
+writes; a signal on any process stops all of them at one step
+(``preempt.requested_global``).
 
 The probe keeps no full-state checkpoints: ``--resume`` is accepted and
 retrains from scratch. SIGTERM/SIGINT stop it after the step in flight; it
@@ -54,6 +71,7 @@ from simclr_pytorch_distributed_tpu_torch.ops.augment import (
 from simclr_pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss
 from simclr_pytorch_distributed_tpu_torch.ops.metrics import AverageMeter, topk_correct
 from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
+from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
 from simclr_pytorch_distributed_tpu_torch.train.supcon import compute_dtype, resolve_device
 from simclr_pytorch_distributed_tpu_torch.utils import preempt
@@ -118,13 +136,17 @@ def probe_step(
     model: SupConResNet, state: TrainState, images: torch.Tensor, labels: torch.Tensor
 ) -> Dict[str, torch.Tensor]:
     """One classifier update on augmented ``images`` (JAX
-    ``train/linear.py:197``). Returns ``loss`` and the top-1/top-5 correct
-    counts as 0-dim tensors on the device; nothing here waits for it."""
+    ``train/linear.py:197``), this process's slice of the global batch
+    under a process group, with the gradient averaged over the processes.
+    Returns this process's ``loss`` and top-1/top-5 correct counts as
+    0-dim tensors on the device; nothing here waits for it but the
+    gradient mean."""
     logits = state.model(encode(model, images))
     loss = cross_entropy_loss(logits, labels)
     state.set_learning_rate()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    collectives.mean_gradients(state.model.parameters())
     state.optimizer.step()
     state.step += 1
     correct = topk_correct(logits.detach(), labels)
@@ -136,19 +158,36 @@ def run_validation(
     batch_size: int, aug_cfg: AugmentConfig, device: torch.device,
 ) -> Dict[str, float]:
     """Loss, top-1 and top-5 (percent) over the whole split (reference
-    ``validate()``, ``main_linear.py:204-244``): every example counts once,
-    the tail batch as it is; the sums stay on the device until one
-    readback."""
+    ``validate()``, ``main_linear.py:204-244``): every example counts once.
+    Alone, a process takes each chunk of ``batch_size`` rows, the tail as it
+    is. Under a process group (JAX ``train/linear.py:242-270``) it takes its
+    slice of each chunk, the tail padded to ``batch_size`` with its first
+    row and the pad rows left out of the counts, and the sums are added in
+    rank order. The sums stay on the device until one readback."""
+    p, r = mesh.world_size(), mesh.rank()
+    if batch_size % p:
+        raise ValueError(f"--val_batch_size {batch_size} not divisible by {p} processes")
+    part = batch_size // p
     sums = torch.zeros(3, dtype=torch.float64, device=device)
     with torch.no_grad():
         for lo in range(0, len(images), batch_size):
-            x = torch.from_numpy(images[lo:lo + batch_size]).to(device, non_blocking=True)
-            y = torch.from_numpy(labels[lo:lo + batch_size]).to(device, non_blocking=True).long()
-            logits = classifier(encode(model, eval_batch(x, aug_cfg)))
+            x, y = images[lo:lo + batch_size], labels[lo:lo + batch_size]
+            valid = len(y)
+            if p > 1:
+                pad = batch_size - valid
+                if pad:
+                    x = np.concatenate([x, np.repeat(x[:1], pad, axis=0)])
+                    y = np.concatenate([y, np.repeat(y[:1], pad)])
+                x, y = x[r * part:(r + 1) * part], y[r * part:(r + 1) * part]
+                valid = min(max(valid - r * part, 0), part)
+            x = torch.from_numpy(x).to(device, non_blocking=True)
+            y = torch.from_numpy(y).to(device, non_blocking=True).long()
+            logits = classifier(encode(model, eval_batch(x, aug_cfg)))[:valid]
+            y = y[:valid]
             correct = topk_correct(logits, y)
             sums += torch.stack([F.cross_entropy(logits, y, reduction="sum").double(),
                                  correct[1].double(), correct[5].double()])
-    loss_sum, top1, top5 = sums.tolist()
+    loss_sum, top1, top5 = collectives.rank_ordered_sum(sums).tolist()
     n = len(images)
     return {"loss": loss_sum / n, "top1": 100.0 * top1 / n, "top5": 100.0 * top5 / n}
 
@@ -181,13 +220,18 @@ def train_epoch(
     batch_time, losses, top1 = AverageMeter(), AverageMeter(), AverageMeter()
     steps = len(loader)
     end = time.time()
+    world = mesh.world_size()
     for idx, (images_u8, labels) in enumerate(loader.epoch(epoch)):
         t0 = time.time()
         x = torch.from_numpy(images_u8).to(device, non_blocking=True)
         y = torch.from_numpy(labels).to(device, non_blocking=True).long()
-        m = probe_step(model, state, augment_batch(generator, x, aug_cfg), y)
-        loss, c1, c5 = torch.stack([m["loss"], m["top1"].float(), m["top5"].float()]).tolist()
-        bsz = len(labels)
+        views = augment_batch(generator, x, aug_cfg, process_index=mesh.rank(),
+                              process_count=world)
+        m = probe_step(model, state, views, y)
+        # the global batch's loss (the mean of equal slices') and counts
+        loss, c1, c5 = collectives.rank_ordered_sum(
+            torch.stack([m["loss"] / world, m["top1"].float(), m["top5"].float()])).tolist()
+        bsz = cfg.batch_size
         history.append({"epoch": epoch, "step": state.step - 1, "loss": loss,
                         "top1": 100.0 * c1 / bsz, "top5": 100.0 * c5 / bsz,
                         "step_time": time.time() - t0})
@@ -200,24 +244,41 @@ def train_epoch(
                 epoch, idx + 1, steps, batch_time.val, batch_time.avg,
                 losses.val, losses.avg, top1.val, top1.avg,
             )
-        if preempt.requested():
+        if preempt.requested_global():
             return top1.avg, True
         end = time.time()
     return top1.avg, False
 
 
 def run(cfg: config_lib.LinearConfig) -> ProbeResult:
+    """The probe, inside the process group when ``torchrun`` launched it
+    (the group is left at the end if this call joined it)."""
+    joined = mesh.setup_distributed(cfg.device)
+    try:
+        return _probe(cfg)
+    finally:
+        if joined:
+            mesh.teardown_distributed()
+
+
+def _probe(cfg: config_lib.LinearConfig) -> ProbeResult:
     device = resolve_device(cfg.device)
-    setup_logging(cfg.save_folder)
+    # the minute-stamped folder: every process adopts rank 0's
+    cfg.save_folder = mesh.broadcast_from_main(cfg.save_folder)
+    main_process = mesh.is_main_process()
+    setup_logging(cfg.save_folder, main_process)
     logging.info(
-        "device: %s (%s)", device,
+        "device: %s (%s), process %d of %d", device,
         torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU",
+        mesh.rank(), mesh.world_size(),
     )
     train_data, test_data, cfg.n_cls = load_dataset(cfg.dataset, cfg.data_folder)
     loader = EpochLoader(
-        train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed
+        train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
+        process_index=mesh.rank(), process_count=mesh.world_size(),
     )
     model, state = build_probe(cfg, len(loader), device)
+    collectives.broadcast_from_rank0(state.model)
     mean, std = stats_for(cfg.dataset)
     aug_cfg = AugmentConfig(size=cfg.size, mean=mean, std=std, color_ops=False)
     generator = torch.Generator(device=device)
@@ -254,10 +315,12 @@ def run(cfg: config_lib.LinearConfig) -> ProbeResult:
     finally:
         preempt.uninstall()
     path = None
-    if best_state is not None:
+    if best_state is not None and main_process:
         path = save_classifier(cfg.save_folder, best_state, best_acc)
         logging.info("saved best classifier to %s", path)
     logging.info("best accuracy: %.2f, accuracy5: %.2f", best_acc, best_acc5)
+    # every process leaves together; none before rank 0's write
+    mesh.sync_processes("end of probe")
     if preempted:
         raise SystemExit(preempt.EXIT_PREEMPTED)
     return ProbeResult(best_acc=best_acc, best_acc5=best_acc5, model=model, state=state,

@@ -14,7 +14,9 @@ Under ``torchrun`` (``WORLD_SIZE`` set) each process joins the process group
 cpu``), takes its slice of every global batch of ``--batch_size``, and runs
 the data-parallel step (``train/supcon_step.py``): the feature gather, the
 loss over the global batch (the fused loss in its sharded form), the
-gradient mean, and with ``--syncBN`` cross-replica BN. Every process starts
+gradient mean, and with ``--syncBN`` cross-replica BN; with ``--loss_impl
+ring`` no feature gather, the contrast blocks travelling around a ring of
+the processes instead. Every process starts
 from rank 0's weights; rank 0 alone logs and writes checkpoints into its
 run folder, which every process adopts. The fused conv kernels stay
 single-process (:func:`resolve_conv_impl`).
@@ -35,7 +37,22 @@ Warm start, resume and exits (JAX ``train/supcon.py:770-798, 905-1010``):
   run that did not stop would have, bit for bit.
 - ``--nan_guard`` (on by default): a non-finite loss saves
   ``crash_epoch_{e}.pth`` from a copy of the epoch-top state held on the
-  device and exits 1.
+  device, then ``--nan_policy`` decides: ``abort`` exits 1; ``rollback``
+  (JAX ``train/supcon.py:821-956``) restores every process from its own
+  epoch-top copy, skips the epoch (the step goes to ``e *
+  steps_per_epoch``), multiplies the schedule by 0.5 and goes on, at most
+  three times, then exits 1. The damping and the count ride every
+  checkpoint. After a rollback the augmentation generator is in the state
+  it would have at the epoch's end had no loss gone non-finite: the backup's
+  state advanced past the skipped steps' draws (:func:`roll_back`), the
+  counterpart of the JAX package's per-step keys. As in the JAX driver,
+  a skipped epoch goes straight to the next: it writes no scheduled
+  ``ckpt_epoch_{e}.pth``, and a signal that came during its failing step
+  is acted on after the next epoch's first step.
+- ``--optimizer lars``: LARS as ``optax.lars`` (``train/state.py``).
+- Elastic resume: ``--resume`` under another world size continues at the
+  same global step and warns that per-process BN and a non-``auto``
+  ``--ngpu`` depend on the world size (``utils/checkpoint.py``).
 - SIGTERM/SIGINT: the step in flight finishes, the state is saved as
   ``preempt_epoch_{e}_step_{k}.pth`` (or at an epoch boundary as
   ``preempt_epoch_{e}.pth``, unless the scheduled save covers it) and the
@@ -60,6 +77,7 @@ from simclr_pytorch_distributed_tpu_torch.models.resnet import fused_site_plan
 from simclr_pytorch_distributed_tpu_torch.ops.augment import (
     DATASET_STATS,
     AugmentConfig,
+    skip_view_draws,
     two_crop_batch,
 )
 from simclr_pytorch_distributed_tpu_torch.ops.metrics import AverageMeter
@@ -76,16 +94,32 @@ from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
     capture_state,
     load_model_state,
     restore_checkpoint,
+    restore_snapshot,
     resolve_resume_path,
     resume_position,
     save_checkpoint,
 )
 from simclr_pytorch_distributed_tpu_torch.utils.guard import (
+    MAX_ROLLBACKS,
+    FailurePolicy,
     NonFiniteLossError,
     check_finite_loss,
     exit_with_code,
 )
 from simclr_pytorch_distributed_tpu_torch.utils.logging_utils import setup_logging
+
+
+NAN_POLICY_REASONS = {
+    "abort": "a non-finite loss saves crash_epoch_N.pth and exits 1",
+    "rollback": ("a non-finite loss saves crash_epoch_N.pth, restores every process from "
+                 "its epoch-top backup, skips the epoch and halves the learning rate, at "
+                 f"most {MAX_ROLLBACKS} times, then exits 1"),
+}
+OPTIMIZER_REASONS = {
+    "sgd": "the reference's SGD with momentum, weight decay on every parameter",
+    "lars": ("LARS as optax.lars (train/state.py): weight decay and the 0.001 trust "
+             "ratio on kernels only, momentum after the learning rate"),
+}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -105,9 +139,16 @@ def resolve_device(name: str) -> torch.device:
 def resolve_loss_impl_reasoned(loss_impl: str, device: torch.device,
                                data_parallel: Optional[int] = None) -> tuple:
     """``(resolved_impl, reason)``: 'auto' is the fused kernels on CUDA and
-    the dense form on the CPU. With a process group of ``data_parallel``
-    processes the fused loss runs in its sharded form, and the reason says
-    so."""
+    the dense form on the CPU, never the ring. With a process group of
+    ``data_parallel`` processes the fused loss runs in its sharded form,
+    and the reason says so."""
+    if loss_impl == "ring":
+        procs = data_parallel or 1
+        return "ring", (
+            f"explicit request: anchors stay with their process and the contrast blocks "
+            f"rotate around a ring of {procs} process(es) over point-to-point sends, with "
+            "no feature gather (parallel/collectives.ring_supcon_loss; plain matrix "
+            "products, as in the JAX package)")
     if loss_impl != "auto":
         resolved, reason = loss_impl, "explicit request"
         if loss_impl == "fused" and device.type == "cpu":
@@ -243,7 +284,10 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
         lr_decay_rate=cfg.lr_decay_rate, lr_decay_epochs=cfg.lr_decay_epochs,
         warm=cfg.warm, warm_epochs=cfg.warm_epochs, warmup_from=cfg.warmup_from,
     )
-    optimizer = make_optimizer(model, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    optimizer = make_optimizer(model, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+                               optimizer=cfg.optimizer)
+    logging.info("%s", config_lib.impl_resolution_banner(
+        "optimizer", cfg.optimizer, cfg.optimizer, OPTIMIZER_REASONS[cfg.optimizer]))
     loss_impl, reason = resolve_loss_impl_reasoned(
         cfg.loss_impl, device, world if distributed else None
     )
@@ -307,6 +351,28 @@ def train_one_epoch(
     return None
 
 
+def roll_back(state: TrainState, generator: torch.Generator, backup: dict, epoch: int,
+              start_step: int, steps_per_epoch: int, lr_scale: float, image_hw,
+              aug_cfg: AugmentConfig, batch_size: int) -> None:
+    """``--nan_policy rollback`` (JAX ``train/supcon.py:932-956``): restore
+    the epoch-top ``backup`` (taken at step ``start_step`` of ``epoch``)
+    into ``state`` and ``generator``, skip the rest of the epoch and damp
+    the schedule by ``lr_scale``.
+
+    The step goes to ``epoch * steps_per_epoch``; the learning rate is read
+    from the step (``TrainState.set_learning_rate``), so nothing else
+    follows it. The generator, which the JAX package does not have (it
+    keys its draws by step), is restored and then advanced past the draws
+    of the skipped steps (``ops/augment.skip_view_draws``), so it is in the
+    state it would have at the epoch's end had no loss gone non-finite,
+    and every later draw is the one the run would have made there. The
+    choice is deterministic: two runs with the same failures end equal."""
+    restore_snapshot(backup, state, generator)
+    skip_view_draws(generator, steps_per_epoch - start_step, batch_size, *image_hw, aug_cfg)
+    state.step = epoch * steps_per_epoch
+    state.lr_scale = lr_scale
+
+
 @dataclasses.dataclass
 class RunResult:
     state: TrainState
@@ -346,6 +412,9 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
     generator = torch.Generator(device=device)
     generator.manual_seed(cfg.seed + 1)
     start_epoch, start_step = 1, 0
+    policy = FailurePolicy(cfg.nan_policy)
+    logging.info("%s", config_lib.impl_resolution_banner(
+        "nan_policy", cfg.nan_policy, cfg.nan_policy, NAN_POLICY_REASONS[cfg.nan_policy]))
     if cfg.ckpt:
         # warm start: weights and BN buffers only (main_supcon.py:216-220)
         state.model.load_state_dict(load_model_state(cfg.ckpt))
@@ -356,10 +425,16 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
         start_epoch, start_step = resume_position(meta, len(loader))
         logging.info("resumed from %s at epoch %d step %d",
                      resume_path, start_epoch, start_step)
+        # the damping is run state: a resumed run keeps it and its budget
+        policy.lr_scale, policy.rollbacks = meta["lr_scale"], meta["rollbacks"]
+        state.lr_scale = policy.lr_scale
+        if policy.lr_scale != 1.0:
+            logging.warning("resumed with rollback damping: lr_scale %.3g after %d "
+                            "rollbacks", policy.lr_scale, policy.rollbacks)
 
     def save(name: str, snapshot: dict, epoch: int, step_in_epoch: int = 0) -> str:
         return save_checkpoint(os.path.join(cfg.save_folder, name), snapshot, cfg,
-                               epoch, step_in_epoch)
+                               epoch, step_in_epoch, policy.lr_scale, policy.rollbacks)
 
     def exit_preempted(path: str) -> None:
         # every process leaves at this step; none before rank 0's save
@@ -376,9 +451,11 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
             t1 = time.time()
             ss = start_step if epoch == start_epoch else 0
             # the step updates the state in place: the crash save needs a
-            # copy of the epoch top, taken on the device (by the writer)
+            # copy of the epoch top, taken on the device (by the writer, and
+            # under rollback by every process, since every process restores)
             backup = (capture_state(state, generator, copy=True)
-                      if cfg.nan_guard and main_process else None)
+                      if cfg.nan_guard and (main_process or policy.policy == "rollback")
+                      else None)
             try:
                 stopped_at = train_one_epoch(
                     epoch, loader, state, step_cfg, aug_cfg, generator, cfg, device,
@@ -389,8 +466,15 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
                 # sits mid-epoch, and its resume must not replay those steps
                 path = save(f"crash_epoch_{epoch}.pth", backup, epoch - 1, ss)
                 logging.error("non-finite loss: saved %s", path)
-                mesh.sync_processes("non-finite loss")
-                raise
+                if not policy.should_rollback():
+                    mesh.sync_processes("non-finite loss")
+                    raise
+                roll_back(state, generator, backup, epoch, ss, len(loader), policy.lr_scale,
+                          train_data["images"].shape[1:3], aug_cfg, cfg.batch_size)
+                logging.warning("nan_policy=rollback (%d/%d): epoch %d skipped from its "
+                                "epoch-top backup, lr scaled to %.3g", policy.rollbacks,
+                                MAX_ROLLBACKS, epoch, policy.lr_scale)
+                continue
             if stopped_at is not None:
                 exit_preempted(save(f"preempt_epoch_{epoch}_step_{stopped_at}.pth",
                                     capture_state(state, generator), epoch - 1, stopped_at))

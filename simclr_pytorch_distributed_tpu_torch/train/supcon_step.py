@@ -9,8 +9,11 @@ The step of ``simclr_pytorch_distributed_tpu/train/supcon_step.py``
   (update-then-use, seeded with the first batch) and the linearly ramped
   SEC / l2reg terms (``main_supcon.py:298-317``);
 - L2 normalization after the (logical) gather;
-- the contrastive term, dense (``ops/losses.py``) or fused
-  (``ops/fused_loss.py``, the CUDA kernels on the card);
+- the contrastive term, dense (``ops/losses.py``), fused
+  (``ops/fused_loss.py``, the CUDA kernels on the card) or by ring
+  (``parallel/collectives.ring_supcon_loss``); ``contrast_mode`` is 'all'
+  on every path, the only mode the ring takes (JAX
+  ``train/supcon_step.py:327-331``);
 - the loss divided by ``grad_div`` before backward: the reference's DDP
   averages gradients over its ``--ngpu`` ranks, each of which backpropagates
   through its own rows only, so the applied gradient is ``1/ngpu`` of the
@@ -29,6 +32,13 @@ gradient that flows through its rows, so the applied gradient is the exact
 global gradient over ``grad_div`` whatever ``P`` is, and at ``P = 1`` the
 step is the one-device step bit for bit. Without ``--syncBN`` each process
 normalizes over its own rows, and the BN running buffers follow rank 0.
+
+The ring loss (``loss_impl='ring'``, JAX ``train/supcon_step.py:327-350``)
+gathers no features, or the ring would save nothing: the feature-norm
+statistics, the SEC EMA and the l2reg term come from sums of this
+process's rows reduced over the processes (``collectives.global_sum``),
+which per row are the same numbers, since the norms are per row; the
+loss, its scaling and the gradient mean are as above.
 """
 
 from __future__ import annotations
@@ -71,7 +81,7 @@ class SupConStepConfig:
     epochs: int = 1000  # the aux ramps run over epochs * steps_per_epoch
     steps_per_epoch: int = 1
     grad_div: float = 2.0
-    loss_impl: str = "dense"  # 'dense' or 'fused'; resolved from 'auto' upstream
+    loss_impl: str = "dense"  # 'dense', 'fused' or 'ring'; resolved from 'auto' upstream
 
 
 def two_view_forward(model: torch.nn.Module, images: torch.Tensor) -> torch.Tensor:
@@ -85,8 +95,14 @@ def contrastive_loss_terms(
     cfg: SupConStepConfig, n_fea: torch.Tensor, labels: Optional[torch.Tensor]
 ) -> torch.Tensor:
     """The contrastive term over the normalized view-major ``[2B, D]`` rows
-    (the global rows under a process group); ``labels`` ``[B]`` for SupCon,
-    ``None`` for SimCLR."""
+    (the global rows under a process group, this process's own rows for the
+    ring); ``labels`` ``[B]`` (global) for SupCon, ``None`` for SimCLR."""
+    if cfg.loss_impl == "ring":
+        b = n_fea.shape[0] // 2
+        return collectives.ring_supcon_loss(
+            torch.stack([n_fea[:b], n_fea[b:]], dim=1), labels,
+            temperature=cfg.temperature, base_temperature=BASE_TEMPERATURE,
+        )
     if cfg.loss_impl == "fused" and is_distributed():
         mine = collectives.own_rows(n_fea)
         b = mine.shape[0] // 2
@@ -101,7 +117,7 @@ def contrastive_loss_terms(
     elif cfg.loss_impl == "dense":
         loss_fn = supcon_loss
     else:
-        raise ValueError(f"loss_impl must be 'dense' or 'fused', got {cfg.loss_impl!r}")
+        raise ValueError(f"loss_impl must be 'dense', 'fused' or 'ring', got {cfg.loss_impl!r}")
     return loss_fn(
         n_features, labels, temperature=cfg.temperature, base_temperature=BASE_TEMPERATURE
     )
@@ -122,15 +138,21 @@ def train_step(
         raise ValueError(f"contrastive method not supported: {cfg.method}")
     state.model.train()
     distributed = is_distributed()
+    ring = cfg.loss_impl == "ring"
     feats = two_view_forward(state.model, images).to(torch.float32)
     if distributed:
-        feats = collectives.gather_features(feats)
+        if not ring:
+            feats = collectives.gather_features(feats)
         if cfg.method == "SupCon":
             labels = collectives.gather_global_labels(labels)
 
     norms = torch.linalg.norm(feats, dim=1)
-    norm_mean = norms.mean()
-    norm_var = torch.square(norms - norm_mean).mean()
+    if ring:  # the global means from per-process sums (module docstring)
+        rows = norms.shape[0] * world_size()
+        sums = collectives.global_sum(torch.stack([norms.sum(), torch.square(norms).sum()]))
+        norm_mean, loss_l2reg = sums[0] / rows, sums[1] / rows
+    else:
+        norm_mean = norms.mean()
     norm_mean_sg = norm_mean.detach()
     if state.step == 0 or state.record_norm_mean is None:
         record = norm_mean_sg
@@ -138,8 +160,14 @@ def train_step(
         record = (1.0 - cfg.norm_momentum) * state.record_norm_mean + (
             cfg.norm_momentum * norm_mean_sg
         )
-    loss_sec = torch.square(norms - record).mean()
-    loss_l2reg = torch.square(norms).mean()
+    if ring:
+        sums = collectives.global_sum(torch.stack([
+            torch.square(norms - norm_mean_sg).sum(), torch.square(norms - record).sum()]))
+        norm_var, loss_sec = sums[0] / rows, sums[1] / rows
+    else:
+        norm_var = torch.square(norms - norm_mean).mean()
+        loss_sec = torch.square(norms - record).mean()
+        loss_l2reg = torch.square(norms).mean()
 
     n_fea = feats / torch.linalg.norm(feats, dim=1, keepdim=True)
     contrastive = contrastive_loss_terms(

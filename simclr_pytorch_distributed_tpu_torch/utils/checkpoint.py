@@ -10,8 +10,19 @@ reference's DDP-wrapped model), ``'optimizer'`` (the SGD state dict) and
 ``'step'`` (the global step), ``'step_in_epoch'`` (steps of the next epoch
 already taken; nonzero only in a mid-epoch preemption or crash save),
 ``'record_norm_mean'``, ``'generator'`` (the augmentation generator's
-``get_state()``) with ``'generator_device'``, and ``'seed'``. Every value is
-a tensor or a plain type, so ``torch.load(weights_only=True)`` reads it.
+``get_state()``) with ``'generator_device'``, ``'seed'``, ``'world_size'``
+(the processes of the saving run), and the NaN-rollback state
+``'lr_scale'`` and ``'rollbacks'`` (``utils/guard.FailurePolicy``). Every
+value is a tensor or a plain type, so ``torch.load(weights_only=True)``
+reads it. A checkpoint written before the last three existed resumes as
+one saved by one process with no rollback.
+
+Elastic resume (JAX ``utils/checkpoint.py:278-284, :526-550``): a
+checkpoint resumes under any world size, at the same global step; only
+the loader's process slices change, since the augmentation draws are
+global. :func:`restore_checkpoint` names a change of world size in a
+warning, because per-process BN statistics (without ``--syncBN``) and a
+non-``auto`` ``--ngpu`` make the training math depend on it.
 
 Files are written through a temporary name and renamed, so a crash
 mid-write never leaves a truncated file under a checkpoint's name. In a
@@ -34,7 +45,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from simclr_pytorch_distributed_tpu_torch.config import config_dict
-from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_main_process
+from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_main_process, world_size
 
 CLASSIFIER_FILE = "classifier_best.pth"
 
@@ -84,11 +95,27 @@ def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict
     }
 
 
-def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: int = 0) -> str:
+def restore_snapshot(snapshot: dict, state, generator: torch.Generator) -> None:
+    """Put a :func:`capture_state` snapshot (or a loaded checkpoint, whose
+    model keys may carry ``'module.'``) back into ``state`` and
+    ``generator``: the model, the optimizer, ``step``,
+    ``record_norm_mean`` and the generator's state."""
+    state.model.load_state_dict(_strip_module(snapshot["model"]))
+    state.optimizer.load_state_dict(snapshot["optimizer"])
+    state.step = int(snapshot["step"])
+    record = snapshot["record_norm_mean"]
+    device = next(state.model.parameters()).device
+    state.record_norm_mean = None if record is None else record.to(device)
+    generator.set_state(snapshot["generator"])
+
+
+def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: int = 0,
+                    lr_scale: float = 1.0, rollbacks: int = 0) -> str:
     """Write ``snapshot`` (:func:`capture_state`) with the run's ``cfg`` to
     ``path``; ``epoch`` counts completed epochs, ``step_in_epoch`` the
-    steps of the next one already taken. Returns the absolute path. Only
-    rank 0 writes; the other processes return the path it writes."""
+    steps of the next one already taken, ``lr_scale`` and ``rollbacks``
+    the NaN-rollback state. Returns the absolute path. Only rank 0 writes;
+    the other processes return the path it writes."""
     if not is_main_process():
         return os.path.abspath(path)
     cpu = lambda t: t.detach().cpu()  # noqa: E731
@@ -104,6 +131,9 @@ def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: i
         "generator": snapshot["generator"].cpu(),
         "generator_device": snapshot["generator_device"],
         "seed": int(cfg.seed),
+        "world_size": world_size(),
+        "lr_scale": float(lr_scale),
+        "rollbacks": int(rollbacks),
     }
     return _atomic_save(payload, path)
 
@@ -182,11 +212,13 @@ def resolve_resume_path(path: str) -> str:
 
 
 def restore_checkpoint(path: str, state, generator: torch.Generator) -> dict:
-    """Restore the model, the SGD buffers, ``step``, ``record_norm_mean``
-    and the augmentation generator from ``path`` into ``state`` (a
-    ``train.state.TrainState`` built as the saving run built it) and
-    ``generator``. Returns the checkpoint's ``epoch``, ``step_in_epoch``,
-    ``step`` and ``seed``."""
+    """Restore the model, the optimizer's buffers, ``step``,
+    ``record_norm_mean`` and the augmentation generator from ``path`` into
+    ``state`` (a ``train.state.TrainState`` built as the saving run built
+    it) and ``generator``, under this run's world size, whatever the saving
+    run's was (module docstring). Returns the checkpoint's ``epoch``,
+    ``step_in_epoch``, ``step``, ``seed``, ``world_size`` (``None`` when it
+    predates the key), ``lr_scale`` and ``rollbacks``."""
     ckpt = _load(path)
     if _progress(ckpt) is None or "generator" not in ckpt:
         raise ValueError(f"{path} holds no full training state (keys {sorted(ckpt)}); "
@@ -194,14 +226,20 @@ def restore_checkpoint(path: str, state, generator: torch.Generator) -> dict:
     if ckpt["generator_device"] != generator.device.type:
         raise ValueError(f"{path} holds a {ckpt['generator_device']} generator state; this "
                          f"run's augmentation generator is on {generator.device.type}")
-    state.model.load_state_dict(_strip_module(ckpt["model"]))
-    state.optimizer.load_state_dict(ckpt["optimizer"])
-    state.step = int(ckpt["step"])
-    record = ckpt["record_norm_mean"]
-    device = next(state.model.parameters()).device
-    state.record_norm_mean = None if record is None else record.to(device)
-    generator.set_state(ckpt["generator"])
-    return {k: ckpt[k] for k in ("epoch", "step_in_epoch", "step", "seed")}
+    restore_snapshot(ckpt, state, generator)
+    saved = ckpt.get("world_size")
+    if saved is not None and int(saved) != world_size():
+        logging.warning(
+            "elastic resume: checkpoint %s was saved under %d process(es), restoring under "
+            "%d; the state is the same and batch composition is unchanged (seed + epoch "
+            "permutation, global augmentation draws), but per-process BN statistics "
+            "(--syncBN off) and a non-auto --ngpu divisor do depend on the world size",
+            path, int(saved), world_size(),
+        )
+    meta = {k: ckpt[k] for k in ("epoch", "step_in_epoch", "step", "seed")}
+    meta.update(world_size=saved, lr_scale=float(ckpt.get("lr_scale", 1.0)),
+                rollbacks=int(ckpt.get("rollbacks", 0)))
+    return meta
 
 
 def save_classifier(save_folder: str, classifier_state: Dict[str, torch.Tensor],

@@ -19,6 +19,9 @@ from simclr_pytorch_distributed_tpu_torch.ops.augment import (
     sample_view_params,
     two_crop_batch,
 )
+from torch_threads import limit_threads
+
+limit_threads()
 
 CFG = AugmentConfig(size=12, mean=(0.5, 0.4, 0.3), std=(0.25, 0.2, 0.3))
 

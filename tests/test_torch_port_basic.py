@@ -45,6 +45,9 @@ from simclr_pytorch_distributed_tpu_torch.utils.convert import (
     state_dict_to_variables,
     variables_to_state_dict,
 )
+from torch_threads import limit_threads
+
+limit_threads()
 
 VAL_RTOL, VAL_ATOL = 3e-5, 3e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3

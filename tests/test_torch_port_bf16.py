@@ -66,6 +66,9 @@ from simclr_pytorch_distributed_tpu_torch.utils.convert import (
     state_dict_to_variables,
     variables_to_state_dict,
 )
+from torch_threads import limit_threads
+
+limit_threads()
 
 # the JAX package's round-19 bf16 pins (tests/test_pallas_conv.py:56-58)
 BF16_VAL_SCALED, BF16_VAL_COS = 2e-2, 0.9999

@@ -39,6 +39,9 @@ import torch
 
 import chip_smoke
 from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+from torch_threads import limit_threads
+
+limit_threads()
 
 EPS = 1e-5
 

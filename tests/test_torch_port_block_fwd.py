@@ -48,6 +48,9 @@ import test_torch_port_block_bwd as block_bwd
 import test_torch_port_bot_fwd as bot_fwd
 from simclr_pytorch_distributed_tpu.ops import pallas_conv
 from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+from torch_threads import limit_threads
+
+limit_threads()
 
 EPS = 1e-5
 

@@ -36,6 +36,9 @@ import torch
 import chip_smoke
 from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
 from simclr_pytorch_distributed_tpu_torch.ops import native
+from torch_threads import limit_threads
+
+limit_threads()
 
 EPS = 1e-5
 

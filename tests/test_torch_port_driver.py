@@ -23,6 +23,9 @@ from simclr_pytorch_distributed_tpu.utils.torch_convert import (
     torch_state_dict_to_variables,
 )
 from simclr_pytorch_distributed_tpu_torch.train import supcon
+from torch_threads import limit_threads
+
+limit_threads()
 
 ARGV = [
     "--device", "cpu", "--dataset", "synthetic", "--model", "resnet10",
@@ -53,8 +56,10 @@ def test_last_checkpoint_loads_into_the_jax_package(run, tmp_path):
     path = os.path.join(run.save_folder, "last.pth")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     # the reference layout's four keys, and the full state a resume needs
-    assert sorted(ckpt) == ["epoch", "generator", "generator_device", "model", "opt",
-                            "optimizer", "record_norm_mean", "seed", "step", "step_in_epoch"]
+    assert sorted(ckpt) == ["epoch", "generator", "generator_device", "lr_scale", "model",
+                            "opt", "optimizer", "record_norm_mean", "rollbacks", "seed", "step",
+                            "step_in_epoch", "world_size"]
+    assert (ckpt["world_size"], ckpt["lr_scale"], ckpt["rollbacks"]) == (1, 1.0, 0)
     assert ckpt["epoch"] == 1 and ckpt["opt"]["model"] == "resnet10"
     assert all(k.startswith("module.") for k in ckpt["model"])
 
@@ -85,4 +90,4 @@ def test_cuda_default_raises_without_a_card(tmp_path):
 
 def test_unimplemented_flags_are_rejected(tmp_path):
     with pytest.raises(SystemExit):
-        supcon.main(ARGV + ["--workdir", str(tmp_path), "--nan_policy", "rollback"])
+        supcon.main(ARGV + ["--workdir", str(tmp_path), "--data_placement", "device"])

@@ -12,6 +12,9 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from torch_threads import limit_threads
+
+limit_threads()
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "simclr_pytorch_distributed_tpu_torch"

@@ -26,6 +26,9 @@ from simclr_pytorch_distributed_tpu.ops import pallas_loss
 from simclr_pytorch_distributed_tpu.ops.losses import supcon_loss as jax_supcon_loss
 from simclr_pytorch_distributed_tpu_torch.ops import fused_loss, native
 from simclr_pytorch_distributed_tpu_torch.ops.losses import l2_normalize, supcon_loss
+from torch_threads import limit_threads
+
+limit_threads()
 
 
 def _features(seed, batch, n_views=2, dim=24):

@@ -43,6 +43,9 @@ import torch
 
 from simclr_pytorch_distributed_tpu.ops import pallas_loss
 from simclr_pytorch_distributed_tpu_torch.ops import fused_loss
+from torch_threads import limit_threads
+
+limit_threads()
 
 SOURCE = Path(fused_loss.__file__).resolve().parents[1] / "csrc" / "fused_supcon_loss.cu"
 

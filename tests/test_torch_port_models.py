@@ -32,6 +32,9 @@ from simclr_pytorch_distributed_tpu_torch.utils.convert import (
     state_dict_to_variables,
     variables_to_state_dict,
 )
+from torch_threads import limit_threads
+
+limit_threads()
 
 CASES = [
     # (model, head, size, batch, atol, train-mode atol as a share of max|ref|)

@@ -61,6 +61,9 @@ from simclr_pytorch_distributed_tpu_torch.utils.convert import (
     state_dict_to_variables,
     variables_to_state_dict,
 )
+from torch_threads import limit_threads
+
+limit_threads()
 
 WORLDS = (1, 2, 4)
 WALL_LIMIT = 300  # seconds for one world's processes, spawn to exit

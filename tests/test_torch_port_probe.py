@@ -85,6 +85,9 @@ from simclr_pytorch_distributed_tpu_torch.utils.convert import (
     state_dict_to_variables,
     variables_to_state_dict,
 )
+from torch_threads import limit_threads
+
+limit_threads()
 
 CFG = AugmentConfig(size=12, mean=(0.5, 0.4, 0.3), std=(0.25, 0.2, 0.3), color_ops=False)
 FEATURE_ATOL = 1e-4  # rn10's eval forward pin (test_torch_port_models.py)

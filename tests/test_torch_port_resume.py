@@ -34,6 +34,9 @@ from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
     resolve_resume_path,
     resume_position,
 )
+from torch_threads import limit_threads
+
+limit_threads()
 
 STEPS = 8  # 64 images / batch 8
 ARGV = [

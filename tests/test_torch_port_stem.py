@@ -49,6 +49,9 @@ import chip_smoke
 import test_torch_port_bot_fwd as bot_fwd
 from simclr_pytorch_distributed_tpu.ops import pallas_conv
 from simclr_pytorch_distributed_tpu_torch.ops import fused_conv as fc
+from torch_threads import limit_threads
+
+limit_threads()
 
 EPS = 1e-5
 TILE = bot_fwd.TILE  # rows of a tile (BM)

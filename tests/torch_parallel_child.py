@@ -1,15 +1,23 @@
 """One process of the port's data-parallel CPU tests (gloo).
 
-    python tests/torch_parallel_child.py RANK WORLD OUTDIR
+    python tests/torch_parallel_child.py RANK WORLD OUTDIR [SUITE [ARG]]
 
 Joins a gloo process group of WORLD processes through ``file://OUTDIR/store``,
-runs every case of ``tests/test_torch_port_parallel.py`` on its slice of the
-inputs, and writes what it computed to ``OUTDIR/rank{RANK}.pt``; the test
-compares. The inputs are made here from numpy seeds, by functions the test
-imports too. At WORLD = 1 the process also runs each case without a process
-group (the one-process references), after leaving the group.
+runs every case of one suite on its slice of the inputs, and writes what it
+computed to ``OUTDIR/rank{RANK}.pt``; the test compares. The inputs are made
+here from numpy seeds, by functions the tests import too. The suites:
+
+- ``parallel`` (the default), for ``tests/test_torch_port_parallel.py``. At
+  WORLD = 1 the process also runs each case without a process group (the
+  one-process references), after leaving the group.
+- ``ring``, for ``tests/test_torch_port_ring.py``: the ring loss, counted
+  ring steps, the ring + LARS step, and the probe driver.
+- ``resilience``, for ``tests/test_torch_port_rollback.py``: the driver
+  straight, SIGTERM'd mid-epoch, resumed from ARG (a run folder saved
+  under another world size), and rolled back after a non-finite loss.
 """
 
+import contextlib
 import datetime
 import glob
 import os
@@ -31,7 +39,7 @@ from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import (  # noqa: E402
 )
 from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh  # noqa: E402
-from simclr_pytorch_distributed_tpu_torch.train import supcon  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.train import linear, supcon  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.train.state import (  # noqa: E402
     TrainState,
     make_optimizer,
@@ -41,6 +49,7 @@ from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (  # noqa: E4
     train_step,
 )
 from simclr_pytorch_distributed_tpu_torch.utils import checkpoint, preempt  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.utils.guard import NonFiniteLossError  # noqa: E402
 
 TIMEOUT = datetime.timedelta(seconds=90)
 B, SIZE, FEAT, STEPS = 16, 16, 16, 2  # global batch, image size, feat_dim, steps
@@ -53,6 +62,15 @@ STEP_CASES = {
     "local_fused_simclr": (False, "fused", "SimCLR"),
     "local_dense_simclr": (False, "dense", "SimCLR"),
 }
+# name -> (--syncBN, loss_impl, method, optimizer): the ring suite's steps
+RING_STEP_CASES = {
+    "sync_ring_simclr": (True, "ring", "SimCLR", "sgd"),
+    "sync_ring_supcon": (True, "ring", "SupCon", "sgd"),
+    "local_ring_simclr": (False, "ring", "SimCLR", "sgd"),
+    "sync_ring_lars_simclr": (True, "ring", "SimCLR", "lars"),
+}
+# (method, temperature) of the ring loss cases
+RING_LOSS_CASES = [(m, t) for m in ("SimCLR", "SupCon") for t in (0.5, 0.1)]
 SCHED = dict(learning_rate=0.1, epochs=1, steps_per_epoch=STEPS, cosine=True)
 STEP_KW = dict(temperature=TEMP, sec=True, sec_wei=0.5, l2reg=True, l2reg_wei=0.05,
                norm_momentum=0.6, epochs=1, steps_per_epoch=STEPS, grad_div=2.0)
@@ -61,6 +79,18 @@ DRIVER_ARGV = [
     "--batch_size", "16", "--learning_rate", "0.5", "--temp", "0.5", "--print_freq", "100",
     "--feat_dim", "16", "--loss_impl", "fused", "--epochs", "1", "--syncBN", "--seed", "3",
 ]
+# the probe driver: rn10 on tiny_dataset (48 images a 3-step epoch at batch
+# 16; 16 test images in validation chunks of 6, the tail of 4 padded). Seed
+# 7 leaves a top-1 above 0, so the best classifier is written (one of 0
+# never is, as in the reference)
+PROBE_ARGV = [
+    "--device", "cpu", "--dataset", "synthetic", "--model", "resnet10", "--batch_size", "16",
+    "--val_batch_size", "6", "--epochs", "1", "--learning_rate", "0.5", "--print_freq", "100",
+    "--seed", "7",
+]
+# the resilience suite: --ngpu explicit, so the math is the world size's own
+ELASTIC_ARGV = DRIVER_ARGV + ["--ngpu", "2", "--epochs", "2", "--cosine"]
+ROLLBACK_ARGV = DRIVER_ARGV + ["--epochs", "2", "--cosine", "--nan_policy", "rollback"]
 
 
 def bn_inputs():
@@ -120,6 +150,13 @@ def tiny_dataset(dataset, data_folder):
             {"images": images[64:], "labels": labels[64:]}, 10)
 
 
+def probe_dataset(dataset, data_folder):
+    """The probe's set: 48 training images (a 3-step epoch at batch 16)
+    and 16 test images, of :func:`tiny_dataset`."""
+    train, test, n_cls = tiny_dataset(dataset, data_folder)
+    return {k: v[:48] for k, v in train.items()}, test, n_cls
+
+
 def local_slice(t, rank, world):
     b = t.shape[0] // world
     return t[rank * b:(rank + 1) * b]
@@ -165,38 +202,80 @@ def loss_case(rank, world, method):
     return out
 
 
-def step_case(name, rank, world, distributed):
+def step_case(name, rank, world, distributed, counted=None):
     """``STEPS`` steps of a step case: this process's slice under the process
-    group (``distributed``), or the global batch without one."""
-    sync, loss_impl, method = STEP_CASES[name]
+    group (``distributed``), or the global batch without one; with
+    ``counted`` (a :class:`Counted`) installed around the steps."""
+    sync, loss_impl, method, *optimizer = {**STEP_CASES, **RING_STEP_CASES}[name]
     views, labels = step_inputs()
     model = init_model()
     if distributed and sync:
         model.encoder.set_bn_sync(torch.distributed.group.WORLD)
-    state = TrainState(model, make_optimizer(model), make_lr_schedule(**SCHED))
+    state = TrainState(model, make_optimizer(model, optimizer=(optimizer or ["sgd"])[0]),
+                       make_lr_schedule(**SCHED))
     cfg = SupConStepConfig(method=method, loss_impl=loss_impl, **STEP_KW)
     history = []
-    for i in range(STEPS):
-        imgs, labs = views[i], labels
-        if distributed:
-            imgs, labs = local_slice(imgs, rank, world), local_slice(labs, rank, world)
-        metrics = train_step(state, cfg, imgs, labs)
-        history.append({k: v.item() for k, v in metrics.items()})
+    with counted or contextlib.nullcontext():
+        for i in range(STEPS):
+            imgs, labs = views[i], labels
+            if distributed:
+                imgs, labs = local_slice(imgs, rank, world), local_slice(labs, rank, world)
+            metrics = train_step(state, cfg, imgs, labs)
+            history.append({k: v.item() for k, v in metrics.items()})
     out = {"history": history, "state": model.state_dict()}
+    if counted is not None:
+        out["counted"] = counted.summary()
     if distributed:
         flat = torch.cat([t.reshape(-1).float() for t in model.state_dict().values()])
         out["same_on_every_rank"] = all(torch.equal(p, flat) for p in collectives.all_gather(flat))
     return out
 
 
-def driver_run(workdir, *extra):
+def driver_run(workdir, *extra, base=DRIVER_ARGV):
     """``train.supcon.main`` on the 64-image set; ``(exit code, result)``."""
-    argv = DRIVER_ARGV + ["--workdir", workdir] + list(extra)
+    argv = base + ["--workdir", workdir] + list(extra)
     try:
         result = supcon.main(argv)
     except SystemExit as e:
         return e.code, None
     return 0, result
+
+
+def preempted_after(steps, rank, world, run):
+    """``run()`` with a signal raised on the last rank after global step
+    ``steps``; returns ``run()``'s value and the losses of the steps taken."""
+    losses = []
+
+    def flagging(state, cfg, views, labels):
+        metrics = train_step(state, cfg, views, labels)
+        losses.append(metrics["loss"].item())
+        if state.step == steps and rank == world - 1:
+            preempt.request()
+        return metrics
+
+    supcon.train_step = flagging
+    try:
+        return run(), losses
+    finally:
+        supcon.train_step = train_step
+
+
+def poisoned(at_steps, run):
+    """``run()`` with a non-finite loss reported at each global step of
+    ``at_steps`` (the driver's finite check raises there, as it would on a
+    NaN); every process sees the same steps, as with a global loss."""
+    check = supcon.check_finite_loss
+
+    def poisoned_check(loss, step, enabled=True):
+        if step in at_steps:
+            raise NonFiniteLossError(float("nan"), step)
+        return check(loss, step, enabled)
+
+    supcon.check_finite_loss = poisoned_check
+    try:
+        return run()
+    finally:
+        supcon.check_finite_loss = check
 
 
 def driver_summary(result):
@@ -210,20 +289,8 @@ def driver_cases(rank, world, outdir):
     out["driver"] = dict(driver_summary(result), code=code)
     if world == 2:
         # a signal that reaches the last rank only, after global step 2
-        losses = []
-
-        def flag_after_two(state, cfg, views, labels):
-            metrics = train_step(state, cfg, views, labels)
-            losses.append(metrics["loss"].item())
-            if state.step == 2 and rank == world - 1:
-                preempt.request()
-            return metrics
-
-        supcon.train_step = flag_after_two
-        try:
-            out["preempt_code"], _ = driver_run(os.path.join(outdir, "work_preempt"))
-        finally:
-            supcon.train_step = train_step
+        (out["preempt_code"], _), losses = preempted_after(
+            2, rank, world, lambda: driver_run(os.path.join(outdir, "work_preempt")))
         # every rank resumes from rank 0's preemption save
         folder = glob.glob(os.path.join(outdir, "work_preempt", "*", "*"))[0]
         code, result = driver_run(os.path.join(outdir, "work_resume"), "--resume", folder)
@@ -256,12 +323,118 @@ def count_writes():
     return writes
 
 
-def main(rank, world, outdir):
-    torch.set_num_threads(1)
-    supcon.load_dataset = tiny_dataset
-    writes = count_writes()
-    mesh.setup_distributed("cpu", init_method=f"file://{os.path.join(outdir, 'store')}",
-                           rank=rank, world_size=world, timeout=TIMEOUT)
+class Counted:
+    """Counts, while installed, the ring's point-to-point hops
+    (``batch_isend_irecv`` calls) in the ring loss's forward and backward,
+    and the element count of every ``all_gather`` input."""
+
+    def __init__(self):
+        self.hops = {"fwd": 0, "bwd": 0}
+        self.gathered = []
+        self._phase = "fwd"
+        dist, ring = torch.distributed, collectives.RingSupConLoss
+        hop, gather, fwd, bwd = (dist.batch_isend_irecv, dist.all_gather, ring.forward,
+                                 ring.backward)
+
+        def counted_hop(ops):
+            self.hops[self._phase] += 1
+            return hop(ops)
+
+        def counted_gather(parts, tensor, *args, **kwargs):
+            self.gathered.append(tensor.numel())
+            return gather(parts, tensor, *args, **kwargs)
+
+        def phase(name, fn):
+            def run(ctx, *args):
+                self._phase = name
+                return fn(ctx, *args)
+            return staticmethod(run)
+
+        # (owner, attribute, patch, the attribute as stored, to put back)
+        self._patches = [(owner, name, patch, vars(owner)[name]) for owner, name, patch in (
+            (dist, "batch_isend_irecv", counted_hop), (dist, "all_gather", counted_gather),
+            (ring, "forward", phase("fwd", fwd)), (ring, "backward", phase("bwd", bwd)))]
+
+    def __enter__(self):
+        for owner, name, patch, _ in self._patches:
+            setattr(owner, name, patch)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, _, original in self._patches:
+            setattr(owner, name, original)
+
+    def summary(self):
+        return {"hops": dict(self.hops), "gathered": list(self.gathered)}
+
+
+def ring_loss_case(rank, world, method, temp):
+    f, labels = loss_inputs()
+    local = local_slice(f, rank, world).clone().requires_grad_()
+    with Counted() as counted:
+        loss = collectives.ring_supcon_loss(local, labels if method == "SupCon" else None,
+                                            temperature=temp, base_temperature=BASE_TEMP)
+        loss.backward()
+    return {"loss": loss.detach(), "grad": local.grad, "counted": counted.summary()}
+
+
+def probe_run(workdir):
+    """``train.linear.main`` on :func:`probe_dataset`; ``(exit code, summary)``."""
+    try:
+        result = linear.main(PROBE_ARGV + ["--workdir", workdir])
+    except SystemExit as e:
+        return {"code": e.code}
+    return {"code": 0, "classifier": result.state.model.state_dict(),
+            "val": result.val_history, "losses": [h["loss"] for h in result.history],
+            "best": (result.best_acc, result.best_acc5), "path": result.classifier_path,
+            "save_folder": result.save_folder}
+
+
+def ring_suite(rank, world, outdir):
+    """The ring loss per case, the ring steps (one of them counted), and at
+    WORLD = 2 the probe driver."""
+    out = {"loss": {case: ring_loss_case(rank, world, *case) for case in RING_LOSS_CASES}}
+    out["step"] = {name: step_case(name, rank, world, True, Counted())
+                   for name in RING_STEP_CASES}
+    if world == 2:
+        out["probe"] = probe_run(os.path.join(outdir, "work_probe"))
+    return out
+
+
+def run_summary(code, result, losses=()):
+    """What the resilience tests compare of a driver run."""
+    if result is None:
+        return {"code": code}
+    return dict(driver_summary(result), code=code,
+                losses=list(losses) + [h["loss"] for h in result.history],
+                lrs=[h["learning_rate"] for h in result.history],
+                steps=[h["step"] for h in result.history])
+
+
+def resilience_suite(rank, world, outdir, other_folder):
+    """The straight elastic run, the run SIGTERM'd after global step 2, a
+    resume from ``other_folder`` (saved under another world size), and a
+    rollback run with a non-finite loss at global step 0."""
+    out = {"straight": run_summary(*driver_run(os.path.join(outdir, "straight"),
+                                               base=ELASTIC_ARGV))}
+    (code, _), losses = preempted_after(
+        2, rank, world,
+        lambda: driver_run(os.path.join(outdir, "preempt"), base=ELASTIC_ARGV))
+    out["preempt"] = {"code": code, "losses": losses,
+                      "folder": glob.glob(os.path.join(outdir, "preempt", "*", "*"))[0]}
+    if other_folder:
+        code, result = driver_run(os.path.join(outdir, "resumed"), "--resume", other_folder,
+                                  base=ELASTIC_ARGV)
+        out["resumed"] = run_summary(code, result)
+        if result is not None:
+            with open(os.path.join(result.save_folder, "log-ing")) as fh:
+                out["resumed"]["log"] = fh.read()
+    out["rollback"] = run_summary(*poisoned(
+        {0}, lambda: driver_run(os.path.join(outdir, "rollback"), base=ROLLBACK_ARGV)))
+    return out
+
+
+def parallel_suite(rank, world, outdir):
     results = {
         "world": mesh.world_size(), "rank": mesh.rank(),
         "sync_bn": sync_bn_case(rank, world),
@@ -271,9 +444,27 @@ def main(rank, world, outdir):
         "step": {name: step_case(name, rank, world, True) for name in STEP_CASES},
     }
     results.update(driver_cases(rank, world, outdir))
+    return results
+
+
+def main(rank, world, outdir, suite="parallel", arg=""):
+    torch.set_num_threads(1)
+    supcon.load_dataset = tiny_dataset
+    linear.load_dataset = probe_dataset
+    writes = count_writes()
+    mesh.setup_distributed("cpu", init_method=f"file://{os.path.join(outdir, 'store')}",
+                           rank=rank, world_size=world, timeout=TIMEOUT)
+    if suite == "parallel":
+        results = parallel_suite(rank, world, outdir)
+    elif suite == "ring":
+        results = ring_suite(rank, world, outdir)
+    elif suite == "resilience":
+        results = resilience_suite(rank, world, outdir, arg)
+    else:
+        raise ValueError(f"unknown suite {suite!r}")
     results["writes"] = list(writes)
     mesh.teardown_distributed()
-    if world == 1:
+    if world == 1 and suite == "parallel":
         # the one-process references, with no process group
         results["step_single"] = {name: step_case(name, 0, 1, False) for name in STEP_CASES}
         code, result = driver_run(os.path.join(outdir, "work_single"))
@@ -282,4 +473,4 @@ def main(rank, world, outdir):
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])
