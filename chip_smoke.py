@@ -56,9 +56,21 @@ gloo, each against one process, (b) the ring loss alone at N = 8192 with
 its peak memory beside the dense loss's, (c) one ResNet-18 LARS ring step,
 (d) the probe, (e) a ResNet-18 run SIGTERM'd after step 3 and resumed at
 world size 1 (elastic resume); and (f) ``--nan_policy rollback`` with a
-non-finite loss injected in epoch 1 of 2.
+non-finite loss injected in epoch 1 of 2, under ``--telemetry sync`` and
+the default ``async``.
+Then the run-observability stack (``observability``): ResNet-50 fp32 and
+``--bf16`` fused epochs with the health diagnostics and the online probe,
+under ``--telemetry async`` (no host sync between flush boundaries, one
+transfer a window) and ``sync`` (bitwise the same history; the health
+columns against the CPU's), a run with the sidecar scraped and a stall
+the watchdog dumps, and ``torch.profiler`` windows of the ResNet-18 bf16
+fused step and the ResNet-50 fp32 LARS step, summarized; and the CE
+trainer (``ce``): ResNet-50 ``SupCEResNet`` in fp32 and ``--bf16`` through
+``train.ce.main``, its step time, card-vs-CPU logits, and a SIGTERM'd and
+resumed run bitwise the straight one.
 Phases: device, build, kernel_parity, train, probe, resume, distributed,
-large_batch, timing. Any failure raises and the script exits non-zero.
+large_batch, observability, ce, timing. Any failure raises and the script
+exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
@@ -1530,7 +1542,7 @@ def probe_run(dev, workdir, ckpt, bf16, where):
         calls=5, warmup=1)
     steps_ms = [h["step_time"] * 1e3 for h in result.history]
     print(f"{name} step (augment, frozen eval-mode encoder, classifier, loss, SGD; batch 512, "
-          f"32 px) median of 20 {step_ms:.2f} ms by CUDA events; the run's step wall times "
+          f"32 px) median of 20 {step_ms:.2f} ms by CUDA events; the run's step times "
           f"{[round(t, 2) for t in steps_ms]} ms; validation pass over the {len(test['images'])}"
           f"-image test split at batch 256 {val_ms:.2f} ms (median of 5), the run's "
           f"{val['seconds'] * 1e3:.2f} ms {where}")
@@ -2138,9 +2150,13 @@ def large_batch_phase(workdir, result, rn50_expected, rn18_expected, where):
     straight two-process run at (c)'s pins, the warning in its log.
     (f) ``--nan_policy rollback``: rn18 fp32 fused at world size 1 over 2
     epochs with a non-finite loss injected at global step 0 (the driver's
-    finite check raises there, as the CPU tests inject it): exit 0, the
-    steps after the skip at 0.5 x the schedule, ``last.pth`` holding
-    ``lr_scale`` 0.5 and ``rollbacks`` 1."""
+    finite check raises there, as the CPU tests inject it), once under
+    ``--telemetry sync`` and once under the default ``async``: exit 0, the
+    steps after the skip at 0.5 x the schedule with finite losses,
+    ``last.pth`` holding ``lr_scale`` 0.5 and ``rollbacks`` 1; the kernel
+    launches of 8 steps under ``sync`` (the poisoned one and the 7 after
+    the skip) and of 8 to 14 under ``async``, whose flush may see the
+    poisoned step at any later boundary of its epoch."""
     from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
     from simclr_pytorch_distributed_tpu_torch.ops.losses import supcon_loss
     from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
@@ -2298,12 +2314,10 @@ def large_batch_phase(workdir, result, rn50_expected, rn18_expected, where):
     del resumed
     torch.cuda.empty_cache()
 
-    # (f) NaN rollback at world size 1
-    argv = ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet18",
-            "--batch_size", "256", "--size", "32", "--epochs", "2", "--method", "SimCLR",
-            "--temp", str(TEMP), "--learning_rate", "0.5", "--cosine", "--loss_impl", "fused",
-            "--conv_impl", "fused", "--nan_policy", "rollback", "--print_freq", "1",
-            "--workdir", tempfile.mkdtemp(prefix="rollback_", dir=workdir)]
+    # (f) NaN rollback at world size 1, under each flush: the inline flush
+    # sees the poisoned step at its own boundary, so the poisoned epoch runs
+    # that one step; the background flush sees it at a later boundary of
+    # the same epoch, or at the epoch's end at the latest
     check = supcon.check_finite_loss
 
     def poisoned(loss, step, enabled=True):
@@ -2311,43 +2325,567 @@ def large_batch_phase(workdir, result, rn50_expected, rn18_expected, where):
             raise NonFiniteLossError(float("nan"), step)
         return check(loss, step, enabled)
 
-    supcon.check_finite_loss = poisoned
-    for mod, name in counters:
-        setattr(mod, name, 0)
-    try:
-        rolled = supcon.main(argv)
-        code = 0
-    except SystemExit as e:
-        code, rolled = e.code, None
-    finally:
-        supcon.check_finite_loss = check
-    launches = {name: getattr(mod, name) for mod, name in counters}
-    # the poisoned step ran too: 1 + 7 steps of rn18_expected's 7
-    expected = {name: n // 7 * 8 for name, n in rn18_expected.items()}
-    if launches != expected:
-        failures.append(f"(f): launches {launches}, expected {expected}")
-    if rolled is None:
-        raise AssertionError(f"large_batch (f): the rollback run exited {code}:\n"
-                             + "\n".join(failures))
     sched = make_lr_schedule(learning_rate=0.5, epochs=2, steps_per_epoch=7, cosine=True)
-    steps = [h["step"] for h in rolled.history]
-    lr_rel = max(abs(h["learning_rate"] - 0.5 * sched(h["step"])) / (0.5 * sched(h["step"]))
-                 for h in rolled.history[1:])
-    last = torch.load(os.path.join(rolled.save_folder, "last.pth"), map_location="cpu",
-                      weights_only=True)
-    crash = os.path.isfile(os.path.join(rolled.save_folder, "crash_epoch_1.pth"))
-    print(f"large_batch (f): rollback run exited {code}; kernel launches {launches}; steps "
-          f"{steps}; learning rates after "
-          f"the skip vs 0.5 x the schedule worst rel {lr_rel:.3e}; last.pth lr_scale "
-          f"{last['lr_scale']} rollbacks {last['rollbacks']} step {last['step']}; "
-          f"crash_epoch_1.pth {'written' if crash else 'missing'}; losses "
-          f"{[h['loss'] for h in rolled.history]}")
-    if (steps != [0] + list(range(7, 14)) or not lr_rel <= 1e-6 or not crash
-            or (last["lr_scale"], last["rollbacks"], last["step"]) != (0.5, 1, 14)
-            or not all(math.isfinite(h["loss"]) for h in rolled.history[1:])):
-        failures.append("(f): the rollback run is not as expected")
+    for mode in ("sync", "async"):
+        argv = ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet18",
+                "--batch_size", "256", "--size", "32", "--epochs", "2", "--method", "SimCLR",
+                "--temp", str(TEMP), "--learning_rate", "0.5", "--cosine", "--loss_impl",
+                "fused", "--conv_impl", "fused", "--nan_policy", "rollback", "--print_freq",
+                "1", "--telemetry", mode,
+                "--workdir", tempfile.mkdtemp(prefix="rollback_", dir=workdir)]
+        supcon.check_finite_loss = poisoned
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        try:
+            rolled = supcon.main(argv)
+            code = 0
+        except SystemExit as e:
+            code, rolled = e.code, None
+        finally:
+            supcon.check_finite_loss = check
+        launches = {name: getattr(mod, name) for mod, name in counters}
+        # the steps launched, from each kernel's count and its 7 a 7-step
+        # epoch: the poisoned epoch's (1 under sync, 1 to 7 under async)
+        # and the 7 after the skip
+        per_step = {name: n // 7 for name, n in rn18_expected.items()}
+        allowed = [8] if mode == "sync" else range(8, 15)
+        matches = [n for n in allowed
+                   if launches == {name: k * n for name, k in per_step.items()}]
+        steps_launched = matches[0] if matches else None
+        if steps_launched is None:
+            failures.append(f"(f) {mode}: launches {launches}, expected {allowed} steps of "
+                            f"{per_step}")
+        if rolled is None:
+            raise AssertionError(f"large_batch (f) {mode}: the rollback run exited {code}:\n"
+                                 + "\n".join(failures))
+        steps = [h["step"] for h in rolled.history]
+        lr_rel = max(abs(h["learning_rate"] - 0.5 * sched(h["step"])) / (0.5 * sched(h["step"]))
+                     for h in rolled.history[1:])
+        last = torch.load(os.path.join(rolled.save_folder, "last.pth"), map_location="cpu",
+                          weights_only=True)
+        crash = os.path.isfile(os.path.join(rolled.save_folder, "crash_epoch_1.pth"))
+        print(f"large_batch (f) --telemetry {mode}: rollback run exited {code}; kernel launches "
+              f"{launches} ({steps_launched} steps); steps {steps}; learning rates after "
+              f"the skip vs 0.5 x the schedule worst rel {lr_rel:.3e}; last.pth lr_scale "
+              f"{last['lr_scale']} rollbacks {last['rollbacks']} step {last['step']}; "
+              f"crash_epoch_1.pth {'written' if crash else 'missing'}; losses "
+              f"{[h['loss'] for h in rolled.history]}")
+        if (steps != [0] + list(range(7, 14)) or not lr_rel <= 1e-6 or not crash
+                or (last["lr_scale"], last["rollbacks"], last["step"]) != (0.5, 1, 14)
+                or not all(math.isfinite(h["loss"]) for h in rolled.history[1:])):
+            failures.append(f"(f) {mode}: the rollback run is not as expected")
+        del rolled
+        torch.cuda.empty_cache()
     if failures:
         raise AssertionError("large_batch:\n" + "\n".join(failures))
+
+
+# -- observability: the metric ring, the flush, health, probe, recorder ------
+
+OBS_PRINT_FREQ = 3  # 7 steps: windows of 3, 3 and 1
+OBS_WINDOWS = 3
+OBS_STALL_S = 2.0  # the watchdog deadline of the stall run
+# con_top1 is an argmax over 511 similarities: fp32 rounding may flip a row
+# whose best two similarities nearly tie (one row of 512 moves it 0.2%)
+HEALTH_RTOL = {"health_align": 1e-4, "health_con_top1": 1e-2, "health_neg_max": 1e-4,
+               "health_neg_mean": 1e-4, "health_unif": 1e-4, "health_grad_norm": 1e-4,
+               "health_eff_rank": 1e-4}
+CE_LOGITS_REL_L2 = {False: 1e-4, True: 5e-2}  # card vs the port on the CPU
+# the namespace of the fused conv kernels (csrc/conv_gemm_sm90.cuh) in a
+# trace's kernel names
+FUSED_CONV_KERNEL = "sm90::conv_"
+
+
+class SyncGuard:
+    """``torch.cuda.set_sync_debug_mode("error")`` from each step's copy of
+    its batch to the device until the next flush boundary (and off inside
+    the boundary and the epoch's end, where the host waits by design), so
+    any host sync in between raises; with ``MetricRing.fetch`` (the one
+    transfer of a window) counted. Install around one driver run."""
+
+    def __init__(self):
+        self.fetches = 0
+        self.guarded_steps = 0
+
+    def __enter__(self):
+        from simclr_pytorch_distributed_tpu_torch.ops.metrics import MetricRing
+        from simclr_pytorch_distributed_tpu_torch.train import supcon
+        from simclr_pytorch_distributed_tpu_torch.utils.telemetry import TelemetrySession
+        self._saved = [(supcon, "to_device", supcon.to_device),
+                       (TelemetrySession, "flush_boundary", TelemetrySession.flush_boundary),
+                       (TelemetrySession, "finish_epoch", TelemetrySession.finish_epoch),
+                       (MetricRing, "fetch", MetricRing.fetch)]
+        to_device, flush, finish, fetch = (saved for _, _, saved in self._saved)
+        guard = self
+
+        def guarded_to_device(array, device):
+            if torch.cuda.get_sync_debug_mode() == 0:
+                guard.guarded_steps += 1
+            torch.cuda.set_sync_debug_mode("error")
+            return to_device(array, device)
+
+        def unguarded(fn):
+            def run(*args, **kwargs):
+                torch.cuda.set_sync_debug_mode(0)
+                return fn(*args, **kwargs)
+            return run
+
+        def counted_fetch(ring, snapshot):
+            guard.fetches += 1
+            return fetch(ring, snapshot)
+
+        supcon.to_device = guarded_to_device
+        TelemetrySession.flush_boundary = unguarded(flush)
+        TelemetrySession.finish_epoch = unguarded(finish)
+        MetricRing.fetch = counted_fetch
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        for owner, name, saved in self._saved:
+            setattr(owner, name, saved)
+        return False
+
+
+def obs_argv(model, workdir, bf16, *extra):
+    """``recipe_argv`` with the observability phase's flags."""
+    argv = recipe_argv(model, workdir, bf16)
+    argv[argv.index("--print_freq") + 1] = str(OBS_PRINT_FREQ)
+    return argv + ["--health_freq", "2", "--online_probe", "on"] + list(extra)
+
+
+def history_equal(a, b):
+    """Two drivers' histories equal bitwise, every column but
+    ``step_time`` (NaN sentinels equal where both are NaN)."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.keys() != y.keys():
+            return False
+        for k in x:
+            if k != "step_time" and not (x[k] == y[k] or (math.isnan(x[k]) and math.isnan(y[k]))):
+                return False
+    return True
+
+
+def capture_health_inputs(store):
+    """Wrap the step's health diagnostics so that the first health step's
+    embeddings, every parameter's gradient and the card's outputs land on
+    the CPU in ``store``. Returns the undo."""
+    from simclr_pytorch_distributed_tpu_torch.train import supcon_step
+    health, grad_norm = supcon_step.contrastive_health_metrics, supcon_step.global_grad_norm
+
+    def norm(params):
+        params = list(params)
+        if "grads" not in store:
+            store["grads"] = [p.grad.detach().cpu() for p in params if p.grad is not None]
+        return grad_norm(params)
+
+    def metrics(emb, gn):
+        out = health(emb, gn)
+        if "emb" not in store:
+            store["emb"] = emb.detach().cpu()
+            store["card"] = {k: v.detach().cpu() for k, v in out.items()}
+        return out
+
+    supcon_step.contrastive_health_metrics, supcon_step.global_grad_norm = metrics, norm
+
+    def undo():
+        supcon_step.contrastive_health_metrics, supcon_step.global_grad_norm = health, grad_norm
+    return undo
+
+
+def health_against_cpu(name, store, failures):
+    """The card's health columns of one step against the port's plain
+    computation on the CPU from the same embeddings and gradients
+    (``HEALTH_RTOL``; the effective rank from each covariance on the
+    host)."""
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        contrastive_health_metrics,
+        host_metrics,
+    )
+    norms = torch.stack([torch.linalg.vector_norm(g.double()) for g in store["grads"]])
+    cpu = contrastive_health_metrics(store["emb"], torch.linalg.vector_norm(norms).float())
+    as_host = lambda m: host_metrics({k: (v.numpy() if v.ndim else v.item())  # noqa: E731
+                                      for k, v in m.items()})
+    card, host = as_host(store["card"]), as_host(cpu)
+    worst = {k: abs(card[k] - host[k]) / max(abs(host[k]), 1e-12) for k in HEALTH_RTOL}
+    print(f"observability {name}: health columns of step 0, card vs the CPU from the same "
+          f"{tuple(store['emb'].shape)} embeddings and {len(store['grads'])} gradients: "
+          + ", ".join(f"{k} {card[k]:.6g} vs {host[k]:.6g} (rel {worst[k]:.2e})"
+                      for k in HEALTH_RTOL))
+    bad = [k for k, rel in worst.items() if not rel <= HEALTH_RTOL[k]]
+    if bad:
+        failures.append(f"{name}: health columns {bad} differ from the CPU's")
+
+
+def trace_summary(path, label, steps, top=8):
+    """Top device operations and the host gaps between them in a
+    ``StepTracer`` Chrome trace of ``steps`` steps (the window's edges wait
+    for the device, so it holds exactly their work): each kernel, copy and
+    set's summed device time; the device's busy and idle time over the
+    window; the same for each named range (the drivers' ``augment``,
+    ``train_step``, ``metric_ring`` and the optimizer's
+    ``Optimizer.step#...``: the device span of the work launched inside
+    it, from the profiler's ``gpu_user_annotation`` events); and the
+    longest idle gaps with the operations around them. Returns ``None``
+    when the trace holds no device operation."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    device = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    if not device:
+        print(f"trace {label}: no device events in {path} (CUPTI gave none)")
+        return None
+
+    def busy_in(lo, hi):
+        """Device time of the operations inside [lo, hi], overlaps merged."""
+        busy, cursor = 0.0, lo
+        for e in device:
+            a, b = max(e["ts"], cursor), min(e["ts"] + e["dur"], hi)
+            if b > a:
+                busy += b - a
+                cursor = b
+        return busy
+
+    by_name = {}
+    for e in device:
+        entry = by_name.setdefault(e["name"][:80], [0, 0.0])
+        entry[0] += 1
+        entry[1] += e["dur"]
+    start, end = device[0]["ts"], max(e["ts"] + e["dur"] for e in device)
+    busy = busy_in(start, end)
+    gaps, cursor, prev = [], start, None
+    for e in device:
+        if e["ts"] > cursor:
+            gaps.append((e["ts"] - cursor, prev["name"][:50] if prev else "-", e["name"][:50]))
+        if e["ts"] + e["dur"] > cursor:
+            cursor, prev = e["ts"] + e["dur"], e
+    span = end - start
+    print(f"trace {label}: {steps} steps, device span {span / 1e3:.3f} ms "
+          f"({span / 1e3 / steps:.3f} ms a step), busy {busy / 1e3:.3f} ms "
+          f"({busy / 1e3 / steps:.3f} a step), idle {(span - busy) / 1e3:.3f} ms "
+          f"({100 * (span - busy) / span:.1f}%) in {len(gaps)} gaps; {len(device)} device "
+          f"operations ({len(device) / steps:.0f} a step)")
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "gpu_user_annotation" and e.get("ph") == "X":
+            name = e["name"].split("#")[0] if e["name"].startswith("ProfilerStep") else e["name"]
+            entry = ranges.setdefault(name, [0, 0.0, 0.0])
+            entry[0] += 1
+            entry[1] += e["dur"]
+            entry[2] += busy_in(e["ts"], e["ts"] + e["dur"])
+    for name, (count, rspan, rbusy) in sorted(ranges.items(), key=lambda kv: -kv[1][1]):
+        print(f"trace {label} range {name}: {count} times, device span {rspan / 1e3 / steps:.3f} "
+              f"ms a step, busy {rbusy / 1e3 / steps:.3f} ms a step, idle inside "
+              f"{(rspan - rbusy) / 1e3 / steps:.3f} ms a step")
+    for name, (count, dur) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"trace {label} top op: {dur / 1e3 / steps:.3f} ms a step in {count / steps:.0f} "
+              f"calls a step ({100 * dur / busy:.1f}% of busy): {name}")
+    for gap, before, after in sorted(gaps, reverse=True)[:5]:
+        print(f"trace {label} gap: {gap / 1e3:.3f} ms idle after {before} before {after}")
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3, "steps": steps,
+            "fused_conv_ops": sum(FUSED_CONV_KERNEL in e["name"] for e in device)}
+
+
+def scrape(port):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+        return resp.read().decode()
+
+
+def observability_phase(workdir, rn50_expected, rn50_bf16_expected, where):
+    """The metric ring, the telemetry flush, health, the online probe and
+    the run-observability stack at the recipe's width: ResNet-50 in fp32
+    and ``--bf16`` with ``--conv_impl fused --loss_impl fused --health_freq
+    2 --online_probe on --print_freq 3``, one 7-step epoch each under
+    ``--telemetry async`` (no host sync from a step's batch copy to the
+    next flush boundary: ``SyncGuard``; one transfer a window; the kernel
+    launches of the train phase) and under ``--telemetry sync`` (bitwise
+    the async run's history, every column but the step time; the health
+    columns of step 0 against the CPU's from the same embeddings and
+    gradients; the sidecar scraped once over 127.0.0.1; a 4 s stall inside
+    a step against a 2 s watchdog, whose dump is read back; the recorder's
+    ``events.jsonl`` and ``trace.json``), with the step times of both.
+    Then a ``StepTracer`` window of 3 steps on the ResNet-18 ``--bf16``
+    fused step and one on the ResNet-50 fp32 ``--optimizer lars`` fused
+    step, summarized by ``trace_summary``; a trace with no device operation
+    or no fused conv kernel fails the phase."""
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    counters = kernel_counters()
+    failures = []
+    for bf16, expected in ((False, rn50_expected), (True, rn50_bf16_expected)):
+        name = f"resnet50 {'bf16' if bf16 else 'fp32'}"
+        runs = {}
+        for mode in ("async", "sync", "stall"):
+            extra = ["--telemetry", "sync" if mode == "stall" else mode]
+            store, undo, port = {}, None, None
+            if mode == "sync":
+                undo = capture_health_inputs(store)
+            if mode == "stall":
+                port = free_port()
+                extra += ["--metrics_port", str(port), "--watchdog_secs", str(OBS_STALL_S)]
+            step, scraped = supcon.train_step, {}
+
+            def probing(state, cfg, views, labels, mode=mode, port=port, scraped=scraped):
+                metrics = step(state, cfg, views, labels)
+                if mode == "stall" and state.step == 5:
+                    scraped["text"] = scrape(port)
+                    time.sleep(2 * OBS_STALL_S)  # a stall the watchdog must see
+                return metrics
+
+            supcon.train_step = probing
+            for mod, counter in counters:
+                setattr(mod, counter, 0)
+            try:
+                if mode == "async":
+                    with SyncGuard() as guard:
+                        result = supcon.main(obs_argv("resnet50", workdir, bf16, *extra))
+                else:
+                    result = supcon.main(obs_argv("resnet50", workdir, bf16, *extra))
+            finally:
+                supcon.train_step = step
+                if undo is not None:
+                    undo()
+            launches = {counter: getattr(mod, counter) for mod, counter in counters}
+            runs[mode] = result
+            if launches != expected:
+                failures.append(f"{name} {mode}: launches {launches}, expected {expected}")
+            if mode != "stall":
+                times = [h["step_time"] * 1e3 for h in result.history]
+                print(f"observability {name} --telemetry {mode}: losses "
+                      f"{[h['loss'] for h in result.history]}; step times by CUDA events "
+                      f"{[round(t, 3) for t in times]} ms, median of steps 3-7 "
+                      f"{statistics.median(times[2:7]):.3f} ms {where}")
+                print(f"observability {name} --telemetry {mode}: health_eff_rank "
+                      f"{[round(h['health_eff_rank'], 4) for h in result.history]}, probe_top1 "
+                      f"{[round(h['probe_top1'], 2) for h in result.history]}")
+            if mode == "async":
+                print(f"observability {name}: no host sync in {guard.guarded_steps} guarded "
+                      f"step windows; {guard.fetches} transfers for {OBS_WINDOWS} windows")
+                if guard.fetches != OBS_WINDOWS or guard.guarded_steps != OBS_WINDOWS:
+                    failures.append(f"{name}: {guard.fetches} transfers, "
+                                    f"{guard.guarded_steps} guarded windows")
+                continue
+            if mode == "sync":
+                health_against_cpu(name, store, failures)
+                continue
+            text = scraped.get("text", "")
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith(("train_step ", "train_health_", "train_probe_",
+                                       "train_inflight"))]
+            print(f"observability {name}: sidecar scrape of 127.0.0.1:{port}: {lines}")
+            if "train_step " not in text or "train_health_eff_rank" not in text:
+                failures.append(f"{name}: the sidecar scrape lacks train_step or the health means")
+            folder = result.save_folder
+            dumps = sorted(glob.glob(os.path.join(folder, "stall_dump_*.txt")))
+            head, frame = [], []
+            for dump in dumps:
+                with open(dump) as fh:
+                    lines = fh.read().splitlines()
+                if any("probing" in ln for ln in lines):
+                    head, frame = lines[:1], [ln.strip() for ln in lines if "probing" in ln]
+            print(f"observability {name}: watchdog dumps {[os.path.basename(d) for d in dumps]}; "
+                  f"{head}; the stalled frame {frame[:1]}")
+            if not dumps or not frame:
+                failures.append(f"{name}: the injected stall left no watchdog dump")
+            events = [json.loads(ln) for ln in open(os.path.join(folder, "events.jsonl"))]
+            with open(os.path.join(folder, "trace.json")) as fh:
+                chrome = json.load(fh)["traceEvents"]
+            names = {e["name"] for e in events}
+            print(f"observability {name}: events.jsonl {len(events)} records "
+                  f"({sorted(names)}), trace.json {len(chrome)} events")
+            if not {"first_step", "epoch", "flush_boundary", "checkpoint_commit",
+                    "health_window", "stall_detected", "run_exit"} <= names:
+                failures.append(f"{name}: the recorder lacks spans or events: {sorted(names)}")
+        same = history_equal(runs["async"].history, runs["sync"].history)
+        print(f"observability {name}: --telemetry async vs sync histories (losses, health and "
+              f"probe columns): {'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{name}: async and sync histories differ")
+        del runs
+        torch.cuda.empty_cache()
+    for label, model, bf16, extra in (
+            ("resnet18 bf16 fused", "resnet18", True, []),
+            ("resnet50 fp32 fused lars", "resnet50", False, ["--optimizer", "lars"])):
+        trace_dir = tempfile.mkdtemp(prefix="trace_", dir=workdir)
+        argv = recipe_argv(model, workdir, bf16) + extra + [
+            "--trace_dir", trace_dir, "--trace_start_step", "3", "--trace_steps", "3"]
+        argv[argv.index("--print_freq") + 1] = "10"  # the default: no flush in the window
+        run = supcon.main(argv)
+        traces = glob.glob(os.path.join(trace_dir, "trace_steps_4_7.json"))
+        if len(traces) != 1:
+            failures.append(f"{label}: no profiler trace in {trace_dir}")
+            continue
+        untraced = [h["step_time"] * 1e3 for h in run.history[1:3]]
+        print(f"observability {label}: profiler trace {os.path.basename(traces[0])} "
+              f"{os.path.getsize(traces[0])} bytes; the run's steps 2-3 before the window "
+              f"{[round(t, 3) for t in untraced]} ms by CUDA events {where}")
+        summary = trace_summary(traces[0], label, 3)
+        if summary is None:
+            failures.append(f"{label}: the profiler trace holds no device operation")
+        elif not summary["fused_conv_ops"]:
+            failures.append(f"{label}: the profiler trace holds no {FUSED_CONV_KERNEL} kernel")
+    if failures:
+        raise AssertionError("observability:\n" + "\n".join(failures))
+
+
+# -- ce: the supervised cross-entropy trainer -------------------------------
+
+CE_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from simclr_pytorch_distributed_tpu_torch.train import ce
+from simclr_pytorch_distributed_tpu_torch.utils import preempt
+losses = []
+step = ce.ce_step
+def held(state, images, labels):
+    metrics = step(state, images, labels)
+    losses.append(metrics["loss"].item())
+    if len(losses) == 3:
+        print("STEP3", flush=True)
+        deadline = time.time() + 120
+        while not preempt.requested():
+            if time.time() > deadline:
+                raise RuntimeError("no SIGTERM came")
+            time.sleep(0.01)
+    return metrics
+ce.ce_step = held
+try:
+    ce.main(json.loads(sys.argv[3]))
+finally:
+    with open(sys.argv[2], "w") as fh:
+        json.dump(losses, fh)
+"""
+
+
+def ce_argv(workdir, bf16, epochs=1):
+    return ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet50",
+            "--batch_size", "256", "--epochs", str(epochs), "--learning_rate", "0.1",
+            "--cosine", "--print_freq", "1", "--save_freq", "1",
+            "--workdir", tempfile.mkdtemp(prefix="ce_", dir=workdir)] + (
+        ["--bf16"] if bf16 else [])
+
+
+def ce_phase(workdir, where):
+    """The CE trainer's entry point ``train.ce.main`` at the recipe's width
+    (ResNet-50 ``SupCEResNet``, batch 256, 32 px, one 7-step epoch of
+    ``--dataset synthetic`` and validation over its 256 test images) in
+    fp32 and ``--bf16``: finite losses, no fused kernel launched (the CE
+    model runs eager convs, as the JAX trainer runs XLA's), top-1/top-5 in
+    [0, 100], the step time by CUDA events, and one eval batch's logits on
+    the card against the port's CPU run of the same weights
+    (``CE_LOGITS_REL_L2``). Then, with cuDNN's deterministic algorithms,
+    two epochs straight against a subprocess SIGTERM'd after step 3 (exit
+    75, ``preempt_epoch_1_step_3.pth``) and resumed: bitwise equal."""
+    from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
+    from simclr_pytorch_distributed_tpu_torch.models import SupCEResNet
+    from simclr_pytorch_distributed_tpu_torch.ops.augment import AugmentConfig, eval_batch
+    from simclr_pytorch_distributed_tpu_torch.train import ce, linear
+    from simclr_pytorch_distributed_tpu_torch.train.supcon import compute_dtype
+    counters = kernel_counters()
+    failures = []
+    _, test = synthetic_dataset()
+    mean, std = linear.stats_for("synthetic")
+    aug_cfg = AugmentConfig(mean=mean, std=std, color_ops=False)
+    for bf16 in (False, True):
+        name = f"ce resnet50 {'bf16' if bf16 else 'fp32'}"
+        for mod, counter in counters:
+            setattr(mod, counter, 0)
+        t0 = time.time()
+        result = ce.main(ce_argv(workdir, bf16))
+        wall = time.time() - t0
+        launches = {counter: getattr(mod, counter) for mod, counter in counters}
+        losses = [h["loss"] for h in result.history]
+        times = [h["step_time"] * 1e3 for h in result.history]
+        val = result.val_history[0]
+        print(f"{name}: losses {losses}; train top-1 {[round(h['top1'], 2) for h in result.history]}"
+              f"; validation {val}; best {result.best_acc} / {result.best_acc5}; run wall "
+              f"{wall:.2f} s")
+        print(f"{name} step (augment, forward, cross-entropy, backward, SGD; batch 256, 32 px) "
+              f"by CUDA events {[round(t, 3) for t in times]} ms, median of steps 3-7 "
+              f"{statistics.median(times[2:7]):.3f} ms; validation {val['seconds'] * 1e3:.2f} ms "
+              f"{where}")
+        if any(launches.values()):
+            failures.append(f"{name}: fused kernels launched: {launches}")
+        if len(losses) != 7 or not all(math.isfinite(x) for x in losses):
+            failures.append(f"{name}: expected 7 finite losses")
+        if not all(0.0 <= x <= 100.0 for x in (val["top1"], val["top5"])):
+            failures.append(f"{name}: top-1/top-5 outside [0, 100]")
+        if not os.path.isfile(os.path.join(result.save_folder, "last.pth")):
+            failures.append(f"{name}: no last.pth")
+        dev = next(result.state.model.parameters()).device
+        x = torch.from_numpy(test["images"][:PROBE_ROWS]).to(dev)
+        card = ce.eval_logits(result.state.model, eval_batch(x, aug_cfg)).cpu()
+        cpu_model = SupCEResNet("resnet50", 10)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   result.state.model.state_dict().items()})
+        cpu_model.encoder.set_compute_dtype(compute_dtype(bf16))
+        host = ce.eval_logits(cpu_model, eval_batch(x.cpu(), aug_cfg))
+        rel = (torch.linalg.norm(card - host) / torch.linalg.norm(host)).item()
+        print(f"{name}: {PROBE_ROWS} eval rows' logits, card vs the port on the CPU: relative "
+              f"L2 {rel:.3e} (bound {CE_LOGITS_REL_L2[bf16]}), top-1 agreement "
+              f"{(card.argmax(1) == host.argmax(1)).float().mean().item():.4f}")
+        if not rel <= CE_LOGITS_REL_L2[bf16]:
+            failures.append(f"{name}: card vs CPU logits relative L2 {rel:.3e}")
+        del result
+        torch.cuda.empty_cache()
+    # resume: cuDNN's deterministic algorithms, here and in the child
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        straight = ce.main(ce_argv(workdir, False, epochs=2))
+        argv = ce_argv(workdir, False, epochs=2)
+        child_dir = argv[argv.index("--workdir") + 1]
+        losses_path = os.path.join(workdir, "ce_preempted_losses.json")
+        proc = subprocess.Popen([sys.executable, "-c", CE_CHILD, REPO, losses_path,
+                                 json.dumps(argv)], stdout=subprocess.PIPE, text=True)
+        try:
+            for line in proc.stdout:
+                if line.strip() == "STEP3":
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        saved = glob.glob(os.path.join(child_dir, "*", "*", "*.pth"))
+        print(f"ce: the SIGTERM'd run exited {proc.returncode}, saved "
+              f"{[os.path.basename(p) for p in saved]}")
+        if proc.returncode != 75 or [os.path.basename(p) for p in saved] != [
+                "preempt_epoch_1_step_3.pth"]:
+            raise AssertionError("ce: the SIGTERM'd run must exit 75 with "
+                                 "preempt_epoch_1_step_3.pth")
+        with open(losses_path) as fh:
+            child_losses = json.load(fh)
+        again = ce.main(ce_argv(workdir, False, epochs=2)
+                        + ["--resume", os.path.dirname(saved[0])])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    got_losses = child_losses + [h["loss"] for h in again.history]
+    want_losses = [h["loss"] for h in straight.history]
+    bad = [] if got_losses == want_losses else ["losses"]
+    gs, ws = again.state.model.state_dict(), straight.state.model.state_dict()
+    bad += [k for k in ws if not torch.equal(gs[k], ws[k])]
+    go = again.state.optimizer.state_dict()["state"]
+    wo = straight.state.optimizer.state_dict()["state"]
+    bad += [f"momentum {k}" for k in wo
+            if not torch.equal(go[k]["momentum_buffer"], wo[k]["momentum_buffer"])]
+    if (again.best_acc, again.best_acc5) != (straight.best_acc, straight.best_acc5):
+        bad.append("best accuracy")
+    print(f"ce: SIGTERM after step 3, then --resume vs straight: {len(got_losses)} losses, "
+          f"{len(ws)} model tensors, {len(wo)} momentum buffers, best {again.best_acc}: "
+          + ("bitwise equal" if not bad else f"{len(bad)} differ: {bad[:6]}"))
+    if bad:
+        failures.append(f"ce: the resumed run differs from the straight run: {bad[:8]}")
+    if failures:
+        raise AssertionError("ce:\n" + "\n".join(failures))
 
 
 def split_only() -> int:
@@ -2554,6 +3092,16 @@ def main(argv=None) -> int:
     t0 = phase("large_batch")
     large_batch_phase(workdir, result, rn50_expected, rn18_expected, f"on {card}")
     done("large_batch", t0)
+
+    # -- observability: ring, flush, health, probe, recorder, profiler ------
+    t0 = phase("observability")
+    observability_phase(workdir, rn50_expected, rn50_bf16_expected, f"on {card}")
+    done("observability", t0)
+
+    # -- ce: the supervised cross-entropy trainer --------------------------
+    t0 = phase("ce")
+    ce_phase(workdir, f"on {card}")
+    done("ce", t0)
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")

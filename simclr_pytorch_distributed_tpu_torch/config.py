@@ -8,8 +8,22 @@ auto-warmup when ``batch_size > 256`` (``:120-121``), the closed-form
 for the probe, ``n_cls`` per dataset and the ``classifier_<time>_<model_name>``
 run folder (``main_linear.py:65-114``).
 
-Flags the port does not implement yet are absent, so argparse rejects them
-(the JAX package's observability, telemetry and data-placement flags).
+The observability flags are the JAX package's, with its names, defaults
+and checks (``config.py:129-166, :378-430, :457-530``): ``--telemetry
+{async,sync}`` (where the per-window metric flush runs), ``--trace_dir``,
+``--trace_start_step``, ``--trace_steps`` (a ``torch.profiler`` window),
+``--flight_recorder``, ``--watchdog_secs``, ``--metrics_port`` and
+``--metrics_host``; on pretraining also ``--health_freq`` (0 = off),
+``--health_policy``, ``--online_probe`` and ``--probe_lr``.
+``linear_parser(ce=True)`` is the CE trainer's (``train/ce.py``): the
+``ce_`` run-folder prefix, ``--syncBN`` and ``--resume`` as the full-state
+resume, and no ``--ckpt``.
+
+Flags the port does not take are absent, so argparse rejects them: the
+data-placement flags (``--data_placement``, ``--device_budget_mb``,
+``--data_window_batches``), which wait for the port of the device-resident
+data store, and ``--compile_cache``, a cache of XLA programs that the port
+does not compile.
 Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
 {dense,fused,ring,auto}`` (``ring`` only when asked for, as in JAX
 ``config.py:92-96``) and ``--conv_impl {eager,fused,auto}`` (the JAX
@@ -81,11 +95,24 @@ class SupConConfig:
     nan_guard: bool = True
     nan_policy: str = "abort"
     optimizer: str = "sgd"
+    telemetry: str = "async"
+    trace_dir: str = ""
+    trace_start_step: int = 10
+    trace_steps: int = 10
+    flight_recorder: str = "on"
+    watchdog_secs: float = 0.0
+    metrics_port: int = 0
+    metrics_host: str = "127.0.0.1"
+    health_freq: int = 10
+    health_policy: str = "warn"
+    online_probe: str = "off"
+    probe_lr: float = 0.1
     # derived (finalize_supcon)
     warm_epochs: int = 10
     warmup_from: float = 0.01
     warmup_to: float = 0.0
     model_name: str = ""
+    tb_folder: str = ""
     save_folder: str = ""
 
 
@@ -139,6 +166,49 @@ def ngpu_mismatch_banner(ngpu: int, data_parallel: int, learning_rate: float) ->
         f"run instead.\n"
         f"{bar}"
     )
+
+
+def nonnegative_int_arg(name: str):
+    """argparse type for cadence flags where 0 means off (JAX
+    ``config.py:432``)."""
+
+    def parse(s: str) -> int:
+        try:
+            v = int(s)
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"--{name} expects a non-negative integer, got {s!r}"
+            ) from None
+        if v < 0:
+            raise argparse.ArgumentTypeError(f"--{name} must be >= 0 (0 = off), got {v}")
+        return v
+
+    return parse
+
+
+def add_runtime_flags(p: argparse.ArgumentParser, d) -> None:
+    """The telemetry, profiler and observability flags every trainer takes
+    (JAX ``config.py:457-530``)."""
+    p.add_argument("--telemetry", type=str, default=d.telemetry, choices=["async", "sync"],
+                   help="metric flush: a background thread (no host sync between "
+                        "print_freq boundaries; NaN detection at most one window late) "
+                        "or inline")
+    p.add_argument("--trace_dir", type=str, default=d.trace_dir,
+                   help="write a torch.profiler Chrome trace of --trace_steps steps here")
+    p.add_argument("--trace_start_step", type=int, default=d.trace_start_step)
+    p.add_argument("--trace_steps", type=int, default=d.trace_steps)
+    p.add_argument("--flight_recorder", type=str, default=d.flight_recorder,
+                   choices=["on", "off"],
+                   help="host-boundary span/event recorder -> <run folder>/events.jsonl "
+                        "and trace.json (utils/tracing.py); adds no device sync")
+    p.add_argument("--watchdog_secs", type=float, default=d.watchdog_secs,
+                   help="stall watchdog: dump every thread's stack and a recorder "
+                        "snapshot when the flush boundary stalls this long (0 = off)")
+    p.add_argument("--metrics_port", type=int, default=d.metrics_port,
+                   help="Prometheus /metrics sidecar port (step, last-boundary age, "
+                        "windows in flight, health means); 0 = off")
+    p.add_argument("--metrics_host", type=str, default=d.metrics_host,
+                   help="sidecar bind address (default loopback)")
 
 
 def supcon_parser() -> argparse.ArgumentParser:
@@ -211,6 +281,22 @@ def supcon_parser() -> argparse.ArgumentParser:
                    help="sgd (the reference's), or lars: layer-adaptive scaling for large "
                         "global batches (optax.lars: weight decay and trust ratio on "
                         "kernels only)")
+    p.add_argument("--health_freq", type=nonnegative_int_arg("health_freq"),
+                   default=d.health_freq,
+                   help="compute the representation-health diagnostics (alignment, "
+                        "uniformity, contrastive top-1, negative similarities, gradient "
+                        "norm, effective rank) every Nth step, shipped through the "
+                        "metric ring; 0 = off")
+    p.add_argument("--health_policy", type=str, default=d.health_policy,
+                   choices=["warn", "abort"],
+                   help="on a windowed collapse/divergence verdict: log and record an "
+                        "event, or exit with code 3 (never rolled back)")
+    p.add_argument("--online_probe", type=str, default=d.online_probe, choices=["on", "off"],
+                   help="train a detached linear probe on the detached encoder features "
+                        "of every step; its loss and top-1 stream through the ring")
+    p.add_argument("--probe_lr", type=float, default=d.probe_lr,
+                   help="online probe SGD learning rate (constant)")
+    add_runtime_flags(p, d)
     return p
 
 
@@ -241,18 +327,19 @@ def finalize_supcon(cfg: SupConConfig) -> SupConConfig:
             cfg.learning_rate, cfg.lr_decay_rate, cfg.warm_epochs, cfg.epochs, cfg.cosine
         )
     now_time = datetime.datetime.now().strftime("%m%d_%H%M")
-    cfg.save_folder = os.path.join(
-        cfg.workdir, f"{cfg.dataset}_models", f"{cfg.dataset}_{now_time}_{cfg.model_name}"
-    )
+    run = f"{cfg.dataset}_{now_time}_{cfg.model_name}"
+    cfg.save_folder = os.path.join(cfg.workdir, f"{cfg.dataset}_models", run)
+    cfg.tb_folder = os.path.join(cfg.workdir, f"{cfg.dataset}_tensorboard", run)
     return cfg
 
 
 @dataclasses.dataclass
 class LinearConfig:
     """The probe's configuration (JAX ``config.py:688``, reference
-    ``main_linear.py:21-116``)."""
+    ``main_linear.py:21-116``); also the CE trainer's."""
 
     print_freq: int = 10
+    save_freq: int = 10
     batch_size: int = 512
     epochs: int = 100
     learning_rate: float = 0.1
@@ -264,9 +351,11 @@ class LinearConfig:
     dataset: str = "cifar10"
     cosine: bool = False
     warm: bool = False
+    # CE trainer only: cross-replica BN (the probe's encoder is frozen)
+    syncBN: bool = False
     ckpt: str = ""
-    # accepted for the exit-75 relaunch contract: the probe keeps no
-    # full-state checkpoints, so it retrains from scratch
+    # the CE trainer's full-state resume; the probe accepts it for the
+    # exit-75 relaunch contract and retrains from scratch
     resume: str = ""
     data_folder: str = "./datasets/"
     size: int = 32
@@ -276,12 +365,21 @@ class LinearConfig:
     workdir: str = "./work_space"
     trial: str = "0"
     device: str = "cuda"
+    telemetry: str = "async"
+    trace_dir: str = ""
+    trace_start_step: int = 10
+    trace_steps: int = 10
+    flight_recorder: str = "on"
+    watchdog_secs: float = 0.0
+    metrics_port: int = 0
+    metrics_host: str = "127.0.0.1"
     # derived (finalize_linear)
     n_cls: int = 10
     warm_epochs: int = 10
     warmup_from: float = 0.01
     warmup_to: float = 0.0
     model_name: str = ""
+    tb_folder: str = ""
     save_folder: str = ""
 
 
@@ -289,11 +387,14 @@ N_CLASSES = {"cifar10": 10, "cifar100": 100, "synthetic": 10, "synthetic_hard": 
              "synthetic_hard32": 32}
 
 
-def linear_parser() -> argparse.ArgumentParser:
-    """The probe's flags (JAX ``config.py:746``)."""
+def linear_parser(ce: bool = False) -> argparse.ArgumentParser:
+    """The probe's flags, or with ``ce`` the CE trainer's (JAX
+    ``config.py:746``): the CE trainer takes ``--syncBN`` and a full-state
+    ``--resume``, and no ``--ckpt``."""
     d = LinearConfig()
     p = argparse.ArgumentParser("argument for training")
     p.add_argument("--print_freq", type=int, default=d.print_freq)
+    p.add_argument("--save_freq", type=int, default=d.save_freq)
     p.add_argument("--batch_size", type=int, default=d.batch_size)
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--learning_rate", type=float, default=d.learning_rate)
@@ -305,13 +406,21 @@ def linear_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, default=d.dataset, choices=list(DATASETS))
     p.add_argument("--cosine", action="store_true")
     p.add_argument("--warm", action="store_true")
-    p.add_argument("--ckpt", type=str, default=d.ckpt,
-                   help="the pretrained encoder: a .pth in the reference layout, or a "
-                        "run folder (its last.pth)")
-    p.add_argument("--resume", type=str, default=d.resume,
-                   help="accepted for the exit-75 relaunch contract (re-run the same "
-                        "command with --resume); the probe keeps no full-state "
-                        "checkpoints, so it retrains from scratch")
+    if ce:
+        p.add_argument("--syncBN", action="store_true",
+                       help="cross-replica BatchNorm over every process of the launch "
+                            "(default: each process normalizes over its own batch slice)")
+        p.add_argument("--resume", type=str, default=d.resume,
+                       help="a full-state .pth, or a run folder (its latest complete "
+                            "checkpoint): the run continues where it stopped")
+    else:
+        p.add_argument("--ckpt", type=str, default=d.ckpt,
+                       help="the pretrained encoder: a .pth in the reference layout, or a "
+                            "run folder (its last.pth)")
+        p.add_argument("--resume", type=str, default=d.resume,
+                       help="accepted for the exit-75 relaunch contract (re-run the same "
+                            "command with --resume); the probe keeps no full-state "
+                            "checkpoints, so it retrains from scratch")
     p.add_argument("--data_folder", type=str, default=d.data_folder)
     p.add_argument("--val_batch_size", type=int, default=d.val_batch_size)
     p.add_argument("--bf16", action="store_true",
@@ -321,19 +430,21 @@ def linear_parser() -> argparse.ArgumentParser:
     p.add_argument("--workdir", type=str, default=d.workdir)
     p.add_argument("--trial", type=str, default=d.trial)
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
+    add_runtime_flags(p, d)
     return p
 
 
-def parse_linear(argv=None) -> LinearConfig:
-    kwargs = vars(linear_parser().parse_args(argv))
+def parse_linear(argv=None, ce: bool = False) -> LinearConfig:
+    kwargs = vars(linear_parser(ce).parse_args(argv))
     kwargs["lr_decay_epochs"] = tuple(int(x) for x in kwargs["lr_decay_epochs"].split(","))
-    return finalize_linear(LinearConfig(**kwargs))
+    return finalize_linear(LinearConfig(**kwargs), prefix="ce_" if ce else "classifier_")
 
 
-def finalize_linear(cfg: LinearConfig) -> LinearConfig:
+def finalize_linear(cfg: LinearConfig, prefix: str = "classifier_") -> LinearConfig:
     """Derived fields, replicating main_linear.py:65-114 (JAX
-    ``config.py:797``). The save folder is named here and created by the
-    driver."""
+    ``config.py:797``); ``prefix`` starts the run folder's name
+    (``classifier_`` for the probe, ``ce_`` for the CE trainer). The save
+    folder is named here and created by the driver."""
     cfg.model_name = (
         f"{cfg.dataset}_{cfg.model}_lr_{cfg.learning_rate}"
         f"_decay_{cfg.weight_decay}_bsz_{cfg.batch_size}"
@@ -349,9 +460,9 @@ def finalize_linear(cfg: LinearConfig) -> LinearConfig:
         )
     cfg.n_cls = N_CLASSES[cfg.dataset]
     now_time = datetime.datetime.now().strftime("%m%d_%H%M")
-    cfg.save_folder = os.path.join(
-        cfg.workdir, f"{cfg.dataset}_models", f"classifier_{now_time}_{cfg.model_name}"
-    )
+    run = f"{prefix}{now_time}_{cfg.model_name}"
+    cfg.save_folder = os.path.join(cfg.workdir, f"{cfg.dataset}_models", run)
+    cfg.tb_folder = os.path.join(cfg.workdir, f"{cfg.dataset}_tensorboard", run)
     return cfg
 
 

@@ -1,5 +1,6 @@
 """Projection head, the SupCon encoder+head model (reference
-resnet_big.py:159-181) and the probe's linear classifier (resnet_big.py:196-204).
+resnet_big.py:159-181), the supervised CE model (resnet_big.py:184-193)
+and the probe's linear classifier (resnet_big.py:196-204).
 
 ``SupConResNet`` returns the UNNORMALIZED embedding; L2 normalization happens
 in the train step, as in the JAX package and the reference driver. Linear
@@ -70,6 +71,24 @@ class SupConResNet(nn.Module):
         """``(projection, encoder_features)`` from one backbone forward."""
         h = self.encoder(x)
         return head_forward(self.head, h, self.encoder.compute_dtype), h
+
+
+class SupCEResNet(nn.Module):
+    """Encoder + linear classifier for supervised cross-entropy (JAX
+    ``models/heads.py:204``, reference ``resnet_big.py:184-193``), under the
+    reference's state-dict names ``encoder.*`` and ``fc.*``. The classifier
+    runs in fp32 on the encoder's fp32 features whatever the encoder's
+    compute dtype. Cross-replica BN is set on the encoder
+    (``model.encoder.set_bn_sync``, ``--syncBN``)."""
+
+    def __init__(self, model_name: str = "resnet50", num_classes: int = 10):
+        super().__init__()
+        model_fn, dim_in = MODEL_DICT[model_name]
+        self.encoder = model_fn()
+        self.fc = nn.Linear(dim_in, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(self.encoder(x).float())
 
 
 class LinearClassifier(nn.Module):

@@ -32,6 +32,7 @@ clamped to the crop box), as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Sequence, Tuple
 
@@ -163,8 +164,19 @@ def crop_and_resize(img, top, left, h, w, out_size: int) -> torch.Tensor:
     return torch.einsum("nxw,nswc->nsxc", wx, rows)
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: Tuple[float, ...], dtype: torch.dtype, device: torch.device):
+    """A per-channel constant on ``device``, made once: on CUDA through
+    pinned memory, so neither the first call nor a later one waits for the
+    device (a ``torch.tensor(..., device=cuda)`` is a synchronizing copy)."""
+    t = torch.tensor(values, dtype=dtype)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def _grayscale(img: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor(_LUMA, dtype=img.dtype, device=img.device)
+    w = _constant(_LUMA, img.dtype, img.device)
     return (img * w).sum(dim=-1, keepdim=True)
 
 
@@ -237,8 +249,8 @@ def color_jitter(img, factors, order):
 
 
 def normalize(img, mean: Sequence[float], std: Sequence[float]):
-    m = torch.tensor(mean, dtype=img.dtype, device=img.device)
-    s = torch.tensor(std, dtype=img.dtype, device=img.device)
+    m = _constant(tuple(mean), img.dtype, img.device)
+    s = _constant(tuple(std), img.dtype, img.device)
     return (img - m) / s
 
 

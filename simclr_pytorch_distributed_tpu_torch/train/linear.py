@@ -20,8 +20,12 @@ The JAX package's ``train/linear.py`` (``stats_for :95``, ``build_probe
 - the train transform is the crop and flip alone, one view an image, the
   validation transform normalize only (``main_ce.py:31-41``);
 - SGD on the classifier alone, with the per-iteration schedule (step decay
-  60/75/90 x 0.2 by default), cross-entropy, top-1/top-5 per step from one
-  readback;
+  60/75/90 x 0.2 by default), cross-entropy; each step's loss and top-1/top-5
+  counts go into the device-side metric ring (:data:`PROBE_METRIC_KEYS`),
+  flushed once per ``--print_freq`` window (``utils/telemetry.py``), with
+  the observability stack of the pretrain driver (``utils/obs.py``;
+  ``classifier/*`` TensorBoard scalars, spans ``first_step``, ``epoch``,
+  ``validation``);
 - validation over the whole test split every epoch, the tail batch as it
   is; the best top-1 and its top-5 are kept, the best classifier is saved
   as ``classifier_best.pth`` and ``best accuracy: X, accuracy5: Y`` is
@@ -49,8 +53,10 @@ absent.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import math
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -73,14 +79,25 @@ from simclr_pytorch_distributed_tpu_torch.ops.metrics import AverageMeter, topk_
 from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
-from simclr_pytorch_distributed_tpu_torch.train.supcon import compute_dtype, resolve_device
-from simclr_pytorch_distributed_tpu_torch.utils import preempt
+from simclr_pytorch_distributed_tpu_torch.train.supcon import (
+    compute_dtype,
+    resolve_device,
+    to_device,
+)
+from simclr_pytorch_distributed_tpu_torch.utils import preempt, tracing
 from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
     load_model_state,
     save_classifier,
 )
-from simclr_pytorch_distributed_tpu_torch.utils.guard import exit_with_code
-from simclr_pytorch_distributed_tpu_torch.utils.logging_utils import setup_logging
+from simclr_pytorch_distributed_tpu_torch.utils.guard import exit_code_for, exit_with_code
+from simclr_pytorch_distributed_tpu_torch.utils.logging_utils import TBLogger, setup_logging
+from simclr_pytorch_distributed_tpu_torch.utils.obs import RunObservability
+from simclr_pytorch_distributed_tpu_torch.utils.profiling import StepClock, StepTracer
+from simclr_pytorch_distributed_tpu_torch.utils.telemetry import TelemetrySession
+
+# the metric ring's columns for the probe and CE steps: the global batch's
+# loss and its top-1/top-5 correct counts (JAX train/linear.py:86)
+PROBE_METRIC_KEYS = ("loss", "top1", "top5")
 
 
 def stats_for(dataset: str) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
@@ -157,8 +174,19 @@ def run_validation(
     model: SupConResNet, classifier: torch.nn.Module, images: np.ndarray, labels: np.ndarray,
     batch_size: int, aug_cfg: AugmentConfig, device: torch.device,
 ) -> Dict[str, float]:
-    """Loss, top-1 and top-5 (percent) over the whole split (reference
-    ``validate()``, ``main_linear.py:204-244``): every example counts once.
+    """The probe's validation: :func:`validate` of the classifier on the
+    frozen encoder's features."""
+    return validate(lambda x: classifier(encode(model, x)), images, labels, batch_size,
+                    aug_cfg, device)
+
+
+def validate(
+    logits_fn, images: np.ndarray, labels: np.ndarray, batch_size: int,
+    aug_cfg: AugmentConfig, device: torch.device,
+) -> Dict[str, float]:
+    """Loss, top-1 and top-5 (percent) of ``logits_fn`` (normalized NHWC
+    images -> fp32 logits) over the whole split (reference ``validate()``,
+    ``main_linear.py:204-244``): every example counts once.
     Alone, a process takes each chunk of ``batch_size`` rows, the tail as it
     is. Under a process group (JAX ``train/linear.py:242-270``) it takes its
     slice of each chunk, the tail padded to ``batch_size`` with its first
@@ -182,7 +210,7 @@ def run_validation(
                 valid = min(max(valid - r * part, 0), part)
             x = torch.from_numpy(x).to(device, non_blocking=True)
             y = torch.from_numpy(y).to(device, non_blocking=True).long()
-            logits = classifier(encode(model, eval_batch(x, aug_cfg)))[:valid]
+            logits = logits_fn(eval_batch(x, aug_cfg))[:valid]
             y = y[:valid]
             correct = topk_correct(logits, y)
             sums += torch.stack([F.cross_entropy(logits, y, reduction="sum").double(),
@@ -192,11 +220,21 @@ def run_validation(
     return {"loss": loss_sum / n, "top1": 100.0 * top1 / n, "top5": 100.0 * top5 / n}
 
 
+def global_step_metrics(m: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A step's :data:`PROBE_METRIC_KEYS` for the global batch, on the
+    device: the loss as the mean of the processes' equal slices and the
+    correct counts summed, in rank order; no readback."""
+    world = mesh.world_size()
+    total = collectives.rank_ordered_sum(
+        torch.stack([m["loss"] / world, m["top1"].float(), m["top5"].float()]))
+    return dict(zip(PROBE_METRIC_KEYS, total.unbind()))
+
+
 @dataclasses.dataclass
 class ProbeResult:
     """``best_acc``/``best_acc5`` are the JAX driver's return pair.
     ``history`` has one entry a step (``loss``, ``top1``/``top5`` in
-    percent, ``step_time`` from the batch's copy to the readback),
+    percent, ``step_time`` from CUDA events, the host clock on the CPU),
     ``val_history`` one an epoch (``loss``, ``top1``, ``top5``,
     ``seconds``)."""
 
@@ -213,41 +251,68 @@ class ProbeResult:
 def train_epoch(
     epoch: int, loader: EpochLoader, model: SupConResNet, state: TrainState,
     aug_cfg: AugmentConfig, generator: torch.Generator, cfg: config_lib.LinearConfig,
-    device: torch.device, history: List[Dict[str, float]],
-) -> Tuple[float, bool]:
-    """One probe epoch. Returns ``(train top-1 average, preempted)``;
-    ``preempted`` when a signal arrived, after the step in flight."""
-    batch_time, losses, top1 = AverageMeter(), AverageMeter(), AverageMeter()
+    device: torch.device, history: List[Dict[str, float]], telemetry: TelemetrySession,
+    tracer: Optional[StepTracer] = None, first_step_span: bool = False,
+) -> Tuple[Dict[str, float], bool]:
+    """One probe epoch through the metric ring. Returns ``(train meters,
+    preempted)``: the loss, top-1 and top-5 averages, and whether a signal
+    arrived (the epoch then stops after the step in flight)."""
+    bt, losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter(), AverageMeter()
     steps = len(loader)
-    end = time.time()
-    world = mesh.world_size()
-    for idx, (images_u8, labels) in enumerate(loader.epoch(epoch)):
-        t0 = time.time()
-        x = torch.from_numpy(images_u8).to(device, non_blocking=True)
-        y = torch.from_numpy(labels).to(device, non_blocking=True).long()
-        views = augment_batch(generator, x, aug_cfg, process_index=mesh.rank(),
-                              process_count=world)
-        m = probe_step(model, state, views, y)
-        # the global batch's loss (the mean of equal slices') and counts
-        loss, c1, c5 = collectives.rank_ordered_sum(
-            torch.stack([m["loss"] / world, m["top1"].float(), m["top5"].float()])).tolist()
-        bsz = cfg.batch_size
-        history.append({"epoch": epoch, "step": state.step - 1, "loss": loss,
-                        "top1": 100.0 * c1 / bsz, "top5": 100.0 * c5 / bsz,
-                        "step_time": time.time() - t0})
-        losses.update(loss, bsz)
-        top1.update(100.0 * c1 / bsz, bsz)
-        batch_time.update(time.time() - end)
-        if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
+    bsz = cfg.batch_size
+    entries: Dict[int, dict] = {}
+    clock = StepClock(device)
+    telemetry.start_window_clock()
+    ring_buf = telemetry.init_buffer(device)
+
+    def submit(boundary_idx: int, step_hint: int) -> None:
+        def consume(fetched, bt_now):
+            for (_, gstep), m in fetched:
+                entry = {"epoch": epoch, "step": gstep, "loss": m["loss"],
+                         "top1": 100.0 * m["top1"] / bsz, "top5": 100.0 * m["top5"] / bsz,
+                         "step_time": math.nan}
+                history.append(entry)
+                entries[gstep] = entry
+                losses.update(entry["loss"], bsz)
+                top1.update(entry["top1"], bsz)
+                top5.update(entry["top5"], bsz)
             logging.info(
                 "Train: [%d][%d/%d]\tBT %.3f (%.3f)\tloss %.3f (%.3f)\tAcc@1 %.3f (%.3f)",
-                epoch, idx + 1, steps, batch_time.val, batch_time.avg,
+                epoch, boundary_idx + 1, steps, bt_now[0], bt_now[1],
                 losses.val, losses.avg, top1.val, top1.avg,
             )
-        if preempt.requested_global():
-            return top1.avg, True
-        end = time.time()
-    return top1.avg, False
+
+        telemetry.flush_boundary(ring_buf, consume, batch_meter=bt, step_hint=step_hint)
+
+    preempted = False
+    batches = loader.epoch(epoch)
+    try:
+        clock.mark()
+        for idx, (images_u8, labels) in enumerate(batches):
+            gstep = state.step
+            span = (tracing.span("first_step", track="main:compile", step=gstep)
+                    if first_step_span and idx == 0 else contextlib.nullcontext())
+            with span:
+                x = to_device(images_u8, device)
+                y = to_device(labels, device).long()
+                views = augment_batch(generator, x, aug_cfg, process_index=mesh.rank(),
+                                      process_count=mesh.world_size())
+                m = global_step_metrics(probe_step(model, state, views, y))
+            telemetry.ring.write(ring_buf, m, gstep)
+            telemetry.append((idx, gstep), gstep)
+            clock.mark()
+            if tracer is not None:
+                tracer.step(gstep)
+            if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
+                submit(idx, gstep)
+            if preempt.requested_global():
+                preempted = True
+                break
+    finally:
+        batches.close()
+    telemetry.finish_epoch(lambda hint: submit(steps - 1, hint), state.step - 1)
+    clock.fill(entries, (epoch - 1) * steps)
+    return {"loss": losses.avg, "top1": top1.avg, "top5": top5.avg}, preempted
 
 
 def run(cfg: config_lib.LinearConfig) -> ProbeResult:
@@ -263,8 +328,9 @@ def run(cfg: config_lib.LinearConfig) -> ProbeResult:
 
 def _probe(cfg: config_lib.LinearConfig) -> ProbeResult:
     device = resolve_device(cfg.device)
-    # the minute-stamped folder: every process adopts rank 0's
+    # the minute-stamped folders: every process adopts rank 0's
     cfg.save_folder = mesh.broadcast_from_main(cfg.save_folder)
+    cfg.tb_folder = mesh.broadcast_from_main(cfg.tb_folder)
     main_process = mesh.is_main_process()
     setup_logging(cfg.save_folder, main_process)
     logging.info(
@@ -272,48 +338,82 @@ def _probe(cfg: config_lib.LinearConfig) -> ProbeResult:
         torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU",
         mesh.rank(), mesh.world_size(),
     )
-    train_data, test_data, cfg.n_cls = load_dataset(cfg.dataset, cfg.data_folder)
-    loader = EpochLoader(
-        train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
-        process_index=mesh.rank(), process_count=mesh.world_size(),
-    )
-    model, state = build_probe(cfg, len(loader), device)
-    collectives.broadcast_from_rank0(state.model)
-    mean, std = stats_for(cfg.dataset)
-    aug_cfg = AugmentConfig(size=cfg.size, mean=mean, std=std, color_ops=False)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed + 1)
-    if cfg.resume:
-        logging.warning("--resume %s: the probe keeps no full-state checkpoints; "
-                        "retraining from scratch", cfg.resume)
-    best_acc, best_acc5, best_state = 0.0, 0.0, None
-    history: List[Dict[str, float]] = []
-    val_history: List[Dict[str, float]] = []
+    obs = RunObservability(cfg, name="linear")
+    telemetry = tb = tracer = None
+    exit_exc = None
     preempted = False
     preempt.install()
     try:
+        train_data, test_data, cfg.n_cls = load_dataset(cfg.dataset, cfg.data_folder)
+        loader = EpochLoader(
+            train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
+            process_index=mesh.rank(), process_count=mesh.world_size(),
+        )
+        model, state = build_probe(cfg, len(loader), device)
+        collectives.broadcast_from_rank0(state.model)
+        mean, std = stats_for(cfg.dataset)
+        aug_cfg = AugmentConfig(size=cfg.size, mean=mean, std=std, color_ops=False)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(cfg.seed + 1)
+        if cfg.resume:
+            logging.warning("--resume %s: the probe keeps no full-state checkpoints; "
+                            "retraining from scratch", cfg.resume)
+        telemetry = TelemetrySession(cfg.print_freq, PROBE_METRIC_KEYS, cfg.telemetry,
+                                     watchdog=obs.watchdog, gauges=obs.gauges)
+        tb = TBLogger(cfg.tb_folder, enabled=main_process)
+        tracer = StepTracer(cfg.trace_dir, cfg.trace_start_step, cfg.trace_steps,
+                            enabled=main_process)
+        best_acc, best_acc5, best_state = 0.0, 0.0, None
+        history: List[Dict[str, float]] = []
+        val_history: List[Dict[str, float]] = []
         for epoch in range(1, cfg.epochs + 1):
             t1 = time.time()
-            train_top1, preempted = train_epoch(
-                epoch, loader, model, state, aug_cfg, generator, cfg, device, history
-            )
+            obs.set_epoch(epoch)
+            with tracing.span("epoch", track="main:epoch", epoch=epoch):
+                train, preempted = train_epoch(
+                    epoch, loader, model, state, aug_cfg, generator, cfg, device, history,
+                    telemetry, tracer, first_step_span=epoch == 1,
+                )
             if preempted:
+                tracing.event("preempt_exit", track="main:guard", epoch=epoch)
                 logging.warning("preempted (%s) during epoch %d: stopping the probe",
                                 preempt.signal_name(), epoch)
                 break
             logging.info("Train epoch %d, total time %.2f, accuracy:%.2f",
-                         epoch, time.time() - t1, train_top1)
+                         epoch, time.time() - t1, train["top1"])
+            if main_process:
+                tb.log_value("classifier/train_loss", train["loss"], epoch)
+                tb.log_value("classifier/train_acc1", train["top1"], epoch)
+                tb.log_value("classifier/train_acc5", train["top5"], epoch)
             t2 = time.time()
-            val = run_validation(model, state.model, test_data["images"], test_data["labels"],
-                                 cfg.val_batch_size, aug_cfg, device)
+            with tracing.span("validation", track="main:eval", epoch=epoch):
+                val = run_validation(model, state.model, test_data["images"],
+                                     test_data["labels"], cfg.val_batch_size, aug_cfg, device)
             val["seconds"] = time.time() - t2
             val_history.append(val)
             logging.info(" * Acc@1 %.3f, Acc@5 %.3f", val["top1"], val["top5"])
+            if main_process:
+                tb.log_value("classifier/val_loss", val["loss"], epoch)
+                tb.log_value("classifier/val_acc1", val["top1"], epoch)
+                tb.log_value("classifier/val_acc5", val["top5"], epoch)
             if val["top1"] > best_acc:
                 best_acc, best_acc5 = val["top1"], val["top5"]
                 best_state = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    except BaseException as e:
+        exit_exc = e
+        raise
     finally:
         preempt.uninstall()
+        if telemetry is not None:
+            telemetry.close()
+        if tracer is not None:
+            tracer.close()
+        if tb is not None:
+            tb.close()
+        # the preemption exit is raised after this block: the exit code
+        # reads the flag
+        obs.close(exit_code=(preempt.EXIT_PREEMPTED if preempted
+                             else exit_code_for(exit_exc)))
     path = None
     if best_state is not None and main_process:
         path = save_classifier(cfg.save_folder, best_state, best_acc)
@@ -329,8 +429,8 @@ def _probe(cfg: config_lib.LinearConfig) -> ProbeResult:
 
 
 def main(argv=None) -> ProbeResult:
-    """Exit codes: 0 a clean run, 75 preempted (the best classifier so far
-    saved)."""
+    """Exit codes: 0 a clean run, 2 a telemetry flush failure, 75
+    preempted (the best classifier so far saved)."""
     cfg = config_lib.parse_linear(argv)
     return exit_with_code(lambda: run(cfg))
 

@@ -57,22 +57,32 @@ class LARS(torch.optim.Optimizer):
         if closure is not None:
             raise ValueError("LARS takes no closure")
         for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                u = p.grad
-                if p.ndim > 1:
-                    u = u + group["weight_decay"] * p
-                    p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
-                    trust = LARS_TRUST_COEFFICIENT * p_norm / u_norm
-                    u = u * torch.where((p_norm == 0) | (u_norm == 0), 1.0, trust)
-                u = u * group["lr"]
-                state = self.state[p]
-                if "momentum_buffer" not in state:
-                    state["momentum_buffer"] = torch.zeros_like(p)
-                buf = state["momentum_buffer"]
-                buf.mul_(group["momentum"]).add_(u)
-                p.sub_(buf)
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if "momentum_buffer" not in self.state[p]:
+                    self.state[p]["momentum_buffer"] = torch.zeros_like(p)
+            bufs = [self.state[p]["momentum_buffer"] for p in params]
+            # each chain step over all parameters at once, a few launches
+            # each: a loop over the parameters launched ~2000 small kernels
+            # a ResNet-50 step and held the host back (PERF.md §6)
+            kernels = [p for p in params if p.ndim > 1]
+            u_k = []
+            if kernels:
+                u_k = torch._foreach_add([p.grad for p in kernels], kernels,
+                                         alpha=group["weight_decay"])
+                p_norm = torch.stack(torch._foreach_norm(kernels))
+                u_norm = torch.stack(torch._foreach_norm(u_k))
+                trust = LARS_TRUST_COEFFICIENT * p_norm / u_norm
+                trust = torch.where((p_norm == 0) | (u_norm == 0), 1.0, trust)
+                torch._foreach_mul_(u_k, list(trust.unbind()))
+            u_k = iter(u_k)
+            u = [next(u_k) if p.ndim > 1 else p.grad for p in params]
+            u = torch._foreach_mul(u, group["lr"])
+            torch._foreach_mul_(bufs, group["momentum"])
+            torch._foreach_add_(bufs, u)
+            torch._foreach_sub_(params, bufs)
 
 
 def make_optimizer(
@@ -108,6 +118,7 @@ class TrainState:
     step: int = 0
     record_norm_mean: Optional[torch.Tensor] = None
     lr_scale: float = 1.0
+    probe: Optional[object] = None
 
     def set_learning_rate(self) -> float:
         lr = float(self.schedule(self.step)) * self.lr_scale

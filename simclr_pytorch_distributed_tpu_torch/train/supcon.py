@@ -22,11 +22,31 @@ run folder, which every process adopts. The fused conv kernels stay
 single-process (:func:`resolve_conv_impl`).
 
 Loop: the host loader gathers a uint8 batch (prefetched on a thread) ->
-one copy to the device -> two-crop augmentation on the device -> the train
-step (forward, loss, backward, SGD) -> one readback of the step's metrics
-for the meters and the progress line -> checkpoints at ``--save_freq`` and
-as ``last.pth``. The run is on ``cuda`` unless ``--device cpu`` is given,
+one copy to the device (from pinned memory on CUDA) -> two-crop
+augmentation on the device -> the train step (forward, loss, backward,
+SGD) -> the step's metrics written into a row of the device-side metric
+ring, with no readback -> at each ``--print_freq`` boundary one snapshot of
+the ring handed to the telemetry flush (``utils/telemetry.py``: one
+transfer per window, then on a background thread under ``--telemetry
+async`` the finite check, the meters, the TensorBoard ``info/*``,
+``health/*`` and ``probe/*`` scalars, the health monitor and the progress
+line) -> checkpoints at ``--save_freq`` and as ``last.pth``. The host
+waits for the device only at flush boundaries, at epoch ends and in a
+process group's collectives (under a process group also in the per-step
+preemption vote). The run is on ``cuda`` unless ``--device cpu`` is given,
 and raises when CUDA is asked for and absent.
+
+Observability (JAX ``train/supcon.py:720-930``, ``utils/obs.py``): the
+flight recorder writes ``events.jsonl`` and, at the end, ``trace.json``
+into the run folder (spans ``first_step``, ``epoch``, ``flush_boundary``,
+``checkpoint_commit``; events ``preempt_exit``, ``nan_rollback``,
+``health_window``, ``run_exit``), ``--watchdog_secs`` arms the stall
+watchdog, ``--metrics_port`` serves the Prometheus sidecar,
+``--trace_dir`` takes a ``torch.profiler`` window, and ``--health_freq``
+(default 10) feeds the health monitor (``--health_policy abort`` exits 3).
+``history`` holds one entry a step, filled at each flush, with
+``step_time`` from CUDA events read at the epoch's end (the host clock on
+the CPU).
 
 Warm start, resume and exits (JAX ``train/supcon.py:770-798, 905-1010``):
 
@@ -61,13 +81,17 @@ Warm start, resume and exits (JAX ``train/supcon.py:770-798, 905-1010``):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import math
 import os
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from simclr_pytorch_distributed_tpu_torch import config as config_lib
 from simclr_pytorch_distributed_tpu_torch.data.cifar import load_dataset
@@ -85,11 +109,15 @@ from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
 from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
-    METRIC_KEYS,
+    HEALTH_METRIC_KEYS,
+    ONLINE_PROBE_METRIC_KEYS,
     SupConStepConfig,
+    build_online_probe,
+    host_metrics,
+    ring_layout,
     train_step,
 )
-from simclr_pytorch_distributed_tpu_torch.utils import preempt
+from simclr_pytorch_distributed_tpu_torch.utils import preempt, tracing
 from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
     capture_state,
     load_model_state,
@@ -104,9 +132,13 @@ from simclr_pytorch_distributed_tpu_torch.utils.guard import (
     FailurePolicy,
     NonFiniteLossError,
     check_finite_loss,
+    exit_code_for,
     exit_with_code,
 )
-from simclr_pytorch_distributed_tpu_torch.utils.logging_utils import setup_logging
+from simclr_pytorch_distributed_tpu_torch.utils.logging_utils import TBLogger, setup_logging
+from simclr_pytorch_distributed_tpu_torch.utils.obs import RunObservability
+from simclr_pytorch_distributed_tpu_torch.utils.profiling import StepClock, StepTracer
+from simclr_pytorch_distributed_tpu_torch.utils.telemetry import TelemetrySession
 
 
 NAN_POLICY_REASONS = {
@@ -120,6 +152,24 @@ OPTIMIZER_REASONS = {
     "lars": ("LARS as optax.lars (train/state.py): weight decay and the 0.001 trust "
              "ratio on kernels only, momentum after the learning rate"),
 }
+
+
+# the reference's per-iteration scalars (main_supcon.py:327-333), as info/*
+TB_ITER_SCALARS = ("norm_mean", "norm_var", "record_norm_mean", "loss_sec", "loss_l2reg")
+# the health and probe columns' TensorBoard tags (JAX train/supcon.py:451-460)
+EXTRA_TB_TAGS = {
+    **{k: "health/" + k[len("health_"):] for k in HEALTH_METRIC_KEYS},
+    **{k: "probe/" + k[len("probe_"):] for k in ONLINE_PROBE_METRIC_KEYS},
+}
+
+
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``: on CUDA through pinned memory, so the
+    copy is queued on the stream and the host does not wait for it."""
+    t = torch.from_numpy(array)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -299,55 +349,127 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
         sec=cfg.sec, sec_wei=cfg.sec_wei, l2reg=cfg.l2reg, l2reg_wei=cfg.l2reg_wei,
         norm_momentum=cfg.norm_momentum, epochs=cfg.epochs,
         steps_per_epoch=steps_per_epoch, grad_div=float(grad_div), loss_impl=loss_impl,
+        health_freq=cfg.health_freq,
+        online_probe=cfg.online_probe == "on",
     )
     return TrainState(model=model, optimizer=optimizer, schedule=schedule), step_cfg
+
+
+@dataclasses.dataclass
+class EpochHooks:
+    """What an epoch reports to besides ``history``: the telemetry session
+    (the ring and its flush), and optionally TensorBoard, the health
+    monitor, the sidecar gauges and the profiler window."""
+
+    telemetry: TelemetrySession
+    tb: Optional[TBLogger] = None
+    health: object = None
+    gauges: object = None
+    tracer: Optional[StepTracer] = None
 
 
 def train_one_epoch(
     epoch: int, loader: EpochLoader, state: TrainState, step_cfg: SupConStepConfig,
     aug_cfg: AugmentConfig, generator: torch.Generator, cfg: config_lib.SupConConfig,
-    device: torch.device, history: List[Dict[str, float]], start_step: int = 0,
+    device: torch.device, history: List[Dict[str, float]], hooks: EpochHooks,
+    start_step: int = 0, first_step_span: bool = False,
 ) -> Optional[int]:
     """One epoch from its step ``start_step`` (reference ``train()``,
-    ``main_supcon.py:242-351``); appends each step's metrics, as floats, to
-    ``history``. Raises ``NonFiniteLossError`` on a non-finite loss under
-    ``--nan_guard``. Returns the steps of the epoch taken when a preemption
-    was requested before its last step, else ``None``.
+    ``main_supcon.py:242-351``; JAX ``train/supcon.py:464``).
 
-    ``step_time`` in a history entry is the wall time from the batch's copy
-    to the device to the readback of the step's metrics, which waits for the
-    device to finish the step."""
+    Each step writes its metrics into the ring; at each ``print_freq``
+    boundary, and at the epoch's end, the window goes to the flush, whose
+    job appends each step's metrics, as floats, to ``history``, checks the
+    loss (``NonFiniteLossError`` under ``--nan_guard``, raised here at a
+    later boundary or at the epoch-end drain), updates the meters, writes
+    the TensorBoard scalars, feeds the health monitor and logs the
+    progress line. Returns the steps of the epoch taken when a preemption
+    was requested before its last step, else ``None``; the flush is
+    drained either way, and each entry of the epoch gets its
+    ``step_time``."""
+    telemetry = hooks.telemetry
     batch_time, data_time, losses = AverageMeter(), AverageMeter(), AverageMeter()
     steps = len(loader)
-    device_keys = [k for k in METRIC_KEYS if k != "learning_rate"]
-    end = time.time()
-    batches = enumerate(loader.epoch(epoch, start_step), start=start_step)
-    for idx, (images_u8, labels) in batches:
-        data_time.update(time.time() - end)
-        t0 = time.time()
-        images = torch.from_numpy(images_u8).to(device, non_blocking=True)
-        labels_d = torch.from_numpy(labels).to(device, non_blocking=True)
-        views = two_crop_batch(generator, images, aug_cfg,
-                               process_index=mesh.rank(), process_count=mesh.world_size())
-        metrics = train_step(state, step_cfg, views, labels_d)
-        values = torch.stack([metrics[k] for k in device_keys]).tolist()
-        host = dict(zip(device_keys, values), learning_rate=float(metrics["learning_rate"]))
-        host.update(epoch=epoch, step=state.step - 1, step_time=time.time() - t0)
-        history.append(host)
-        check_finite_loss(host["loss"], state.step - 1, cfg.nan_guard)
-        losses.update(host["loss"], cfg.batch_size)
-        batch_time.update(time.time() - end)
-        if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
+    last: Dict[str, float] = {}
+    entries: Dict[int, dict] = {}
+    clock = StepClock(device)
+    telemetry.start_window_clock()
+    ring_buf = telemetry.init_buffer(device)
+    main_process = mesh.is_main_process()
+
+    def submit(boundary_idx: int, step_hint: int) -> None:
+        dt = (data_time.val, data_time.avg)
+
+        def consume(fetched, bt):
+            rows = []
+            for (_, gstep), row in fetched:
+                m = host_metrics(row)
+                entry = dict(m, epoch=epoch, step=gstep, step_time=math.nan)
+                history.append(entry)
+                entries[gstep] = entry
+                check_finite_loss(m["loss"], gstep, cfg.nan_guard)
+                losses.update(m["loss"], cfg.batch_size)
+                if hooks.tb is not None and main_process:
+                    for name in TB_ITER_SCALARS:
+                        hooks.tb.log_value(f"info/{name}", m[name], gstep)
+                    for name, tag in EXTRA_TB_TAGS.items():
+                        # NaN: the sentinel of a step that is not a health step
+                        if name in m and math.isfinite(m[name]):
+                            hooks.tb.log_value(tag, m[name], gstep)
+                last.clear()
+                last.update(m)
+                rows.append((gstep, m))
+            if hooks.health is not None:
+                hooks.health.ingest(rows, gauges=hooks.gauges)
             logging.info(
                 "Train: [%d][%d/%d]\tBT %.3f (%.3f)\tDT %.3f (%.3f)\t"
                 "loss %.3f (%.3f)\tnorm_mean %.3f (record: %.3f) var %.3f",
-                epoch, idx + 1, steps, batch_time.val, batch_time.avg,
-                data_time.val, data_time.avg, losses.val, losses.avg,
-                host["norm_mean"], host["record_norm_mean"], host["norm_var"],
+                epoch, boundary_idx + 1, steps, bt[0], bt[1], dt[0], dt[1],
+                losses.val, losses.avg, last["norm_mean"], last["record_norm_mean"],
+                last["norm_var"],
             )
-        if idx + 1 < steps and preempt.requested_global():
-            return idx + 1
-        end = time.time()
+
+        telemetry.flush_boundary(ring_buf, consume, batch_meter=batch_time,
+                                 step_hint=step_hint)
+
+    def finish(boundary_idx: int, step_hint: int) -> None:
+        telemetry.finish_epoch(lambda hint: submit(boundary_idx, hint), step_hint)
+        clock.fill(entries, (epoch - 1) * steps + start_step)
+
+    end = time.time()
+    batches = loader.epoch(epoch, start_step)
+    try:
+        clock.mark()
+        for idx, (images_u8, labels) in enumerate(batches, start=start_step):
+            data_time.update(time.time() - end)
+            gstep = state.step
+            span = (tracing.span("first_step", track="main:compile", step=gstep)
+                    if first_step_span and idx == start_step else contextlib.nullcontext())
+            with span:
+                # named ranges for a profiler window (utils/profiling.StepTracer)
+                with record_function("augment"):
+                    images = to_device(images_u8, device)
+                    labels_d = to_device(labels, device)
+                    views = two_crop_batch(generator, images, aug_cfg,
+                                           process_index=mesh.rank(),
+                                           process_count=mesh.world_size())
+                with record_function("train_step"):
+                    metrics = train_step(state, step_cfg, views, labels_d)
+            with record_function("metric_ring"):
+                telemetry.ring.write(ring_buf, metrics, gstep)
+            telemetry.append((idx, gstep), gstep)
+            clock.mark()
+            if hooks.tracer is not None:
+                hooks.tracer.step(gstep)
+            if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
+                submit(idx, gstep)
+            if idx + 1 < steps and preempt.requested_global():
+                finish(idx, gstep)
+                return idx + 1
+            end = time.time()
+        finish(steps - 1, epoch * steps - 1)
+    finally:
+        batches.close()
     return None
 
 
@@ -393,8 +515,9 @@ def run(cfg: config_lib.SupConConfig) -> RunResult:
 
 def _train(cfg: config_lib.SupConConfig) -> RunResult:
     device = resolve_device(cfg.device)
-    # the minute-stamped folder: every process writes into rank 0's
+    # the minute-stamped folders: every process writes into rank 0's
     cfg.save_folder = mesh.broadcast_from_main(cfg.save_folder)
+    cfg.tb_folder = mesh.broadcast_from_main(cfg.tb_folder)
     main_process = mesh.is_main_process()
     setup_logging(cfg.save_folder, main_process)
     logging.info(
@@ -402,54 +525,77 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
         torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU",
         mesh.rank(), mesh.world_size(),
     )
-    train_data, _, _ = load_dataset(cfg.dataset, cfg.data_folder)
-    loader = EpochLoader(
-        train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
-        process_index=mesh.rank(), process_count=mesh.world_size(),
-    )
-    state, step_cfg = build(cfg, len(loader), device)
-    aug_cfg = make_augment_config(cfg)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed + 1)
-    start_epoch, start_step = 1, 0
-    policy = FailurePolicy(cfg.nan_policy)
-    logging.info("%s", config_lib.impl_resolution_banner(
-        "nan_policy", cfg.nan_policy, cfg.nan_policy, NAN_POLICY_REASONS[cfg.nan_policy]))
-    if cfg.ckpt:
-        # warm start: weights and BN buffers only (main_supcon.py:216-220)
-        state.model.load_state_dict(load_model_state(cfg.ckpt))
-        logging.info("load model from %s ...", cfg.ckpt)
-    if cfg.resume:
-        resume_path = resolve_resume_path(cfg.resume)
-        meta = restore_checkpoint(resume_path, state, generator)
-        start_epoch, start_step = resume_position(meta, len(loader))
-        logging.info("resumed from %s at epoch %d step %d",
-                     resume_path, start_epoch, start_step)
-        # the damping is run state: a resumed run keeps it and its budget
-        policy.lr_scale, policy.rollbacks = meta["lr_scale"], meta["rollbacks"]
-        state.lr_scale = policy.lr_scale
-        if policy.lr_scale != 1.0:
-            logging.warning("resumed with rollback damping: lr_scale %.3g after %d "
-                            "rollbacks", policy.lr_scale, policy.rollbacks)
-
-    def save(name: str, snapshot: dict, epoch: int, step_in_epoch: int = 0) -> str:
-        return save_checkpoint(os.path.join(cfg.save_folder, name), snapshot, cfg,
-                               epoch, step_in_epoch, policy.lr_scale, policy.rollbacks)
-
-    def exit_preempted(path: str) -> None:
-        # every process leaves at this step; none before rank 0's save
-        mesh.sync_processes("preempted")
-        logging.warning("preempted (%s): state saved at %s; exiting %d (resume with "
-                        "--resume %s)", preempt.signal_name(), path,
-                        preempt.EXIT_PREEMPTED, cfg.save_folder)
-        raise SystemExit(preempt.EXIT_PREEMPTED)
-
-    history: List[Dict[str, float]] = []
+    # the flight recorder, watchdog, sidecar and health monitor
+    # (utils/obs.py); closed last, with the run's exit code
+    obs = RunObservability(cfg, name="supcon")
+    telemetry = tb = tracer = None
+    exit_exc = None
     preempt.install()
     try:
+        train_data, _, _ = load_dataset(cfg.dataset, cfg.data_folder)
+        loader = EpochLoader(
+            train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
+            process_index=mesh.rank(), process_count=mesh.world_size(),
+        )
+        state, step_cfg = build(cfg, len(loader), device)
+        if step_cfg.online_probe:
+            n_cls = int(train_data["labels"].max()) + 1
+            state.probe = build_online_probe(cfg.model, n_cls, cfg.probe_lr, seed=cfg.seed,
+                                             device=device)
+            logging.info("online probe: %d-class linear head on the detached encoder "
+                         "features (lr %g)", n_cls, cfg.probe_lr)
+        aug_cfg = make_augment_config(cfg)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(cfg.seed + 1)
+        start_epoch, start_step = 1, 0
+        policy = FailurePolicy(cfg.nan_policy)
+        logging.info("%s", config_lib.impl_resolution_banner(
+            "nan_policy", cfg.nan_policy, cfg.nan_policy, NAN_POLICY_REASONS[cfg.nan_policy]))
+        if cfg.ckpt:
+            # warm start: weights and BN buffers only (main_supcon.py:216-220)
+            state.model.load_state_dict(load_model_state(cfg.ckpt))
+            logging.info("load model from %s ...", cfg.ckpt)
+        if cfg.resume:
+            resume_path = resolve_resume_path(cfg.resume)
+            meta = restore_checkpoint(resume_path, state, generator)
+            start_epoch, start_step = resume_position(meta, len(loader))
+            logging.info("resumed from %s at epoch %d step %d",
+                         resume_path, start_epoch, start_step)
+            # the damping is run state: a resumed run keeps it and its budget
+            policy.lr_scale, policy.rollbacks = meta["lr_scale"], meta["rollbacks"]
+            state.lr_scale = policy.lr_scale
+            if policy.lr_scale != 1.0:
+                logging.warning("resumed with rollback damping: lr_scale %.3g after %d "
+                                "rollbacks", policy.lr_scale, policy.rollbacks)
+        keys, blocks = ring_layout(step_cfg.health_freq > 0, step_cfg.online_probe, cfg.feat_dim)
+        telemetry = TelemetrySession(cfg.print_freq, keys, cfg.telemetry,
+                                     watchdog=obs.watchdog, gauges=obs.gauges, blocks=blocks)
+        tb = TBLogger(cfg.tb_folder, enabled=main_process)
+        tracer = StepTracer(cfg.trace_dir, cfg.trace_start_step, cfg.trace_steps,
+                            enabled=main_process)
+        hooks = EpochHooks(telemetry=telemetry, tb=tb, health=obs.health, gauges=obs.gauges,
+                           tracer=tracer)
+
+        def save(name: str, snapshot: dict, epoch: int, step_in_epoch: int = 0) -> str:
+            with tracing.span("checkpoint_commit", track="main:checkpoint", ckpt=name):
+                return save_checkpoint(os.path.join(cfg.save_folder, name), snapshot, cfg,
+                                       epoch, step_in_epoch, policy.lr_scale, policy.rollbacks)
+
+        def exit_preempted(path: str, epoch: int, step_in_epoch: Optional[int] = None) -> None:
+            tracing.event("preempt_exit", track="main:guard", epoch=epoch,
+                          **({} if step_in_epoch is None else {"step_in_epoch": step_in_epoch}))
+            # every process leaves at this step; none before rank 0's save
+            mesh.sync_processes("preempted")
+            logging.warning("preempted (%s): state saved at %s; exiting %d (resume with "
+                            "--resume %s)", preempt.signal_name(), path,
+                            preempt.EXIT_PREEMPTED, cfg.save_folder)
+            raise SystemExit(preempt.EXIT_PREEMPTED)
+
+        history: List[Dict[str, float]] = []
         for epoch in range(start_epoch, cfg.epochs + 1):
             t1 = time.time()
             ss = start_step if epoch == start_epoch else 0
+            obs.set_epoch(epoch)
             # the step updates the state in place: the crash save needs a
             # copy of the epoch top, taken on the device (by the writer, and
             # under rollback by every process, since every process restores)
@@ -457,10 +603,11 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
                       if cfg.nan_guard and (main_process or policy.policy == "rollback")
                       else None)
             try:
-                stopped_at = train_one_epoch(
-                    epoch, loader, state, step_cfg, aug_cfg, generator, cfg, device,
-                    history, start_step=ss,
-                )
+                with tracing.span("epoch", track="main:epoch", epoch=epoch):
+                    stopped_at = train_one_epoch(
+                        epoch, loader, state, step_cfg, aug_cfg, generator, cfg, device,
+                        history, hooks, start_step=ss, first_step_span=epoch == start_epoch,
+                    )
             except NonFiniteLossError:
                 # step_in_epoch = ss: after a mid-epoch resume the backup
                 # sits mid-epoch, and its resume must not replay those steps
@@ -471,31 +618,50 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
                     raise
                 roll_back(state, generator, backup, epoch, ss, len(loader), policy.lr_scale,
                           train_data["images"].shape[1:3], aug_cfg, cfg.batch_size)
+                tracing.event("nan_rollback", track="main:guard", epoch=epoch,
+                              rollbacks=policy.rollbacks, lr_scale=policy.lr_scale)
                 logging.warning("nan_policy=rollback (%d/%d): epoch %d skipped from its "
                                 "epoch-top backup, lr scaled to %.3g", policy.rollbacks,
                                 MAX_ROLLBACKS, epoch, policy.lr_scale)
                 continue
             if stopped_at is not None:
                 exit_preempted(save(f"preempt_epoch_{epoch}_step_{stopped_at}.pth",
-                                    capture_state(state, generator), epoch - 1, stopped_at))
+                                    capture_state(state, generator), epoch - 1, stopped_at),
+                               epoch, stopped_at)
             logging.info("epoch %d, total time %.2f", epoch, time.time() - t1)
+            if main_process:
+                epoch_losses = [h["loss"] for h in history if h["epoch"] == epoch]
+                tb.log_value("loss", sum(epoch_losses) / len(epoch_losses), epoch)
+                tb.log_value("learning_rate", float(state.schedule(
+                    (epoch - 1) * len(loader))) * policy.lr_scale, epoch)
             path = None
             if epoch % cfg.save_freq == 0:
                 path = save(f"ckpt_epoch_{epoch}.pth", capture_state(state, generator), epoch)
             if preempt.requested_global():
                 # the signal came during the epoch's last step
                 exit_preempted(path or save(f"preempt_epoch_{epoch}.pth",
-                                            capture_state(state, generator), epoch))
+                                            capture_state(state, generator), epoch), epoch)
         save("last.pth", capture_state(state, generator), cfg.epochs)
         mesh.sync_processes("end of run")
+    except BaseException as e:
+        exit_exc = e
+        raise
     finally:
         preempt.uninstall()
+        if telemetry is not None:
+            telemetry.close()
+        if tracer is not None:
+            tracer.close()
+        if tb is not None:
+            tb.close()
+        obs.close(exit_code=exit_code_for(exit_exc))
     return RunResult(state=state, history=history, save_folder=cfg.save_folder)
 
 
 def main(argv=None) -> RunResult:
     """Exit codes (``utils/guard.py``): 0 a clean run, 1 a non-finite loss,
-    75 preempted with the state saved."""
+    2 a telemetry flush failure, 3 a health abort, 75 preempted with the
+    state saved."""
     cfg = config_lib.parse_supcon(argv)
     return exit_with_code(lambda: run(cfg))
 

@@ -39,20 +39,42 @@ statistics, the SEC EMA and the l2reg term come from sums of this
 process's rows reduced over the processes (``collectives.global_sum``),
 which per row are the same numbers, since the norms are per row; the
 loss, its scaling and the gradient mean are as above.
+
+Representation health (``health_freq > 0``, JAX ``train/supcon_step.py:82-90,
+130-186, 595-609``): every ``health_freq``-th step (a host ``if`` on the
+step, a host int) :func:`contrastive_health_metrics` reads the loss's own
+normalized view-major rows, detached, and the step's gradients; on the
+other steps the health columns are NaN sentinel values. Under the ring
+loss a health step gathers the rows without a gradient first, so P
+processes report what one process reports on the global batch. The
+effective rank's spectrum is taken on the host from the ``[D, D]``
+covariance that rides the metric ring (:func:`effective_rank`), since
+``torch.linalg.eigvalsh`` on a CUDA tensor waits for the device.
+
+Online probe (``online_probe``, JAX ``train/supcon_step.py:189-217,
+530-545``): a linear classifier with its own SGD trains on the detached
+encoder features of both views from the step's one backbone forward
+(``SupConResNet.forward_with_features``), so the encoder's update is the
+same with the probe on or off; under a process group its gradient is
+averaged like the encoder's, and its loss and top-1 are the global batch's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import math
+from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from simclr_pytorch_distributed_tpu_torch.models import LinearClassifier
 from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import (
     fused_sharded_supcon_loss,
     fused_supcon_loss,
 )
-from simclr_pytorch_distributed_tpu_torch.ops.losses import supcon_loss
+from simclr_pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss, supcon_loss
+from simclr_pytorch_distributed_tpu_torch.ops.metrics import embedding_covariance, topk_correct
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives
 from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_distributed, world_size
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState
@@ -65,6 +87,154 @@ METRIC_KEYS = (
     "learning_rate", "loss", "loss_l2reg", "loss_sec",
     "norm_mean", "norm_var", "record_norm_mean",
 )
+
+# representation-health diagnostics (--health_freq > 0)
+HEALTH_METRIC_KEYS = (
+    "health_align",      # mean positive-pair cosine (collapse -> 1.0)
+    "health_con_top1",   # contrastive top-1: the positive is the argmax contrast
+    "health_eff_rank",   # exp-entropy of the D x D embedding covariance spectrum
+    "health_grad_norm",  # global gradient norm (divergence signal)
+    "health_neg_max",    # max negative-pair cosine
+    "health_neg_mean",   # mean negative-pair cosine (collapse -> 1.0)
+    "health_unif",       # Wang-Isola uniformity, log E exp(-2||z_i-z_j||^2)
+)
+# the ring column the host turns into health_eff_rank (effective_rank)
+HEALTH_COV = "health_cov"
+# the health columns the step writes as scalars
+DEVICE_HEALTH_KEYS = tuple(k for k in HEALTH_METRIC_KEYS if k != "health_eff_rank")
+
+# online linear probe (--online_probe on): loss and top-1 (percent, both views)
+ONLINE_PROBE_METRIC_KEYS = ("probe_loss", "probe_top1")
+
+
+def metric_keys(health: bool = False, online_probe: bool = False) -> Tuple[str, ...]:
+    """The run's full sorted metric-key tuple, as the host reads it (JAX
+    ``train/supcon_step.py:96``)."""
+    keys = METRIC_KEYS
+    if health:
+        keys = keys + HEALTH_METRIC_KEYS
+    if online_probe:
+        keys = keys + ONLINE_PROBE_METRIC_KEYS
+    return tuple(sorted(keys))
+
+
+def ring_layout(health: bool, online_probe: bool, feat_dim: int):
+    """``(keys, blocks)`` of the run's metric ring: the step's scalar
+    columns, and with ``health`` the ``[feat_dim, feat_dim]`` covariance
+    block in place of ``health_eff_rank``."""
+    keys = tuple(k for k in metric_keys(health, online_probe) if k != "health_eff_rank")
+    return keys, ({HEALTH_COV: (feat_dim, feat_dim)} if health else {})
+
+
+def contrastive_health_metrics(emb: torch.Tensor, grad_norm: torch.Tensor
+                               ) -> Dict[str, torch.Tensor]:
+    """The health diagnostics of one batch (JAX ``train/supcon_step.py:130``)
+    from the loss's own L2-normalized view-major rows ``emb`` ``[2B, D]``
+    (row ``i``'s positive at ``(i + B) % 2B``) and the step's global
+    gradient norm: 0-dim tensors for :data:`DEVICE_HEALTH_KEYS`, and
+    :data:`HEALTH_COV`, the uncentered ``[D, D]`` covariance whose spectrum
+    :func:`effective_rank` takes on the host. Nothing here waits for the
+    device. A collapsed representation reads align 1, neg_mean and neg_max
+    1, eff_rank 1, unif 0 (its maximum)."""
+    n = emb.shape[0]
+    b = n // 2
+    sim = emb @ emb.T
+    idx = torch.arange(n, device=emb.device)
+    pos_idx = (idx + b) % n
+    eye = idx[:, None] == idx[None, :]
+    neg = ~(eye | (pos_idx[:, None] == idx[None, :]))
+    zero = torch.zeros((), dtype=sim.dtype, device=sim.device)
+    align = torch.sum(emb[:b] * emb[b:], dim=1).mean()
+    neg_count = torch.clamp(neg.to(torch.float32).sum(), min=1.0)
+    neg_mean = torch.where(neg, sim, zero).sum() / neg_count
+    neg_max = torch.where(neg, sim, torch.full_like(zero, -math.inf)).max()
+    top1 = 100.0 * (torch.argmax(torch.where(eye, torch.full_like(zero, -math.inf), sim),
+                                 dim=1) == pos_idx).to(torch.float32).mean()
+    # ||z_i - z_j||^2 = 2 - 2 cos for unit rows: the exponent is in [-8, 0]
+    unif = torch.log(torch.where(eye, zero, torch.exp(4.0 * sim - 4.0)).sum() / (n * (n - 1)))
+    return {
+        "health_align": align,
+        "health_con_top1": top1,
+        "health_grad_norm": grad_norm,
+        "health_neg_max": neg_max,
+        "health_neg_mean": neg_mean,
+        "health_unif": unif,
+        HEALTH_COV: embedding_covariance(emb),
+    }
+
+
+def effective_rank(cov: np.ndarray) -> float:
+    """exp(entropy) of the normalized eigenvalue spectrum of ``cov`` (JAX
+    ``train/supcon_step.py:175-178``), in float64 on the host; NaN when
+    ``cov`` is not finite (a sentinel row, or a diverged step)."""
+    cov = np.asarray(cov, np.float64)
+    if not np.isfinite(cov).all():
+        return float("nan")
+    eig = np.clip(np.linalg.eigvalsh(cov), 0.0, None)
+    p = eig / max(eig.sum(), 1e-12)
+    safe = np.maximum(p, 1e-12)
+    entropy = -np.sum(np.where(p > 0, p * np.log(safe), 0.0))
+    return float(np.exp(entropy))
+
+
+def host_metrics(row: Mapping) -> Dict[str, float]:
+    """A resolved ring row as the host reads it: :data:`HEALTH_COV` turned
+    into ``health_eff_rank``."""
+    out = dict(row)
+    cov = out.pop(HEALTH_COV, None)
+    if cov is not None:
+        out["health_eff_rank"] = effective_rank(cov)
+    return out
+
+
+def global_grad_norm(params) -> torch.Tensor:
+    """``optax.global_norm`` of the parameters' gradients."""
+    norms = [torch.linalg.vector_norm(p.grad) for p in params if p.grad is not None]
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@dataclasses.dataclass
+class OnlineProbe:
+    """The online linear probe (JAX ``train/supcon_step.py:189``): a
+    ``LinearClassifier`` and its SGD (momentum 0.9, no weight decay,
+    constant learning rate). It rides ``TrainState.probe`` and its own
+    checkpoint payload."""
+
+    classifier: LinearClassifier
+    optimizer: torch.optim.Optimizer
+
+
+def build_online_probe(model_name: str, n_cls: int, lr: float, momentum: float = 0.9,
+                       seed: int = 0, device=None) -> OnlineProbe:
+    """The probe of a run: the post-hoc probe's head and recipe, so the
+    live curve estimates what the linear probe measures later. Its init is
+    drawn from ``seed`` without touching the global generator's state."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        classifier = LinearClassifier(model_name, n_cls)
+    classifier = classifier.to(device)
+    optimizer = torch.optim.SGD(classifier.parameters(), lr=lr, momentum=momentum,
+                                dampening=0.0, weight_decay=0.0, nesterov=False)
+    return OnlineProbe(classifier=classifier, optimizer=optimizer)
+
+
+def probe_update(probe: OnlineProbe, features: torch.Tensor, labels: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """One classifier step on the detached fp32 encoder ``features`` of both
+    views (this process's ``[2b, F]`` view-major rows, ``labels`` its
+    ``[b]``), the gradient averaged over the processes. Returns the global
+    batch's ``probe_loss`` and ``probe_top1`` (percent)."""
+    labels2 = torch.cat([labels, labels]).long()
+    logits = probe.classifier(features)
+    loss = cross_entropy_loss(logits, labels2)
+    probe.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    collectives.mean_gradients(probe.classifier.parameters())
+    probe.optimizer.step()
+    correct = topk_correct(logits.detach(), labels2, ks=(1,))[1].to(torch.float32)
+    p = world_size()
+    total = collectives.rank_ordered_sum(torch.stack([loss.detach() / p, correct]))
+    return {"probe_loss": total[0], "probe_top1": 100.0 * total[1] / (labels2.shape[0] * p)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,13 +252,21 @@ class SupConStepConfig:
     steps_per_epoch: int = 1
     grad_div: float = 2.0
     loss_impl: str = "dense"  # 'dense', 'fused' or 'ring'; resolved from 'auto' upstream
+    # the health diagnostics every health_freq-th step (NaN sentinels
+    # else); 0 computes none
+    health_freq: int = 0
+    # the online probe: the state must then carry TrainState.probe
+    online_probe: bool = False
 
 
-def two_view_forward(model: torch.nn.Module, images: torch.Tensor) -> torch.Tensor:
-    """``[B, 2, H, W, C]`` images -> ``[2B, D]`` projections, view-major."""
+def two_view_forward(model: torch.nn.Module, images: torch.Tensor,
+                     with_features: bool = False):
+    """``[B, 2, H, W, C]`` images -> ``[2B, D]`` projections, view-major;
+    with ``with_features`` the pair ``(projections, encoder features)`` of
+    one backbone forward."""
     b = images.shape[0]
     flat = images.transpose(0, 1).reshape((2 * b,) + tuple(images.shape[2:]))
-    return model(flat)
+    return model.forward_with_features(flat) if with_features else model(flat)
 
 
 def contrastive_loss_terms(
@@ -130,16 +308,26 @@ def train_step(
     (this process's slice of the global batch under a process group, with
     its ``labels``).
 
-    Returns the step's metrics (:data:`METRIC_KEYS`) as 0-dim tensors on the
-    device, those of the global batch; nothing here waits for the device
-    but the collectives.
+    Returns the step's metrics as 0-dim tensors on the device, those of the
+    global batch: :data:`METRIC_KEYS`, with ``health_freq`` the health columns
+    (:data:`DEVICE_HEALTH_KEYS`, and :data:`HEALTH_COV` on a health step),
+    with ``online_probe`` :data:`ONLINE_PROBE_METRIC_KEYS`. Nothing here
+    waits for the device but the collectives.
     """
     if cfg.method not in ("SupCon", "SimCLR"):
         raise ValueError(f"contrastive method not supported: {cfg.method}")
+    if cfg.online_probe != (state.probe is not None):
+        raise ValueError(f"online_probe={cfg.online_probe} but the state "
+                         f"{'lacks' if state.probe is None else 'carries'} a probe")
     state.model.train()
     distributed = is_distributed()
     ring = cfg.loss_impl == "ring"
-    feats = two_view_forward(state.model, images).to(torch.float32)
+    local_labels = labels
+    if cfg.online_probe:
+        feats, enc_feats = two_view_forward(state.model, images, with_features=True)
+        feats = feats.to(torch.float32)
+    else:
+        feats = two_view_forward(state.model, images).to(torch.float32)
     if distributed:
         if not ring:
             feats = collectives.gather_features(feats)
@@ -190,10 +378,8 @@ def train_step(
     state.optimizer.step()
     if distributed:  # BN buffers follow rank 0 (equal already under --syncBN)
         collectives.broadcast_from_rank0(state.model, parameters=False)
-    state.step += 1
-    state.record_norm_mean = record
-    return {
-        "learning_rate": torch.tensor(lr),
+    metrics = {
+        "learning_rate": torch.full((), lr, device=loss.device),
         "loss": loss.detach(),
         "loss_l2reg": loss_l2reg.detach(),
         "loss_sec": loss_sec.detach(),
@@ -201,3 +387,20 @@ def train_step(
         "norm_var": norm_var.detach(),
         "record_norm_mean": record,
     }
+    if cfg.health_freq > 0:
+        if state.step % cfg.health_freq == 0:
+            with torch.no_grad():
+                emb = n_fea.detach()
+                if ring and distributed:
+                    emb = collectives.view_major(collectives.all_gather(emb))
+                metrics.update(contrastive_health_metrics(
+                    emb, global_grad_norm(state.model.parameters())))
+        else:
+            sentinel = torch.full((len(DEVICE_HEALTH_KEYS),), float("nan"), device=loss.device)
+            metrics.update(zip(DEVICE_HEALTH_KEYS, sentinel.unbind()))
+    if cfg.online_probe:
+        metrics.update(probe_update(state.probe, enc_feats.detach().to(torch.float32),
+                                    local_labels))
+    state.step += 1
+    state.record_norm_mean = record
+    return metrics

@@ -15,7 +15,10 @@ already taken; nonzero only in a mid-epoch preemption or crash save),
 ``'lr_scale'`` and ``'rollbacks'`` (``utils/guard.FailurePolicy``). Every
 value is a tensor or a plain type, so ``torch.load(weights_only=True)``
 reads it. A checkpoint written before the last three existed resumes as
-one saved by one process with no rollback.
+one saved by one process with no rollback. A run with the online probe
+(``--online_probe on``) adds ``'probe'``: the classifier's and its SGD's
+state dicts; without the probe the checkpoint holds exactly the keys
+above (JAX ``train/state.py:32-42``).
 
 Elastic resume (JAX ``utils/checkpoint.py:278-284, :526-550``): a
 checkpoint resumes under any world size, at the same global step; only
@@ -85,7 +88,7 @@ def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict
     step."""
     clone = (lambda t: t.detach().clone()) if copy else (lambda t: t.detach())
     record = state.record_norm_mean
-    return {
+    snapshot = {
         "model": _tree_map(clone, state.model.state_dict()),
         "optimizer": _tree_map(clone, state.optimizer.state_dict()),
         "step": int(state.step),
@@ -93,6 +96,12 @@ def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict
         "generator": generator.get_state(),
         "generator_device": generator.device.type,
     }
+    if state.probe is not None:
+        snapshot["probe"] = {
+            "classifier": _tree_map(clone, state.probe.classifier.state_dict()),
+            "optimizer": _tree_map(clone, state.probe.optimizer.state_dict()),
+        }
+    return snapshot
 
 
 def restore_snapshot(snapshot: dict, state, generator: torch.Generator) -> None:
@@ -107,15 +116,25 @@ def restore_snapshot(snapshot: dict, state, generator: torch.Generator) -> None:
     device = next(state.model.parameters()).device
     state.record_norm_mean = None if record is None else record.to(device)
     generator.set_state(snapshot["generator"])
+    if state.probe is not None:
+        if "probe" in snapshot:
+            state.probe.classifier.load_state_dict(snapshot["probe"]["classifier"])
+            state.probe.optimizer.load_state_dict(snapshot["probe"]["optimizer"])
+        else:
+            logging.warning("the checkpoint holds no online probe: the probe starts "
+                            "from its fresh init")
 
 
 def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: int = 0,
-                    lr_scale: float = 1.0, rollbacks: int = 0) -> str:
+                    lr_scale: float = 1.0, rollbacks: int = 0,
+                    run_meta: Optional[dict] = None) -> str:
     """Write ``snapshot`` (:func:`capture_state`) with the run's ``cfg`` to
     ``path``; ``epoch`` counts completed epochs, ``step_in_epoch`` the
     steps of the next one already taken, ``lr_scale`` and ``rollbacks``
-    the NaN-rollback state. Returns the absolute path. Only rank 0 writes;
-    the other processes return the path it writes."""
+    the NaN-rollback state, ``run_meta`` other run state of plain types
+    (the CE trainer's best accuracy), saved under ``'run_meta'`` when
+    given. Returns the absolute path. Only rank 0 writes; the other
+    processes return the path it writes."""
     if not is_main_process():
         return os.path.abspath(path)
     cpu = lambda t: t.detach().cpu()  # noqa: E731
@@ -135,6 +154,10 @@ def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: i
         "lr_scale": float(lr_scale),
         "rollbacks": int(rollbacks),
     }
+    if "probe" in snapshot:
+        payload["probe"] = _tree_map(cpu, snapshot["probe"])
+    if run_meta is not None:
+        payload["run_meta"] = dict(run_meta)
     return _atomic_save(payload, path)
 
 
@@ -218,7 +241,8 @@ def restore_checkpoint(path: str, state, generator: torch.Generator) -> dict:
     it) and ``generator``, under this run's world size, whatever the saving
     run's was (module docstring). Returns the checkpoint's ``epoch``,
     ``step_in_epoch``, ``step``, ``seed``, ``world_size`` (``None`` when it
-    predates the key), ``lr_scale`` and ``rollbacks``."""
+    predates the key), ``lr_scale``, ``rollbacks`` and ``run_meta`` (``{}``
+    when absent)."""
     ckpt = _load(path)
     if _progress(ckpt) is None or "generator" not in ckpt:
         raise ValueError(f"{path} holds no full training state (keys {sorted(ckpt)}); "
@@ -238,7 +262,7 @@ def restore_checkpoint(path: str, state, generator: torch.Generator) -> dict:
         )
     meta = {k: ckpt[k] for k in ("epoch", "step_in_epoch", "step", "seed")}
     meta.update(world_size=saved, lr_scale=float(ckpt.get("lr_scale", 1.0)),
-                rollbacks=int(ckpt.get("rollbacks", 0)))
+                rollbacks=int(ckpt.get("rollbacks", 0)), run_meta=ckpt.get("run_meta", {}))
     return meta
 
 

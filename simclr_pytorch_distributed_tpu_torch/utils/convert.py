@@ -16,7 +16,10 @@ copy of that mapping (the port imports nothing of the JAX package):
   ``head`` (linear);
 - the probe's ``LinearClassifier`` params ``fc/kernel [in, out]``, ``fc/bias``
   <-> ``fc.weight [out, in]``, ``fc.bias`` (:func:`classifier_params_to_state_dict`
-  and back).
+  and back);
+- ``SupCEResNet`` (the CE trainer's model): the encoder as above and its
+  classifier ``fc`` like the probe's, in the same two functions as
+  ``SupConResNet`` (a tree holds ``proj_head`` or ``fc``).
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ def _conv_from_torch(w: np.ndarray) -> np.ndarray:
 
 
 def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
-    """``{'params', 'batch_stats'}`` -> the port's ``SupConResNet`` state dict
-    (CPU tensors). Raises on a tree node with no place in that layout."""
+    """``{'params', 'batch_stats'}`` -> the port's ``SupConResNet`` (a
+    ``proj_head`` tree) or ``SupCEResNet`` (an ``fc`` tree) state dict (CPU
+    tensors). Raises on a tree node with no place in that layout."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
@@ -84,6 +88,12 @@ def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f"cannot place encoder/{name}")
 
+    extra = set(params) - {"encoder", "proj_head", "fc"}
+    if extra or ("proj_head" in params) == ("fc" in params):
+        raise ValueError(f"expected encoder and one of proj_head, fc: got {sorted(params)}")
+    if "fc" in params:
+        put_linear("fc", params["fc"])
+        return {k: torch.from_numpy(v) for k, v in sd.items()}
     head = params["proj_head"]
     if "fc1" in head:
         put_linear("head.0", head["fc1"])
@@ -103,7 +113,7 @@ def _set(tree: dict, path: Tuple[str, ...], value: np.ndarray) -> None:
 
 def state_dict_to_variables(state_dict) -> dict:
     """The inverse of :func:`variables_to_state_dict`: a ``SupConResNet``
-    state dict (tensors or arrays, ``'module.'`` prefixes allowed) ->
+    or ``SupCEResNet`` state dict (tensors or arrays, ``'module.'`` prefixes allowed) ->
     ``{'params', 'batch_stats'}`` of numpy arrays. Raises on any key it
     does not consume. The arrays are copies: a later in-place update of the
     model does not reach them."""
@@ -162,6 +172,8 @@ def state_dict_to_variables(state_dict) -> dict:
             linear("head.2", ("proj_head", "fc2"))
         elif key in ("head.weight", "head.bias"):
             linear("head", ("proj_head", "fc"))
+        elif key in ("fc.weight", "fc.bias"):
+            linear("fc", ("fc",))
 
     leftover = set(sd) - consumed
     if leftover:

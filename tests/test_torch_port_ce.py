@@ -1,0 +1,277 @@
+"""The port's supervised cross-entropy trainer against the JAX package's, on
+the CPU at a small size (rn10, 16 px for the step checks).
+
+- ``SupCEResNet`` carried from a JAX init: eval-mode logits and train-mode
+  logits and BN running statistics against JAX ``SupCEResNet`` (atol
+  ``FORWARD_ATOL``, the rn10 forward pin of ``test_torch_port_models.py``
+  scaled by the classifier);
+- one CE train step against the JAX trainer's own step (``make_ce_steps``,
+  its augmentation replaced by the identity so both see the same images):
+  the loss (rtol ``LOSS_RTOL``), the top-1/top-5 counts (exact), every
+  parameter after the update and the BN buffers (``assert_close`` at
+  ``PARAM_RTOL``/``PARAM_ATOL``, the probe's classifier pins);
+- the eval sums of one batch with pad rows against the JAX eval step;
+- the driver (``train.ce.main``, ``--device cpu``, 48 training images of
+  16 px, batch 8): two epochs end to end with validation and checkpoints,
+  a resume after an epoch and after a SIGTERM mid-epoch (exit 75) bitwise
+  equal to the straight run, and the best accuracy carried through the
+  checkpoint's ``run_meta``;
+- two processes over gloo (``tests/torch_parallel_child.py`` suite ``ce``,
+  ``--syncBN``, lr 0.01) against one process: the first step's loss at
+  the step pin, the later ones at ``LATER_LOSS_RTOL``, the final tensors
+  in relative L2 at ``DRIVER_REL_L2`` (the data-parallel tests' pins).
+"""
+
+import glob
+import logging
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_parallel_child as child
+from simclr_pytorch_distributed_tpu.models import SupCEResNet as JaxSupCEResNet
+from simclr_pytorch_distributed_tpu.parallel import mesh as jax_mesh
+from simclr_pytorch_distributed_tpu.train import ce as jce
+from simclr_pytorch_distributed_tpu.train.state import make_optimizer as jax_optimizer
+from simclr_pytorch_distributed_tpu_torch.models import SupCEResNet
+from simclr_pytorch_distributed_tpu_torch.ops.augment import AugmentConfig
+from simclr_pytorch_distributed_tpu_torch.train import ce
+from simclr_pytorch_distributed_tpu_torch.train.linear import validate
+from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+from simclr_pytorch_distributed_tpu_torch.utils import preempt
+from simclr_pytorch_distributed_tpu_torch.utils.convert import (
+    state_dict_to_variables,
+    variables_to_state_dict,
+)
+from torch_threads import limit_threads
+
+limit_threads()
+
+FORWARD_ATOL = 1e-4
+LOSS_RTOL, PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-5, 1e-5
+STEP_LOSS_RTOL, DRIVER_REL_L2 = 2e-5, 5e-2  # tests/test_torch_port_parallel.py
+# the later steps of the two-process run: each compounds the earlier
+# updates' rounding (cross-replica BN sums in another order), measured
+# 2.6e-5 relative at step 3
+LATER_LOSS_RTOL = 1e-4
+N_CLS, SIZE = 10, 16
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """A JAX rn10 ``SupCEResNet`` init with running statistics moved off
+    their init, and its variables."""
+    model = JaxSupCEResNet(model_name="resnet10", num_classes=N_CLS)
+    v = jax.jit(lambda k, x: model.init(k, x, train=False))(
+        jax.random.key(21), jnp.zeros((2, SIZE, SIZE, 3)))
+    rng = np.random.default_rng(22)
+    stats = jax.tree.map(lambda a: np.asarray(a) + 0.1 * rng.random(a.shape).astype(np.float32),
+                         v["batch_stats"])
+    return model, {"params": v["params"], "batch_stats": stats}
+
+
+def port_model(variables):
+    model = SupCEResNet("resnet10", N_CLS)
+    model.load_state_dict(variables_to_state_dict(variables))
+    return model
+
+
+def images(seed, n=8):
+    return np.random.default_rng(seed).standard_normal((n, SIZE, SIZE, 3)).astype(np.float32)
+
+
+def test_forward_matches_jax(carried):
+    model, variables = carried
+    port = port_model(variables)
+    x = images(23)
+    want = model.apply(variables, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FORWARD_ATOL)
+    want, mutated = model.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    with torch.no_grad():
+        got = port.train()(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FORWARD_ATOL)
+    back = state_dict_to_variables(port.state_dict())["batch_stats"]
+    for g, w in zip(jax.tree.leaves(back), jax.tree.leaves(mutated["batch_stats"])):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-6)
+
+
+def test_one_ce_step_matches_the_jax_trainer(carried, monkeypatch):
+    model, variables = carried
+    sched = lambda step: 0.2  # noqa: E731
+    tx = jax_optimizer(sched, momentum=0.9, weight_decay=5e-4)
+    mesh = jax_mesh.create_mesh(devices=jax.devices()[:1])
+    # the JAX step augments inside its program: the identity there, so both
+    # packages step on the same (already augmented) images
+    monkeypatch.setattr(jce, "augment_batch", lambda key, x, cfg: x)
+    train_jit, _ = jce.make_ce_steps(model, tx, None, mesh)
+    x = images(24)
+    labels = np.random.default_rng(25).integers(0, N_CLS, 8).astype(np.int32)
+    # copies: the JAX step donates its state
+    params, stats = jax.tree.map(jnp.array, (variables["params"], variables["batch_stats"]))
+    jstate = jce.CEState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                         opt_state=tx.init(params))
+    port = port_model(variables)
+    state = TrainState(model=port, schedule=sched,
+                       optimizer=make_optimizer(port, momentum=0.9, weight_decay=5e-4))
+    got = ce.ce_step(state, torch.from_numpy(x), torch.from_numpy(labels).long())
+    jstate, want = train_jit(jstate, jnp.asarray(x), jnp.asarray(labels), jax.random.key(0))
+    np.testing.assert_allclose(got["loss"].item(), float(want["loss"]), rtol=LOSS_RTOL)
+    assert (got["top1"].item(), got["top5"].item()) == (int(want["top1"]), int(want["top5"]))
+    assert state.step == int(jstate.step) == 1
+    after = state_dict_to_variables(port.state_dict())
+    for tree in ("params", "batch_stats"):
+        want_tree = {"params": jstate.params, "batch_stats": jstate.batch_stats}[tree]
+        for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(after[tree]),
+                                jax.tree.leaves(want_tree)):
+            torch.testing.assert_close(torch.from_numpy(g), torch.from_numpy(np.asarray(w)),
+                                       rtol=PARAM_RTOL, atol=PARAM_ATOL, msg=str(path))
+
+
+def test_eval_sums_match_the_jax_eval_step(carried):
+    model, variables = carried
+    cfg = AugmentConfig(size=SIZE, mean=(0.5,) * 3, std=(0.25,) * 3, color_ops=False)
+    mesh = jax_mesh.create_mesh(devices=jax.devices()[:1])
+    _, eval_jit = jce.make_ce_steps(model, None, cfg, mesh)
+    rng = np.random.default_rng(26)
+    x = rng.integers(0, 256, (8, SIZE, SIZE, 3)).astype(np.uint8)
+    y = rng.integers(0, N_CLS, 8).astype(np.int32)
+    valid = np.array([1] * 6 + [0] * 2, np.float32)  # the last two rows are padding
+    want = eval_jit(variables, jnp.asarray(x), jnp.asarray(y), jnp.asarray(valid))
+    port = port_model(variables)
+    got = validate(lambda t: ce.eval_logits(port, t), x[:6], y[:6], 8, cfg,
+                   torch.device("cpu"))
+    assert float(want["n"]) == 6
+    np.testing.assert_allclose(got["loss"] * 6, float(want["loss_sum"]), rtol=1e-5)
+    assert got["top1"] == pytest.approx(100.0 * float(want["top1"]) / 6, rel=1e-9)
+    assert got["top5"] == pytest.approx(100.0 * float(want["top5"]) / 6, rel=1e-9)
+
+
+# -- the driver ---------------------------------------------------------------
+
+STEPS = 6  # 48 images / batch 8
+ARGV = [
+    "--device", "cpu", "--dataset", "synthetic", "--model", "resnet10", "--batch_size", "8",
+    "--val_batch_size", "8", "--learning_rate", "0.05", "--print_freq", "4", "--save_freq", "1",
+    "--seed", "1",
+]
+
+
+def tiny_dataset(dataset, data_folder):
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 10, 64).astype(np.int32)
+    means = rng.uniform(48, 208, (10, 1, 1, 3))
+    x = np.clip(means[labels] + rng.normal(0, 32, (64, SIZE, SIZE, 3)), 0, 255).astype(np.uint8)
+    return ({"images": x[:48], "labels": labels[:48]},
+            {"images": x[48:], "labels": labels[48:]}, 10)
+
+
+def run_ce(workdir, *extra):
+    root = logging.getLogger()
+    before = set(root.handlers)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ce, "load_dataset", tiny_dataset)
+            return ce.main(ARGV + ["--workdir", str(workdir), *extra])
+    finally:  # each run's log-ing holds its own lines only
+        for handler in set(root.handlers) - before:
+            root.removeHandler(handler)
+            handler.close()
+
+
+@pytest.fixture(scope="module")
+def straight(tmp_path_factory):
+    return run_ce(tmp_path_factory.mktemp("ce_straight"), "--epochs", "2")
+
+
+def assert_same_run(got, want):
+    assert got.state.step == want.state.step == 2 * STEPS
+    for k, v in want.state.model.state_dict().items():
+        assert torch.equal(got.state.model.state_dict()[k], v), k
+    got_opt = got.state.optimizer.state_dict()["state"]
+    for k, v in want.state.optimizer.state_dict()["state"].items():
+        assert torch.equal(got_opt[k]["momentum_buffer"], v["momentum_buffer"]), k
+    assert (got.best_acc, got.best_acc5) == (want.best_acc, want.best_acc5)
+
+
+def test_driver_end_to_end(straight):
+    assert len(straight.history) == 2 * STEPS and len(straight.val_history) == 2
+    assert [h["step"] for h in straight.history] == list(range(2 * STEPS))
+    assert all(np.isfinite(h["loss"]) and h["step_time"] >= 0 for h in straight.history)
+    assert straight.best_acc == max(v["top1"] for v in straight.val_history)
+    folder = straight.save_folder
+    assert os.path.basename(folder).startswith("ce_")
+    assert {"ckpt_epoch_1.pth", "ckpt_epoch_2.pth", "last.pth", "events.jsonl",
+            "trace.json", "log-ing"} <= set(os.listdir(folder))
+    log = open(os.path.join(folder, "log-ing")).read()
+    assert "[conv_impl] 'eager'" in log and "Train: [2][6/6]" in log and " * Acc@1 " in log
+    assert f"best accuracy: {straight.best_acc:.2f}" in log
+    last = torch.load(os.path.join(folder, "last.pth"), weights_only=True)
+    assert last["run_meta"] == {"best_acc": straight.best_acc, "best_acc5": straight.best_acc5}
+    assert set(last["model"]) == {f"module.{k}" for k in straight.state.model.state_dict()}
+    events = open(os.path.join(folder, "events.jsonl")).read()
+    assert '"validation"' in events and '"checkpoint_commit"' in events
+
+
+def test_resume_after_an_epoch_is_the_straight_run(straight, tmp_path):
+    first = run_ce(tmp_path / "a", "--epochs", "1")
+    resumed = run_ce(tmp_path / "b", "--epochs", "2", "--resume", first.save_folder)
+    assert [h["loss"] for h in first.history + resumed.history] == [
+        h["loss"] for h in straight.history]
+    assert_same_run(resumed, straight)
+
+
+def test_preempted_run_exits_75_and_resumes_bitwise(straight, tmp_path, monkeypatch):
+    step = ce.ce_step
+
+    def flagging(state, images, labels):
+        metrics = step(state, images, labels)
+        if state.step == 3:
+            preempt.request()
+        return metrics
+
+    monkeypatch.setattr(ce, "ce_step", flagging)
+    with pytest.raises(SystemExit) as exc:
+        run_ce(tmp_path / "a", "--epochs", "2")
+    assert exc.value.code == preempt.EXIT_PREEMPTED == 75
+    (saved,) = glob.glob(str(tmp_path / "a" / "*" / "*" / "*.pth"))
+    assert os.path.basename(saved) == "preempt_epoch_1_step_3.pth"
+    monkeypatch.setattr(ce, "ce_step", step)
+    resumed = run_ce(tmp_path / "b", "--epochs", "2", "--resume", os.path.dirname(saved))
+    assert [h["step"] for h in resumed.history] == list(range(3, 2 * STEPS))
+    assert_same_run(resumed, straight)
+
+
+def test_best_accuracy_rides_the_checkpoint(straight, tmp_path):
+    """A resume from the epoch-1 checkpoint with a best accuracy above any
+    the run reaches keeps it."""
+    ckpt = torch.load(os.path.join(straight.save_folder, "ckpt_epoch_1.pth"), weights_only=True)
+    ckpt["run_meta"] = {"best_acc": 101.0, "best_acc5": 100.0}
+    os.makedirs(tmp_path / "ckpt")
+    torch.save(ckpt, tmp_path / "ckpt" / "ckpt_epoch_1.pth")
+    resumed = run_ce(tmp_path / "b", "--epochs", "2", "--resume", str(tmp_path / "ckpt"))
+    assert (resumed.best_acc, resumed.best_acc5) == (101.0, 100.0)
+    last = torch.load(os.path.join(resumed.save_folder, "last.pth"), weights_only=True)
+    assert last["run_meta"]["best_acc"] == 101.0
+
+
+def test_two_processes_match_one(tmp_path):
+    ranks = child.spawn(2, tmp_path / "world2", "ce")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ce, "load_dataset", child.tiny_dataset)
+        single = child.ce_summary(*child.ce_run(str(tmp_path / "single")))
+    assert [r["ce"]["code"] for r in ranks] == [0, 0] and single["code"] == 0
+    assert {r["ce"]["step"] for r in ranks} == {single["step"]} == {4}
+    np.testing.assert_allclose(ranks[0]["ce"]["losses"][0], single["losses"][0],
+                               rtol=STEP_LOSS_RTOL)
+    np.testing.assert_allclose(ranks[0]["ce"]["losses"], single["losses"], rtol=LATER_LOSS_RTOL)
+    assert ranks[0]["ce"]["losses"] == ranks[1]["ce"]["losses"]
+    for key, ref in single["state"].items():
+        if ref.is_floating_point():
+            got = ranks[0]["ce"]["state"][key]
+            assert ((got - ref).norm() / ref.norm()).item() <= DRIVER_REL_L2, key

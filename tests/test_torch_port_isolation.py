@@ -11,6 +11,8 @@ import ast
 import os
 import subprocess
 import sys
+
+import pytest
 from pathlib import Path
 from torch_threads import limit_threads
 
@@ -81,3 +83,19 @@ def test_package_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+# the run-observability stack and the CE trainer: the JAX package's host-only
+# modules the port keeps its own copies of, and the drivers built on them
+OBSERVABILITY_MODULES = (
+    "utils/tracing.py", "utils/prom.py", "utils/telemetry.py", "utils/guard.py",
+    "utils/obs.py", "utils/profiling.py", "utils/logging_utils.py", "ops/metrics.py",
+    "train/ce.py",
+)
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
+def test_the_scan_covers_the_observability_modules(module):
+    path = PACKAGE / module
+    assert path in _sources()
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]

@@ -325,7 +325,11 @@ def test_driver_writes_on_rank_zero_only(results, world):
         ["preempt_epoch_1_step_2.pth", "last.pth", "crash_epoch_1.pth"] if world == 2 else [])
     assert all(r["writes"] == [] for r in ranks[1:])
     folder = ranks[0]["driver"]["save_folder"]
-    assert sorted(os.listdir(folder)) == ["last.pth", "log-ing"]
+    # besides rank 0's files, each process's flight-recorder files
+    # (utils/tracing.run_paths), one pair a process
+    recorder = ["events.jsonl", "trace.json"] + [
+        name for r in range(1, world) for name in (f"events_p{r}.jsonl", f"trace_p{r}.json")]
+    assert sorted(os.listdir(folder)) == sorted(["last.pth", "log-ing"] + recorder)
 
 
 # the exit paths run at P = 2 only, to keep the file's CPU time small

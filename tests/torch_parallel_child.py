@@ -15,12 +15,18 @@ here from numpy seeds, by functions the tests import too. The suites:
 - ``resilience``, for ``tests/test_torch_port_rollback.py``: the driver
   straight, SIGTERM'd mid-epoch, resumed from ARG (a run folder saved
   under another world size), and rolled back after a non-finite loss.
+- ``telemetry``, for ``tests/test_torch_port_telemetry.py``: the flush
+  boundary's failure-code exchange with failures on some ranks, and the
+  health and online-probe columns of data-parallel steps (fused and ring
+  loss).
+- ``ce``, for ``tests/test_torch_port_ce.py``: the CE driver.
 """
 
 import contextlib
 import datetime
 import glob
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -39,17 +45,23 @@ from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import (  # noqa: E402
 )
 from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh  # noqa: E402
-from simclr_pytorch_distributed_tpu_torch.train import linear, supcon  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.train import ce, linear, supcon  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.train.state import (  # noqa: E402
     TrainState,
     make_optimizer,
 )
 from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (  # noqa: E402
+    HEALTH_COV,
     SupConStepConfig,
+    build_online_probe,
     train_step,
 )
 from simclr_pytorch_distributed_tpu_torch.utils import checkpoint, preempt  # noqa: E402
-from simclr_pytorch_distributed_tpu_torch.utils.guard import NonFiniteLossError  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.utils.guard import (  # noqa: E402
+    NonFiniteLossError,
+    RepresentationHealthError,
+)
+from simclr_pytorch_distributed_tpu_torch.utils.telemetry import TelemetrySession  # noqa: E402
 
 TIMEOUT = datetime.timedelta(seconds=90)
 B, SIZE, FEAT, STEPS = 16, 16, 16, 2  # global batch, image size, feat_dim, steps
@@ -447,10 +459,130 @@ def parallel_suite(rank, world, outdir):
     return results
 
 
+# failure-code cases: name -> the failure of each rank's flush (None: clean)
+FAILURE_CASES = {
+    "clean": (None, None),
+    "nan_on_one_rank": (None, "nan"),
+    "flush_beats_nan": ("nan", "flush"),
+    "health_beats_flush": ("flush", "health"),
+}
+FAILURES = {
+    "nan": lambda: NonFiniteLossError(float("nan"), 3),
+    "flush": lambda: OSError("disk full"),
+    "health": lambda: RepresentationHealthError(["collapse"], 3),
+}
+# the health/probe step cases (a subset of STEP_CASES and RING_STEP_CASES)
+HEALTH_CASES = ("sync_fused_simclr", "sync_ring_simclr")
+HEALTH_PROBE_CLASSES = 4
+
+
+def failure_exchange_case(rank, name):
+    """What this rank raises at a boundary when the ranks' flushes failed
+    as ``FAILURE_CASES[name]`` says: the exception's type name, or 'none'."""
+    session = TelemetrySession(4, ("loss",), "async")
+    failure = FAILURE_CASES[name][rank]
+    if failure is not None:
+        def job():
+            raise FAILURES[failure]()
+        session.executor.submit(job)
+    session.executor.wait_idle()
+    try:
+        session.check_failures_global(step_hint=3)
+        return "none"
+    except BaseException as e:  # noqa: BLE001 - the type is the result
+        return type(e).__name__
+    finally:
+        session.close()
+
+
+def health_step_case(name, rank, world, distributed):
+    """``STEPS`` steps of a step case with the health diagnostics every step
+    and the online probe: each step's scalar metrics, the health
+    covariance, and the probe classifier after the steps."""
+    sync, loss_impl, method, *_ = {**STEP_CASES, **RING_STEP_CASES}[name]
+    views, labels = step_inputs()
+    model = init_model()
+    if distributed and sync:
+        model.encoder.set_bn_sync(torch.distributed.group.WORLD)
+    state = TrainState(model, make_optimizer(model), make_lr_schedule(**SCHED))
+    state.probe = build_online_probe("resnet10", HEALTH_PROBE_CLASSES, 0.1, seed=9)
+    cfg = SupConStepConfig(method=method, loss_impl=loss_impl, health_freq=1,
+                           online_probe=True, **STEP_KW)
+    history = []
+    for i in range(STEPS):
+        imgs, labs = views[i], labels
+        if distributed:
+            imgs, labs = local_slice(imgs, rank, world), local_slice(labs, rank, world)
+        metrics = train_step(state, cfg, imgs, labs)
+        history.append({k: (v.clone() if k == HEALTH_COV else v.item())
+                        for k, v in metrics.items()})
+    return {"history": history, "probe": state.probe.classifier.state_dict()}
+
+
+def telemetry_suite(rank, world, outdir):
+    return {
+        "failures": {name: failure_exchange_case(rank, name) for name in FAILURE_CASES},
+        "health": {name: health_step_case(name, rank, world, True) for name in HEALTH_CASES},
+    }
+
+
+CE_ARGV = [
+    "--device", "cpu", "--dataset", "synthetic", "--model", "resnet10", "--batch_size", "16",
+    "--val_batch_size", "8", "--epochs", "1", "--learning_rate", "0.01", "--print_freq", "100",
+    "--syncBN", "--seed", "3",
+]
+
+
+def ce_run(workdir, *extra):
+    """``train.ce.main`` on :func:`tiny_dataset`; ``(exit code, result)``."""
+    try:
+        return 0, ce.main(CE_ARGV + ["--workdir", workdir] + list(extra))
+    except SystemExit as e:
+        return e.code, None
+
+
+def ce_summary(code, result):
+    if result is None:
+        return {"code": code}
+    return {"code": code, "losses": [h["loss"] for h in result.history],
+            "top1": [h["top1"] for h in result.history], "val": result.val_history,
+            "state": result.state.model.state_dict(), "step": result.state.step,
+            "best_acc": result.best_acc, "save_folder": result.save_folder}
+
+
+def ce_suite(rank, world, outdir):
+    return {"ce": ce_summary(*ce_run(os.path.join(outdir, "ce")))}
+
+
+def spawn(world, outdir, suite, arg="", wall_limit=300):
+    """Run ``world`` processes of ``suite`` to the end (one thread each) and
+    return their results, rank by rank; a failed or overrunning process
+    kills its peers."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    os.makedirs(outdir, exist_ok=True)
+    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(world), str(outdir), suite]
+                              + ([arg] if arg else []), env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        for r, proc in enumerate(procs):
+            out, _ = proc.communicate(timeout=wall_limit)
+            assert proc.returncode == 0, f"rank {r} of {world} exited {proc.returncode}:\n{out}"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
 def main(rank, world, outdir, suite="parallel", arg=""):
     torch.set_num_threads(1)
     supcon.load_dataset = tiny_dataset
     linear.load_dataset = probe_dataset
+    ce.load_dataset = tiny_dataset
     writes = count_writes()
     mesh.setup_distributed("cpu", init_method=f"file://{os.path.join(outdir, 'store')}",
                            rank=rank, world_size=world, timeout=TIMEOUT)
@@ -460,6 +592,10 @@ def main(rank, world, outdir, suite="parallel", arg=""):
         results = ring_suite(rank, world, outdir)
     elif suite == "resilience":
         results = resilience_suite(rank, world, outdir, arg)
+    elif suite == "telemetry":
+        results = telemetry_suite(rank, world, outdir)
+    elif suite == "ce":
+        results = ce_suite(rank, world, outdir)
     else:
         raise ValueError(f"unknown suite {suite!r}")
     results["writes"] = list(writes)
