@@ -68,9 +68,22 @@ fused step and the ResNet-50 fp32 LARS step, summarized; and the CE
 trainer (``ce``): ResNet-50 ``SupCEResNet`` in fp32 and ``--bf16`` through
 ``train.ce.main``, its step time, card-vs-CPU logits, and a SIGTERM'd and
 resumed run bitwise the straight one.
+Every phase above runs with ``--data_placement host`` (the loader's batch
+copied each step). Then the data placements (``placement``): the ResNet-50
+fp32 fused epoch under ``--data_placement device`` (the dataset on the
+card, one index upload and one gather an epoch) and ``window`` (windows
+of 3 batches, staged on a side stream), each bitwise the train phase's run
+with its uploads counted through the stores' hooks and no host sync
+between flush boundaries; a ResNet-18 run under ``window`` SIGTERM'd after
+step 3 and resumed mid-window, bitwise the resume phase's; the ladder's
+verdicts and an explicit placement over its budget stopping before step
+1; a memmap-backed dataset windowed; the probe and the CE trainer under
+``device``, bitwise their host runs; and the step times, data waits and
+window swaps of ResNet-50 fp32 and ResNet-18 bf16 under the three
+placements.
 Phases: device, build, kernel_parity, train, probe, resume, distributed,
-large_batch, observability, ce, timing. Any failure raises and the script
-exits non-zero.
+large_batch, observability, ce, placement, timing. Any failure raises and
+the script exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
@@ -1203,7 +1216,7 @@ def recipe_argv(model, workdir, bf16=False):
         "--batch_size", "256", "--size", "32", "--epochs", "1",
         "--method", "SimCLR", "--temp", str(TEMP), "--learning_rate", "0.5",
         "--cosine", "--loss_impl", "fused", "--conv_impl", "fused", "--print_freq", "1",
-        "--save_freq", "1",
+        "--save_freq", "1", "--data_placement", "host",
         # a directory of its own: the run folder is named by the model and
         # the minute, not the dtype, so two runs in one minute would share it
         "--workdir", tempfile.mkdtemp(prefix=f"{model}_", dir=workdir),
@@ -1444,6 +1457,16 @@ def cuda_call_ms(fn, calls=20, warmup=3):
     return statistics.median(times)
 
 
+def probe_argv(workdir, ckpt, bf16):
+    """``train.linear.main``'s arguments for the probe at full width (rn50,
+    batch 512, one epoch of ``--dataset synthetic``) from ``ckpt``."""
+    return [
+        "--model", "resnet50", "--dataset", "synthetic", "--epochs", "1", "--batch_size", "512",
+        "--ckpt", ckpt, "--print_freq", "1", "--data_placement", "host",
+        "--workdir", tempfile.mkdtemp(prefix="probe_", dir=workdir),
+    ] + (["--bf16"] if bf16 else [])
+
+
 def probe_run(dev, workdir, ckpt, bf16, where):
     """The probe's entry point ``train.linear.main`` at full width (rn50,
     batch 512, one epoch of ``--dataset synthetic``) on ``cuda`` from the
@@ -1454,7 +1477,8 @@ def probe_run(dev, workdir, ckpt, bf16, where):
     bitwise those of ``ckpt``, ``classifier_best.pth`` reloads to the same
     logits, and one eval batch's logits on the card match the port's CPU
     run of the same weights (``PROBE_LOGITS_REL_L2``). Prints the probe
-    step's and the validation pass's times."""
+    step's and the validation pass's times. Returns the run's ``history``,
+    ``val`` and ``classifier`` state as the run ended."""
     from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
     from simclr_pytorch_distributed_tpu_torch.models import LinearClassifier, SupConResNet
     from simclr_pytorch_distributed_tpu_torch.ops.augment import (
@@ -1474,12 +1498,11 @@ def probe_run(dev, workdir, ckpt, bf16, where):
     for mod, counter in counters:
         setattr(mod, counter, 0)
     t0 = time.time()
-    result = linear.main([
-        "--model", "resnet50", "--dataset", "synthetic", "--epochs", "1", "--batch_size", "512",
-        "--ckpt", ckpt, "--print_freq", "1",
-        "--workdir", tempfile.mkdtemp(prefix="probe_", dir=workdir),
-    ] + (["--bf16"] if bf16 else []))
+    result = linear.main(probe_argv(workdir, ckpt, bf16))
     wall = time.time() - t0
+    # the timing below steps the classifier on: the run as it ended
+    reference = {"history": result.history, "val": result.val_history,
+                 "classifier": {k: v.clone() for k, v in result.state.model.state_dict().items()}}
     launches = {counter: getattr(mod, counter) for mod, counter in counters}
     val = result.val_history[0]
     losses = [h["loss"] for h in result.history]
@@ -1546,6 +1569,7 @@ def probe_run(dev, workdir, ckpt, bf16, where):
           f"{[round(t, 2) for t in steps_ms]} ms; validation pass over the {len(test['images'])}"
           f"-image test split at batch 256 {val_ms:.2f} ms (median of 5), the run's "
           f"{val['seconds'] * 1e3:.2f} ms {where}")
+    return reference
 
 
 RESUME_CHILD = r"""
@@ -1600,39 +1624,24 @@ def same_run(name, got, got_losses, want, want_losses, phase="resume", want_name
         raise AssertionError(f"{phase}: {name} differs from the {want_name} run: {bad[:8]}")
 
 
-def resume_phase(workdir):
-    """rn18 at full width (batch 256, 32 px) with ``--conv_impl fused
-    --loss_impl fused`` through ``train.supcon.main``: two epochs straight;
-    one epoch, then ``--resume`` for the second; a subprocess that gets
-    SIGTERM after step 3 of epoch 1, must exit 75, and whose ``--resume``
-    finishes the two epochs. All three must end bitwise equal. Then a
-    non-finite loss (``--learning_rate inf``) must exit 1 with
-    ``crash_epoch_1.pth`` holding the epoch-top state (the seed's init).
-    No ``--cosine``: its schedule depends on ``--epochs``, and the
-    one-epoch run must follow the two-epoch run's."""
-    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
-    from simclr_pytorch_distributed_tpu_torch.train import supcon
-    from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import load_model_state
-    base = ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet18",
+def resume_argv(workdir, epochs, *extra):
+    """The resume phase's rn18 run at full width (batch 256, 32 px) with
+    ``--conv_impl fused --loss_impl fused``, constant lr 0.5, in a new
+    directory under ``workdir``."""
+    return ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet18",
             "--batch_size", "256", "--size", "32", "--method", "SimCLR", "--temp", str(TEMP),
             "--learning_rate", "0.5", "--loss_impl", "fused", "--conv_impl", "fused",
-            "--print_freq", "1"]
+            "--print_freq", "1", "--data_placement", "host", "--epochs", str(epochs),
+            "--workdir", tempfile.mkdtemp(prefix="resume_", dir=workdir)] + list(extra)
 
-    def fresh():
-        return ["--workdir", tempfile.mkdtemp(prefix="resume_", dir=workdir)]
 
-    straight = supcon.main(base + ["--epochs", "2"] + fresh())
-    want = [h["loss"] for h in straight.history]
-    first = supcon.main(base + ["--epochs", "1"] + fresh())
-    resumed = supcon.main(base + ["--epochs", "2", "--resume", first.save_folder] + fresh())
-    same_run("one epoch, then --resume", resumed,
-             [h["loss"] for h in first.history + resumed.history], straight, want)
-
-    child_dir = fresh()
-    losses_path = os.path.join(workdir, "preempted_losses.json")
-    argv = base + ["--epochs", "2"] + child_dir
-    proc = subprocess.Popen([sys.executable, "-c", RESUME_CHILD, REPO, losses_path,
-                             json.dumps(argv)], stdout=subprocess.PIPE, text=True)
+def sigterm_after_step3(child, argv, workdir, label):
+    """Run ``argv`` in a subprocess of ``child`` (``RESUME_CHILD`` or
+    ``CE_CHILD``), SIGTERM it when it prints ``STEP3``; returns ``(exit
+    code, saved .pth paths, the child's step losses)``."""
+    losses_path = os.path.join(workdir, f"{label}_losses.json")
+    proc = subprocess.Popen([sys.executable, "-c", child, REPO, losses_path, json.dumps(argv)],
+                            stdout=subprocess.PIPE, text=True)
     try:
         for line in proc.stdout:
             if line.strip() == "STEP3":
@@ -1643,26 +1652,51 @@ def resume_phase(workdir):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    saved = glob.glob(os.path.join(child_dir[1], "*", "*", "*.pth"))
-    print(f"resume: the SIGTERM'd run exited {proc.returncode}, saved "
-          f"{[os.path.basename(p) for p in saved]}")
-    if proc.returncode != 75 or [os.path.basename(p) for p in saved] != [
-            "preempt_epoch_1_step_3.pth"]:
-        raise AssertionError("the SIGTERM'd run must exit 75 with preempt_epoch_1_step_3.pth")
+    saved = glob.glob(os.path.join(argv[argv.index("--workdir") + 1], "*", "*", "*.pth"))
     with open(losses_path) as fh:
-        child_losses = json.load(fh)
-    again = supcon.main(base + ["--epochs", "2", "--resume", os.path.dirname(saved[0])]
-                        + fresh())
+        return proc.returncode, saved, json.load(fh)
+
+
+def resume_phase(workdir):
+    """rn18 at full width (:func:`resume_argv`) through
+    ``train.supcon.main``: two epochs straight;
+    one epoch, then ``--resume`` for the second; a subprocess that gets
+    SIGTERM after step 3 of epoch 1, must exit 75, and whose ``--resume``
+    finishes the two epochs. All three must end bitwise equal. Then a
+    non-finite loss (``--learning_rate inf``) must exit 1 with
+    ``crash_epoch_1.pth`` holding the epoch-top state (the seed's init).
+    No ``--cosine``: its schedule depends on ``--epochs``, and the
+    one-epoch run must follow the two-epoch run's. Returns the straight
+    run."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import load_model_state
+
+    straight = supcon.main(resume_argv(workdir, 2))
+    want = [h["loss"] for h in straight.history]
+    first = supcon.main(resume_argv(workdir, 1))
+    resumed = supcon.main(resume_argv(workdir, 2, "--resume", first.save_folder))
+    same_run("one epoch, then --resume", resumed,
+             [h["loss"] for h in first.history + resumed.history], straight, want)
+
+    code, saved, child_losses = sigterm_after_step3(RESUME_CHILD, resume_argv(workdir, 2),
+                                                    workdir, "preempted")
+    print(f"resume: the SIGTERM'd run exited {code}, saved "
+          f"{[os.path.basename(p) for p in saved]}")
+    if code != 75 or [os.path.basename(p) for p in saved] != ["preempt_epoch_1_step_3.pth"]:
+        raise AssertionError("the SIGTERM'd run must exit 75 with preempt_epoch_1_step_3.pth")
+    again = supcon.main(resume_argv(workdir, 2, "--resume", os.path.dirname(saved[0])))
     same_run("SIGTERM after step 3, then --resume", again,
              child_losses + [h["loss"] for h in again.history], straight, want)
 
-    crash_dir = fresh()
+    crash_argv = resume_argv(workdir, 1, "--learning_rate", "inf")
     try:
-        supcon.main(base + ["--epochs", "1", "--learning_rate", "inf"] + crash_dir)
+        supcon.main(crash_argv)
         code = 0
     except SystemExit as e:
         code = e.code
-    crash = glob.glob(os.path.join(crash_dir[1], "*", "*", "crash_epoch_1.pth"))
+    crash = glob.glob(os.path.join(crash_argv[crash_argv.index("--workdir") + 1], "*", "*",
+                                   "crash_epoch_1.pth"))
     print(f"resume: a non-finite loss exited {code}, saved {[os.path.basename(p) for p in crash]}")
     if code != 1 or len(crash) != 1:
         raise AssertionError("a non-finite loss must exit 1 with crash_epoch_1.pth")
@@ -1675,6 +1709,7 @@ def resume_phase(workdir):
         raise AssertionError("crash_epoch_1.pth does not hold the epoch-top state")
     print("resume: crash_epoch_1.pth holds epoch 0, step 0, step_in_epoch 0 and the seed's "
           "init, bitwise")
+    return straight
 
 
 def recipe_batch(dev, batch_size=256):
@@ -1981,6 +2016,7 @@ def elastic_argv(workdir, name):
             "--batch_size", "256", "--size", "32", "--epochs", "1", "--method", "SimCLR",
             "--temp", str(TEMP), "--learning_rate", "0.5", "--cosine", "--loss_impl", "fused",
             "--conv_impl", "eager", "--syncBN", "--ngpu", "2", "--print_freq", "1",
+            "--data_placement", "host",
             "--workdir", tempfile.mkdtemp(prefix=f"{name}_", dir=workdir)]
 
 
@@ -2062,7 +2098,7 @@ def large_batch_rank(rank, world, outdir):
     # (d) the probe's entry point
     probe = linear.main(["--model", "resnet50", "--dataset", "synthetic", "--epochs", "1",
                          "--batch_size", "512", "--ckpt", spec["ckpt"], "--print_freq", "1",
-                         "--workdir", os.path.join(outdir, "probe")])
+                         "--data_placement", "host", "--workdir", os.path.join(outdir, "probe")])
     out["probe"] = {"val": probe.val_history, "best": [probe.best_acc, probe.best_acc5],
                     "losses": [h["loss"] for h in probe.history],
                     "path": probe.classifier_path}
@@ -2265,6 +2301,7 @@ def large_batch_phase(workdir, result, rn50_expected, rn18_expected, where):
     single = linear.main(["--model", "resnet50", "--dataset", "synthetic", "--epochs", "1",
                           "--batch_size", "512", "--ckpt",
                           os.path.join(result.save_folder, "last.pth"), "--print_freq", "1",
+                          "--data_placement", "host",
                           "--workdir", tempfile.mkdtemp(prefix="probe1_", dir=workdir)])
     want = {k: v.cpu() for k, v in single.state.model.state_dict().items()}
     for r, summary in enumerate(ranks):
@@ -2331,7 +2368,7 @@ def large_batch_phase(workdir, result, rn50_expected, rn18_expected, where):
                 "--batch_size", "256", "--size", "32", "--epochs", "2", "--method", "SimCLR",
                 "--temp", str(TEMP), "--learning_rate", "0.5", "--cosine", "--loss_impl",
                 "fused", "--conv_impl", "fused", "--nan_policy", "rollback", "--print_freq",
-                "1", "--telemetry", mode,
+                "1", "--telemetry", mode, "--data_placement", "host",
                 "--workdir", tempfile.mkdtemp(prefix="rollback_", dir=workdir)]
         supcon.check_finite_loss = poisoned
         for mod, name in counters:
@@ -2397,13 +2434,17 @@ FUSED_CONV_KERNEL = "sm90::conv_"
 
 
 class SyncGuard:
-    """``torch.cuda.set_sync_debug_mode("error")`` from each step's copy of
-    its batch to the device until the next flush boundary (and off inside
-    the boundary and the epoch's end, where the host waits by design), so
-    any host sync in between raises; with ``MetricRing.fetch`` (the one
-    transfer of a window) counted. Install around one driver run."""
+    """``torch.cuda.set_sync_debug_mode("error")`` from each step's batch
+    until the next flush boundary (and off inside the boundary and the
+    epoch's end, where the host waits by design), so any host sync in
+    between raises; with ``MetricRing.fetch`` (the one transfer of a
+    window) counted. A step's batch is the call of one of ``entries``
+    (``(owner, attribute)`` pairs): by default the host loader's copy,
+    ``train.supcon.to_device``; under a store its ``batch``. Install around
+    one driver run."""
 
-    def __init__(self):
+    def __init__(self, entries=None):
+        self.entries = entries
         self.fetches = 0
         self.guarded_steps = 0
 
@@ -2411,18 +2452,20 @@ class SyncGuard:
         from simclr_pytorch_distributed_tpu_torch.ops.metrics import MetricRing
         from simclr_pytorch_distributed_tpu_torch.train import supcon
         from simclr_pytorch_distributed_tpu_torch.utils.telemetry import TelemetrySession
-        self._saved = [(supcon, "to_device", supcon.to_device),
-                       (TelemetrySession, "flush_boundary", TelemetrySession.flush_boundary),
-                       (TelemetrySession, "finish_epoch", TelemetrySession.finish_epoch),
-                       (MetricRing, "fetch", MetricRing.fetch)]
-        to_device, flush, finish, fetch = (saved for _, _, saved in self._saved)
+        entries = self.entries or [(supcon, "to_device")]
+        self._saved = [(owner, name, getattr(owner, name)) for owner, name in entries] + [
+            (TelemetrySession, "flush_boundary", TelemetrySession.flush_boundary),
+            (TelemetrySession, "finish_epoch", TelemetrySession.finish_epoch),
+            (MetricRing, "fetch", MetricRing.fetch)]
         guard = self
 
-        def guarded_to_device(array, device):
-            if torch.cuda.get_sync_debug_mode() == 0:
-                guard.guarded_steps += 1
-            torch.cuda.set_sync_debug_mode("error")
-            return to_device(array, device)
+        def guarded(fn):
+            def run(*args, **kwargs):
+                if torch.cuda.get_sync_debug_mode() == 0:
+                    guard.guarded_steps += 1
+                torch.cuda.set_sync_debug_mode("error")
+                return fn(*args, **kwargs)
+            return run
 
         def unguarded(fn):
             def run(*args, **kwargs):
@@ -2430,13 +2473,16 @@ class SyncGuard:
                 return fn(*args, **kwargs)
             return run
 
+        fetch = MetricRing.fetch
+
         def counted_fetch(ring, snapshot):
             guard.fetches += 1
             return fetch(ring, snapshot)
 
-        supcon.to_device = guarded_to_device
-        TelemetrySession.flush_boundary = unguarded(flush)
-        TelemetrySession.finish_epoch = unguarded(finish)
+        for owner, name, saved in self._saved[:len(entries)]:
+            setattr(owner, name, guarded(saved))
+        TelemetrySession.flush_boundary = unguarded(TelemetrySession.flush_boundary)
+        TelemetrySession.finish_epoch = unguarded(TelemetrySession.finish_epoch)
         MetricRing.fetch = counted_fetch
         return self
 
@@ -2767,7 +2813,7 @@ finally:
 def ce_argv(workdir, bf16, epochs=1):
     return ["--device", "cuda", "--dataset", "synthetic", "--model", "resnet50",
             "--batch_size", "256", "--epochs", str(epochs), "--learning_rate", "0.1",
-            "--cosine", "--print_freq", "1", "--save_freq", "1",
+            "--cosine", "--print_freq", "1", "--save_freq", "1", "--data_placement", "host",
             "--workdir", tempfile.mkdtemp(prefix="ce_", dir=workdir)] + (
         ["--bf16"] if bf16 else [])
 
@@ -2782,7 +2828,8 @@ def ce_phase(workdir, where):
     the card against the port's CPU run of the same weights
     (``CE_LOGITS_REL_L2``). Then, with cuDNN's deterministic algorithms,
     two epochs straight against a subprocess SIGTERM'd after step 3 (exit
-    75, ``preempt_epoch_1_step_3.pth``) and resumed: bitwise equal."""
+    75, ``preempt_epoch_1_step_3.pth``) and resumed: bitwise equal.
+    Returns the straight two-epoch run (deterministic cuDNN)."""
     from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
     from simclr_pytorch_distributed_tpu_torch.models import SupCEResNet
     from simclr_pytorch_distributed_tpu_torch.ops.augment import AugmentConfig, eval_batch
@@ -2840,30 +2887,13 @@ def ce_phase(workdir, where):
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
         straight = ce.main(ce_argv(workdir, False, epochs=2))
-        argv = ce_argv(workdir, False, epochs=2)
-        child_dir = argv[argv.index("--workdir") + 1]
-        losses_path = os.path.join(workdir, "ce_preempted_losses.json")
-        proc = subprocess.Popen([sys.executable, "-c", CE_CHILD, REPO, losses_path,
-                                 json.dumps(argv)], stdout=subprocess.PIPE, text=True)
-        try:
-            for line in proc.stdout:
-                if line.strip() == "STEP3":
-                    proc.send_signal(signal.SIGTERM)
-                    break
-            proc.communicate(timeout=300)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        saved = glob.glob(os.path.join(child_dir, "*", "*", "*.pth"))
-        print(f"ce: the SIGTERM'd run exited {proc.returncode}, saved "
+        code, saved, child_losses = sigterm_after_step3(
+            CE_CHILD, ce_argv(workdir, False, epochs=2), workdir, "ce_preempted")
+        print(f"ce: the SIGTERM'd run exited {code}, saved "
               f"{[os.path.basename(p) for p in saved]}")
-        if proc.returncode != 75 or [os.path.basename(p) for p in saved] != [
-                "preempt_epoch_1_step_3.pth"]:
+        if code != 75 or [os.path.basename(p) for p in saved] != ["preempt_epoch_1_step_3.pth"]:
             raise AssertionError("ce: the SIGTERM'd run must exit 75 with "
                                  "preempt_epoch_1_step_3.pth")
-        with open(losses_path) as fh:
-            child_losses = json.load(fh)
         again = ce.main(ce_argv(workdir, False, epochs=2)
                         + ["--resume", os.path.dirname(saved[0])])
     finally:
@@ -2886,6 +2916,353 @@ def ce_phase(workdir, where):
         failures.append(f"ce: the resumed run differs from the straight run: {bad[:8]}")
     if failures:
         raise AssertionError("ce:\n" + "\n".join(failures))
+    return straight
+
+
+# The placement phase. (a): windows of 3, 3 and a padded 1 over the 7-step
+# epoch; (c): windows of 2, so the resume after step 3 lands mid-window.
+PLACEMENT_WINDOW, RESUME_WINDOW = 3, 2
+# (d), (g): --device_budget_mb values for the synthetic set at batch 256,
+# whose resident store needs 16.5 MB and a double-buffered window of 3
+# batches 4.7 MB: 10 MB holds the window alone, 1 MB neither.
+WINDOW_ONLY_MB, HOST_ONLY_MB = 10, 1
+# (g): the ladder picks each placement from its budget; the banner says which
+LADDER_ARMS = (
+    ("host", ["--device_budget_mb", str(HOST_ONLY_MB)], "data_placement auto -> host: "),
+    ("device", [], "data_placement: device ("),
+    ("window", ["--device_budget_mb", str(WINDOW_ONLY_MB), "--data_window_batches",
+                str(PLACEMENT_WINDOW)], "data_placement: window ("),
+)
+
+
+def with_placement(argv, placement, *extra):
+    """``argv`` with its ``--data_placement`` replaced, and ``extra``."""
+    argv = list(argv)
+    argv[argv.index("--data_placement") + 1] = placement
+    return argv + list(extra)
+
+
+class TransferCount:
+    """Counts, over one driver run, the stores' uploads through their hooks
+    (``DeviceStore``: the dataset once and the index matrix each epoch;
+    ``WindowStore``: each window) and the host loader's per-step copies
+    (``train.supcon.to_device``)."""
+
+    def __enter__(self):
+        from simclr_pytorch_distributed_tpu_torch.data.device_store import (
+            DeviceStore,
+            WindowStore,
+        )
+        from simclr_pytorch_distributed_tpu_torch.train import supcon
+        self.counts = {}
+        self._saved = []
+        for owner, name, key in ((DeviceStore, "_upload_dataset", "dataset"),
+                                 (DeviceStore, "_default_index_put", "index"),
+                                 (WindowStore, "_default_put", "window"),
+                                 (supcon, "to_device", "step_copy")):
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            self.counts[key] = 0
+
+            def counted(*args, _fn=fn, _key=key, **kwargs):
+                self.counts[_key] += 1
+                return _fn(*args, **kwargs)
+
+            setattr(owner, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+class BatchWait:
+    """The host time of each step's wait for its batch (the driver's ``DT``,
+    which its log prints to the millisecond): each ``next()`` of
+    ``train.supcon.step_batches``, over one driver run; and of that, the
+    host loader's pinned copies (``train.supcon.to_device``, two a step)."""
+
+    def __enter__(self):
+        from simclr_pytorch_distributed_tpu_torch.train import supcon
+        self.waits, self.copies = [], []
+        self._module, self._fn, self._copy = supcon, supcon.step_batches, supcon.to_device
+
+        def timed_copy(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self._copy(*args, **kwargs)
+            self.copies.append(time.perf_counter() - t0)
+            return out
+
+        def timed(*args, **kwargs):
+            batches = self._fn(*args, **kwargs)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(batches)
+                    except StopIteration:
+                        return
+                    self.waits.append(time.perf_counter() - t0)
+                    yield item
+            finally:
+                batches.close()
+
+        supcon.step_batches, supcon.to_device = timed, timed_copy
+        return self
+
+    def __exit__(self, *exc):
+        self._module.step_batches, self._module.to_device = self._fn, self._copy
+        return False
+
+
+def run_log(result):
+    """The run folder's ``log-ing`` and its ``events.jsonl`` records."""
+    with open(os.path.join(result.save_folder, "log-ing")) as fh:
+        log = fh.read()
+    with open(os.path.join(result.save_folder, "events.jsonl")) as fh:
+        events = [json.loads(line) for line in fh]
+    return log, events
+
+
+def same_validation(a, b):
+    """Two runs' ``val_history`` equal bitwise, but for each pass's wall
+    ``seconds``."""
+    strip = [[{k: v for k, v in val.items() if k != "seconds"} for val in run] for run in (a, b)]
+    return strip[0] == strip[1]
+
+
+def same_tensors(got, want):
+    """Names of the tensors of ``want`` that ``got`` does not hold bitwise."""
+    return [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+
+
+def placement_phase(workdir, result, rn50_expected, resume_ref, probe_ref, ce_ref, where):
+    """The data placements on the card (``data/device_store.py``), against
+    the earlier phases' host-placement runs:
+
+    (a) the train phase's rn50 fp32 fused epoch under ``--data_placement
+        device`` and ``window`` (windows of 3): history and final tensors
+        bitwise the host run's, the same kernel launches;
+    (b) in those runs, the uploads through the stores' hooks (device: the
+        dataset once, the index matrix once; window: 3 windows; neither a
+        per-step copy) and no host sync from a step's batch to its flush
+        boundary (``SyncGuard`` on the stores' ``batch``);
+    (c) rn18 fp32 fused, two epochs under ``window`` (windows of 2): straight,
+        and a subprocess SIGTERM'd after step 3 (exit 75; the resume lands
+        mid-window) then resumed, both bitwise the resume phase's host run;
+    (d) the ladder: an explicit ``device`` over ``--device_budget_mb 1``
+        raises before step 1; the banners of (g)'s runs, whose placement
+        the ladder picks from the card's budget, 10 MB and 1 MB;
+    (e) a memmap-backed dataset through ``make_store('auto')``: a window
+        store, its batches on the card byte-equal to the host loader's; and
+        ``--dataset path`` through the driver where PIL imports;
+    (f) the probe (from the rn50 fp32 ``last.pth``) and the CE trainer
+        (two epochs, deterministic cuDNN) under ``device``, bitwise their
+        host runs;
+    (g) step times by CUDA events (median of steps 3-7), the data time
+        (``DT``) and the ``window_swap`` span's host time under host,
+        device and window, for rn50 fp32 fused, rn18 bf16 fused, and rn18
+        bf16 fused with ``--health_freq 0``."""
+    import numpy as np
+
+    from simclr_pytorch_distributed_tpu_torch.data import device_store
+    from simclr_pytorch_distributed_tpu_torch.data.cifar import synthetic_dataset
+    from simclr_pytorch_distributed_tpu_torch.data.device_store import DeviceStore, WindowStore
+    from simclr_pytorch_distributed_tpu_torch.data.pipeline import EpochLoader
+    from simclr_pytorch_distributed_tpu_torch.train import ce, linear, supcon
+    counters = kernel_counters()
+    failures = []
+    dev = torch.device("cuda", 0)
+
+    # (a), (b)
+    window = ["--data_window_batches", str(PLACEMENT_WINDOW)]
+    for placement, extra, want in (
+            ("device", [], {"dataset": 1, "index": 1, "window": 0, "step_copy": 0}),
+            ("window", window, {"dataset": 0, "index": 0, "window": 3, "step_copy": 0})):
+        for mod, counter in counters:
+            setattr(mod, counter, 0)
+        with TransferCount() as tc, SyncGuard([(DeviceStore, "batch"),
+                                               (WindowStore, "batch")]) as guard:
+            run = supcon.main(with_placement(recipe_argv("resnet50", workdir), placement, *extra))
+        launches = {counter: getattr(mod, counter) for mod, counter in counters}
+        log, _ = run_log(run)
+        same = history_equal(run.history, result.history)
+        differ = same_tensors(run.state.model.state_dict(), result.state.model.state_dict())
+        print(f"placement (a) resnet50 fp32 fused --data_placement {placement} {extra}: "
+              f"{len(run.history)} steps, history "
+              f"{'bitwise equal to' if same else 'DIFFERS from'} the train phase's host run, "
+              f"final tensors {'bitwise equal' if not differ else f'{len(differ)} differ'}, "
+              f"launches {'as the host run' if launches == rn50_expected else launches}")
+        print(f"placement (b) {placement}: uploads {tc.counts} (expected {want}); no host sync "
+              f"in {guard.guarded_steps} guarded steps; {guard.fetches} metric-ring transfers")
+        if not same or differ:
+            failures.append(f"(a) {placement}: not bitwise the host run ({differ[:4]})")
+        if launches != rn50_expected:
+            failures.append(f"(a) {placement}: launches {launches}")
+        if f"data_placement: {placement} (" not in log:
+            failures.append(f"(a) {placement}: no '{placement}' banner")
+        if tc.counts != want or guard.guarded_steps != 7 or guard.fetches != 7:
+            failures.append(f"(b) {placement}: uploads {tc.counts}, {guard.guarded_steps} "
+                            f"guarded steps, {guard.fetches} transfers")
+        del run
+
+    # (c)
+    resume_window = ["--data_window_batches", str(RESUME_WINDOW)]
+    want_losses = [h["loss"] for h in resume_ref.history]
+    straight = supcon.main(with_placement(resume_argv(workdir, 2), "window", *resume_window))
+    same_run("straight under window", straight, [h["loss"] for h in straight.history],
+             resume_ref, want_losses, phase="placement (c)", want_name="host straight")
+    code, saved, child_losses = sigterm_after_step3(
+        RESUME_CHILD, with_placement(resume_argv(workdir, 2), "window", *resume_window),
+        workdir, "window_preempted")
+    print(f"placement (c): the SIGTERM'd window run exited {code}, saved "
+          f"{[os.path.basename(p) for p in saved]}")
+    if code != 75 or [os.path.basename(p) for p in saved] != ["preempt_epoch_1_step_3.pth"]:
+        failures.append(f"(c): the SIGTERM'd run exited {code} with {saved}")
+    else:
+        again = supcon.main(with_placement(resume_argv(
+            workdir, 2, "--resume", os.path.dirname(saved[0])), "window", *resume_window))
+        got = child_losses + [h["loss"] for h in again.history]
+        for ref, ref_losses, label in ((straight, [h["loss"] for h in straight.history],
+                                        "window straight"), (resume_ref, want_losses,
+                                                             "host straight")):
+            same_run("SIGTERM after step 3 under window, then --resume", again, got, ref,
+                     ref_losses, phase="placement (c)", want_name=label)
+        del again
+    del straight
+
+    # (d) an explicit placement the budget refuses stops before step 1
+    argv = with_placement(recipe_argv("resnet18", workdir, bf16=True), "device",
+                          "--device_budget_mb", str(HOST_ONLY_MB))
+    try:
+        supcon.main(argv)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    (folder,) = glob.glob(os.path.join(argv[argv.index("--workdir") + 1], "*", "*"))
+    with open(os.path.join(folder, "log-ing")) as fh:
+        steps_logged = fh.read().count("Train:")
+    print(f"placement (d): --data_placement device --device_budget_mb {HOST_ONLY_MB} raised "
+          f"before step 1 ({steps_logged} steps logged): {refused}")
+    if refused is None or "cannot be satisfied" not in refused or steps_logged:
+        failures.append(f"(d): the explicit over-budget placement did not stop: {refused}")
+
+    # (e) a memmap-backed dataset is windowed, never resident
+    train, _ = synthetic_dataset()
+    path = os.path.join(workdir, "images.npy")
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint8, shape=train["images"].shape)
+    mm[:] = train["images"]
+    mm.flush()
+    del mm
+    loader = EpochLoader(np.load(path, mmap_mode="r"), train["labels"], 256, base_seed=0)
+    store = device_store.make_store("auto", loader, dev, window_batches=PLACEMENT_WINDOW)
+    bad = 0
+    for idx, (h_imgs, h_labs) in enumerate(loader.epoch(1)):
+        b_imgs, b_labs = store.batch(1, idx)
+        bad += not (np.array_equal(b_imgs.cpu().numpy(), h_imgs)
+                    and np.array_equal(b_labs.cpu().numpy(), h_labs))
+    store.close()
+    print(f"placement (e): a memmap-backed dataset under make_store('auto') on the card's budget "
+          f"-> {type(store).__name__}; {loader.steps_per_epoch - bad} of "
+          f"{loader.steps_per_epoch} batches byte-equal to the host loader's")
+    if not isinstance(store, WindowStore) or bad:
+        failures.append(f"(e): {type(store).__name__}, {bad} batches differ")
+    del store, loader
+    try:
+        import PIL  # noqa: F401
+        pil = None
+    except ImportError as e:
+        pil = str(e)
+    if pil is not None:
+        print(f"placement (e): PIL does not import here ({pil}): the --dataset path run "
+              "through the driver is not made")
+    else:
+        tree = os.path.join(workdir, "tree")
+        rng = np.random.default_rng(3)
+        from PIL import Image
+        for cls in ("a", "b"):
+            os.makedirs(os.path.join(tree, cls))
+            for i in range(256):
+                Image.fromarray(rng.integers(0, 256, (40, 40, 3), dtype=np.uint8)).save(
+                    os.path.join(tree, cls, f"{i}.png"))
+        argv = with_placement(recipe_argv("resnet18", workdir), "auto", "--dataset", "path",
+                              "--data_folder", tree, "--mean", "(0.5,0.5,0.5)", "--std",
+                              "(0.25,0.25,0.25)", "--mmap_threshold_mb", "0",
+                              "--data_window_batches", "1")
+        run = supcon.main(argv)
+        log, _ = run_log(run)
+        losses = [h["loss"] for h in run.history]
+        print(f"placement (e): --dataset path (512 PNGs, the memmap cache) through the driver: "
+              f"{'window' if 'data_placement: window (' in log else 'NOT window'}, losses "
+              f"{losses}")
+        if "data_placement: window (" not in log or not all(map(math.isfinite, losses)):
+            failures.append("(e): the --dataset path run")
+
+    # (f) the probe and the CE trainer under device placement
+    probe = linear.main(with_placement(probe_argv(workdir, os.path.join(
+        result.save_folder, "last.pth"), False), "device"))
+    same = (history_equal(probe.history, probe_ref["history"])
+            and same_validation(probe.val_history, probe_ref["val"]))
+    differ = same_tensors(probe.state.model.state_dict(), probe_ref["classifier"])
+    print(f"placement (f) probe resnet50 fp32 --data_placement device: history and validation "
+          f"{'bitwise equal' if same else 'DIFFER'}, classifier "
+          f"{'bitwise equal' if not differ else 'DIFFERS'} to the probe phase's host run")
+    if not same or differ:
+        failures.append("(f): the probe under device placement")
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        run = ce.main(with_placement(ce_argv(workdir, False, epochs=2), "device"))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    same = (history_equal(run.history, ce_ref.history)
+            and same_validation(run.val_history, ce_ref.val_history))
+    differ = same_tensors(run.state.model.state_dict(), ce_ref.state.model.state_dict())
+    print(f"placement (f) ce resnet50 fp32, 2 epochs, --data_placement device: history and "
+          f"validation {'bitwise equal' if same else 'DIFFER'}, model "
+          f"{'bitwise equal' if not differ else f'{len(differ)} tensors differ'} to the ce "
+          f"phase's host run")
+    if not same or differ:
+        failures.append("(f): CE under device placement")
+    del run, probe
+
+    # (g) the placements' step times, the ladder choosing each (d)
+    for model, bf16, extra in (("resnet50", False, []), ("resnet18", True, []),
+                               ("resnet18", True, ["--health_freq", "0"])):
+        label = f"{model} {'bf16' if bf16 else 'fp32'} fused{' ' + ' '.join(extra) if extra else ''}"
+        ref = None
+        for placement, arm, banner in LADDER_ARMS:
+            with BatchWait() as wait:
+                run = supcon.main(with_placement(recipe_argv(model, workdir, bf16), "auto",
+                                                 *arm, *extra))
+            log, events = run_log(run)
+            times = [h["step_time"] * 1e3 for h in run.history]
+            dts = [w * 1e3 for w in wait.waits]
+            copies = [(a + b) * 1e3 for a, b in zip(wait.copies[::2], wait.copies[1::2])]
+            swaps = [e["dur"] * 1e3 for e in events if e.get("name") == "window_swap"]
+            gathers = [e["dur"] * 1e3 for e in events if e.get("name") == "epoch_gather"]
+            line = next((ln for ln in log.splitlines() if "data_placement" in ln), "")
+            print(f"placement (g) {label} --data_placement auto {' '.join(arm)}: banner "
+                  f"'{line.split('] ')[-1].strip()[:200]}'")
+            print(f"placement (g) {label} {placement}: step by CUDA events median of steps 3-7 "
+                  f"{statistics.median(times[2:7]):.2f} ms, all {[round(t, 2) for t in times]}; "
+                  f"DT (wait for the batch) median of 3-7 {statistics.median(dts[2:7]):.3f} "
+                  f"ms, all {[round(d, 3) for d in dts]}, of which pinned copies "
+                  f"{[round(c, 3) for c in copies]} ms; window_swap host ms "
+                  f"{[round(x, 3) for x in swaps]}; epoch_gather host ms "
+                  f"{[round(x, 3) for x in gathers]} {where}")
+            if banner not in log:
+                failures.append(f"(d) {label}: no '{banner}' banner for {arm}")
+            if len(dts) != 7:
+                failures.append(f"(g) {label} {placement}: {len(dts)} batch waits")
+            if ref is None:
+                ref = run.history
+            elif not history_equal(run.history, ref):
+                failures.append(f"(g) {label}: {placement} history differs from host")
+            del run
+    if failures:
+        raise AssertionError("placement:\n" + "\n".join(failures))
 
 
 def split_only() -> int:
@@ -3074,13 +3451,14 @@ def main(argv=None) -> int:
 
     # -- probe: the linear probe's entry point from each rn50 run -----------
     t0 = phase("probe")
-    for bf16, run in ((False, result), (True, bf16_runs["resnet50"][0])):
-        probe_run(dev, workdir, os.path.join(run.save_folder, "last.pth"), bf16, f"on {card}")
+    probe_refs = [probe_run(dev, workdir, os.path.join(run.save_folder, "last.pth"), bf16,
+                            f"on {card}")
+                  for bf16, run in ((False, result), (True, bf16_runs["resnet50"][0]))]
     done("probe", t0)
 
     # -- resume: straight = resumed = preempted and resumed, exit 75 and 1 --
     t0 = phase("resume")
-    resume_phase(workdir)
+    resume_ref = resume_phase(workdir)
     done("resume", t0)
 
     # -- distributed: world size 1 over NCCL, two ranks over gloo ----------
@@ -3100,8 +3478,15 @@ def main(argv=None) -> int:
 
     # -- ce: the supervised cross-entropy trainer --------------------------
     t0 = phase("ce")
-    ce_phase(workdir, f"on {card}")
+    ce_ref = ce_phase(workdir, f"on {card}")
     done("ce", t0)
+
+    # -- placement: the device-resident and windowed data stores -----------
+    t0 = phase("placement")
+    placement_phase(workdir, result, rn50_expected, resume_ref, probe_refs[0], ce_ref,
+                    f"on {card}")
+    del resume_ref, probe_refs, ce_ref
+    done("placement", t0)
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")

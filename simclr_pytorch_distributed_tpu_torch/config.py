@@ -19,11 +19,20 @@ and checks (``config.py:129-166, :378-430, :457-530``): ``--telemetry
 ``ce_`` run-folder prefix, ``--syncBN`` and ``--resume`` as the full-state
 resume, and no ``--ckpt``.
 
-Flags the port does not take are absent, so argparse rejects them: the
-data-placement flags (``--data_placement``, ``--device_budget_mb``,
-``--data_window_batches``), which wait for the port of the device-resident
-data store, and ``--compile_cache``, a cache of XLA programs that the port
-does not compile.
+The data flags are the JAX package's (``config.py:51-58, :82-84,
+:137-148, :319-330, :473-490, :777``), on all three trainers:
+``--data_placement {auto,device,window,host}`` (where training batches
+live, ``data/device_store.py``), ``--data_window_batches`` and
+``--device_budget_mb``, and ``--no_download`` (no CIFAR fetch). The
+pretraining parser also takes ``--dataset path`` (an image tree under
+``--data_folder``, ``data/folder.py``) with ``--mean``/``--std`` (required
+there), ``--store_size`` and ``--mmap_threshold_mb``;
+:func:`validate_data_placement` refuses ``device`` with ``path`` at parse
+time. The probe and CE parsers have no ``path``, as in JAX.
+
+Flags the port does not take are absent, so argparse rejects them:
+``--compile_cache``, a cache of XLA programs that the port does not
+compile, and ``--recipe``, whose recipes are not ported yet.
 Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
 {dense,fused,ring,auto}`` (``ring`` only when asked for, as in JAX
 ``config.py:92-96``) and ``--conv_impl {eager,fused,auto}`` (the JAX
@@ -47,7 +56,7 @@ import argparse
 import dataclasses
 import datetime
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 from simclr_pytorch_distributed_tpu_torch.data.cifar import DATASETS
 from simclr_pytorch_distributed_tpu_torch.ops.schedules import warmup_to_value
@@ -67,6 +76,13 @@ class SupConConfig:
     model: str = "resnet50"
     dataset: str = "cifar10"
     data_folder: str = "./datasets/"
+    # 'path' datasets: the normalization (required there), the stored
+    # resolution (0 = 2 * size) and the memmap threshold (data/folder.py)
+    mean: Optional[str] = None
+    std: Optional[str] = None
+    store_size: int = 0
+    mmap_threshold_mb: int = 1024
+    download: bool = True
     size: int = 32
     method: str = "SimCLR"
     temp: float = 0.5
@@ -107,6 +123,9 @@ class SupConConfig:
     health_policy: str = "warn"
     online_probe: str = "off"
     probe_lr: float = 0.1
+    data_placement: str = "auto"
+    data_window_batches: int = 32
+    device_budget_mb: int = 0
     # derived (finalize_supcon)
     warm_epochs: int = 10
     warmup_from: float = 0.01
@@ -168,6 +187,23 @@ def ngpu_mismatch_banner(ngpu: int, data_parallel: int, learning_rate: float) ->
     )
 
 
+def positive_int_arg(name: str):
+    """argparse type for flags that must be >= 1 (JAX ``config.py:244``)."""
+
+    def parse(s: str) -> int:
+        try:
+            v = int(s)
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"--{name} expects a positive integer, got {s!r}"
+            ) from None
+        if v <= 0:
+            raise argparse.ArgumentTypeError(f"--{name} must be positive, got {v}")
+        return v
+
+    return parse
+
+
 def nonnegative_int_arg(name: str):
     """argparse type for cadence flags where 0 means off (JAX
     ``config.py:432``)."""
@@ -187,12 +223,29 @@ def nonnegative_int_arg(name: str):
 
 
 def add_runtime_flags(p: argparse.ArgumentParser, d) -> None:
-    """The telemetry, profiler and observability flags every trainer takes
-    (JAX ``config.py:457-530``)."""
+    """The telemetry, data-placement, profiler and observability flags every
+    trainer takes (JAX ``config.py:457-530``)."""
     p.add_argument("--telemetry", type=str, default=d.telemetry, choices=["async", "sync"],
                    help="metric flush: a background thread (no host sync between "
                         "print_freq boundaries; NaN detection at most one window late) "
                         "or inline")
+    p.add_argument("--data_placement", type=str, default=d.data_placement,
+                   choices=["host", "device", "window", "auto"],
+                   help="training batches: 'device' = the dataset on the device, one "
+                        "index upload and one gather an epoch; 'window' = a "
+                        "double-buffered window of batches, one upload a window (for "
+                        "datasets the device cannot hold, memmap-backed trees included); "
+                        "'auto' walks the device->window->host ladder; 'host' = one copy "
+                        "a step")
+    p.add_argument("--data_window_batches", type=positive_int_arg("data_window_batches"),
+                   default=d.data_window_batches,
+                   help="windowed placement: batches a window (device memory: 2 windows)")
+    p.add_argument("--device_budget_mb", type=positive_int_arg("device_budget_mb"),
+                   default=d.device_budget_mb,
+                   help="override the per-device placement budget in MB (default: 0.4 x "
+                        "the device's free memory; 4 GB where it reports none)")
+    p.add_argument("--no_download", dest="download", action="store_false", default=True,
+                   help="never fetch CIFAR over the network")
     p.add_argument("--trace_dir", type=str, default=d.trace_dir,
                    help="write a torch.profiler Chrome trace of --trace_steps steps here")
     p.add_argument("--trace_start_step", type=int, default=d.trace_start_step)
@@ -225,8 +278,18 @@ def supcon_parser() -> argparse.ArgumentParser:
     p.add_argument("--momentum", type=float, default=d.momentum)
     p.add_argument("--model", type=str, default=d.model)
     p.add_argument("--dataset", type=str, default=d.dataset, choices=list(DATASETS))
-    p.add_argument("--data_folder", type=str, default=d.data_folder)
+    p.add_argument("--mean", type=str, default=None,
+                   help="path datasets: the per-channel mean, as a tuple string")
+    p.add_argument("--std", type=str, default=None,
+                   help="path datasets: the per-channel std, as a tuple string")
+    p.add_argument("--data_folder", type=str, default=None,
+                   help=f"the dataset's folder (default {d.data_folder}; required with "
+                        "--dataset path)")
     p.add_argument("--size", type=int, default=d.size)
+    p.add_argument("--store_size", type=int, default=d.store_size,
+                   help="path datasets: stored resolution (0 = 2*size)")
+    p.add_argument("--mmap_threshold_mb", type=int, default=d.mmap_threshold_mb,
+                   help="path datasets: decode to an on-disk memmap above this size")
     p.add_argument("--method", type=str, default=d.method, choices=["SupCon", "SimCLR"])
     p.add_argument("--temp", type=float, default=d.temp)
     p.add_argument("--cosine", action="store_true")
@@ -306,9 +369,31 @@ def parse_supcon(argv=None) -> SupConConfig:
     return finalize_supcon(SupConConfig(**kwargs))
 
 
+def validate_data_placement(dataset: str, data_placement: str) -> None:
+    """Parse-time check (JAX ``config.py:521``): a ``path`` tree may decode
+    into an on-disk memmap (above ``--mmap_threshold_mb``), which is never
+    made device-resident, and whether it does is known only after the
+    decode; so an explicit ``device`` is refused here. ``auto`` resolves
+    against the decoded array, and ``window`` streams from a memmap."""
+    if data_placement == "device" and dataset == "path":
+        raise ValueError(
+            "--data_placement device is not accepted with --dataset path: "
+            "folder datasets may decode to an on-disk memmap "
+            "(--mmap_threshold_mb), which cannot be made device-resident — "
+            "use --data_placement auto (decides from the decoded size, "
+            "falls back to host with a banner) or host"
+        )
+
+
 def finalize_supcon(cfg: SupConConfig) -> SupConConfig:
     """Derived fields, replicating main_supcon.py:92-150. The save folder
     is named here and created by the driver."""
+    validate_data_placement(cfg.dataset, cfg.data_placement)
+    if cfg.dataset == "path" and (cfg.data_folder is None or cfg.mean is None
+                                  or cfg.std is None):
+        raise ValueError("--dataset path needs --data_folder, --mean and --std")
+    if cfg.data_folder is None:
+        cfg.data_folder = "./datasets/"
     cfg.model_name = (
         f"{cfg.method}_{cfg.dataset}_{cfg.model}_lr_{cfg.learning_rate}"
         f"_decay_{cfg.weight_decay}_bsz_{cfg.batch_size}_temp_{cfg.temp}_trial_{cfg.trial}"
@@ -373,6 +458,10 @@ class LinearConfig:
     watchdog_secs: float = 0.0
     metrics_port: int = 0
     metrics_host: str = "127.0.0.1"
+    data_placement: str = "auto"
+    data_window_batches: int = 32
+    device_budget_mb: int = 0
+    download: bool = True
     # derived (finalize_linear)
     n_cls: int = 10
     warm_epochs: int = 10
@@ -403,7 +492,9 @@ def linear_parser(ce: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", type=float, default=d.weight_decay)
     p.add_argument("--momentum", type=float, default=d.momentum)
     p.add_argument("--model", type=str, default=d.model)
-    p.add_argument("--dataset", type=str, default=d.dataset, choices=list(DATASETS))
+    # no 'path': the probe and CE trainers validate on a test split
+    p.add_argument("--dataset", type=str, default=d.dataset,
+                   choices=[name for name in DATASETS if name != "path"])
     p.add_argument("--cosine", action="store_true")
     p.add_argument("--warm", action="store_true")
     if ce:

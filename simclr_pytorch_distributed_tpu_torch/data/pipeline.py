@@ -10,6 +10,12 @@ the processes together see the global batch the one-process run sees. A
 background thread assembles batch k+1 (a numpy row gather) while the
 device runs step k.
 
+The device stores (``data/device_store.py``) read the loader's own
+permutation (:meth:`EpochLoader._epoch_order`, the one source that
+:meth:`EpochLoader._batches` also uses), its ``drop_last`` geometry, its
+process slice (``_lo:_hi``) and :meth:`EpochLoader.check_start_step`, so a
+batch is the same bytes in every placement.
+
 The bounds come from :func:`share_splits` (JAX ``data/pipeline.py:42-108``,
 copied here, since the port imports nothing of the JAX package), which
 takes a share hint ``host:factor`` (what the JAX package's fleet supervisor
@@ -84,6 +90,7 @@ class EpochLoader:
         batch_size: int,
         *,
         base_seed: int = 0,
+        drop_last: bool = True,
         prefetch: int = 2,
         process_index: int = 0,
         process_count: int = 1,
@@ -100,18 +107,36 @@ class EpochLoader:
         self.share_bounds = share_splits(batch_size, process_count, share_hint)
         self._lo, self._hi = self.share_bounds[process_index]
         self.local_batch = self._hi - self._lo
+        self.process_index, self.process_count = process_index, process_count
         self.images = np.ascontiguousarray(images)
         self.labels = np.ascontiguousarray(labels)
         self.batch_size = batch_size
         self.base_seed = base_seed
+        self.drop_last = drop_last
         self.prefetch = prefetch
         n = len(images)
-        self.steps_per_epoch = n // batch_size
+        # drop_last truncates to whole global batches (the training path);
+        # without it the last batch is the ragged tail
+        self.steps_per_epoch = n // batch_size if drop_last else -(-n // batch_size)
         if self.steps_per_epoch == 0:
             raise ValueError(f"dataset of {n} examples smaller than one batch ({batch_size})")
 
+    def check_start_step(self, start_step: int) -> None:
+        """Raise unless ``start_step`` is a step of this geometry's epoch: a
+        resume offset from a checkpoint of another geometry would otherwise
+        make a silent zero-step epoch (JAX ``data/pipeline.py:184``). The
+        drivers call it before their step loop, with or without a store."""
+        if not 0 <= start_step < self.steps_per_epoch:
+            raise ValueError(f"start_step {start_step} outside [0, {self.steps_per_epoch})")
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        """The epoch's permutation of the dataset, seeded ``base_seed +
+        epoch``: the one source of batch composition, for the host batches
+        and the device stores alike."""
+        return np.random.default_rng(self.base_seed + epoch).permutation(len(self.images))
+
     def _batches(self, epoch: int, start_step: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        order = np.random.default_rng(self.base_seed + epoch).permutation(len(self.images))
+        order = self._epoch_order(epoch)
         for step in range(start_step, self.steps_per_epoch):
             sel = order[step * self.batch_size:(step + 1) * self.batch_size]
             sel = sel[self._lo:self._hi]
@@ -119,8 +144,7 @@ class EpochLoader:
 
     def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """One pass; ``epoch`` seeds the shuffle (``sampler.set_epoch``)."""
-        if not 0 <= start_step < self.steps_per_epoch:
-            raise ValueError(f"start_step {start_step} outside [0, {self.steps_per_epoch})")
+        self.check_start_step(start_step)
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         stop = threading.Event()

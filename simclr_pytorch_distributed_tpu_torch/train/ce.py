@@ -21,8 +21,9 @@ encoder runs eager convolutions (cuDNN), not the fused conv kernels.
 ``--bf16`` runs the encoder in bf16 compute; the classifier and the loss
 are fp32.
 
-Per step: one copy of the uint8 batch to the device, the augmentation on
-the device, the step, and the step's global loss and top-1/top-5 counts
+Per step: the uint8 batch (from ``--data_placement``'s store, as in the
+pretrain driver, JAX ``train/ce.py:201-216``; validation reads the host
+arrays), the augmentation on the device, the step, and the step's global loss and top-1/top-5 counts
 written into the device-side metric ring; at each ``--print_freq``
 boundary the window is flushed (``utils/telemetry.py``: one transfer, the
 meters and the progress line on the telemetry thread under ``--telemetry
@@ -59,7 +60,7 @@ from typing import Dict, List, Optional
 import torch
 
 from simclr_pytorch_distributed_tpu_torch import config as config_lib
-from simclr_pytorch_distributed_tpu_torch.data.cifar import load_dataset
+from simclr_pytorch_distributed_tpu_torch.data.cifar import ensure_dataset_available, load_dataset
 from simclr_pytorch_distributed_tpu_torch.data.pipeline import EpochLoader
 from simclr_pytorch_distributed_tpu_torch.models import SupCEResNet
 from simclr_pytorch_distributed_tpu_torch.ops.augment import AugmentConfig, augment_batch
@@ -75,9 +76,10 @@ from simclr_pytorch_distributed_tpu_torch.train.linear import (
 )
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
 from simclr_pytorch_distributed_tpu_torch.train.supcon import (
+    build_store,
     compute_dtype,
     resolve_device,
-    to_device,
+    step_batches,
 )
 from simclr_pytorch_distributed_tpu_torch.utils import preempt, tracing
 from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
@@ -163,8 +165,10 @@ def train_epoch(
     generator: torch.Generator, cfg: config_lib.LinearConfig, device: torch.device,
     history: List[Dict[str, float]], telemetry: TelemetrySession,
     tracer: Optional[StepTracer] = None, start_step: int = 0, first_step_span: bool = False,
+    store=None,
 ):
-    """One CE epoch from its step ``start_step`` through the metric ring.
+    """One CE epoch from its step ``start_step`` through the metric ring,
+    its batches from ``store`` when there is one.
     Returns ``(train meters, stopped_at)``: the loss and top-1 averages, and
     the steps of the epoch taken when a preemption was requested before its
     last step (else ``None``)."""
@@ -196,16 +200,15 @@ def train_epoch(
         telemetry.finish_epoch(lambda hint: submit(boundary_idx, hint), step_hint)
         clock.fill(entries, (epoch - 1) * steps + start_step)
 
-    batches = loader.epoch(epoch, start_step)
+    batches = step_batches(loader, store, epoch, start_step, device)
     try:
         clock.mark()
-        for idx, (images_u8, labels) in enumerate(batches, start=start_step):
+        for idx, x, y in batches:
             gstep = state.step
             span = (tracing.span("first_step", track="main:compile", step=gstep)
                     if first_step_span and idx == start_step else contextlib.nullcontext())
             with span:
-                x = to_device(images_u8, device)
-                y = to_device(labels, device).long()
+                y = y.long()
                 images = augment_batch(generator, x, aug_cfg, process_index=mesh.rank(),
                                        process_count=mesh.world_size())
                 m = global_step_metrics(ce_step(state, images, y))
@@ -251,12 +254,15 @@ def _train(cfg: config_lib.LinearConfig) -> CEResult:
     telemetry = tb = tracer = None
     exit_exc = None
     preempt.install()
+    store = None
     try:
+        ensure_dataset_available(cfg.dataset, cfg.data_folder, cfg.download)
         train_data, test_data, cfg.n_cls = load_dataset(cfg.dataset, cfg.data_folder)
         loader = EpochLoader(
             train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
             process_index=mesh.rank(), process_count=mesh.world_size(),
         )
+        store = build_store(cfg, loader, device)  # before the model, as in pretraining
         state = build_ce(cfg, len(loader), device)
         logging.info("[conv_impl] 'eager': the CE model runs cuDNN convs and "
                      "nn.BatchNorm2d, as the JAX CE trainer runs XLA convs%s",
@@ -305,7 +311,7 @@ def _train(cfg: config_lib.LinearConfig) -> CEResult:
             with tracing.span("epoch", track="main:epoch", epoch=epoch):
                 train, stopped_at = train_epoch(
                     epoch, loader, state, aug_cfg, generator, cfg, device, history, telemetry,
-                    tracer, start_step=ss, first_step_span=epoch == start_epoch,
+                    tracer, start_step=ss, first_step_span=epoch == start_epoch, store=store,
                 )
             if stopped_at is not None:
                 exit_preempted(save(f"preempt_epoch_{epoch}_step_{stopped_at}.pth", epoch - 1,
@@ -342,6 +348,8 @@ def _train(cfg: config_lib.LinearConfig) -> CEResult:
         preempt.uninstall()
         if telemetry is not None:
             telemetry.close()
+        if store is not None:
+            store.close()
         if tracer is not None:
             tracer.close()
         if tb is not None:

@@ -44,6 +44,10 @@ step's loss and counts are the global batch's. Rank 0 alone logs and
 writes; a signal on any process stops all of them at one step
 (``preempt.requested_global``).
 
+The training batches follow ``--data_placement`` as in the pretrain
+driver (``train/supcon.build_store``; JAX ``train/linear.py:298-315``); the
+validation pass reads the host arrays.
+
 The probe keeps no full-state checkpoints: ``--resume`` is accepted and
 retrains from scratch. SIGTERM/SIGINT stop it after the step in flight; it
 saves the best classifier so far and exits 75. The run is on ``cuda``
@@ -65,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from simclr_pytorch_distributed_tpu_torch import config as config_lib
-from simclr_pytorch_distributed_tpu_torch.data.cifar import load_dataset
+from simclr_pytorch_distributed_tpu_torch.data.cifar import ensure_dataset_available, load_dataset
 from simclr_pytorch_distributed_tpu_torch.data.pipeline import EpochLoader
 from simclr_pytorch_distributed_tpu_torch.models import LinearClassifier, SupConResNet
 from simclr_pytorch_distributed_tpu_torch.ops.augment import (
@@ -80,9 +84,10 @@ from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
 from simclr_pytorch_distributed_tpu_torch.train.supcon import (
+    build_store,
     compute_dtype,
     resolve_device,
-    to_device,
+    step_batches,
 )
 from simclr_pytorch_distributed_tpu_torch.utils import preempt, tracing
 from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import (
@@ -252,11 +257,12 @@ def train_epoch(
     epoch: int, loader: EpochLoader, model: SupConResNet, state: TrainState,
     aug_cfg: AugmentConfig, generator: torch.Generator, cfg: config_lib.LinearConfig,
     device: torch.device, history: List[Dict[str, float]], telemetry: TelemetrySession,
-    tracer: Optional[StepTracer] = None, first_step_span: bool = False,
+    tracer: Optional[StepTracer] = None, first_step_span: bool = False, store=None,
 ) -> Tuple[Dict[str, float], bool]:
-    """One probe epoch through the metric ring. Returns ``(train meters,
-    preempted)``: the loss, top-1 and top-5 averages, and whether a signal
-    arrived (the epoch then stops after the step in flight)."""
+    """One probe epoch through the metric ring, its batches from ``store``
+    when there is one. Returns ``(train meters, preempted)``: the loss,
+    top-1 and top-5 averages, and whether a signal arrived (the epoch then
+    stops after the step in flight)."""
     bt, losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter(), AverageMeter()
     steps = len(loader)
     bsz = cfg.batch_size
@@ -285,16 +291,15 @@ def train_epoch(
         telemetry.flush_boundary(ring_buf, consume, batch_meter=bt, step_hint=step_hint)
 
     preempted = False
-    batches = loader.epoch(epoch)
+    batches = step_batches(loader, store, epoch, 0, device)
     try:
         clock.mark()
-        for idx, (images_u8, labels) in enumerate(batches):
+        for idx, x, y in batches:
             gstep = state.step
             span = (tracing.span("first_step", track="main:compile", step=gstep)
                     if first_step_span and idx == 0 else contextlib.nullcontext())
             with span:
-                x = to_device(images_u8, device)
-                y = to_device(labels, device).long()
+                y = y.long()
                 views = augment_batch(generator, x, aug_cfg, process_index=mesh.rank(),
                                       process_count=mesh.world_size())
                 m = global_step_metrics(probe_step(model, state, views, y))
@@ -343,12 +348,15 @@ def _probe(cfg: config_lib.LinearConfig) -> ProbeResult:
     exit_exc = None
     preempted = False
     preempt.install()
+    store = None
     try:
+        ensure_dataset_available(cfg.dataset, cfg.data_folder, cfg.download)
         train_data, test_data, cfg.n_cls = load_dataset(cfg.dataset, cfg.data_folder)
         loader = EpochLoader(
             train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
             process_index=mesh.rank(), process_count=mesh.world_size(),
         )
+        store = build_store(cfg, loader, device)  # before the model, as in pretraining
         model, state = build_probe(cfg, len(loader), device)
         collectives.broadcast_from_rank0(state.model)
         mean, std = stats_for(cfg.dataset)
@@ -372,7 +380,7 @@ def _probe(cfg: config_lib.LinearConfig) -> ProbeResult:
             with tracing.span("epoch", track="main:epoch", epoch=epoch):
                 train, preempted = train_epoch(
                     epoch, loader, model, state, aug_cfg, generator, cfg, device, history,
-                    telemetry, tracer, first_step_span=epoch == 1,
+                    telemetry, tracer, first_step_span=epoch == 1, store=store,
                 )
             if preempted:
                 tracing.event("preempt_exit", track="main:guard", epoch=epoch)
@@ -406,6 +414,8 @@ def _probe(cfg: config_lib.LinearConfig) -> ProbeResult:
         preempt.uninstall()
         if telemetry is not None:
             telemetry.close()
+        if store is not None:
+            store.close()
         if tracer is not None:
             tracer.close()
         if tb is not None:

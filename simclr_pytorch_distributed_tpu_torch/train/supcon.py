@@ -21,9 +21,7 @@ from rank 0's weights; rank 0 alone logs and writes checkpoints into its
 run folder, which every process adopts. The fused conv kernels stay
 single-process (:func:`resolve_conv_impl`).
 
-Loop: the host loader gathers a uint8 batch (prefetched on a thread) ->
-one copy to the device (from pinned memory on CUDA) -> two-crop
-augmentation on the device -> the train step (forward, loss, backward,
+Loop: the step's uint8 batch -> two-crop augmentation on the device -> the train step (forward, loss, backward,
 SGD) -> the step's metrics written into a row of the device-side metric
 ring, with no readback -> at each ``--print_freq`` boundary one snapshot of
 the ring handed to the telemetry flush (``utils/telemetry.py``: one
@@ -35,6 +33,20 @@ waits for the device only at flush boundaries, at epoch ends and in a
 process group's collectives (under a process group also in the per-step
 preemption vote). The run is on ``cuda`` unless ``--device cpu`` is given,
 and raises when CUDA is asked for and absent.
+
+Where the batch comes from is ``--data_placement`` (``data/device_store.py``,
+JAX ``train/supcon.py:717-735``), resolved before the model is built, so
+the budget reads the device's memory as the JAX package does: ``device``
+(a view of an epoch buffer gathered on the device, one index upload an
+epoch), ``window`` (a view of a window of batches, one upload a window,
+the next window staged on a thread) or ``host`` (the loader's batch,
+prefetched on a thread, copied each step through pinned memory);
+``auto`` walks device -> window -> host against the budget. The batches
+are the same bytes in every placement, so a run's history is too.
+``DT`` (data time) is the wait for the batch: under a store the window
+swap's blocking time. ``--dataset path`` reads an image tree
+(``data/folder.py``) normalized by ``--mean``/``--std``; CIFAR is fetched
+when absent unless ``--no_download``.
 
 Observability (JAX ``train/supcon.py:720-930``, ``utils/obs.py``): the
 flight recorder writes ``events.jsonl`` and, at the end, ``trace.json``
@@ -89,12 +101,13 @@ import os
 import time
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
 from simclr_pytorch_distributed_tpu_torch import config as config_lib
-from simclr_pytorch_distributed_tpu_torch.data.cifar import load_dataset
+from simclr_pytorch_distributed_tpu_torch.data import device_store
+from simclr_pytorch_distributed_tpu_torch.data.device_store import to_device
+from simclr_pytorch_distributed_tpu_torch.data.cifar import ensure_dataset_available, load_dataset
 from simclr_pytorch_distributed_tpu_torch.data.pipeline import EpochLoader
 from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
 from simclr_pytorch_distributed_tpu_torch.models.resnet import fused_site_plan
@@ -161,15 +174,6 @@ EXTRA_TB_TAGS = {
     **{k: "health/" + k[len("health_"):] for k in HEALTH_METRIC_KEYS},
     **{k: "probe/" + k[len("probe_"):] for k in ONLINE_PROBE_METRIC_KEYS},
 }
-
-
-def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host batch on ``device``: on CUDA through pinned memory, so the
-    copy is queued on the stream and the host does not wait for it."""
-    t = torch.from_numpy(array)
-    if device.type == "cuda":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -296,9 +300,52 @@ def resolve_conv_impl(
 def make_augment_config(cfg: config_lib.SupConConfig) -> AugmentConfig:
     if cfg.dataset in DATASET_STATS:
         mean, std = DATASET_STATS[cfg.dataset]
-    else:  # the synthetic sets
+    elif cfg.dataset.startswith("synthetic"):
         mean, std = (0.5, 0.5, 0.5), (0.25, 0.25, 0.25)
+    else:  # 'path': the user's strings (main_supcon.py:163-165, minus its std=eval(mean))
+        mean = tuple(float(x) for x in cfg.mean.strip("()").split(","))
+        std = tuple(float(x) for x in cfg.std.strip("()").split(","))
     return AugmentConfig(size=cfg.size, mean=mean, std=std)
+
+
+def dataset_options(cfg) -> dict:
+    """``load_dataset``'s keyword arguments beyond the dataset and folder:
+    a ``path`` tree's crop size, stored size and memmap threshold."""
+    if cfg.dataset != "path":
+        return {}
+    return {"size": cfg.size, "store_size": cfg.store_size,
+            "mmap_threshold_mb": cfg.mmap_threshold_mb}
+
+
+def build_store(cfg, loader: EpochLoader, device: torch.device):
+    """``--data_placement``'s store for ``loader`` on ``device``
+    (``data/device_store.make_store``), or ``None`` for the host loader."""
+    return device_store.make_store(
+        cfg.data_placement, loader, device,
+        budget_bytes=device_store.budget_override_bytes(cfg.device_budget_mb),
+        window_batches=cfg.data_window_batches,
+    )
+
+
+def step_batches(loader: EpochLoader, store, epoch: int, start_step: int,
+                 device: torch.device):
+    """``(idx, images_u8, labels)`` for the steps of ``epoch`` from
+    ``start_step`` on, as tensors on ``device``: views of the store's
+    buffers, or the loader's batches copied each step (:func:`to_device`).
+    The copy and the store's call run when the step asks for its batch, so
+    the caller's data-time meter reads their wait; a generator the caller
+    closes."""
+    loader.check_start_step(start_step)
+    if store is not None:
+        for idx in range(start_step, len(loader)):
+            yield (idx, *store.batch(epoch, idx))
+        return
+    batches = loader.epoch(epoch, start_step)
+    try:
+        for idx, (images_u8, labels) in enumerate(batches, start=start_step):
+            yield idx, to_device(images_u8, device), to_device(labels, device)
+    finally:
+        batches.close()
 
 
 def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.device):
@@ -372,7 +419,7 @@ def train_one_epoch(
     epoch: int, loader: EpochLoader, state: TrainState, step_cfg: SupConStepConfig,
     aug_cfg: AugmentConfig, generator: torch.Generator, cfg: config_lib.SupConConfig,
     device: torch.device, history: List[Dict[str, float]], hooks: EpochHooks,
-    start_step: int = 0, first_step_span: bool = False,
+    start_step: int = 0, first_step_span: bool = False, store=None,
 ) -> Optional[int]:
     """One epoch from its step ``start_step`` (reference ``train()``,
     ``main_supcon.py:242-351``; JAX ``train/supcon.py:464``).
@@ -386,7 +433,9 @@ def train_one_epoch(
     progress line. Returns the steps of the epoch taken when a preemption
     was requested before its last step, else ``None``; the flush is
     drained either way, and each entry of the epoch gets its
-    ``step_time``."""
+    ``step_time``. With a ``store`` (``data/device_store.py``) each step's
+    batch is a view of its buffers, and the loader only gives the
+    geometry."""
     telemetry = hooks.telemetry
     batch_time, data_time, losses = AverageMeter(), AverageMeter(), AverageMeter()
     steps = len(loader)
@@ -437,10 +486,10 @@ def train_one_epoch(
         clock.fill(entries, (epoch - 1) * steps + start_step)
 
     end = time.time()
-    batches = loader.epoch(epoch, start_step)
+    batches = step_batches(loader, store, epoch, start_step, device)
     try:
         clock.mark()
-        for idx, (images_u8, labels) in enumerate(batches, start=start_step):
+        for idx, images, labels_d in batches:
             data_time.update(time.time() - end)
             gstep = state.step
             span = (tracing.span("first_step", track="main:compile", step=gstep)
@@ -448,8 +497,6 @@ def train_one_epoch(
             with span:
                 # named ranges for a profiler window (utils/profiling.StepTracer)
                 with record_function("augment"):
-                    images = to_device(images_u8, device)
-                    labels_d = to_device(labels, device)
                     views = two_crop_batch(generator, images, aug_cfg,
                                            process_index=mesh.rank(),
                                            process_count=mesh.world_size())
@@ -531,12 +578,18 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
     telemetry = tb = tracer = None
     exit_exc = None
     preempt.install()
+    store = None
     try:
-        train_data, _, _ = load_dataset(cfg.dataset, cfg.data_folder)
+        ensure_dataset_available(cfg.dataset, cfg.data_folder, cfg.download)
+        train_data, _, _ = load_dataset(cfg.dataset, cfg.data_folder, **dataset_options(cfg))
         loader = EpochLoader(
             train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
             process_index=mesh.rank(), process_count=mesh.world_size(),
         )
+        # before the model, so the budget reads the device's free memory as
+        # the JAX driver's does; an explicit placement that cannot be met
+        # raises here, before step 1, on every process
+        store = build_store(cfg, loader, device)
         state, step_cfg = build(cfg, len(loader), device)
         if step_cfg.online_probe:
             n_cls = int(train_data["labels"].max()) + 1
@@ -607,6 +660,7 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
                     stopped_at = train_one_epoch(
                         epoch, loader, state, step_cfg, aug_cfg, generator, cfg, device,
                         history, hooks, start_step=ss, first_step_span=epoch == start_epoch,
+                        store=store,
                     )
             except NonFiniteLossError:
                 # step_in_epoch = ss: after a mid-epoch resume the backup
@@ -650,6 +704,9 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
         preempt.uninstall()
         if telemetry is not None:
             telemetry.close()
+        if store is not None:
+            # a staged window nobody reads must not hold up the exit
+            store.close()
         if tracer is not None:
             tracer.close()
         if tb is not None:

@@ -99,3 +99,20 @@ def test_the_scan_covers_the_observability_modules(module):
     path = PACKAGE / module
     assert path in _sources()
     assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+
+
+# the data layer: the JAX package's jax-free folder reader and CIFAR fetch
+# are copied, the device stores rewritten on torch
+DATA_MODULES = ("data/device_store.py", "data/folder.py", "data/cifar.py", "data/pipeline.py")
+
+
+@pytest.mark.parametrize("module", DATA_MODULES)
+def test_the_scan_covers_the_data_modules(module):
+    path = PACKAGE / module
+    assert path in _sources()
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+    # PIL only inside the decode, so that the package imports without it
+    top_level = ast.parse(path.read_text()).body
+    assert not [node for node in top_level if isinstance(node, (ast.Import, ast.ImportFrom))
+                and any(alias.name.split(".")[0] == "PIL" for alias in node.names)
+                or isinstance(node, ast.ImportFrom) and (node.module or "").startswith("PIL")]

@@ -20,6 +20,10 @@ here from numpy seeds, by functions the tests import too. The suites:
   health and online-probe columns of data-parallel steps (fused and ring
   loss).
 - ``ce``, for ``tests/test_torch_port_ce.py``: the CE driver.
+- ``placement``, for ``tests/test_torch_port_device_store.py``: the
+  placement ladder with a budget that differs between the processes, an
+  explicit ``device`` one process cannot meet, and the store ``make_store``
+  builds, whose batches each process returns.
 """
 
 import contextlib
@@ -37,6 +41,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
+from simclr_pytorch_distributed_tpu_torch.data import device_store  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.data.pipeline import EpochLoader  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.models import SupConResNet  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.models.norm import batch_norm  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import (  # noqa: E402
@@ -554,6 +560,48 @@ def ce_suite(rank, world, outdir):
     return {"ce": ce_summary(*ce_run(os.path.join(outdir, "ce")))}
 
 
+PLACEMENT_BATCH, PLACEMENT_WINDOW = 8, 2
+
+
+def placement_dataset():
+    """40 images of 8 px: 5 steps of :data:`PLACEMENT_BATCH`."""
+    rng = np.random.default_rng(1)
+    return (rng.integers(0, 256, (40, 8, 8, 3), dtype=np.uint8),
+            rng.integers(0, 10, 40).astype(np.int32))
+
+
+def placement_suite(rank, world, outdir):
+    """Rank 0's budget holds the resident store, the others' only the
+    window: 'auto' must give 'window' on every process, and 'device' raise
+    on every process. With a tiny budget on the others, 'auto' gives 'host'
+    everywhere."""
+    images, labels = placement_dataset()
+    b, w = PLACEMENT_BATCH, PLACEMENT_WINDOW
+    need_res = device_store.resident_bytes_per_device(images, labels, b, world)
+    need_win = device_store.windowed_bytes_per_device(images, labels, b, world, w)
+    own = need_res if rank == 0 else (need_res + need_win) // 2
+
+    def resolve(placement, budget):
+        return device_store.resolve_data_placement(placement, images, labels, b, world,
+                                                   budget_bytes=budget, window_batches=w)
+
+    out = {"auto_mixed": resolve("auto", own),
+           "auto_host": resolve("auto", need_res if rank == 0 else 10)}
+    try:
+        resolve("device", own)
+        out["device_error"] = ""
+    except ValueError as e:
+        out["device_error"] = str(e)
+    loader = EpochLoader(images, labels, b, base_seed=2, process_index=rank,
+                         process_count=world)
+    store = device_store.make_store("auto", loader, torch.device("cpu"), own, w)
+    out["store"] = type(store).__name__
+    out["batches"] = [tuple(t.numpy().copy() for t in store.batch(epoch, idx))
+                      for epoch in (1, 2) for idx in range(len(loader))]
+    store.close()
+    return out
+
+
 def spawn(world, outdir, suite, arg="", wall_limit=300):
     """Run ``world`` processes of ``suite`` to the end (one thread each) and
     return their results, rank by rank; a failed or overrunning process
@@ -596,6 +644,8 @@ def main(rank, world, outdir, suite="parallel", arg=""):
         results = telemetry_suite(rank, world, outdir)
     elif suite == "ce":
         results = ce_suite(rank, world, outdir)
+    elif suite == "placement":
+        results = placement_suite(rank, world, outdir)
     else:
         raise ValueError(f"unknown suite {suite!r}")
     results["writes"] = list(writes)
