@@ -81,8 +81,18 @@ verdicts and an explicit placement over its budget stopping before step
 ``device``, bitwise their host runs; and the step times, data waits and
 window swaps of ResNet-50 fp32 and ResNet-18 bf16 under the three
 placements.
+Then the SSL recipes (``recipes``): supcon, simclr, byol, simsiam, vicreg
+and simclr with a MoCo queue through the entry point at ResNet-50 fp32
+fused width (and byol under ``--bf16``), their launches (the EMA network's
+second forward, the loss kernels only for the contrastive recipes), no host
+sync, simclr bitwise the train phase's run and the step's inline path, one
+fused-vs-eager step of each at the train phase's pins, ResNet-18 byol and
+queue runs SIGTERM'd and resumed bitwise, a two-process byol step against
+one process, the accuracy arms of the JAX package's ``recipes_eval.py``
+and the collapse arm's exit 3, and the native host gather on the card's
+host.
 Phases: device, build, kernel_parity, train, probe, resume, distributed,
-large_batch, observability, ce, placement, timing. Any failure raises and
+large_batch, observability, ce, placement, recipes, timing. Any failure raises and
 the script exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
@@ -174,6 +184,19 @@ MARGIN = 8.0
 STEP_UPDATE_REL_L2 = 5e-2
 STEP_BUF_TOL = 1e-4
 MARGIN_EXEMPT = {"fused_bottleneck_bwd": ("db2",), "fused_bottleneck_bwd_bf16": ("db2",)}
+# Recipes whose loss does not change when the same vector is added to every
+# projection row: BYOL and SimSiam normalize the predictor's hidden layer
+# over the batch, and VICReg's terms are differences, variances and
+# centred covariances. The gradient of the projection head's last bias is
+# then zero, its update is weight decay plus rounding, and its bf16 reading
+# measures rounding over a zero, as MARGIN_EXEMPT's db2 does. The bf16 step
+# check leaves it out of the update pins and holds instead, in its float64
+# arm, its gradient's norm to SHIFT_INVARIANT_REL of the same layer's
+# weight gradient.
+SHIFT_INVARIANT = {name: ("head.2.bias",) for name in ("byol", "simsiam", "vicreg")}
+SHIFT_INVARIANT_REL = 1e-3
+# the step checks' learning rate and SGD weight decay (make_optimizer's)
+STEP_LR, STEP_WD = 0.5, 1e-4
 # the fused_conv launch counters, one per entry point and compute dtype
 CONV_COUNTERS = tuple(f"{kind}_{d}_launches" for kind in ("stem", "basic", "proj", "bottleneck")
                       for d in ("fwd", "bwd"))
@@ -1264,19 +1287,47 @@ def train_epochs(model, workdir, expected, banner_sites, bf16=False):
     return result, supcon.main(eager_argv), launches
 
 
-def step_check(name, model, views, labels):
+def attach_recipe(state, recipe):
+    """Attach the recipe of the ``SupConConfig`` overrides ``recipe`` (a
+    dict; ``None`` leaves the step's inline path) and its slots to
+    ``state``, as the driver does at the recipe's width (batch 256).
+    Returns ``(method, loss_impl)`` for the step: the recipe's method, and
+    the dense loss under the MoCo queue, else the fused one."""
+    if recipe is None:
+        return "SimCLR", "fused"
+    from simclr_pytorch_distributed_tpu_torch import config as config_lib
+    from simclr_pytorch_distributed_tpu_torch import recipes
+    cfg = config_lib.SupConConfig(batch_size=256, **recipe)
+    config_lib.validate_recipe(cfg)
+    recipes.attach_for_config(cfg, state)
+    return cfg.method, "dense" if cfg.moco_queue else "fused"
+
+
+def with_predictor(state, tensors):
+    """``tensors`` (a model's state dict) with the recipe predictor's
+    parameters beside them as ``predictor.<name>``, in float64."""
+    out = {k: v.double() if v.is_floating_point() else v for k, v in tensors.items()}
+    if state.recipe_params is not None:
+        out.update({f"predictor.{k}": v.detach().double()
+                    for k, v in state.recipe_params.state_dict().items()})
+    return out
+
+
+def step_check(name, model, views, labels, recipe=None):
     """One train step of ``model`` (called ``name`` in the printout) from
     one init on one batch, eager against fused conv
     (both fp32, fused loss), beside the eager step in float64 (dense loss)
     as the yardstick of fp32 noise. Binds the loss (rel 1e-4), each
     parameter's update in relative L2 (``STEP_UPDATE_REL_L2``) and the BN
-    buffers (``STEP_BUF_TOL``); prints the float64 readings."""
+    buffers (``STEP_BUF_TOL``); prints the float64 readings. With
+    ``recipe`` (:func:`attach_recipe`) the step goes through that recipe,
+    and its predictor's parameters are held with the model's."""
     from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
     from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
         SupConStepConfig,
         train_step,
     )
-    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    init = None
     params = {k for k, _ in model.named_parameters()}
     losses, states = {}, {}
     for impl, dtype, loss_impl in (("eager", torch.float32, "fused"),
@@ -1285,10 +1336,15 @@ def step_check(name, model, views, labels):
         m = copy.deepcopy(model).to(dtype)
         m.encoder.set_conv_impl(impl[:5])
         st = TrainState(model=m, optimizer=make_optimizer(m), schedule=lambda s: 0.5)
-        cfg = SupConStepConfig(temperature=TEMP, loss_impl=loss_impl, epochs=1, steps_per_epoch=7)
+        method, recipe_loss = attach_recipe(st, recipe)
+        if init is None:
+            init = with_predictor(st, m.state_dict())
+            params |= {k for k in init if k.startswith("predictor.")}
+        cfg = SupConStepConfig(method=method, temperature=TEMP,
+                               loss_impl="dense" if dtype == torch.float64 else recipe_loss,
+                               epochs=1, steps_per_epoch=7)
         losses[impl] = train_step(st, cfg, views.to(dtype), labels)["loss"].item()
-        states[impl] = {k: v.double() if v.is_floating_point() else v
-                        for k, v in m.state_dict().items()}
+        states[impl] = with_predictor(st, m.state_dict())
         del m, st
         torch.cuda.empty_cache()
     rel = abs(losses["fused"] - losses["eager"]) / abs(losses["eager"])
@@ -1299,8 +1355,8 @@ def step_check(name, model, views, labels):
         failures.append(f"eager and fused conv step losses differ by {rel}")
 
     def update_err(impl, ref, key):
-        upd = ref[key] - init[key].double()
-        return ((states[impl][key] - init[key].double() - upd).norm() / upd.norm()).item()
+        upd = ref[key] - init[key]
+        return ((states[impl][key] - init[key] - upd).norm() / upd.norm()).item()
 
     worst = {}
     for impl, ref in (("fused", "eager"), ("fused", "eager64"), ("eager", "eager64")):
@@ -1331,7 +1387,7 @@ def step_check(name, model, views, labels):
         raise AssertionError(f"{name} eager-vs-fused step:\n" + "\n".join(failures))
 
 
-def step_check_bf16(name, model, views, labels):
+def step_check_bf16(name, model, views, labels, recipe=None):
     """One train step of ``model`` under ``--bf16`` from one init (the
     model's, each residual branch's last BN gamma scaled by
     ``BRANCH_GAMMA``) on one batch, eager and fused conv (fused loss), each
@@ -1343,7 +1399,9 @@ def step_check_bf16(name, model, views, labels):
     exactly). The two bf16 paths round at other points (eager rounds each
     conv's output before BN, fused keeps the pre-BN y in fp32), so neither
     is held against the other. The fused bf16 step must launch the bf16
-    conv kernels and no fp32 one."""
+    conv kernels and no fp32 one. With ``recipe`` (:func:`attach_recipe`)
+    the step goes through that recipe, and its predictor's parameters
+    (fp32 in every arm) are held with the model's."""
     from simclr_pytorch_distributed_tpu_torch.models.resnet import BasicBlock, Bottleneck
     from simclr_pytorch_distributed_tpu_torch.ops import fused_conv
     from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
@@ -1357,7 +1415,7 @@ def step_check_bf16(name, model, views, labels):
             if isinstance(block, (BasicBlock, Bottleneck)):
                 (block.bn3 if isinstance(block, Bottleneck) else block.bn2).weight.mul_(
                     BRANCH_GAMMA)
-    init = {k: v.detach().clone().double() for k, v in model.state_dict().items()}
+    init = None
     params = sorted(k for k, _ in model.named_parameters())
     losses, states = {}, {}
     for tag, impl, dtype in (("fp32 eager", "eager", torch.float32),
@@ -1368,23 +1426,39 @@ def step_check_bf16(name, model, views, labels):
         m.encoder.set_conv_impl(impl)
         if dtype != torch.float64:
             m.encoder.set_compute_dtype(dtype)
-        st = TrainState(model=m, optimizer=make_optimizer(m), schedule=lambda s: 0.5)
-        cfg = SupConStepConfig(temperature=TEMP, epochs=1, steps_per_epoch=7,
-                               loss_impl="dense" if dtype == torch.float64 else "fused")
+        st = TrainState(model=m, optimizer=make_optimizer(m, weight_decay=STEP_WD),
+                        schedule=lambda s: STEP_LR)
+        method, recipe_loss = attach_recipe(st, recipe)
+        if init is None:
+            init = with_predictor(st, m.state_dict())
+            params += sorted(k for k in init if k.startswith("predictor."))
+        cfg = SupConStepConfig(method=method, temperature=TEMP, epochs=1, steps_per_epoch=7,
+                               loss_impl="dense" if dtype == torch.float64 else recipe_loss)
         before = {c: getattr(fused_conv, c) for c in CONV_COUNTERS + BF16_COUNTERS}
         losses[tag] = train_step(st, cfg, views.to(m.encoder.conv1.weight.dtype),
                                  labels)["loss"].item()
         ran = {c for c in before if getattr(fused_conv, c) != before[c]}
-        kinds = ("stem", "bottleneck") if name == "resnet50" else ("stem", "basic", "proj")
+        kinds = (("stem", "bottleneck") if any(isinstance(b, Bottleneck) for b in m.modules())
+                 else ("stem", "basic", "proj"))
         want = {c for c in BF16_COUNTERS if c.split("_")[0] in kinds}
         if ran != (want if impl == "fused" else set()):
             raise AssertionError(f"{name} {tag} step launched {sorted(ran)}")
-        states[tag] = {k: v.double() if v.is_floating_point() else v
-                       for k, v in m.state_dict().items()}
+        states[tag] = with_predictor(st, m.state_dict())
         del m, st
         torch.cuda.empty_cache()
     ref = states["fp32 eager"]
     failures = []
+    exempt = SHIFT_INVARIANT.get((recipe or {}).get("recipe"), ())
+    for key in exempt:
+        # the first SGD step: update = -lr (g + wd p), so g from the update
+        def grad(k):
+            return -(states["float64 eager"][k] - init[k]) / STEP_LR - STEP_WD * init[k]
+        ratio = (grad(key).norm() / grad(key.replace("bias", "weight")).norm()).item()
+        print(f"{name} {key}: the loss is shift-invariant, so its gradient is zero: float64 "
+              f"arm |g| / |g of the layer's weight| {ratio:.3e} (bound {SHIFT_INVARIANT_REL}); "
+              f"left out of the bf16 update pins")
+        if not ratio <= SHIFT_INVARIANT_REL:
+            failures.append(f"{key}: gradient {ratio:.3e} of the weight's, not zero")
     for tag in ("bf16 eager", "bf16 fused", "float64 eager"):
         rel = abs(losses[tag] - losses["fp32 eager"]) / abs(losses["fp32 eager"])
         print(f"{name} one step loss {tag} {losses[tag]!r} vs fp32 eager "
@@ -1393,20 +1467,24 @@ def step_check_bf16(name, model, views, labels):
         for key in params:
             got, want = states[tag][key] - init[key], ref[key] - init[key]
             upd[key] = bf16_measure(got, want) + (rel_l2(got, want),)
-        worst = min(params, key=lambda k: upd[k][1])
-        widest = max(params, key=lambda k: upd[k][0])
-        print(f"{name} step update, {tag} vs fp32 eager over {len(params)} parameters: "
+        pinned = [k for k in params if k not in exempt]
+        worst = min(pinned, key=lambda k: upd[k][1])
+        widest = max(pinned, key=lambda k: upd[k][0])
+        print(f"{name} step update, {tag} vs fp32 eager over {len(pinned)} parameters: "
               f"cosine lowest {upd[worst][1]:.6f} at {worst}, median "
-              f"{statistics.median(u[1] for u in upd.values()):.6f}; scaled max error largest "
+              f"{statistics.median(upd[k][1] for k in pinned):.6f}; scaled max error largest "
               f"{upd[widest][0]:.3e} at {widest}; relative L2 median "
-              f"{statistics.median(u[2] for u in upd.values()):.3e} (bounds cosine >= "
-              f"{BF16_GRAD_COS}, scaled <= {BF16_GRAD_SCALED})")
+              f"{statistics.median(upd[k][2] for k in pinned):.3e} (bounds cosine >= "
+              f"{BF16_GRAD_COS}, scaled <= {BF16_GRAD_SCALED})"
+              + "".join(f"; {k} (left out) cosine {upd[k][1]:.6f}, scaled {upd[k][0]:.3e}"
+                        for k in exempt))
         if tag == "float64 eager":  # a reading of the step's conditioning
             continue
         if not rel <= BF16_VAL_SCALED:
             failures.append(f"{tag} loss rel diff {rel}")
         failures += [f"{tag} update {k}: scaled {u[0]:.3e} cos {u[1]:.6f}"
-                     for k, u in upd.items() if not bf16_ok("grad", u[0], u[1])]
+                     for k, u in upd.items() if not bf16_ok("grad", u[0], u[1])
+                     and k not in exempt]
         buf_worst = (0.0, None)
         for key, r in ref.items():
             if key in params:
@@ -3265,6 +3343,413 @@ def placement_phase(workdir, result, rn50_expected, resume_ref, probe_ref, ce_re
         raise AssertionError("placement:\n" + "\n".join(failures))
 
 
+# The recipes phase: every SSL recipe through the pretraining entry point at
+# the recipe's width (rn50 fp32 fused, batch 256, 32 px, the dataset on the
+# card), then its checks. (label, extra arguments) of each run; the queue's
+# K is a multiple of 2 x 256 and takes the dense loss.
+RECIPE_QUEUE = 2048
+RECIPE_RUNS = (
+    ("supcon", ["--recipe", "supcon"]),
+    ("simclr", ["--recipe", "simclr"]),
+    ("byol", ["--recipe", "byol"]),
+    ("simsiam", ["--recipe", "simsiam"]),
+    ("vicreg", ["--recipe", "vicreg"]),
+    ("simclr+queue", ["--recipe", "simclr", "--moco_queue", str(RECIPE_QUEUE),
+                      "--loss_impl", "dense"]),
+)
+# the SupConConfig overrides of the same recipes, for the one-step checks
+RECIPE_STEP_OVERRIDES = {
+    "supcon": {"recipe": "supcon"}, "simclr": {"recipe": "simclr"},
+    "byol": {"recipe": "byol"}, "simsiam": {"recipe": "simsiam"},
+    "vicreg": {"recipe": "vicreg"},
+    "simclr+queue": {"recipe": "simclr", "moco_queue": RECIPE_QUEUE},
+}
+# The accuracy arms of the JAX package's scripts/recipes_eval.py (rn10,
+# synthetic, batch 64, 16 px, 2 epochs, lr 0.05 cosine, temp 0.5,
+# --predictor_hidden 128, --print_freq 5, the health stream every 2nd step
+# and the online probe on), with
+# the JAX package's CPU figures (docs/evidence/recipes_r12.json: the best
+# windowed probe top-1) and its bar (scripts/ratchet.py:286-292).
+RECIPE_ACCURACY_ARMS = (
+    ("supcon", ["--recipe", "supcon"], 50.585938),
+    ("byol", ["--recipe", "byol"], 46.09375),
+    ("simsiam", ["--recipe", "simsiam"], 45.410156),
+    ("vicreg", ["--recipe", "vicreg"], 49.121094),
+    ("simclr_queue", ["--recipe", "simclr", "--moco_queue", "256"], 47.753906),
+)
+RECIPE_PROBE_BAR = 20.0
+ACCURACY_ARGV = [
+    "--device", "cuda", "--dataset", "synthetic", "--model", "resnet10", "--batch_size", "64",
+    "--size", "16", "--epochs", "2", "--learning_rate", "0.05", "--cosine", "--temp", "0.5",
+    "--method", "SimCLR", "--print_freq", "5", "--save_freq", "2", "--telemetry", "sync",
+    "--predictor_hidden", "128", "--online_probe", "on", "--health_freq", "2",
+]
+
+
+def recipe_expected(expected, extra):
+    """The launches of one 7-step epoch of a recipe run with ``extra``, from
+    the simclr run's ``expected``: the loss kernels only for the
+    contrastive recipes without a queue, and every conv forward twice for
+    BYOL and the queue (their EMA network's gradient-free forward)."""
+    out = dict(expected)
+    contrastive = extra[1] in ("supcon", "simclr") and "--moco_queue" not in extra
+    if not contrastive:
+        out.update(fwd_launches=0, bwd_launches=0)
+    if extra[1] == "byol" or "--moco_queue" in extra:
+        for name in CONV_COUNTERS + BF16_COUNTERS:
+            if "_fwd_" in name:
+                out[name] *= 2
+    return out
+
+
+def same_slots(name, got, want, phase):
+    """Raises unless two runs' recipe slots are bitwise equal: the
+    predictor's parameters and momentum, the EMA network's parameters, the
+    queue and its pointer."""
+    def flat(state):
+        out = {}
+        if state.recipe_params is not None:
+            out.update({f"predictor.{k}": v for k, v in state.recipe_params.state_dict().items()})
+            for i, buf in state.recipe_opt_state.state_dict()["state"].items():
+                out[f"predictor.momentum.{i}"] = buf["momentum_buffer"]
+        for key, value in (state.recipe_state or {}).items():
+            if isinstance(value, torch.nn.Module):
+                out.update({f"{key}.{k}": p for k, p in value.named_parameters()})
+            else:
+                out[key] = value
+        return out
+    a, b = flat(got), flat(want)
+    bad = sorted(set(a) ^ set(b)) + [
+        k for k in b if k in a and not (torch.equal(a[k], b[k]) if torch.is_tensor(b[k])
+                                        else a[k] == b[k])]
+    print(f"{phase}: {name}: {len(b)} recipe slot tensors and entries "
+          + ("bitwise equal" if not bad else f"{len(bad)} differ"))
+    if bad:
+        raise AssertionError(f"{phase}: {name}: recipe slots differ: {bad[:8]}")
+
+
+def recipe_gloo_rank(rank, world, outdir):
+    """One process of the recipes phase's data-parallel check: process
+    ``rank`` of ``world`` on the one card over gloo, one BYOL step of
+    ResNet-50 at the recipe's width with ``--syncBN`` and eager convs on its
+    slice of the global batch of 256. Writes its model, predictor and
+    target after the step and its loss into ``outdir``."""
+    import datetime
+    import torch.distributed as dist
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        SupConStepConfig,
+        train_step,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh.setup_distributed("cuda", init_method=f"file://{os.path.join(outdir, 'store')}",
+                           rank=rank, world_size=world, backend="gloo",
+                           timeout=datetime.timedelta(seconds=300))
+    _, labels, _, views = recipe_batch(dev)
+    b = views.shape[0] // world
+    torch.manual_seed(0)
+    model = SupConResNet("resnet50").to(dev, memory_format=torch.channels_last)
+    model.encoder.set_conv_impl("eager").set_bn_sync(dist.group.WORLD)
+    state = TrainState(model=model, optimizer=make_optimizer(model), schedule=lambda s: 0.5)
+    method, loss_impl = attach_recipe(state, {"recipe": "byol"})
+    cfg = SupConStepConfig(method=method, temperature=TEMP, loss_impl=loss_impl, epochs=1,
+                           steps_per_epoch=7)
+    loss = train_step(state, cfg, views[rank * b:(rank + 1) * b],
+                      labels[rank * b:(rank + 1) * b])["loss"].item()
+    out = with_predictor(state, model.state_dict())
+    out.update({f"target.{k}": p.detach().double()
+                for k, p in state.recipe_state["target"].named_parameters()})
+    torch.save({k: v.cpu() for k, v in out.items()}, os.path.join(outdir, f"state{rank}.pt"))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json.dump({"loss": loss}, fh)
+    mesh.teardown_distributed()
+
+
+def recipe_runs(workdir, result, rn50_expected, rn50_bf16_expected, failures, where):
+    """The recipes phase's (a) (:func:`recipes_phase`); appends to
+    ``failures``."""
+    from simclr_pytorch_distributed_tpu_torch.data.device_store import DeviceStore
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    counters = kernel_counters()
+
+    def driven(label, argv, want):
+        for mod, counter in counters:
+            setattr(mod, counter, 0)
+        with SyncGuard([(DeviceStore, "batch")]) as guard:
+            run = supcon.main(argv)
+        launches = {counter: getattr(mod, counter) for mod, counter in counters}
+        log, events = run_log(run)
+        losses = [h["loss"] for h in run.history]
+        banner = next((ln for ln in log.splitlines() if "[conv_impl]" in ln), "")
+        sites = banner.count("[bottleneck]") + ("stem 3->64@32x32" in banner)
+        ms = statistics.median(h["step_time"] for h in run.history[2:7]) * 1e3
+        print(f"recipes (a) {label}: losses {[round(x, 4) for x in losses]}; launches "
+              f"{'as expected' if launches == want else launches}; fused sites {sites} of 17; "
+              f"{guard.guarded_steps} steps guarded, no host sync; {guard.fetches} ring "
+              f"transfers; step median of 3-7 {ms:.2f} ms {where}")
+        if len(losses) != 7 or not all(map(math.isfinite, losses)):
+            failures.append(f"(a) {label}: losses {losses}")
+        if launches != want:
+            failures.append(f"(a) {label}: launches {launches}, expected {want}")
+        if sites != 17:
+            failures.append(f"(a) {label}: {sites} fused sites in '{banner}'")
+        if guard.guarded_steps != 7 or guard.fetches != 7:
+            failures.append(f"(a) {label}: {guard.guarded_steps} guarded steps, "
+                            f"{guard.fetches} transfers")
+        if not any(e.get("name") == "run_recipe" for e in events):
+            failures.append(f"(a) {label}: no run_recipe event")
+        return run, ms
+
+    step_ms = {}
+    simclr_run = None
+    for label, extra in RECIPE_RUNS:
+        argv = with_placement(recipe_argv("resnet50", workdir), "device", *extra)
+        run, step_ms[label] = driven(label, argv, recipe_expected(rn50_expected, extra))
+        if label == "simclr":
+            simclr_run = run
+        del run
+    run, step_ms["byol bf16"] = driven(
+        "byol --bf16", with_placement(recipe_argv("resnet50", workdir, True), "device",
+                                      "--recipe", "byol"),
+        recipe_expected(rn50_bf16_expected, ["--recipe", "byol"]))
+    del run
+    attach = supcon.attach_for_config
+
+    def inline(cfg, state):  # the step's inline path: no recipe on the state
+        state, recipe = attach(cfg, state)
+        state.recipe = None
+        return state, recipe
+
+    supcon.attach_for_config = inline
+    try:
+        control = supcon.main(with_placement(recipe_argv("resnet50", workdir), "device",
+                                             "--recipe", "simclr"))
+    finally:
+        supcon.attach_for_config = attach
+    for other, tag in ((control, "the run with no recipe on the state"),
+                       (result, "the train phase's host run")):
+        same = history_equal(simclr_run.history, other.history)
+        differ = same_tensors(simclr_run.state.model.state_dict(), other.state.model.state_dict())
+        print(f"recipes (a) --recipe simclr vs {tag}: history "
+              f"{'bitwise equal' if same else 'DIFFERS'}, final tensors "
+              f"{'bitwise equal' if not differ else f'{len(differ)} differ'}")
+        if not same or differ:
+            failures.append(f"(a) --recipe simclr is not bitwise {tag}")
+    ckpt = torch.load(os.path.join(simclr_run.save_folder, "last.pth"), map_location="cpu",
+                      weights_only=True)
+    if "recipe" in ckpt:
+        failures.append("(a) the simclr recipe's checkpoint holds a recipe payload")
+    del control, simclr_run, ckpt
+    print("recipes (a) step times, median of steps 3-7, ResNet-50 fp32 fused (byol also "
+          "--bf16): " + ", ".join(f"{k} {v:.2f} ms" for k, v in step_ms.items())
+          + "; over simclr: " + ", ".join(f"{k} {v / step_ms['simclr']:.3f}x"
+                                           for k, v in step_ms.items()) + f" {where}")
+    torch.cuda.empty_cache()
+
+
+def recipe_step_checks(model, views, labels, failures):
+    """The recipes phase's (b): one fused-vs-eager step of each recipe in
+    fp32 and bf16."""
+    for label, over in RECIPE_STEP_OVERRIDES.items():
+        try:
+            step_check(f"recipes (b) resnet50 {label}", model, views, labels, recipe=over)
+            step_check_bf16(f"recipes (b) resnet50 {label}", model, views, labels, recipe=over)
+        except AssertionError as e:
+            failures.append(f"(b) {label}: {e}")
+        torch.cuda.empty_cache()
+
+
+def recipe_resumes(workdir, failures):
+    """The recipes phase's (c): ResNet-18 byol and queue runs SIGTERM'd
+    after step 3 and resumed, against the straight runs."""
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    for label, extra in (("byol", ["--recipe", "byol"]),
+                         ("simclr+queue", ["--recipe", "simclr", "--moco_queue", "512",
+                                           "--loss_impl", "dense"])):
+        straight = supcon.main(resume_argv(workdir, 2, *extra))
+        want = [h["loss"] for h in straight.history]
+        code, saved, child_losses = sigterm_after_step3(RESUME_CHILD,
+                                                        resume_argv(workdir, 2, *extra),
+                                                        workdir, f"recipe_{label}")
+        print(f"recipes (c) resnet18 {label}: the SIGTERM'd run exited {code}, saved "
+              f"{[os.path.basename(p) for p in saved]}")
+        if code != 75 or [os.path.basename(p) for p in saved] != ["preempt_epoch_1_step_3.pth"]:
+            failures.append(f"(c) {label}: the SIGTERM'd run exited {code} with {saved}")
+            continue
+        again = supcon.main(resume_argv(workdir, 2, *extra, "--resume",
+                                        os.path.dirname(saved[0])))
+        try:
+            same_run(f"{label}: SIGTERM after step 3, then --resume", again,
+                     child_losses + [h["loss"] for h in again.history], straight, want,
+                     phase="recipes (c)")
+            same_slots(label, again.state, straight.state, "recipes (c)")
+        except AssertionError as e:
+            failures.append(f"(c) {e}")
+        del straight, again
+
+
+def recipe_data_parallel(workdir, model, views, labels, failures):
+    """The recipes phase's (d): two gloo processes' BYOL step against one
+    process on the global batch."""
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        SupConStepConfig,
+        train_step,
+    )
+    outdir = tempfile.mkdtemp(prefix="recipe_gloo_", dir=workdir)
+    ranks = run_gloo_ranks(outdir, target="recipe_gloo_rank", label="recipes (d)")
+    states = [torch.load(os.path.join(outdir, f"state{r}.pt"), map_location="cpu",
+                         weights_only=True) for r in range(GLOO_WORLD)]
+    bad = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    m = copy.deepcopy(model)
+    m.encoder.set_conv_impl("eager")
+    init = {k: v.detach().double().cpu() for k, v in m.state_dict().items()}
+    st = TrainState(model=m, optimizer=make_optimizer(m), schedule=lambda s: 0.5)
+    method, loss_impl = attach_recipe(st, {"recipe": "byol"})
+    init.update({k: v.cpu() for k, v in with_predictor(st, {}).items()})
+    init.update({f"target.{k}": p.detach().double().cpu()
+                 for k, p in st.recipe_state["target"].named_parameters()})
+    cfg = SupConStepConfig(method=method, temperature=TEMP, loss_impl=loss_impl, epochs=1,
+                           steps_per_epoch=7)
+    ref_loss = train_step(st, cfg, views, labels)["loss"].item()
+    ref = {k: v.cpu() for k, v in with_predictor(st, m.state_dict()).items()}
+    ref.update({f"target.{k}": p.detach().double().cpu()
+                for k, p in st.recipe_state["target"].named_parameters()})
+    params = {k for k, _ in m.named_parameters()} | {
+        k for k in ref if k.startswith(("predictor.", "target."))}
+    del m, st
+    torch.cuda.empty_cache()
+    rel = abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss)
+    upd_err, buf_worst = [], (0.0, None)
+    for key, want in ref.items():
+        got = states[0][key]
+        if key in params:
+            upd = want - init[key]
+            err = ((got.double() - init[key]) - upd).norm() / upd.norm()
+            upd_err.append((err.item(), key))
+        elif want.is_floating_point():
+            buf_worst = max(buf_worst, ((got.double() - want).abs().max().item(), key))
+            if ((got.double() - want).abs() - STEP_BUF_TOL * (1 + want.abs())).max() > 0:
+                failures.append(f"(d) buffer {key} off by more than rtol/atol {STEP_BUF_TOL}")
+    worst = max(upd_err)
+    for part in ("predictor.", "target."):
+        part_worst = max(e for e in upd_err if e[1].startswith(part))
+        print(f"recipes (d) byol, {GLOO_WORLD} processes (gloo, --syncBN) vs one on the global "
+              f"batch: {part[:-1]} update relative L2 worst {part_worst[0]:.3e} at "
+              f"{part_worst[1]}")
+    print(f"recipes (d) byol: losses {[r['loss'] for r in ranks]} vs {ref_loss!r}, rel diff "
+          f"{rel:.3e} (bound 1e-4); update relative L2 worst {worst[0]:.3e} at {worst[1]}, "
+          f"median {statistics.median(e for e, _ in upd_err):.3e} over {len(upd_err)} parameters "
+          f"(bound {STEP_UPDATE_REL_L2}); BN buffers max abs diff {buf_worst[0]:.3e} (bound "
+          f"rtol/atol {STEP_BUF_TOL}); rank 1 equal to rank 0 on {len(states[0]) - len(bad)} "
+          f"of {len(states[0])} tensors")
+    if bad or not rel <= 1e-4 or not worst[0] <= STEP_UPDATE_REL_L2:
+        failures.append(f"(d): ranks differ {bad[:4]}, loss rel {rel}, worst update {worst}")
+
+
+def recipe_accuracy(workdir, failures, where):
+    """The recipes phase's (e): the accuracy arms and the collapse arm."""
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    for arm, extra, jax_cpu in RECIPE_ACCURACY_ARMS:
+        argv = ACCURACY_ARGV + ["--workdir", tempfile.mkdtemp(prefix=f"acc_{arm}_", dir=workdir)]
+        run = supcon.main(argv + extra)
+        _, events = run_log(run)
+        windows = [e["args"] for e in events if e.get("name") == "health_window"]
+        top1 = [w["probe_top1"] for w in windows if "probe_top1" in w]
+        alarms = sum(e.get("name") == "health_alarm" for e in events)
+        best = max(top1) if top1 else float("nan")
+        print(f"recipes (e) accuracy {arm}: best windowed probe top-1 {best:.2f} over "
+              f"{len(top1)} windows (first {top1[0] if top1 else None}, last "
+              f"{top1[-1] if top1 else None}), {alarms} collapse alarms; the JAX package's CPU "
+              f"figure {jax_cpu:.2f}; bar {RECIPE_PROBE_BAR} {where}")
+        if not best > RECIPE_PROBE_BAR or alarms:
+            failures.append(f"(e) {arm}: best probe top-1 {best}, {alarms} alarms")
+        del run
+    argv = ACCURACY_ARGV + ["--workdir", tempfile.mkdtemp(prefix="acc_collapse_", dir=workdir),
+                            "--recipe", "byol", "--byol_predictor", "none",
+                            "--health_policy", "abort"]
+    try:
+        supcon.main(argv)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    print(f"recipes (e) byol --byol_predictor none --health_policy abort: exit code {code} "
+          f"(expected 3)")
+    if code != 3:
+        failures.append(f"(e) the ablated byol exited {code}, not 3")
+
+
+def recipe_native_gather(workdir, failures, where):
+    """The recipes phase's (f): the native gather on the card's host."""
+    from simclr_pytorch_distributed_tpu_torch.data import native_gather
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    lib = native_gather.load()
+    print(f"recipes (f) native gather: {native_gather.library_path() if lib else 'NOT LOADED'}")
+    if lib is None:
+        failures.append("(f) the native gather did not load")
+    for placement, extra in (("host", []), ("window", ["--data_window_batches",
+                                                       str(PLACEMENT_WINDOW)])):
+        native_gather.native_calls = 0
+        with BatchWait() as wait:
+            run = supcon.main(with_placement(recipe_argv("resnet50", workdir), placement, *extra))
+        calls = native_gather.native_calls
+        dts = [w * 1e3 for w in wait.waits]
+        print(f"recipes (f) resnet50 fp32 fused --data_placement {placement}: {calls} native "
+              f"gathers; DT (wait for the batch) median of steps 3-7 "
+              f"{statistics.median(dts[2:7]):.3f} ms, all {[round(d, 3) for d in dts]} {where}")
+        if not calls > 0:
+            failures.append(f"(f) {placement}: no native gather")
+        del run
+
+
+def recipes_phase(workdir, result, rn50_expected, rn50_bf16_expected, model, views, labels,
+                  where):
+    """The SSL recipes on the card (``recipes/``), each through
+    ``train.supcon.main``:
+
+    (a) ResNet-50 fp32 with ``--conv_impl fused``, batch 256, 32 px,
+        ``--data_placement device``, one 7-step epoch of each of
+        ``RECIPE_RUNS`` (supcon and simclr with the fused loss; byol,
+        simsiam, vicreg; simclr with a queue of 2048 and the dense loss),
+        then byol under ``--bf16``: every site fused, the launches of each
+        recipe (:func:`recipe_expected`: BYOL and the queue forward twice,
+        only supcon and simclr launch the loss kernels), no host sync
+        between flush boundaries under ``--telemetry async`` and one
+        transfer a window, 7 finite losses; the simclr run bitwise the
+        train phase's run and a run with the recipe taken off the state
+        (the step's inline path); the step times (median of steps 3-7);
+    (b) one step of each recipe, fused against eager conv, at the train
+        phase's fp32 and bf16 pins (:func:`step_check`,
+        :func:`step_check_bf16`), the predictor held with the model;
+    (c) ResNet-18 at full width, byol and the queue (512): two epochs
+        straight, and a run SIGTERM'd after step 3 (exit 75) then resumed,
+        bitwise equal, the recipe slots included;
+    (d) two processes on the one card over gloo, one ResNet-50 BYOL step
+        with ``--syncBN`` and eager convs, against one process on the
+        global batch at the step pins (the predictor's gradient and the
+        gathered target rows);
+    (e) the accuracy arms (``RECIPE_ACCURACY_ARMS``): each arm's best
+        windowed online-probe top-1 above ``RECIPE_PROBE_BAR`` with no
+        collapse alarm, beside the JAX package's CPU figures; and byol
+        with ``--byol_predictor none --health_policy abort`` exits 3;
+    (f) the native host gather loaded, and taken by the host and window
+        placements' runs (its counter above 0), with their data waits."""
+    failures = []
+    recipe_runs(workdir, result, rn50_expected, rn50_bf16_expected, failures, where)
+    recipe_step_checks(model, views, labels, failures)
+    recipe_resumes(workdir, failures)
+    recipe_data_parallel(workdir, model, views, labels, failures)
+    recipe_accuracy(workdir, failures, where)
+    recipe_native_gather(workdir, failures, where)
+    if failures:
+        raise AssertionError("recipes:\n" + "\n".join(failures))
+
+
 def split_only() -> int:
     """The ``--split-only`` run: the build, the loss split
     (:func:`loss_split`) and the per-kernel splits of ``SPLITS`` (the
@@ -3487,6 +3972,12 @@ def main(argv=None) -> int:
                     f"on {card}")
     del resume_ref, probe_refs, ce_ref
     done("placement", t0)
+
+    # -- recipes: the SSL recipes on the fused encoder, the native gather --
+    t0 = phase("recipes")
+    recipes_phase(workdir, result, rn50_expected, rn50_bf16_expected, model, views, labels,
+                  f"on {card}")
+    done("recipes", t0)
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")

@@ -30,9 +30,18 @@ there), ``--store_size`` and ``--mmap_threshold_mb``;
 :func:`validate_data_placement` refuses ``device`` with ``path`` at parse
 time. The probe and CE parsers have no ``path``, as in JAX.
 
+The SSL recipe flags are the JAX package's (``config.py:167-187,
+:392-418``): ``--recipe {auto,supcon,simclr,byol,simsiam,vicreg}``,
+``--moco_queue``, ``--ema_momentum``, ``--byol_predictor {mlp,none}``,
+``--predictor_hidden`` and ``--vicreg_{sim,std,cov}_coeff``, checked at
+parse time by :func:`validate_recipe` (JAX ``config.py:572-640``, word for
+word). ``--num_workers`` (pretraining and the probe, JAX ``config.py:38,
+:310, :694, :752``) is accepted and ignored, as in the JAX package: the
+reference's command lines pass it, and the augmentation runs on the device.
+
 Flags the port does not take are absent, so argparse rejects them:
 ``--compile_cache``, a cache of XLA programs that the port does not
-compile, and ``--recipe``, whose recipes are not ported yet.
+compile, and ``--model_parallel``, which is not ported yet.
 Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
 {dense,fused,ring,auto}`` (``ring`` only when asked for, as in JAX
 ``config.py:92-96``) and ``--conv_impl {eager,fused,auto}`` (the JAX
@@ -126,6 +135,21 @@ class SupConConfig:
     data_placement: str = "auto"
     data_window_batches: int = 32
     device_budget_mb: int = 0
+    # accepted for the reference's command lines and ignored
+    num_workers: int = 16
+    # the SSL recipe (recipes/): 'auto' is the --method-matching contrastive
+    # recipe; the MoCo queue (simclr only, K a multiple of 2 * batch_size,
+    # the dense loss; 0 = off); the EMA momentum of BYOL's target and the
+    # queue's key encoder; BYOL's predictor ('none' ablates it); the
+    # predictor's hidden width; VICReg's term weights
+    recipe: str = "auto"
+    moco_queue: int = 0
+    ema_momentum: float = 0.996
+    byol_predictor: str = "mlp"
+    predictor_hidden: int = 512
+    vicreg_sim_coeff: float = 25.0
+    vicreg_std_coeff: float = 25.0
+    vicreg_cov_coeff: float = 1.0
     # derived (finalize_supcon)
     warm_epochs: int = 10
     warmup_from: float = 0.01
@@ -359,6 +383,36 @@ def supcon_parser() -> argparse.ArgumentParser:
                         "of every step; its loss and top-1 stream through the ring")
     p.add_argument("--probe_lr", type=float, default=d.probe_lr,
                    help="online probe SGD learning rate (constant)")
+    p.add_argument("--recipe", type=str, default=d.recipe,
+                   choices=["auto", "supcon", "simclr", "byol", "simsiam", "vicreg"],
+                   help="SSL loss head (recipes/): 'auto' = the --method-matching "
+                        "contrastive recipe; supcon/simclr force the method; byol = "
+                        "predictor + EMA target; simsiam = predictor + stop-gradient; "
+                        "vicreg = invariance/variance/covariance")
+    p.add_argument("--moco_queue", type=nonnegative_int_arg("moco_queue"),
+                   default=d.moco_queue,
+                   help="MoCo-style negative queue: an EMA key encoder + a device-side "
+                        "ring of K past keys as extra NT-Xent negatives (simclr recipe "
+                        "only; K a multiple of 2*batch_size; dense loss path); 0=off")
+    p.add_argument("--ema_momentum", type=float, default=d.ema_momentum,
+                   help="EMA momentum in [0, 1) of the slow branch: byol's target "
+                        "network / the moco queue's key encoder")
+    p.add_argument("--byol_predictor", type=str, default=d.byol_predictor,
+                   choices=["mlp", "none"],
+                   help="byol predictor head; 'none' ablates it (the known-collapsing "
+                        "form)")
+    p.add_argument("--predictor_hidden", type=positive_int_arg("predictor_hidden"),
+                   default=d.predictor_hidden,
+                   help="byol/simsiam predictor MLP hidden width")
+    p.add_argument("--vicreg_sim_coeff", type=float, default=d.vicreg_sim_coeff,
+                   help="vicreg invariance weight (paper: 25)")
+    p.add_argument("--vicreg_std_coeff", type=float, default=d.vicreg_std_coeff,
+                   help="vicreg variance-hinge weight (paper: 25)")
+    p.add_argument("--vicreg_cov_coeff", type=float, default=d.vicreg_cov_coeff,
+                   help="vicreg covariance weight (paper: 1)")
+    p.add_argument("--num_workers", type=int, default=d.num_workers,
+                   help="accepted for the reference's command lines and ignored: the "
+                        "augmentation runs on the device")
     add_runtime_flags(p, d)
     return p
 
@@ -385,10 +439,77 @@ def validate_data_placement(dataset: str, data_placement: str) -> None:
         )
 
 
+def validate_recipe(cfg: SupConConfig) -> None:
+    """Resolve ``--recipe auto`` and check the recipe flag interactions at
+    parse time (JAX ``config.py:572-640``).
+
+    Mutates ``cfg.recipe`` to the concrete name and, for the contrastive
+    recipes, forces ``cfg.method`` to match (``--recipe`` is the outer
+    selector; a method the recipe contradicts is an error only for the
+    label-free recipes, where an explicit ``--method SupCon`` would be
+    silently meaningless).
+    """
+    if cfg.recipe == "auto":
+        cfg.recipe = "supcon" if cfg.method == "SupCon" else "simclr"
+    elif cfg.recipe == "supcon":
+        # forcing the method here is unambiguous: --method defaults to
+        # SimCLR, so a SimCLR value cannot be distinguished from "not given"
+        cfg.method = "SupCon"
+    elif cfg.recipe == "simclr":
+        if cfg.method == "SupCon":
+            # SupCon is NOT the --method default, so this is an explicit,
+            # contradictory ask — dropping the labels silently would train
+            # unsupervised while the user believes otherwise
+            raise ValueError(
+                "--recipe simclr contradicts --method SupCon (the recipe "
+                "is label-free NT-Xent) — drop --method, or use "
+                "--recipe supcon"
+            )
+        cfg.method = "SimCLR"
+    else:  # byol / simsiam / vicreg: label-free
+        if cfg.method == "SupCon":
+            raise ValueError(
+                f"--recipe {cfg.recipe} is label-free; --method SupCon has "
+                "no effect there — drop the flag (or use --recipe supcon)"
+            )
+    if cfg.moco_queue:
+        if cfg.recipe != "simclr":
+            raise ValueError(
+                f"--moco_queue holds NEGATIVES only, which --recipe "
+                f"{cfg.recipe} cannot use "
+                + ("(supervised positives may sit in the queue)"
+                   if cfg.recipe == "supcon" else "(no contrastive term)")
+                + " — it requires --recipe simclr"
+            )
+        if cfg.moco_queue % (2 * cfg.batch_size) != 0:
+            raise ValueError(
+                f"--moco_queue {cfg.moco_queue} must be a multiple of "
+                f"2*batch_size ({2 * cfg.batch_size}): the ring write at the "
+                "pointer would otherwise straddle the queue's edge, so "
+                "partial-batch rotations would corrupt the queue"
+            )
+        if cfg.loss_impl in ("fused", "ring"):
+            raise ValueError(
+                f"--moco_queue extends the contrast side past the fixed "
+                f"2B geometry the {cfg.loss_impl!r} kernel tiles — use "
+                "--loss_impl dense (or auto, which resolves to dense)"
+            )
+    if not 0.0 <= cfg.ema_momentum < 1.0:
+        raise ValueError(
+            f"--ema_momentum must be in [0, 1), got {cfg.ema_momentum}"
+        )
+    for name in ("vicreg_sim_coeff", "vicreg_std_coeff", "vicreg_cov_coeff"):
+        if getattr(cfg, name) < 0:
+            raise ValueError(
+                f"--{name} must be >= 0, got {getattr(cfg, name)}"
+            )
+
+
 def finalize_supcon(cfg: SupConConfig) -> SupConConfig:
     """Derived fields, replicating main_supcon.py:92-150. The save folder
     is named here and created by the driver."""
     validate_data_placement(cfg.dataset, cfg.data_placement)
+    validate_recipe(cfg)
     if cfg.dataset == "path" and (cfg.data_folder is None or cfg.mean is None
                                   or cfg.std is None):
         raise ValueError("--dataset path needs --data_folder, --mean and --std")
@@ -462,6 +583,8 @@ class LinearConfig:
     data_window_batches: int = 32
     device_budget_mb: int = 0
     download: bool = True
+    # accepted for the reference's command lines and ignored
+    num_workers: int = 16
     # derived (finalize_linear)
     n_cls: int = 10
     warm_epochs: int = 10
@@ -521,6 +644,9 @@ def linear_parser(ce: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--workdir", type=str, default=d.workdir)
     p.add_argument("--trial", type=str, default=d.trial)
     p.add_argument("--device", type=str, default=d.device, choices=["cuda", "cpu"])
+    p.add_argument("--num_workers", type=int, default=d.num_workers,
+                   help="accepted for the reference's command lines and ignored: the "
+                        "augmentation runs on the device")
     add_runtime_flags(p, d)
     return p
 

@@ -15,7 +15,8 @@ functions ``:79-175``, the ladder ``:178-378``, ``DeviceStore :408`` and
 - :class:`WindowStore` (``window``) keeps a ``[W, B_local, ...]`` window of
   batches on the device while a one-worker thread stages the next window
   on the store's own CUDA stream: one upload a window (behind the
-  injectable ``window_put``), none a step. At the swap the compute stream
+  injectable ``window_put``), none a step. The window's rows are gathered
+  on the host by ``data/native_gather.py`` (numpy's where it cannot build). At the swap the compute stream
   waits on the staged window's event; the host does not.
 - :func:`resolve_data_placement` (``auto``) walks device -> window -> host
   against a per-device budget, with one startup banner; its verdict is
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from simclr_pytorch_distributed_tpu_torch.data import native_gather
 from simclr_pytorch_distributed_tpu_torch.parallel import mesh
 from simclr_pytorch_distributed_tpu_torch.utils import tracing
 
@@ -448,8 +450,8 @@ class WindowStore:
         upload them; on CUDA on the store's stream, ending in an event."""
         with tracing.span("window_stage", track="store:stage", epoch=epoch, window=window):
             rows = self._index_rows(epoch, window)[:, self.loader._lo:self.loader._hi]
-            images = np.ascontiguousarray(self.loader.images[rows])
-            labels = np.ascontiguousarray(np.asarray(self.loader.labels)[rows].astype(np.int32))
+            images, labels = native_gather.gather(self.loader.images, self.loader.labels, rows)
+            images, labels = np.ascontiguousarray(images), np.ascontiguousarray(labels)
             if self._stream is None:
                 return _Staged(self._window_put(images, labels), None)
             with torch.cuda.device(self.device), torch.cuda.stream(self._stream):

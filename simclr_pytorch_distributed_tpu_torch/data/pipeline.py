@@ -7,8 +7,9 @@ Batch composition is byte-identical to the JAX package's ``EpochLoader``
 Process ``r`` of ``P`` takes rows ``r * b .. (r + 1) * b - 1`` of every
 global batch, ``b = batch_size / P`` (JAX ``data/pipeline.py:207-213``), so
 the processes together see the global batch the one-process run sees. A
-background thread assembles batch k+1 (a numpy row gather) while the
-device runs step k.
+background thread assembles batch k+1 while the device runs step k, with
+the native row gather (``data/native_gather.py``: one memcpy a row, the
+GIL released) where it builds, numpy's otherwise.
 
 The device stores (``data/device_store.py``) read the loader's own
 permutation (:meth:`EpochLoader._epoch_order`, the one source that
@@ -33,6 +34,9 @@ import threading
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from simclr_pytorch_distributed_tpu_torch.data import native_gather
+
 
 def parse_share_hint(hint: Optional[str]) -> Optional[Tuple[int, float]]:
     """A ``"host:factor"`` share hint as ``(host, factor)``; ``None`` for
@@ -139,8 +143,7 @@ class EpochLoader:
         order = self._epoch_order(epoch)
         for step in range(start_step, self.steps_per_epoch):
             sel = order[step * self.batch_size:(step + 1) * self.batch_size]
-            sel = sel[self._lo:self._hi]
-            yield self.images[sel], self.labels[sel].astype(np.int32, copy=False)
+            yield native_gather.gather(self.images, self.labels, sel[self._lo:self._hi])
 
     def epoch(self, epoch: int, start_step: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """One pass; ``epoch`` seeds the shuffle (``sampler.set_epoch``)."""

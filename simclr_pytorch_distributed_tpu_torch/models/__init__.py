@@ -1,9 +1,11 @@
 from simclr_pytorch_distributed_tpu_torch.models.heads import (
     LinearClassifier,
+    PredictorHead,
     SupCEResNet,
     SupConResNet,
     projection_head,
 )
 from simclr_pytorch_distributed_tpu_torch.models.resnet import MODEL_DICT, ResNet
 
-__all__ = ["MODEL_DICT", "LinearClassifier", "ResNet", "SupCEResNet", "SupConResNet", "projection_head"]
+__all__ = ["MODEL_DICT", "LinearClassifier", "PredictorHead", "ResNet", "SupCEResNet",
+           "SupConResNet", "projection_head"]

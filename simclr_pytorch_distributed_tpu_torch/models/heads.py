@@ -1,6 +1,7 @@
 """Projection head, the SupCon encoder+head model (reference
-resnet_big.py:159-181), the supervised CE model (resnet_big.py:184-193)
-and the probe's linear classifier (resnet_big.py:196-204).
+resnet_big.py:159-181), the supervised CE model (resnet_big.py:184-193),
+the probe's linear classifier (resnet_big.py:196-204) and the BYOL/SimSiam
+predictor (JAX ``models/heads.py:69-102``).
 
 ``SupConResNet`` returns the UNNORMALIZED embedding; L2 normalization happens
 in the train step, as in the JAX package and the reference driver. Linear
@@ -14,7 +15,8 @@ train step casts the embedding to fp32 before the loss.
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +61,9 @@ class SupConResNet(nn.Module):
         model_fn, dim_in = MODEL_DICT[model_name]
         self.encoder = model_fn()
         self.head = projection_head(head, dim_in, feat_dim)
+        # what a second network of this shape is built from (the recipes'
+        # EMA target and key encoder, recipes/base.ema_network)
+        self.arch = (model_name, head, feat_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return head_forward(self.head, self.encoder(x), self.encoder.compute_dtype)
@@ -71,6 +76,47 @@ class SupConResNet(nn.Module):
         """``(projection, encoder_features)`` from one backbone forward."""
         h = self.encoder(x)
         return head_forward(self.head, h, self.encoder.compute_dtype), h
+
+
+class PredictorHead(nn.Module):
+    """The BYOL/SimSiam prediction MLP over the projector output (JAX
+    ``models/heads.py:69``): ``fc1`` (dim_out -> dim_hidden), a batch-
+    statistics normalization (biased variance, eps 1e-5, no running
+    statistics: the predictor only ever runs in train mode) with the
+    parameters ``bn_scale`` and ``bn_bias``, ReLU, ``fc2`` (dim_hidden ->
+    dim_out). The names are the JAX module's, so ``utils/convert.py`` maps
+    them one to one (a ``TorchDense`` kernel ``[in, out]`` is the
+    ``weight [out, in]`` here). fp32; the init is torch's ``nn.Linear``
+    default, U(±1/sqrt(fan_in)) for weight and bias, drawn from the
+    ``generator`` given (:meth:`reset_parameters`)."""
+
+    def __init__(self, dim_hidden: int = 512, dim_out: int = 128,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim_out, dim_hidden)
+        self.bn_scale = nn.Parameter(torch.ones(dim_hidden))
+        self.bn_bias = nn.Parameter(torch.zeros(dim_hidden))
+        self.fc2 = nn.Linear(dim_hidden, dim_out)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The linear layers' default init from ``generator`` (the global
+        generator when ``None``); ``bn_scale`` 1, ``bn_bias`` 0."""
+        for fc in (self.fc1, self.fc2):
+            bound = 1.0 / math.sqrt(fc.in_features)
+            fc.weight.uniform_(-bound, bound, generator=generator)
+            fc.bias.uniform_(-bound, bound, generator=generator)
+        self.bn_scale.fill_(1.0)
+        self.bn_bias.zero_()
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.fc1(z)
+        mean = h.mean(dim=0, keepdim=True)
+        var = h.var(dim=0, unbiased=False, keepdim=True)
+        h = (h - mean) / torch.sqrt(var + 1e-5)
+        h = torch.relu(h * self.bn_scale + self.bn_bias)
+        return self.fc2(h)
 
 
 class SupCEResNet(nn.Module):

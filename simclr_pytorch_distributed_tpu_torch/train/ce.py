@@ -34,8 +34,9 @@ async``). The observability stack is the pretrain driver's
 Checkpoints are the pretrain driver's full-state ``.pth``
 (``utils/checkpoint.py``): ``ckpt_epoch_N.pth`` every ``--save_freq``
 epochs and ``last.pth`` at the end. ``--resume`` continues at the first
-step not taken, bit for bit. SIGTERM/SIGINT: the step in flight finishes,
-the state is saved as ``preempt_epoch_{e}_step_{k}.pth`` (or
+step not taken, bit for bit. SIGTERM/SIGINT: the run goes on to the next
+``--print_freq`` flush boundary, where the processes vote, the state is
+saved as ``preempt_epoch_{e}_step_{k}.pth`` (or
 ``preempt_epoch_{e}.pth`` at an epoch's end, unless the scheduled save
 covers it) and the run exits 75.
 
@@ -219,9 +220,10 @@ def train_epoch(
                 tracer.step(gstep)
             if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
                 submit(idx, gstep)
-            if idx + 1 < steps and preempt.requested_global():
-                finish(idx, gstep)
-                return {"loss": losses.avg, "top1": top1.avg}, idx + 1
+                # voted at the flush boundary only (JAX train/ce.py:346-348)
+                if idx + 1 < steps and preempt.requested_global():
+                    finish(idx, gstep)
+                    return {"loss": losses.avg, "top1": top1.avg}, idx + 1
         finish(steps - 1, epoch * steps - 1)
     finally:
         batches.close()

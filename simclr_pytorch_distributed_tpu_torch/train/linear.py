@@ -41,8 +41,8 @@ one-process update. Validation splits every chunk of ``--val_batch_size``
 rows between the processes, the tail chunk padded to full size and its pad
 rows left out of the counts, and sums the counts in rank order. Each
 step's loss and counts are the global batch's. Rank 0 alone logs and
-writes; a signal on any process stops all of them at one step
-(``preempt.requested_global``).
+writes; a signal on any process stops all of them at the next flush
+boundary (``preempt.requested_global``, voted there only).
 
 The training batches follow ``--data_placement`` as in the pretrain
 driver (``train/supcon.build_store``; JAX ``train/linear.py:298-315``); the
@@ -310,9 +310,10 @@ def train_epoch(
                 tracer.step(gstep)
             if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
                 submit(idx, gstep)
-            if preempt.requested_global():
-                preempted = True
-                break
+                # voted at the flush boundary only (JAX train/linear.py:452-454)
+                if preempt.requested_global():
+                    preempted = True
+                    break
     finally:
         batches.close()
     telemetry.finish_epoch(lambda hint: submit(steps - 1, hint), state.step - 1)

@@ -110,6 +110,14 @@ class TrainState:
     (reference ``opt.record_norm_mean``, ``main_supcon.py:304-307``), kept
     on the device as a 0-dim tensor. ``lr_scale`` multiplies the schedule:
     the NaN rollback's damping (``utils/guard.FailurePolicy``).
+
+    ``recipe`` is the run's SSL recipe (``recipes/``; ``None`` keeps the
+    step's inline contrastive path) and the three recipe slots are JAX's
+    (``train/state.py:43-57``): ``recipe_params`` the trainable predictor
+    (an ``nn.Module``), ``recipe_opt_state`` its optimizer, and
+    ``recipe_state`` the non-gradient state (BYOL's EMA target network; the
+    MoCo key encoder, queue and pointer), each ``None`` where the recipe
+    has none, so a slot-free recipe's state and checkpoints are today's.
     """
 
     model: nn.Module
@@ -119,6 +127,10 @@ class TrainState:
     record_norm_mean: Optional[torch.Tensor] = None
     lr_scale: float = 1.0
     probe: Optional[object] = None
+    recipe: Optional[object] = None
+    recipe_params: Optional[nn.Module] = None
+    recipe_opt_state: Optional[torch.optim.Optimizer] = None
+    recipe_state: Optional[dict] = None
 
     def set_learning_rate(self) -> float:
         lr = float(self.schedule(self.step)) * self.lr_scale

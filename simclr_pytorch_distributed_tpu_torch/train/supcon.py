@@ -30,8 +30,8 @@ async`` the finite check, the meters, the TensorBoard ``info/*``,
 ``health/*`` and ``probe/*`` scalars, the health monitor and the progress
 line) -> checkpoints at ``--save_freq`` and as ``last.pth``. The host
 waits for the device only at flush boundaries, at epoch ends and in a
-process group's collectives (under a process group also in the per-step
-preemption vote). The run is on ``cuda`` unless ``--device cpu`` is given,
+process group's collectives (under a process group also in the preemption
+vote, taken at flush boundaries only). The run is on ``cuda`` unless ``--device cpu`` is given,
 and raises when CUDA is asked for and absent.
 
 Where the batch comes from is ``--data_placement`` (``data/device_store.py``,
@@ -52,13 +52,23 @@ Observability (JAX ``train/supcon.py:720-930``, ``utils/obs.py``): the
 flight recorder writes ``events.jsonl`` and, at the end, ``trace.json``
 into the run folder (spans ``first_step``, ``epoch``, ``flush_boundary``,
 ``checkpoint_commit``; events ``preempt_exit``, ``nan_rollback``,
-``health_window``, ``run_exit``), ``--watchdog_secs`` arms the stall
+``health_window``, ``run_recipe``, ``run_exit``), ``--watchdog_secs`` arms the stall
 watchdog, ``--metrics_port`` serves the Prometheus sidecar,
 ``--trace_dir`` takes a ``torch.profiler`` window, and ``--health_freq``
-(default 10) feeds the health monitor (``--health_policy abort`` exits 3).
+(default 10) feeds the health monitor (``--health_policy abort`` exits 3),
+whose collapse bars are the recipe's (``utils/guard.thresholds_for_recipe``).
 ``history`` holds one entry a step, filled at each flush, with
 ``step_time`` from CUDA events read at the epoch's end (the host clock on
 the CPU).
+
+``--recipe`` (``recipes/``, JAX ``train/supcon.py:748-815``): the recipe and
+its slots are attached to the state after it is built and before any
+restore (``recipes.attach_for_config``); its metric columns join the ring
+and log as ``recipe/<key>`` in TensorBoard; BYOL and the MoCo queue run a
+second, gradient-free forward of the encoder through their EMA network
+each step, so the fused conv kernels launch their forwards twice a step
+there, and only the contrastive recipes without a queue run the loss
+kernels.
 
 Warm start, resume and exits (JAX ``train/supcon.py:770-798, 905-1010``):
 
@@ -85,7 +95,8 @@ Warm start, resume and exits (JAX ``train/supcon.py:770-798, 905-1010``):
 - Elastic resume: ``--resume`` under another world size continues at the
   same global step and warns that per-process BN and a non-``auto``
   ``--ngpu`` depend on the world size (``utils/checkpoint.py``).
-- SIGTERM/SIGINT: the step in flight finishes, the state is saved as
+- SIGTERM/SIGINT: the run goes on to the next ``--print_freq`` flush
+  boundary (JAX ``train/supcon.py:633``), the state is saved as
   ``preempt_epoch_{e}_step_{k}.pth`` (or at an epoch boundary as
   ``preempt_epoch_{e}.pth``, unless the scheduled save covers it) and the
   run exits 75 (``utils/preempt.py``).
@@ -120,6 +131,7 @@ from simclr_pytorch_distributed_tpu_torch.ops.augment import (
 from simclr_pytorch_distributed_tpu_torch.ops.metrics import AverageMeter
 from simclr_pytorch_distributed_tpu_torch.ops.schedules import make_lr_schedule
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh
+from simclr_pytorch_distributed_tpu_torch.recipes import ALL_RECIPE_METRIC_KEYS, attach_for_config
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
 from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
     HEALTH_METRIC_KEYS,
@@ -169,10 +181,13 @@ OPTIMIZER_REASONS = {
 
 # the reference's per-iteration scalars (main_supcon.py:327-333), as info/*
 TB_ITER_SCALARS = ("norm_mean", "norm_var", "record_norm_mean", "loss_sec", "loss_l2reg")
-# the health and probe columns' TensorBoard tags (JAX train/supcon.py:451-460)
+# the health, probe and recipe columns' TensorBoard tags (JAX
+# train/supcon.py:451-460): recipe/<key> for every recipe's keys, which
+# runs without them never match
 EXTRA_TB_TAGS = {
     **{k: "health/" + k[len("health_"):] for k in HEALTH_METRIC_KEYS},
     **{k: "probe/" + k[len("probe_"):] for k in ONLINE_PROBE_METRIC_KEYS},
+    **{k: "recipe/" + k for k in ALL_RECIPE_METRIC_KEYS},
 }
 
 
@@ -191,11 +206,16 @@ def resolve_device(name: str) -> torch.device:
 
 
 def resolve_loss_impl_reasoned(loss_impl: str, device: torch.device,
-                               data_parallel: Optional[int] = None) -> tuple:
+                               data_parallel: Optional[int] = None,
+                               moco_queue: int = 0) -> tuple:
     """``(resolved_impl, reason)``: 'auto' is the fused kernels on CUDA and
-    the dense form on the CPU, never the ring. With a process group of
+    the dense form on the CPU, never the ring, and the dense form under the
+    MoCo queue (JAX ``train/supcon.py:123-127``). With a process group of
     ``data_parallel`` processes the fused loss runs in its sharded form,
     and the reason says so."""
+    if moco_queue and loss_impl == "auto":
+        return "dense", (f"--moco_queue {moco_queue} extends the contrast side past the "
+                         "fixed 2B geometry the fused/ring kernels tile")
     if loss_impl == "ring":
         procs = data_parallel or 1
         return "ring", (
@@ -386,7 +406,7 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
     logging.info("%s", config_lib.impl_resolution_banner(
         "optimizer", cfg.optimizer, cfg.optimizer, OPTIMIZER_REASONS[cfg.optimizer]))
     loss_impl, reason = resolve_loss_impl_reasoned(
-        cfg.loss_impl, device, world if distributed else None
+        cfg.loss_impl, device, world if distributed else None, moco_queue=cfg.moco_queue
     )
     logging.info(
         "%s", config_lib.impl_resolution_banner("loss_impl", cfg.loss_impl, loss_impl, reason)
@@ -510,9 +530,14 @@ def train_one_epoch(
                 hooks.tracer.step(gstep)
             if (idx + 1) % cfg.print_freq == 0 or idx + 1 == steps:
                 submit(idx, gstep)
-            if idx + 1 < steps and preempt.requested_global():
-                finish(idx, gstep)
-                return idx + 1
+                # the preemption vote at the flush boundary only (JAX
+                # train/supcon.py:633-635): every process votes there, so
+                # all stop at one step, and no step between boundaries
+                # waits on the all-reduce; the last step's vote is the
+                # epoch end's
+                if idx + 1 < steps and preempt.requested_global():
+                    finish(idx, gstep)
+                    return idx + 1
             end = time.time()
         finish(steps - 1, epoch * steps - 1)
     finally:
@@ -591,6 +616,11 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
         # raises here, before step 1, on every process
         store = build_store(cfg, loader, device)
         state, step_cfg = build(cfg, len(loader), device)
+        # the recipe and its slots, before any restore, so a resume brings
+        # the slots back (or starts them fresh, saying why)
+        state, recipe = attach_for_config(cfg, state)
+        logging.info("recipe: %s%s", recipe.name,
+                     f" (moco_queue={cfg.moco_queue})" if cfg.moco_queue else "")
         if step_cfg.online_probe:
             n_cls = int(train_data["labels"].max()) + 1
             state.probe = build_online_probe(cfg.model, n_cls, cfg.probe_lr, seed=cfg.seed,
@@ -610,7 +640,8 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
             logging.info("load model from %s ...", cfg.ckpt)
         if cfg.resume:
             resume_path = resolve_resume_path(cfg.resume)
-            meta = restore_checkpoint(resume_path, state, generator)
+            meta = restore_checkpoint(resume_path, state, generator, recipe=recipe.name,
+                                      moco_queue=cfg.moco_queue)
             start_epoch, start_step = resume_position(meta, len(loader))
             logging.info("resumed from %s at epoch %d step %d",
                          resume_path, start_epoch, start_step)
@@ -620,9 +651,13 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
             if policy.lr_scale != 1.0:
                 logging.warning("resumed with rollback damping: lr_scale %.3g after %d "
                                 "rollbacks", policy.lr_scale, policy.rollbacks)
-        keys, blocks = ring_layout(step_cfg.health_freq > 0, step_cfg.online_probe, cfg.feat_dim)
+        keys, blocks = ring_layout(step_cfg.health_freq > 0, step_cfg.online_probe, cfg.feat_dim,
+                                   recipe.metric_keys)
         telemetry = TelemetrySession(cfg.print_freq, keys, cfg.telemetry,
                                      watchdog=obs.watchdog, gauges=obs.gauges, blocks=blocks)
+        # the recipe on the recorder stream, for offline readers' per-recipe bars
+        tracing.event("run_recipe", track="main:guard", recipe=recipe.name,
+                      moco_queue=cfg.moco_queue)
         tb = TBLogger(cfg.tb_folder, enabled=main_process)
         tracer = StepTracer(cfg.trace_dir, cfg.trace_start_step, cfg.trace_steps,
                             enabled=main_process)

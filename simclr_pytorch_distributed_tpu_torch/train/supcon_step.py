@@ -57,6 +57,25 @@ encoder features of both views from the step's one backbone forward
 (``SupConResNet.forward_with_features``), so the encoder's update is the
 same with the probe on or off; under a process group its gradient is
 averaged like the encoder's, and its loss and top-1 are the global batch's.
+
+Recipes (``TrainState.recipe``, ``recipes/``; JAX ``train/supcon_step.py:
+448-600``): ``None`` keeps the inline contrastive term above; otherwise
+``recipe.loss(cfg, ctx)`` gives the term from a :class:`RecipeContext` of
+the step's own forward products, and the SEC and l2reg ramps still add on
+top. The recipe's metric columns join the sorted ring layout
+(:func:`metric_keys` ``extra``). A trainable recipe's predictor runs in the
+same backward as the encoder and takes its own optimizer step, its learning
+rate the schedule's at the step (the NaN rollback's ``lr_scale`` damps the
+encoder's optimizer only, as in the JAX driver, ``train/supcon.py:748,
+:821-840``); ``post_step`` runs after the optimizer steps. Under a process
+group the predictor runs after the feature gather, on the global rows, so
+its BN statistics are the global batch's and every process computes its
+whole gradient: that gradient is divided by ``P`` before the mean, which
+makes the applied predictor gradient the one-process gradient of the global
+batch, while the encoder's is the sum of the processes' shares as above.
+A recipe that reads the global rows (``Recipe.needs_global_rows``: BYOL,
+SimSiam, VICReg, the MoCo queue) gets them gathered under ``--loss_impl
+ring`` too: the ring shapes only the contrastive term.
 """
 
 from __future__ import annotations
@@ -107,10 +126,12 @@ DEVICE_HEALTH_KEYS = tuple(k for k in HEALTH_METRIC_KEYS if k != "health_eff_ran
 ONLINE_PROBE_METRIC_KEYS = ("probe_loss", "probe_top1")
 
 
-def metric_keys(health: bool = False, online_probe: bool = False) -> Tuple[str, ...]:
+def metric_keys(health: bool = False, online_probe: bool = False,
+                extra: Tuple[str, ...] = ()) -> Tuple[str, ...]:
     """The run's full sorted metric-key tuple, as the host reads it (JAX
-    ``train/supcon_step.py:96``)."""
-    keys = METRIC_KEYS
+    ``train/supcon_step.py:96``); ``extra`` is the recipe's own
+    ``metric_keys``."""
+    keys = METRIC_KEYS + tuple(extra)
     if health:
         keys = keys + HEALTH_METRIC_KEYS
     if online_probe:
@@ -118,11 +139,14 @@ def metric_keys(health: bool = False, online_probe: bool = False) -> Tuple[str, 
     return tuple(sorted(keys))
 
 
-def ring_layout(health: bool, online_probe: bool, feat_dim: int):
+def ring_layout(health: bool, online_probe: bool, feat_dim: int,
+                extra: Tuple[str, ...] = ()):
     """``(keys, blocks)`` of the run's metric ring: the step's scalar
-    columns, and with ``health`` the ``[feat_dim, feat_dim]`` covariance
-    block in place of ``health_eff_rank``."""
-    keys = tuple(k for k in metric_keys(health, online_probe) if k != "health_eff_rank")
+    columns (the recipe's ``extra`` among them), and with ``health`` the
+    ``[feat_dim, feat_dim]`` covariance block in place of
+    ``health_eff_rank``."""
+    keys = tuple(k for k in metric_keys(health, online_probe, extra)
+                 if k != "health_eff_rank")
     return keys, ({HEALTH_COV: (feat_dim, feat_dim)} if health else {})
 
 
@@ -259,6 +283,35 @@ class SupConStepConfig:
     online_probe: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class RecipeContext:
+    """What one step hands a recipe's ``loss`` (JAX
+    ``train/supcon_step.py:220``): the step's own forward products, so no
+    recipe re-runs the online backbone. ``feats`` is the unnormalized fp32
+    projection matrix ``[2B, D]``, view-major (the global batch's rows
+    under a process group, this process's under the ring loss), ``n_fea``
+    its L2-normalized form; ``images`` this process's two-crop batch, for a
+    second forward through an EMA network (which the slots hold); ``labels``
+    the loss's labels (the global batch's under a process group for
+    SupCon)."""
+
+    images: torch.Tensor
+    labels: torch.Tensor
+    feats: torch.Tensor
+    n_fea: torch.Tensor
+    recipe_params: Optional[torch.nn.Module]
+    recipe_state: Optional[dict]
+
+
+def global_rows(rows: torch.Tensor) -> torch.Tensor:
+    """This process's view-major rows ``[2b, ...]`` as the global batch's
+    ``[2B, ...]``, without gradient (``collectives.view_major`` of an
+    all-gather); the rows themselves without a process group."""
+    if not is_distributed():
+        return rows.detach()
+    return collectives.view_major(collectives.all_gather(rows.detach()))
+
+
 def two_view_forward(model: torch.nn.Module, images: torch.Tensor,
                      with_features: bool = False):
     """``[B, 2, H, W, C]`` images -> ``[2B, D]`` projections, view-major;
@@ -306,13 +359,14 @@ def train_step(
 ) -> Dict[str, torch.Tensor]:
     """One update of ``state`` on two-crop ``images`` ``[B, 2, H, W, C]``
     (this process's slice of the global batch under a process group, with
-    its ``labels``).
+    its ``labels``), through ``state.recipe`` when it is set.
 
     Returns the step's metrics as 0-dim tensors on the device, those of the
-    global batch: :data:`METRIC_KEYS`, with ``health_freq`` the health columns
-    (:data:`DEVICE_HEALTH_KEYS`, and :data:`HEALTH_COV` on a health step),
-    with ``online_probe`` :data:`ONLINE_PROBE_METRIC_KEYS`. Nothing here
-    waits for the device but the collectives.
+    global batch: :data:`METRIC_KEYS`, the recipe's ``metric_keys``, with
+    ``health_freq`` the health columns (:data:`DEVICE_HEALTH_KEYS`, and
+    :data:`HEALTH_COV` on a health step), with ``online_probe``
+    :data:`ONLINE_PROBE_METRIC_KEYS`. Nothing here waits for the device but
+    the collectives.
     """
     if cfg.method not in ("SupCon", "SimCLR"):
         raise ValueError(f"contrastive method not supported: {cfg.method}")
@@ -320,8 +374,10 @@ def train_step(
         raise ValueError(f"online_probe={cfg.online_probe} but the state "
                          f"{'lacks' if state.probe is None else 'carries'} a probe")
     state.model.train()
+    recipe = state.recipe
     distributed = is_distributed()
-    ring = cfg.loss_impl == "ring"
+    # the ring keeps each process's rows unless the recipe reads the global ones
+    ring = cfg.loss_impl == "ring" and (recipe is None or not recipe.needs_global_rows)
     local_labels = labels
     if cfg.online_probe:
         feats, enc_feats = two_view_forward(state.model, images, with_features=True)
@@ -358,9 +414,15 @@ def train_step(
         loss_l2reg = torch.square(norms).mean()
 
     n_fea = feats / torch.linalg.norm(feats, dim=1, keepdim=True)
-    contrastive = contrastive_loss_terms(
-        cfg, n_fea, labels if cfg.method == "SupCon" else None
-    )
+    recipe_aux = {}
+    if recipe is None:  # the inline path: the control arm of the recipes
+        contrastive = contrastive_loss_terms(
+            cfg, n_fea, labels if cfg.method == "SupCon" else None
+        )
+    else:
+        ctx = RecipeContext(images=images, labels=labels, feats=feats, n_fea=n_fea,
+                            recipe_params=state.recipe_params, recipe_state=state.recipe_state)
+        contrastive, recipe_aux = recipe.loss(cfg, ctx)
     ramp = state.step / (cfg.epochs * cfg.steps_per_epoch)
     loss = contrastive
     if cfg.sec:
@@ -370,12 +432,31 @@ def train_step(
 
     lr = state.set_learning_rate()
     state.optimizer.zero_grad(set_to_none=True)
+    predictor = state.recipe_params if recipe is not None and recipe.trainable else None
+    if predictor is not None:
+        state.recipe_opt_state.zero_grad(set_to_none=True)
     if distributed:
         (loss * world_size() / cfg.grad_div).backward()
-        collectives.mean_gradients(state.model.parameters())
+        params = list(state.model.parameters())
+        if predictor is not None:
+            # every process holds the predictor's whole gradient (module
+            # docstring): 1/P of it each, so the mean is the one-process one
+            pgrads = [p.grad for p in predictor.parameters() if p.grad is not None]
+            torch._foreach_div_(pgrads, float(world_size()))
+            params += list(predictor.parameters())
+        collectives.mean_gradients(params)
     else:
         (loss / cfg.grad_div).backward()
     state.optimizer.step()
+    if predictor is not None:
+        # the schedule without the rollback's lr_scale, which damps the
+        # encoder's optimizer only (JAX train/supcon.py:748, :821-840)
+        for group in state.recipe_opt_state.param_groups:
+            group["lr"] = float(state.schedule(state.step))
+        state.recipe_opt_state.step()
+    if recipe is not None and state.recipe_state is not None:
+        state.recipe_state = recipe.post_step(state.recipe_state, model=state.model,
+                                              aux=recipe_aux)
     if distributed:  # BN buffers follow rank 0 (equal already under --syncBN)
         collectives.broadcast_from_rank0(state.model, parameters=False)
     metrics = {
@@ -387,6 +468,7 @@ def train_step(
         "norm_var": norm_var.detach(),
         "record_norm_mean": record,
     }
+    metrics.update((k, v.detach()) for k, v in recipe_aux.items() if k != "recipe_embeddings")
     if cfg.health_freq > 0:
         if state.step % cfg.health_freq == 0:
             with torch.no_grad():

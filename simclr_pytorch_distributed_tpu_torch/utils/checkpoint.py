@@ -20,6 +20,17 @@ one saved by one process with no rollback. A run with the online probe
 state dicts; without the probe the checkpoint holds exactly the keys
 above (JAX ``train/state.py:32-42``).
 
+A recipe with slots (``recipes/``: BYOL, SimSiam, the MoCo queue) adds
+``'recipe'``: its ``name``, its ``moco_queue`` geometry and its non-``None``
+slots, ``recipe_params`` (the predictor's parameters), ``recipe_opt_state``
+(its optimizer's state dict, the momentum buffers) and ``recipe_state``
+(an EMA network's parameters, not its unread BN buffers; the queue and its
+pointer). A slot-free recipe's checkpoint keeps exactly the keys above. On
+restore the payload comes back only when the checkpoint's recipe and queue
+geometry are this run's (JAX ``utils/checkpoint.py:293-370``); otherwise
+the encoder's trajectory is restored and the slots start fresh, with a
+warning that says why.
+
 Elastic resume (JAX ``utils/checkpoint.py:278-284, :526-550``): a
 checkpoint resumes under any world size, at the same global step; only
 the loader's process slices change, since the augmentation draws are
@@ -46,11 +57,13 @@ import os
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 from simclr_pytorch_distributed_tpu_torch.config import config_dict
 from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_main_process, world_size
 
 CLASSIFIER_FILE = "classifier_best.pth"
+RECIPE_SLOTS = ("recipe_params", "recipe_opt_state", "recipe_state")
 
 
 def _tree_map(fn, tree):
@@ -80,6 +93,64 @@ def _strip_module(state_dict) -> Dict[str, torch.Tensor]:
     return {k.removeprefix("module."): v for k, v in state_dict.items()}
 
 
+def _slot_snapshot(value, clone):
+    """A recipe slot as tensors and plain types: a module's parameters by
+    name, an optimizer's state dict, a dict entry by entry."""
+    if isinstance(value, nn.Module):
+        return {k: clone(p) for k, p in value.named_parameters()}
+    if isinstance(value, torch.optim.Optimizer):
+        return _tree_map(clone, value.state_dict())
+    if isinstance(value, dict):
+        return {k: _slot_snapshot(v, clone) for k, v in value.items()}
+    return clone(value) if isinstance(value, torch.Tensor) else value
+
+
+@torch.no_grad()
+def _restore_slot(current, saved):
+    """Put a :func:`_slot_snapshot` back into the live slot ``current``;
+    returns the slot (a new value for a plain entry). Raises on a name or
+    shape that does not match."""
+    if isinstance(current, nn.Module):
+        params = dict(current.named_parameters())
+        if params.keys() != saved.keys():
+            raise ValueError(f"parameters {sorted(set(params) ^ set(saved))[:4]} differ")
+        for k, p in params.items():
+            if p.shape != saved[k].shape:
+                raise ValueError(f"{k}: shape {tuple(saved[k].shape)} != {tuple(p.shape)}")
+            p.copy_(saved[k])
+        return current
+    if isinstance(current, torch.optim.Optimizer):
+        current.load_state_dict(saved)
+        return current
+    if isinstance(current, dict):
+        if current.keys() != saved.keys():
+            raise ValueError(f"entries {sorted(set(current) ^ set(saved))} differ")
+        for k in current:
+            current[k] = _restore_slot(current[k], saved[k])
+        return current
+    if isinstance(current, torch.Tensor):
+        if current.shape != saved.shape:
+            raise ValueError(f"shape {tuple(saved.shape)} != {tuple(current.shape)}")
+        current.copy_(saved)
+        return current
+    return type(current)(saved)
+
+
+def _recipe_payload(state, clone) -> dict:
+    """The non-``None`` recipe slots of ``state`` (empty for a slot-free
+    recipe)."""
+    return {slot: _slot_snapshot(value, clone) for slot in RECIPE_SLOTS
+            if (value := getattr(state, slot, None)) is not None}
+
+
+def restore_recipe_slots(snapshot: dict, state) -> None:
+    """Load a snapshot of recipe slots (``{slot: value}`` in the payload's
+    form, ``utils/convert.recipe_slots_to_torch`` makes one from the JAX
+    package's slots) into ``state``'s live slots; raises on a mismatch."""
+    for slot, saved in snapshot.items():
+        setattr(state, slot, _restore_slot(getattr(state, slot), saved))
+
+
 def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict:
     """What a resume needs of ``state`` (a ``train.state.TrainState``) and
     the augmentation ``generator``. ``copy=True`` clones every tensor where
@@ -101,6 +172,10 @@ def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict
             "classifier": _tree_map(clone, state.probe.classifier.state_dict()),
             "optimizer": _tree_map(clone, state.probe.optimizer.state_dict()),
         }
+    slots = _recipe_payload(state, clone)
+    if slots:
+        queue = getattr(state.recipe, "moco_queue", 0)
+        snapshot["recipe"] = {"name": state.recipe.name, "moco_queue": int(queue), **slots}
     return snapshot
 
 
@@ -108,7 +183,10 @@ def restore_snapshot(snapshot: dict, state, generator: torch.Generator) -> None:
     """Put a :func:`capture_state` snapshot (or a loaded checkpoint, whose
     model keys may carry ``'module.'``) back into ``state`` and
     ``generator``: the model, the optimizer, ``step``,
-    ``record_norm_mean`` and the generator's state."""
+    ``record_norm_mean``, the generator's state, the probe, and the recipe
+    slots where the snapshot holds them (a snapshot of the same run: a
+    checkpoint of another run goes through :func:`restore_checkpoint`'s
+    checks first)."""
     state.model.load_state_dict(_strip_module(snapshot["model"]))
     state.optimizer.load_state_dict(snapshot["optimizer"])
     state.step = int(snapshot["step"])
@@ -123,6 +201,53 @@ def restore_snapshot(snapshot: dict, state, generator: torch.Generator) -> None:
         else:
             logging.warning("the checkpoint holds no online probe: the probe starts "
                             "from its fresh init")
+    if "recipe" in snapshot and any(getattr(state, s, None) is not None for s in RECIPE_SLOTS):
+        restore_recipe_slots({k: v for k, v in snapshot["recipe"].items()
+                               if k in RECIPE_SLOTS}, state)
+
+
+def _restore_recipe_payload(path: str, ckpt: dict, state, recipe: Optional[str],
+                            moco_queue: Optional[int]) -> None:
+    """Cross-recipe hygiene (JAX ``utils/checkpoint.py:293-370``): restore
+    the checkpoint's ``recipe`` payload into ``state``'s slots only when the
+    recorded recipe and queue geometry are this run's and the slots match
+    in structure; otherwise a warning says why, and the slots keep their
+    fresh init while the encoder's trajectory restores."""
+    wanted = {slot for slot in RECIPE_SLOTS if getattr(state, slot, None) is not None}
+    payload = ckpt.get("recipe")
+    saved = payload["name"] if payload else (ckpt.get("opt") or {}).get("recipe")
+    if not wanted:
+        if payload:
+            # e.g. a BYOL checkpoint resumed with --recipe supcon
+            logging.warning("checkpoint %s carries a %r recipe payload this run's recipe "
+                            "(%r) does not use; recipe slots ignored", path, saved, recipe)
+        return
+    if not payload:
+        logging.warning("checkpoint %s has no recipe payload (saved recipe %r, this run "
+                        "%r); recipe slots start fresh", path, saved, recipe)
+        return
+    if recipe is not None and saved != recipe:
+        logging.warning("checkpoint %s was trained with recipe %r but this run uses %r; the "
+                        "encoder trajectory is restored, recipe slots (predictor/EMA "
+                        "target/queue) start fresh", path, saved, recipe)
+        return
+    if moco_queue is not None and int(payload["moco_queue"]) != int(moco_queue):
+        logging.warning("checkpoint %s was trained with --moco_queue %s but this run uses "
+                        "%s; the queue/key-encoder slots start fresh (the ring geometry "
+                        "changed)", path, payload["moco_queue"], moco_queue)
+        return
+    if set(wanted) != set(payload) - {"name", "moco_queue"}:
+        logging.warning("checkpoint %s recipe payload holds slots %s, this run's recipe %s; "
+                        "recipe slots start fresh", path,
+                        sorted(set(payload) - {"name", "moco_queue"}), sorted(wanted))
+        return
+    fresh = _recipe_payload(state, lambda t: t.detach().clone())
+    try:
+        restore_recipe_slots({slot: payload[slot] for slot in wanted}, state)
+    except (ValueError, KeyError, RuntimeError) as e:
+        restore_recipe_slots(fresh, state)
+        logging.warning("checkpoint %s recipe payload does not match this run's recipe-slot "
+                        "structure (%s); recipe slots start fresh", path, e)
 
 
 def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: int = 0,
@@ -156,6 +281,8 @@ def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: i
     }
     if "probe" in snapshot:
         payload["probe"] = _tree_map(cpu, snapshot["probe"])
+    if "recipe" in snapshot:
+        payload["recipe"] = _tree_map(cpu, snapshot["recipe"])
     if run_meta is not None:
         payload["run_meta"] = dict(run_meta)
     return _atomic_save(payload, path)
@@ -234,12 +361,15 @@ def resolve_resume_path(path: str) -> str:
     return max(candidates)[3]
 
 
-def restore_checkpoint(path: str, state, generator: torch.Generator) -> dict:
+def restore_checkpoint(path: str, state, generator: torch.Generator,
+                       recipe: Optional[str] = None, moco_queue: Optional[int] = None) -> dict:
     """Restore the model, the optimizer's buffers, ``step``,
     ``record_norm_mean`` and the augmentation generator from ``path`` into
     ``state`` (a ``train.state.TrainState`` built as the saving run built
     it) and ``generator``, under this run's world size, whatever the saving
-    run's was (module docstring). Returns the checkpoint's ``epoch``,
+    run's was (module docstring), and the recipe slots when the
+    checkpoint's recipe (``recipe``, ``moco_queue``) is this run's
+    (:func:`_restore_recipe_payload`). Returns the checkpoint's ``epoch``,
     ``step_in_epoch``, ``step``, ``seed``, ``world_size`` (``None`` when it
     predates the key), ``lr_scale``, ``rollbacks`` and ``run_meta`` (``{}``
     when absent)."""
@@ -250,7 +380,8 @@ def restore_checkpoint(path: str, state, generator: torch.Generator) -> dict:
     if ckpt["generator_device"] != generator.device.type:
         raise ValueError(f"{path} holds a {ckpt['generator_device']} generator state; this "
                          f"run's augmentation generator is on {generator.device.type}")
-    restore_snapshot(ckpt, state, generator)
+    _restore_recipe_payload(path, ckpt, state, recipe, moco_queue)
+    restore_snapshot({k: v for k, v in ckpt.items() if k != "recipe"}, state, generator)
     saved = ckpt.get("world_size")
     if saved is not None and int(saved) != world_size():
         logging.warning(

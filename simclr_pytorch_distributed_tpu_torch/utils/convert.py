@@ -19,7 +19,14 @@ copy of that mapping (the port imports nothing of the JAX package):
   and back);
 - ``SupCEResNet`` (the CE trainer's model): the encoder as above and its
   classifier ``fc`` like the probe's, in the same two functions as
-  ``SupConResNet`` (a tree holds ``proj_head`` or ``fc``).
+  ``SupConResNet`` (a tree holds ``proj_head`` or ``fc``);
+- a params tree without ``batch_stats`` (an EMA network's, which carries
+  parameters only) maps to the parameters alone and back;
+- the recipe slots (:func:`recipe_slots_to_torch` and back): the
+  ``PredictorHead`` params ``fc1``/``fc2`` (``kernel [in, out]``) and
+  ``bn_scale``/``bn_bias`` <-> its state dict, BYOL's ``target_params`` and
+  the queue's ``key_params`` <-> the EMA network's parameters (as above),
+  ``queue_emb`` and ``queue_ptr`` <-> a tensor and an int.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     ``proj_head`` tree) or ``SupCEResNet`` (an ``fc`` tree) state dict (CPU
     tensors). Raises on a tree node with no place in that layout."""
     params = variables["params"]
+    # an EMA network's tree carries parameters only
+    params_only = "batch_stats" not in variables
     stats = variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
 
@@ -51,6 +60,10 @@ def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
         sd[key] = np.array(arr, dtype=np.float32, order="C")  # a writable copy
 
     def put_bn(dst: str, p: dict, path: Tuple[str, ...]) -> None:
+        if params_only:
+            put(f"{dst}.weight", p["scale"])
+            put(f"{dst}.bias", p["bias"])
+            return
         node = stats
         for name in path:
             if not isinstance(node, dict) or name not in node:
@@ -133,6 +146,8 @@ def state_dict_to_variables(state_dict) -> dict:
     def bn(src: str, dst: Tuple[str, ...]) -> None:
         _set(params, dst + ("scale",), take(f"{src}.weight"))
         _set(params, dst + ("bias",), take(f"{src}.bias"))
+        if f"{src}.running_mean" not in sd:  # parameters only
+            return
         _set(stats, dst + ("mean",), take(f"{src}.running_mean"))
         _set(stats, dst + ("var",), take(f"{src}.running_var"))
         consumed.add(f"{src}.num_batches_tracked")
@@ -178,6 +193,8 @@ def state_dict_to_variables(state_dict) -> dict:
     leftover = set(sd) - consumed
     if leftover:
         raise ValueError(f"unmapped state-dict keys: {sorted(leftover)[:8]}")
+    if not stats and not any(k.endswith("running_mean") for k in sd):
+        return {"params": params}
     return {"params": params, "batch_stats": stats}
 
 
@@ -202,3 +219,82 @@ def classifier_state_dict_to_params(state_dict) -> dict:
         "kernel": np.ascontiguousarray(weight.T, dtype=np.float32),
         "bias": np.array(state_dict["fc.bias"].detach().cpu().numpy(), dtype=np.float32),
     }}
+
+
+def predictor_params_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``PredictorHead`` param tree -> the port's ``PredictorHead``
+    state dict (CPU tensors, copies)."""
+    sd = {}
+    for fc in ("fc1", "fc2"):
+        sd[f"{fc}.weight"] = np.asarray(params[fc]["kernel"], np.float32).T
+        sd[f"{fc}.bias"] = params[fc]["bias"]
+    sd["bn_scale"], sd["bn_bias"] = params["bn_scale"], params["bn_bias"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+
+
+def predictor_state_dict_to_params(state_dict) -> dict:
+    """The inverse: the port's ``PredictorHead`` state dict -> the JAX param
+    tree of numpy copies. Raises on any other key."""
+    want = {"fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias", "bn_scale", "bn_bias"}
+    if set(state_dict) != want:
+        raise ValueError(f"unmapped predictor keys: {sorted(set(state_dict) ^ want)}")
+    arr = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+           for k, v in state_dict.items()}
+    out = {fc: {"kernel": np.ascontiguousarray(arr[f"{fc}.weight"].T, dtype=np.float32),
+                "bias": np.array(arr[f"{fc}.bias"], dtype=np.float32)} for fc in ("fc1", "fc2")}
+    out["bn_scale"] = np.array(arr["bn_scale"], dtype=np.float32)
+    out["bn_bias"] = np.array(arr["bn_bias"], dtype=np.float32)
+    return out
+
+
+# the JAX recipe_state's EMA params trees -> the port's recipe_state entries
+_EMA_SLOTS = {"target_params": "target", "key_params": "key"}
+
+
+def recipe_slots_to_torch(recipe_params=None, recipe_state=None) -> dict:
+    """The JAX package's recipe slots -> the port's slot snapshot
+    (``utils/checkpoint.restore_recipe_slots`` loads it into a state):
+    ``recipe_params`` the predictor's state dict; ``recipe_state`` with the
+    EMA networks' parameters by name, ``queue_emb`` a tensor and
+    ``queue_ptr`` an int. Absent slots are left out."""
+    out = {}
+    if recipe_params is not None:
+        out["recipe_params"] = predictor_params_to_state_dict(recipe_params)
+    if recipe_state is not None:
+        state = {}
+        for key, value in recipe_state.items():
+            if key in _EMA_SLOTS:
+                state[_EMA_SLOTS[key]] = variables_to_state_dict({"params": value})
+            elif key == "queue_emb":
+                state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+            elif key == "queue_ptr":
+                state[key] = int(np.asarray(value))
+            else:
+                raise ValueError(f"cannot place recipe_state/{key}")
+        out["recipe_state"] = state
+    return out
+
+
+def recipe_slots_from_torch(recipe_params=None, recipe_state=None) -> dict:
+    """The inverse of :func:`recipe_slots_to_torch`, from the port's live
+    slots (a ``PredictorHead``; the ``recipe_state`` dict): ``{'recipe_params':
+    tree, 'recipe_state': {'target_params' | 'key_params': tree,
+    'queue_emb': array, 'queue_ptr': int32 array}}`` of numpy copies."""
+    out = {}
+    if recipe_params is not None:
+        out["recipe_params"] = predictor_state_dict_to_params(recipe_params.state_dict())
+    if recipe_state is not None:
+        inverse = {v: k for k, v in _EMA_SLOTS.items()}
+        state = {}
+        for key, value in recipe_state.items():
+            if key in inverse:
+                named = dict(value.named_parameters())
+                state[inverse[key]] = state_dict_to_variables(named)["params"]
+            elif key == "queue_emb":
+                state[key] = value.detach().cpu().numpy().copy()
+            elif key == "queue_ptr":
+                state[key] = np.asarray(value, np.int32)
+            else:
+                raise ValueError(f"cannot place recipe_state/{key}")
+        out["recipe_state"] = state
+    return out

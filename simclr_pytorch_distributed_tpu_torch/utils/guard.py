@@ -162,6 +162,29 @@ class HealthThresholds:
     min_samples: int = 2
 
 
+# Per-recipe detector bars (JAX utils/guard.py:209-227). The contrastive
+# recipes keep the defaults: their loss repels negatives, so only the fully
+# degenerate regime should fire. The negative-free recipes (BYOL, SimSiam)
+# are the runs where collapse is the failure the recipe's asymmetry exists
+# to prevent, so the effective-rank bar is raised: an ablated predictor
+# (--byol_predictor none) must trip it. Healthy negative-free runs drive
+# alignment toward 1, so the align bar stays paired with neg_mean. VICReg's
+# variance hinge fights collapse in the loss: the defaults apply.
+RECIPE_HEALTH_THRESHOLDS = {
+    "supcon": HealthThresholds(),
+    "simclr": HealthThresholds(),
+    "byol": HealthThresholds(eff_rank_min=3.0),
+    "simsiam": HealthThresholds(eff_rank_min=3.0),
+    "vicreg": HealthThresholds(),
+}
+
+
+def thresholds_for_recipe(recipe) -> HealthThresholds:
+    """The detector bars for a recipe name; an unknown name or ``None``
+    (the probe and CE trainers) gets the defaults."""
+    return RECIPE_HEALTH_THRESHOLDS.get(recipe, HealthThresholds())
+
+
 class HealthMonitor:
     """Windowed collapse/divergence detector over the ring's health samples
     (JAX ``utils/guard.py:238``).

@@ -17,8 +17,9 @@ driver::
         obs.close(exit_code=exit_code_for(exc))
 
 The port's checkpoint saves are synchronous, so there is no pending-save
-gauge. The port has no recipes yet: the health monitor takes the default
-``HealthThresholds()`` and no extra metric columns.
+gauge. The health monitor takes the run's recipe's bars
+(``utils/guard.thresholds_for_recipe``) and its extra metric columns; the
+probe and CE trainers, which have no recipe, the defaults.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import logging
 from simclr_pytorch_distributed_tpu_torch.utils import prom, tracing
 from simclr_pytorch_distributed_tpu_torch.utils.guard import (
     HealthMonitor,
-    HealthThresholds,
+    thresholds_for_recipe,
 )
 
 logger = logging.getLogger(__name__)
@@ -61,9 +62,16 @@ class RunObservability:
             )
         self.health = None
         if getattr(cfg, "health_freq", 0) > 0:
+            from simclr_pytorch_distributed_tpu_torch.recipes import recipe_metric_keys
+
+            # the recipe's bars (guard.RECIPE_HEALTH_THRESHOLDS: raised for
+            # the negative-free recipes) and its metric columns in the
+            # window means (JAX utils/obs.py:66-82)
+            recipe = getattr(cfg, "recipe", None)
             self.health = HealthMonitor(
                 policy=getattr(cfg, "health_policy", "warn"),
-                thresholds=HealthThresholds(),
+                thresholds=thresholds_for_recipe(recipe),
+                extra_keys=recipe_metric_keys(recipe),
             )
         self.gauges = self.sidecar = None
         if cfg.metrics_port:

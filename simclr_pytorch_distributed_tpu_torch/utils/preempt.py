@@ -1,8 +1,12 @@
 """Preemption: SIGTERM/SIGINT -> a flag -> a clean exit between steps.
 
 The port's own copy of the JAX package's ``utils/preempt.py``. The handler
-only sets a flag; the drivers check it after each step's metrics readback,
-where the host has already waited for the device. The pretrain driver then
+only sets a flag; the drivers check it at each ``--print_freq`` flush
+boundary (JAX ``train/supcon.py:633-635``, ``train/linear.py:452-454``,
+``train/ce.py:346-348``), where the host waits for the device anyway, and
+at an epoch's end; never between boundaries, where under a process group
+the vote would be an all-reduce and a readback every step. So a signal
+stops the run at the same step as the JAX driver's. The pretrain driver then
 saves the full training state with its position in the epoch
 (``preempt_epoch_{e}_step_{k}.pth``) and exits with :data:`EXIT_PREEMPTED`,
 so a launcher can tell "re-run me with --resume" from a failure. The resume
@@ -13,7 +17,7 @@ augmentation generator's state.
 Under data parallelism a signal may reach one process only, or reach them
 at different steps. :func:`requested_global` is every process's agreement
 on the flags, an all-reduce (MAX) over the process group: every process
-calls it at the same step boundary (JAX ``utils/preempt.py:91``), so all of
+calls it at the same flush boundary (JAX ``utils/preempt.py:91``), so all of
 them stop at the same step and exit 75, where one process alone would
 leave its peers waiting in the next step's collectives.
 """

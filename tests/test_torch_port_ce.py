@@ -231,7 +231,7 @@ def test_preempted_run_exits_75_and_resumes_bitwise(straight, tmp_path, monkeypa
 
     def flagging(state, images, labels):
         metrics = step(state, images, labels)
-        if state.step == 3:
+        if state.step == 3:  # between flush boundaries (--print_freq 4)
             preempt.request()
         return metrics
 
@@ -240,10 +240,11 @@ def test_preempted_run_exits_75_and_resumes_bitwise(straight, tmp_path, monkeypa
         run_ce(tmp_path / "a", "--epochs", "2")
     assert exc.value.code == preempt.EXIT_PREEMPTED == 75
     (saved,) = glob.glob(str(tmp_path / "a" / "*" / "*" / "*.pth"))
-    assert os.path.basename(saved) == "preempt_epoch_1_step_3.pth"
+    # the processes vote at the next flush boundary, after step 4
+    assert os.path.basename(saved) == "preempt_epoch_1_step_4.pth"
     monkeypatch.setattr(ce, "ce_step", step)
     resumed = run_ce(tmp_path / "b", "--epochs", "2", "--resume", os.path.dirname(saved))
-    assert [h["step"] for h in resumed.history] == list(range(3, 2 * STEPS))
+    assert [h["step"] for h in resumed.history] == list(range(4, 2 * STEPS))
     assert_same_run(resumed, straight)
 
 

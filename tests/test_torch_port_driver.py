@@ -88,7 +88,7 @@ def test_cuda_default_raises_without_a_card(tmp_path):
     assert not any(tmp_path.rglob("log-ing"))
 
 
-@pytest.mark.parametrize("flag", [["--compile_cache", "auto"], ["--recipe", "byol"]])
+@pytest.mark.parametrize("flag", [["--compile_cache", "auto"], ["--model_parallel", "2"]])
 def test_unimplemented_flags_are_rejected(tmp_path, flag):
     # JAX flags the port does not take: argparse refuses them before any run
     with pytest.raises(SystemExit):

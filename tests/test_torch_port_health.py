@@ -278,8 +278,9 @@ def test_probe_resume_is_the_straight_run(runs):
 
 def test_health_abort_exits_3_without_a_crash_save(tmp_path, monkeypatch):
     # a bar every real sample breaks: the run aborts at its first window
-    monkeypatch.setattr(obs, "HealthThresholds",
-                        lambda: guard.HealthThresholds(eff_rank_min=1e9))
+    # (the monitor takes the run's recipe's bars: patch where it looks them up)
+    monkeypatch.setattr(obs, "thresholds_for_recipe",
+                        lambda recipe: guard.HealthThresholds(eff_rank_min=1e9))
     with pytest.raises(SystemExit) as exc:
         pretrain(tmp_path, "--epochs", "1", "--health_freq", "1", "--health_policy", "abort")
     assert exc.value.code == guard.EXIT_HEALTH == 3

@@ -116,3 +116,27 @@ def test_the_scan_covers_the_data_modules(module):
     assert not [node for node in top_level if isinstance(node, (ast.Import, ast.ImportFrom))
                 and any(alias.name.split(".")[0] == "PIL" for alias in node.names)
                 or isinstance(node, ast.ImportFrom) and (node.module or "").startswith("PIL")]
+
+
+# the SSL recipes and the native host gather: the JAX package's recipes/,
+# PredictorHead and native loader, ported
+RECIPE_MODULES = (
+    "recipes/__init__.py", "recipes/base.py", "recipes/supcon.py", "recipes/byol.py",
+    "recipes/simsiam.py", "recipes/vicreg.py", "data/native_gather.py", "models/heads.py",
+    "ops/losses.py",
+)
+
+
+@pytest.mark.parametrize("module", RECIPE_MODULES)
+def test_the_scan_covers_the_recipe_modules(module):
+    path = PACKAGE / module
+    assert path in _sources()
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+
+
+def test_the_native_gather_source_is_the_ports_own():
+    # the port builds its own copy of the gather, never the JAX package's
+    source = PACKAGE / "csrc" / "gather.cpp"
+    assert source.is_file()
+    text = (PACKAGE / "data" / "native_gather.py").read_text()
+    assert '"csrc" / "gather.cpp"' in text and "simclr_pytorch_distributed_tpu/" not in text

@@ -144,7 +144,9 @@ def test_window_resume_mid_window_is_the_straight_run(pretrain_runs, tmp_path, m
 
     monkeypatch.setattr(supcon, "train_step", step)
     with pytest.raises(SystemExit) as exc:
-        supcon.main(SUPCON_ARGV + _placement("window") + ["--workdir", str(tmp_path / "a")])
+        # the preemption vote is taken at flush boundaries: one after step 5
+        supcon.main(SUPCON_ARGV + _placement("window") + ["--workdir", str(tmp_path / "a"),
+                                                          "--print_freq", "5"])
     assert exc.value.code == 75
     saved = glob.glob(str(tmp_path / "a" / "*" / "*" / "preempt_epoch_1_step_5.pth"))
     assert len(saved) == 1

@@ -125,7 +125,9 @@ def test_preempted_run_exits_75_and_resumes_bitwise(
 ):
     losses = record_steps(monkeypatch, stop_after=stop_after)
     with pytest.raises(SystemExit) as exc:
-        pretrain(tmp_path / "a", "--epochs", "2", "--save_freq", str(save_freq))
+        # the preemption vote is taken at flush boundaries: one after step 3
+        pretrain(tmp_path / "a", "--epochs", "2", "--save_freq", str(save_freq),
+                 "--print_freq", "3")
     assert exc.value.code == preempt.EXIT_PREEMPTED == 75
     assert guard.exit_code_for(exc.value) == 75
     assert len(losses) == stop_after + 1

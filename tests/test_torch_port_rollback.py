@@ -117,8 +117,9 @@ def runs(tmp_path_factory):
     try:
         with torch.random.fork_rng():
             out["straight1"] = run(root / "straight1", base=child.ELASTIC_ARGV)
+            # the preemption vote is taken at flush boundaries: one after step 2
             _, out["preempt1_losses"] = child.preempted_after(
-                2, 0, 1, lambda: child.driver_run(str(root / "preempt1"),
+                2, 0, 1, lambda: child.driver_run(str(root / "preempt1"), "--print_freq", "2",
                                                   base=child.ELASTIC_ARGV))
             out["preempt1"] = glob.glob(str(root / "preempt1" / "*" / "*"))[0]
             os.makedirs(root / "world2")

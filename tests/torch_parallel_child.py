@@ -24,6 +24,11 @@ here from numpy seeds, by functions the tests import too. The suites:
   placement ladder with a budget that differs between the processes, an
   explicit ``device`` one process cannot meet, and the store ``make_store``
   builds, whose batches each process returns.
+- ``recipes``, for ``tests/test_torch_port_recipe_step.py``: steps of the
+  byol and vicreg recipes with ``--syncBN``, and byol under the ring loss;
+  then the driver with ``--print_freq 3`` and a signal on the last rank
+  after step 1, the votes counted, and its resume against the straight
+  run.
 """
 
 import contextlib
@@ -41,6 +46,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
+from simclr_pytorch_distributed_tpu_torch import config as config_lib  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch import recipes  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.data import device_store  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.data.pipeline import EpochLoader  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.models import SupConResNet  # noqa: E402
@@ -307,8 +314,10 @@ def driver_cases(rank, world, outdir):
     out["driver"] = dict(driver_summary(result), code=code)
     if world == 2:
         # a signal that reaches the last rank only, after global step 2
+        # the preemption vote is taken at flush boundaries: one after step 2
         (out["preempt_code"], _), losses = preempted_after(
-            2, rank, world, lambda: driver_run(os.path.join(outdir, "work_preempt")))
+            2, rank, world, lambda: driver_run(os.path.join(outdir, "work_preempt"),
+                                               "--print_freq", "2"))
         # every rank resumes from rank 0's preemption save
         folder = glob.glob(os.path.join(outdir, "work_preempt", "*", "*"))[0]
         code, result = driver_run(os.path.join(outdir, "work_resume"), "--resume", folder)
@@ -437,7 +446,8 @@ def resilience_suite(rank, world, outdir, other_folder):
                                                base=ELASTIC_ARGV))}
     (code, _), losses = preempted_after(
         2, rank, world,
-        lambda: driver_run(os.path.join(outdir, "preempt"), base=ELASTIC_ARGV))
+        lambda: driver_run(os.path.join(outdir, "preempt"), "--print_freq", "2",
+                           base=ELASTIC_ARGV))
     out["preempt"] = {"code": code, "losses": losses,
                       "folder": glob.glob(os.path.join(outdir, "preempt", "*", "*"))[0]}
     if other_folder:
@@ -450,6 +460,82 @@ def resilience_suite(rank, world, outdir, other_folder):
     out["rollback"] = run_summary(*poisoned(
         {0}, lambda: driver_run(os.path.join(outdir, "rollback"), base=ROLLBACK_ARGV)))
     return out
+
+
+# name -> (recipe, loss_impl) of the data-parallel recipe steps (all with
+# --syncBN); under the ring a non-contrastive recipe gathers the rows
+RECIPE_STEP_CASES = {"byol": ("byol", "dense"), "vicreg": ("vicreg", "dense"),
+                     "byol_ring": ("byol", "ring")}
+
+
+def recipe_case(name, rank, world, distributed):
+    """``STEPS`` steps of recipe case ``name``: this process's slice under
+    the process group with cross-replica BN, or the global batch without
+    one. Returns the history, the model's state and the recipe slots (the
+    predictor's and the EMA network's parameters by name)."""
+    recipe, loss_impl = RECIPE_STEP_CASES[name]
+    views, labels = step_inputs()
+    model = init_model()
+    if distributed:
+        model.encoder.set_bn_sync(torch.distributed.group.WORLD)
+    state = TrainState(model, make_optimizer(model), make_lr_schedule(**SCHED))
+    cfg = config_lib.SupConConfig(recipe=recipe, feat_dim=FEAT, predictor_hidden=32,
+                                  batch_size=B, ema_momentum=0.9)
+    config_lib.validate_recipe(cfg)
+    recipes.attach_for_config(cfg, state)
+    step_cfg = SupConStepConfig(method="SimCLR", loss_impl=loss_impl, **STEP_KW)
+    history = []
+    for i in range(STEPS):
+        imgs = local_slice(views[i], rank, world) if distributed else views[i]
+        metrics = train_step(state, step_cfg, imgs, labels)
+        history.append({k: v.item() for k, v in metrics.items()})
+    slots = {}
+    if state.recipe_params is not None:
+        slots.update({f"predictor.{k}": v.detach().clone()
+                      for k, v in state.recipe_params.state_dict().items()})
+    for key, net in (state.recipe_state or {}).items():
+        slots.update({f"{key}.{k}": p.detach().clone() for k, p in net.named_parameters()})
+    out = {"history": history, "state": model.state_dict(), "slots": slots}
+    if distributed:
+        flat = torch.cat([t.reshape(-1).float() for t in [*model.state_dict().values(),
+                                                            *slots.values()]])
+        out["same_on_every_rank"] = all(torch.equal(p, flat) for p in collectives.all_gather(flat))
+    return out
+
+
+def boundary_preempt_case(rank, world, outdir):
+    """The driver with ``--print_freq 3`` (4 steps an epoch): straight, and
+    with a signal on the last rank after step 1, between flush boundaries,
+    then resumed; each run's preemption votes counted."""
+    argv = ["--print_freq", "3"]
+    vote = preempt.requested_global
+    votes = []
+
+    def counted():
+        votes.append(1)
+        return vote()
+
+    preempt.requested_global = counted
+    try:
+        code, straight = driver_run(os.path.join(outdir, "b_straight"), *argv)
+        assert code == 0
+        straight_votes = len(votes)
+        votes.clear()
+        (code, _), losses = preempted_after(
+            1, rank, world, lambda: driver_run(os.path.join(outdir, "b_preempt"), *argv))
+        preempt_votes = len(votes)
+    finally:
+        preempt.requested_global = vote
+    folder = glob.glob(os.path.join(outdir, "b_preempt", "*", "*"))[0]
+    _, resumed = driver_run(os.path.join(outdir, "b_resume"), *argv, "--resume", folder)
+    want, got = straight.state.model.state_dict(), resumed.state.model.state_dict()
+    return {
+        "preempt_code": code, "votes": preempt_votes, "straight_votes": straight_votes,
+        "saved": sorted(os.path.basename(p) for p in glob.glob(os.path.join(folder, "*.pth"))),
+        "straight_losses": [h["loss"] for h in straight.history],
+        "resumed_losses": losses + [h["loss"] for h in resumed.history],
+        "resumed_equal": all(torch.equal(got[k], want[k]) for k in want),
+    }
 
 
 def parallel_suite(rank, world, outdir):
@@ -646,6 +732,9 @@ def main(rank, world, outdir, suite="parallel", arg=""):
         results = ce_suite(rank, world, outdir)
     elif suite == "placement":
         results = placement_suite(rank, world, outdir)
+    elif suite == "recipes":
+        results = {name: recipe_case(name, rank, world, True) for name in RECIPE_STEP_CASES}
+        results["preempt_boundary"] = boundary_preempt_case(rank, world, outdir)
     else:
         raise ValueError(f"unknown suite {suite!r}")
     results["writes"] = list(writes)
