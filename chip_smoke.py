@@ -91,9 +91,20 @@ queue runs SIGTERM'd and resumed bitwise, a two-process byol step against
 one process, the accuracy arms of the JAX package's ``recipes_eval.py``
 and the collapse arm's exit 3, and the native host gather on the card's
 host.
+Then the port's supervisor (``supervise``) on the trainer, through
+``scripts/port_supervisor_victim.py`` in child processes: (a) ``kill -9``
+in epoch 2 of a ResNet-50 fp32 fused run, relaunched bitwise to a straight
+run's ``last.pth``; (b) a ResNet-18 bf16 run wedged at a flush boundary
+behind the port launchers' torchrun wrapper, killed off the scraped
+boundary age through the grace window, its worker with it; (c) a
+non-finite loss; (d) a collapse given up with exit 3; (e) an outside
+SIGTERM resumed without backoff, bitwise the straight run; (f) the skew
+gauges at world size 1 over NCCL with no host sync between boundaries;
+with each scenario's decisions, launches, recovery time and each child's
+kernel launches.
 Phases: device, build, kernel_parity, train, probe, resume, distributed,
-large_batch, observability, ce, placement, recipes, timing. Any failure raises and
-the script exits non-zero.
+large_batch, observability, ce, placement, recipes, supervise, timing. Any
+failure raises and the script exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
@@ -3750,6 +3761,402 @@ def recipes_phase(workdir, result, rn50_expected, rn50_bf16_expected, model, vie
         raise AssertionError("recipes:\n" + "\n".join(failures))
 
 
+# -- supervise: the port's supervisor on the port's trainer ----------------
+
+VICTIM = os.path.join(REPO, "scripts", "port_supervisor_victim.py")
+# the fused kernels one step launches, per (model, --bf16), in the victim's
+# KERNELS names (utils: fused_loss's counters prefixed "loss_")
+STEP_LAUNCHES = {
+    ("resnet50", False): {"loss_fwd_launches": 1, "loss_bwd_launches": 1,
+                          "stem_fwd_launches": 1, "stem_bwd_launches": 1,
+                          "bottleneck_fwd_launches": 16, "bottleneck_bwd_launches": 16},
+    ("resnet18", True): {"loss_fwd_launches": 1, "loss_bwd_launches": 1,
+                         "stem_fwd_bf16_launches": 1, "stem_bwd_bf16_launches": 1,
+                         "basic_fwd_bf16_launches": 5, "basic_bwd_bf16_launches": 5,
+                         "proj_fwd_bf16_launches": 3, "proj_bwd_bf16_launches": 3},
+}
+# the port launchers' child: torchrun's agent at one process, its worker in
+# a session of its own ((b) runs behind it)
+TORCHRUN_1 = ["-m", "simclr_pytorch_distributed_tpu_torch.parallel.torchrun", "--standalone",
+              "--nproc_per_node", "1"]
+# (b)'s liveness deadline, the trainer's watchdog and the grace window:
+# the scraped boundary age passes the deadline first; the watchdog dumps
+# inside the grace window, which then lapses to SIGKILL. The watchdog arms
+# when the run starts, so its deadline must pass what a child does before
+# its first boundary (the victim imports torch._dynamo before the run;
+# PERF.md §6), or a healthy start reads as a stall
+SUP_STALL_S, SUP_WATCHDOG_S, SUP_GRACE_S = 5.0, 12.0, 12.0
+SUP_TIMEOUT_S = 240
+# (a) and (e) signal the child at this step of its run: step 3 of epoch 2
+SUP_HOLD_STEP = 10
+
+
+def victim_argv(model, workdir, epochs=2, bf16=False):
+    """The trainer's arguments for a supervised child: ``model`` at the
+    recipe's width (batch 256, 32 px) with ``--conv_impl fused --loss_impl
+    fused``, a boundary every step, a save every epoch, in ``workdir``."""
+    return (["--device", "cuda", "--dataset", "synthetic", "--model", model,
+             "--batch_size", "256", "--size", "32", "--epochs", str(epochs), "--method", "SimCLR",
+             "--temp", str(TEMP), "--learning_rate", "0.5", "--loss_impl", "fused",
+             "--conv_impl", "fused", "--print_freq", "1", "--save_freq", "1",
+             "--data_placement", "host", "--workdir", workdir] + (["--bf16"] if bf16 else []))
+
+
+class Supervised:
+    """``python -m simclr_pytorch_distributed_tpu_torch.supervise`` over the
+    victim (behind ``launcher``, arguments to the interpreter before the
+    victim's path), in a session of its own, its merged output read line by
+    line with the time each line came."""
+
+    def __init__(self, workdir, sup_flags, victim_flags, trainer_argv, launcher=()):
+        import threading
+        self.workdir = workdir
+        cmd = ([sys.executable, "-m", "simclr_pytorch_distributed_tpu_torch.supervise",
+                "--workdir", workdir, "--poll_secs", "0.2", "--backoff_base_s", "0.5"]
+               + sup_flags + ["--", sys.executable] + list(launcher) + [VICTIM]
+               + victim_flags + trainer_argv)
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.lines = []
+        self.proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     start_new_session=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.time(), line.rstrip("\n")))
+
+    def wait_line(self, prefix, timeout=SUP_TIMEOUT_S):
+        """The first line starting with ``prefix`` and its time."""
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            for t, line in list(self.lines):
+                if line.startswith(prefix):
+                    return t, line
+            if self.proc.poll() is not None and not self._reader.is_alive():
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"no line starting {prefix!r} came: {self.tail()}")
+
+    def tail(self, n=30):
+        return "\n".join(line for _, line in self.lines[-n:])
+
+    def stop(self):
+        """Kill whatever is left of the supervisor's tree (torchrun's workers
+        leave its session, so the tree and not the session)."""
+        from simclr_pytorch_distributed_tpu_torch.supervise.launch import kill_tree
+        if self.proc.poll() is None:
+            kill_tree(self.proc.pid)
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        self.proc.wait()
+
+    def finish(self):
+        try:
+            rc = self.proc.wait(timeout=SUP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            self.stop()
+            self._reader.join(timeout=10)
+        if rc is None:
+            raise AssertionError(f"the supervisor did not finish in {SUP_TIMEOUT_S} s:\n"
+                                 f"{self.tail()}")
+        with open(os.path.join(self.workdir, "supervise", "events.jsonl")) as fh:
+            self.events = [json.loads(ln) for ln in fh]
+        self.decisions = [e["args"]["action"] for e in self.events if e["name"] == "decision"]
+        return rc
+
+    def attempts(self):
+        """The output split at each launch: one list of ``(time, line)`` a
+        child, the supervisor's decision line after it included."""
+        out = []
+        for t, line in self.lines:
+            if "supervise: attempt " in line:
+                out.append([])
+            if out:
+                out[-1].append((t, line))
+        return out
+
+
+def child_kernels(lines):
+    """The last ``KERNELS`` report of one child, and how many steps it logged."""
+    reports = [json.loads(line.split(" ", 1)[1]) for _, line in lines
+               if line.startswith("KERNELS ")]
+    steps = sum(1 for _, line in lines if "Train: [" in line)
+    return (reports[-1] if reports else None), steps
+
+
+def wall(lines, prefix):
+    """The wall clock a child printed on its first ``prefix`` line."""
+    for _, line in lines:
+        if line.startswith(prefix):
+            return float(line.split("wall=")[1].split()[0])
+    return None
+
+
+def recovery(sup, kill_t=None):
+    """Seconds from the first child's end (the kill when this script made
+    it, else the supervisor's decision line, logged when it reaped the
+    child) to the relaunched child's first finished step, and its split:
+    to the relaunch's start (the decision, the backoff, the spawn), its
+    start-up to its first step's call (imports, CUDA, data, model,
+    restore), and that first step."""
+    attempts = sup.attempts()
+    if len(attempts) < 2:
+        return None, None
+    decided = [t for t, line in attempts[0] if "supervise decision:" in line]
+    marks = [wall(attempts[1], p) for p in ("START", "RUN", "STEP_BEGIN", "FIRST_STEP")]
+    imports = [line for _, line in attempts[1] if line.startswith("RUN ")]
+    if not decided or None in marks or not imports:
+        return None, None
+    start = kill_t if kill_t is not None else decided[0]
+    fields = dict(kv.split("=") for kv in imports[0].split()[2:])
+    return marks[3] - start, {
+        "to_start": round(marks[0] - start, 3), "imports": round(marks[1] - marks[0], 3),
+        "of_which_torch": float(fields["import_torch_s"]),
+        "of_which_dynamo": float(fields["import_dynamo_s"]),
+        "run_to_first_step": round(marks[2] - marks[1], 3),
+        "first_step": round(marks[3] - marks[2], 3)}
+
+
+def report_scenario(label, sup, rc, want, want_rc, failures, per_step, kill_t=None,
+                    where=""):
+    """Prints the scenario's line and its children's kernels; records a
+    failure unless the decisions and the exit code are ``want`` and
+    ``want_rc`` and each child that ran to its end launched ``per_step`` a
+    logged step."""
+    took, split = recovery(sup, kill_t)
+    launches = sum(1 for e in sup.events if e["name"] == "launch")
+    print(f"supervise {label}: decisions {sup.decisions}, supervisor exit {rc}, launches "
+          f"{launches}, first child's end to the relaunch's first finished step "
+          + (f"{took:.3f} s {split}" if took is not None else "n/a") + f" {where}")
+    if sup.decisions != want or rc != want_rc:
+        failures.append(f"{label}: decisions {sup.decisions} exit {rc}, expected {want} "
+                        f"exit {want_rc}:\n{sup.tail()}")
+    codes = [e["args"]["rc"] for e in sup.events if e["name"] == "child_run"]
+    for i, lines in enumerate(sup.attempts()):
+        kernels, steps = child_kernels(lines)
+        rc_i = codes[i] if i < len(codes) else None
+        print(f"supervise {label}: child {i + 1} exit {rc_i}, {steps} steps logged, fused "
+              f"kernels launched (its last report) {kernels}")
+        if rc_i == 0:
+            expect = {k: v * steps for k, v in per_step.items()}
+            if kernels != expect or not steps:
+                failures.append(f"{label}: child {i + 1} launched {kernels} in {steps} steps, "
+                                f"expected {expect}")
+    return took
+
+
+def process_alive(pid):
+    """Whether ``pid`` runs: a zombie (exited, not yet reaped) does not."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def last_state(workdir):
+    """The ``last.pth`` of the newest run folder under ``workdir``."""
+    from simclr_pytorch_distributed_tpu_torch.supervise.launch import find_resume_dir
+    run_dir = find_resume_dir(workdir, require_checkpoint=True)
+    if run_dir is None or not os.path.isfile(os.path.join(run_dir, "last.pth")):
+        raise AssertionError(f"no last.pth under {workdir}")
+    return torch.load(os.path.join(run_dir, "last.pth"), map_location="cpu", weights_only=True)
+
+
+def same_last(label, got_dir, want, failures):
+    got = last_state(got_dir)
+    bad = [k for k in want["model"] if not torch.equal(got["model"][k], want["model"][k])]
+    if got["step"] != want["step"]:
+        bad.append(f"step {got['step']} vs {want['step']}")
+    print(f"supervise {label}: last.pth vs the straight run's: {len(want['model'])} parameters "
+          f"and buffers, step {got['step']}: "
+          + ("bitwise equal" if not bad else f"{len(bad)} differ"))
+    if bad:
+        failures.append(f"{label}: last.pth differs from the straight run: {bad[:8]}")
+
+
+def supervise_gauges(workdir, expected, failures):
+    """(f): the ResNet-18 bf16 fused epoch under torchrun's environment at
+    world size 1 (NCCL) with ``--metrics_port``, the sidecar scraped after
+    two boundaries: the boundary exchange publishes zero skew, straggler -1
+    and one process, and ``SyncGuard`` sees no host sync between
+    boundaries; the run launches ``expected``."""
+    from simclr_pytorch_distributed_tpu_torch.supervise.observe import parse_prometheus_text
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    port = free_port()
+    argv = victim_argv("resnet18", workdir, epochs=1, bf16=True) + ["--metrics_port", str(port)]
+    step, scraped = supcon.train_step, {}
+
+    def scraping(state, cfg, views, labels):
+        metrics = step(state, cfg, views, labels)
+        if state.step == 3:  # two boundaries in
+            scraped.update(parse_prometheus_text(scrape(port)))
+        return metrics
+
+    counters = kernel_counters()
+    for mod, counter in counters:
+        setattr(mod, counter, 0)
+    supcon.train_step = scraping
+    try:
+        with SyncGuard() as guard:
+            torchrun_world1(argv)
+    finally:
+        supcon.train_step = step
+    launches = {counter: getattr(mod, counter) for mod, counter in counters}
+    gauges = {k: scraped.get(k) for k in ("train_boundary_skew_seconds",
+                                          "train_boundary_straggler", "train_process_count",
+                                          "train_collective_wait_seconds")}
+    print(f"supervise (f) world size 1 over NCCL: scraped {gauges}; no host sync in "
+          f"{guard.guarded_steps} guarded step windows, {guard.fetches} transfers for 7 windows")
+    if (gauges["train_boundary_skew_seconds"] != 0.0 or gauges["train_boundary_straggler"] != -1.0
+            or gauges["train_process_count"] != 1.0):
+        failures.append(f"(f): the world-1 gauges are {gauges}")
+    if guard.guarded_steps != 7 or guard.fetches != 7 or launches != expected:
+        failures.append(f"(f): {guard.guarded_steps} guarded windows, {guard.fetches} transfers, "
+                        f"launches {launches} (expected {expected})")
+
+
+def supervise_phase(workdir, rn18_bf16_expected, where):
+    """The port's supervisor (``python -m
+    simclr_pytorch_distributed_tpu_torch.supervise``) on the port's trainer
+    through ``scripts/port_supervisor_victim.py``, on the card: (a) ``kill
+    -9`` in epoch 2 of a ResNet-50 fp32 fused run gives ``backoff_restart``
+    then ``done``, its ``last.pth`` bitwise that of a straight unsupervised
+    run; (b) a ResNet-18 bf16 run whose main thread wedges at a flush
+    boundary is killed off the scraped boundary age, its watchdog's dump
+    appears, the grace window lapses to SIGKILL, and the relaunch finishes;
+    (c) a non-finite loss exits 1, then ``backoff_restart`` and ``done``;
+    (d) a collapse exits 3 and the supervisor gives up with 3; (e) an
+    outside SIGTERM gives exit 75, ``restart_resume`` with no backoff, then
+    ``done``, bitwise the straight run; (f) the skew gauges at world size 1
+    over NCCL, scraped mid-run, with no host sync between boundaries.
+    (b)'s child is the port launchers' ``parallel/torchrun.py`` at one
+    process over NCCL, and its wedged worker must be gone after the kill.
+    (a)-(e) run at once on the card, so each recovery time is read with the
+    other scenarios' children beside it. Resize and the straggler ladder
+    need two processes, and the card's machine has one card: the CPU tests
+    run them."""
+    failures = []
+    rn50, rn18 = STEP_LAUNCHES[("resnet50", False)], STEP_LAUNCHES[("resnet18", True)]
+
+    def fresh(name):
+        return tempfile.mkdtemp(prefix=f"sup_{name}_", dir=workdir)
+
+    # the straight run (a) and (e) are held to, through the entry point in
+    # this process (the resume phase holds a child's steps to this
+    # process's bitwise)
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    straight_dir = fresh("straight")
+    t0 = time.time()
+    supcon.main(victim_argv("resnet50", straight_dir))
+    straight = last_state(straight_dir)
+    print(f"supervise: the straight unsupervised ResNet-50 fp32 run, 2 epochs, took "
+          f"{time.time() - t0:.2f} s of wall time {where}")
+
+    # (a)-(e) run at once, their children sharing the card: (d) a collapse
+    # under --health_policy abort; (a) kill -9 and (e) an outside SIGTERM in
+    # epoch 2; (b) a stall behind the torchrun launcher, whose worker the
+    # kill must take too; (c) a non-finite loss
+    wd = {k: fresh(name) for k, name in (("a", "sigkill"), ("b", "stall"), ("c", "nan"),
+                                          ("d", "collapse"), ("e", "preempt"))}
+    port = free_port()
+    hold = ["--fault", "hold", "--fault_step", str(SUP_HOLD_STEP)]
+    specs = {
+        "d": ([], ["--fault", "collapse"], victim_argv("resnet18", wd["d"], epochs=1, bf16=True)
+              + ["--health_freq", "1", "--health_policy", "abort"], ()),
+        "a": ([], hold + ["--fault_marker", os.path.join(wd["a"], "hold.marker")],
+              victim_argv("resnet50", wd["a"]), ()),
+        "e": ([], hold + ["--fault_marker", os.path.join(wd["e"], "hold.marker")],
+              victim_argv("resnet50", wd["e"]), ()),
+        "b": (["--stall_secs", str(SUP_STALL_S), "--metrics_port", str(port),
+               "--grace_secs", str(SUP_GRACE_S)],
+              ["--fault", "stall", "--fault_step", "3", "--fault_marker",
+               os.path.join(wd["b"], "stall.marker")],
+              victim_argv("resnet18", wd["b"], epochs=1, bf16=True)
+              + ["--metrics_port", str(port), "--watchdog_secs", str(SUP_WATCHDOG_S)],
+              TORCHRUN_1),
+        "c": ([], ["--fault", "nan", "--fault_step", "3", "--fault_marker",
+                   os.path.join(wd["c"], "nan.marker")],
+              victim_argv("resnet18", wd["c"], epochs=1, bf16=True), ()),
+    }
+    sups, rcs, kill_t = {}, {}, {}
+    try:
+        for k, (sup_flags, victim_flags, trainer_argv, launcher) in specs.items():
+            sups[k] = Supervised(wd[k], sup_flags, victim_flags, trainer_argv, launcher)
+        for k, sig in (("a", signal.SIGKILL), ("e", signal.SIGTERM)):
+            _, line = sups[k].wait_line("HOLD ")
+            kill_t[k] = time.time()
+            os.kill(int(line.split("pid=")[1]), sig)
+        for k in sups:
+            rcs[k] = sups[k].finish()
+    finally:
+        for sup in sups.values():
+            sup.stop()
+
+    report_scenario("(d) collapse resnet18 bf16", sups["d"], rcs["d"], ["give_up"], 3, failures,
+                    rn18, where=where)
+    took = {"a": report_scenario("(a) sigkill resnet50 fp32", sups["a"], rcs["a"],
+                                 ["backoff_restart", "done"], 0, failures, rn50, kill_t["a"],
+                                 where)}
+    same_last("(a) sigkill", wd["a"], straight, failures)
+
+    sup = sups["b"]
+    took["b"] = report_scenario("(b) stall resnet18 bf16 under torchrun", sup, rcs["b"],
+                                ["backoff_restart", "done"], 0, failures, rn18, where=where)
+    stalls = [e["args"] for e in sup.events if e["name"] == "liveness_stall"]
+    codes = [e["args"]["rc"] for e in sup.events if e["name"] == "child_run"]
+    dumps = glob.glob(os.path.join(wd["b"], "*", "*", "stall_dump_*.txt"))
+    wedged = [d for d in dumps if "stalling_vote" in open(d).read()]
+    _, line = sup.wait_line("FAULT stall")
+    worker = int(line.split("pid=")[1])
+    left = process_alive(worker)
+    print(f"supervise (b): liveness verdicts {stalls}; child exits {codes}; watchdog dumps "
+          f"{[os.path.basename(d) for d in dumps]} ({len(wedged)} showing the wedged frame); "
+          f"the wedged torchrun worker (pid {worker}) "
+          + ("is still running" if left else "is gone"))
+    if left:
+        os.kill(worker, signal.SIGKILL)
+        failures.append(f"(b): the wedged worker {worker} outlived the kill of its launcher")
+    if (len(stalls) != 1 or stalls[0]["age_s"] is None or stalls[0]["age_s"] < SUP_STALL_S
+            or codes[:1] != [-signal.SIGKILL] or not wedged):
+        failures.append(f"(b): expected one verdict off the scraped age >= {SUP_STALL_S} s, "
+                        f"a SIGKILL after the grace window and a dump of the wedged frame: "
+                        f"{stalls}, {codes}, {dumps}")
+
+    codes = [e["args"]["rc"] for e in sups["c"].events if e["name"] == "child_run"]
+    took["c"] = report_scenario("(c) nan resnet18 bf16", sups["c"], rcs["c"],
+                                ["backoff_restart", "done"], 0, failures, rn18, where=where)
+    if codes[:1] != [1]:
+        failures.append(f"(c): the first child exited {codes}, expected 1")
+
+    sup = sups["e"]
+    took["e"] = report_scenario("(e) preempt resnet50 fp32", sup, rcs["e"],
+                                ["restart_resume", "done"], 0, failures, rn50, kill_t["e"], where)
+    delays = [e["args"]["delay_s"] for e in sup.events if e["name"] == "decision"]
+    codes = [e["args"]["rc"] for e in sup.events if e["name"] == "child_run"]
+    if codes[:1] != [75] or delays[:1] != [0.0]:
+        failures.append(f"(e): the first child exited {codes} with delays {delays}, "
+                        f"expected 75 and no backoff")
+    same_last("(e) preempt", wd["e"], straight, failures)
+
+    # (f) the boundary gauges at world size 1 over NCCL, no host sync between boundaries
+    supervise_gauges(fresh("gauges"), rn18_bf16_expected, failures)
+    print("supervise: resize and the straggler ladder need two processes; the card's machine has "
+          "one card, so they are not run on the card (tests/test_torch_port_supervise_run.py "
+          "runs both on the CPU over gloo)")
+    print("supervise recovery seconds (first child's end to the relaunch's first finished step): "
+          + json.dumps({k: round(v, 3) if v is not None else None for k, v in took.items()})
+          + f" {where}")
+    if failures:
+        raise AssertionError("supervise:\n" + "\n".join(failures))
+
+
 def split_only() -> int:
     """The ``--split-only`` run: the build, the loss split
     (:func:`loss_split`) and the per-kernel splits of ``SPLITS`` (the
@@ -3978,6 +4385,11 @@ def main(argv=None) -> int:
     recipes_phase(workdir, result, rn50_expected, rn50_bf16_expected, model, views, labels,
                   f"on {card}")
     done("recipes", t0)
+
+    # -- supervise: the supervisor on the trainer, through kills and relaunches
+    t0 = phase("supervise")
+    supervise_phase(workdir, rn18_bf16_expected, f"on {card}")
+    done("supervise", t0)
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")

@@ -19,12 +19,14 @@ batch is the same bytes in every placement.
 
 The bounds come from :func:`share_splits` (JAX ``data/pipeline.py:42-108``,
 copied here, since the port imports nothing of the JAX package), which
-takes a share hint ``host:factor`` (what the JAX package's fleet supervisor
-exports as ``FLEET_SHARE_HINT``): a straggling process hands part of its
+takes a share hint ``host:factor``: a straggling process hands part of its
 share to its peers, and the union of the slices stays the global batch.
-As in the JAX package, the trainers do not pass a hint: the train step
-needs equal slices. The port has no supervisor, and nothing in it reads
-that variable.
+The port's supervisor exports that hint as :data:`FLEET_SHARE_ENV` into a
+``restart_rebalanced`` relaunch (``supervise/launch.share_env``). As in the
+JAX package, the trainers do not read it: the train step needs equal
+slices. Its one reader is the single-host fleet launcher
+(``scripts/port_fleet_launcher.py``), which records the hint it was
+launched under.
 """
 
 from __future__ import annotations
@@ -36,6 +38,11 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from simclr_pytorch_distributed_tpu_torch.data import native_gather
+
+
+# the environment variable that carries a share hint into a relaunch; the
+# consumer side owns the spelling, and the supervisor imports it from here
+FLEET_SHARE_ENV = "FLEET_SHARE_HINT"
 
 
 def parse_share_hint(hint: Optional[str]) -> Optional[Tuple[int, float]]:

@@ -328,14 +328,23 @@ def resume_position(meta: dict, steps_per_epoch: int) -> Tuple[int, int]:
     return start_epoch, start_step
 
 
-def _progress(meta: dict) -> Optional[Tuple[int, int]]:
-    if "epoch" not in meta or "step" not in meta:
-        return None  # not a full-state checkpoint
+def _progress(meta) -> Optional[Tuple[int, int]]:
+    if not isinstance(meta, dict) or "epoch" not in meta or "step" not in meta:
+        return None  # not a full-state checkpoint (or no checkpoint at all)
     try:
         step = int(meta.get("step_in_epoch") or 0)
     except (TypeError, ValueError):
         step = 0
     return int(meta["epoch"]), step
+
+
+def readable_checkpoint(path: str) -> Optional[dict]:
+    """The checkpoint at ``path`` (tensors memory-mapped), or ``None`` for a
+    file that does not load: a torn write, or not a checkpoint at all."""
+    try:
+        return _load(path, mmap=True)
+    except Exception:  # noqa: BLE001 - a torn or foreign file is skipped
+        return None
 
 
 def resolve_resume_path(path: str) -> str:
@@ -349,10 +358,7 @@ def resolve_resume_path(path: str) -> str:
         return path
     candidates = []
     for name in sorted(glob.glob(os.path.join(path, "*.pth"))):
-        try:
-            progress = _progress(_load(name, mmap=True))
-        except Exception:  # noqa: BLE001 - a torn or foreign file is skipped
-            continue
+        progress = _progress(readable_checkpoint(name))  # None for a torn file
         if progress is not None:
             scheduled = 0 if os.path.basename(name).startswith(("crash", "preempt")) else 1
             candidates.append((*progress, scheduled, name))

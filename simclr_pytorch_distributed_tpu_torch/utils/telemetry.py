@@ -29,10 +29,16 @@ arm, ``--telemetry sync``). Failure handling is the same in both modes: a
 job's exception is stored and raised at the boundary.
 
 Under a process group the failure codes of the processes meet in one
-all-reduce (MAX) at every boundary (gloo on the CPU, NCCL on the card; the
-JAX package's multihost allgather), so every process leaves the loop at the
-same boundary through the same exception type; without a group there is
-no collective.
+all-gather at every boundary (gloo on the CPU, NCCL on the card; the JAX
+package's multihost allgather, JAX ``utils/telemetry.py:418-473``), so every
+process leaves the loop at the same boundary through the same exception
+type; without a group there is no collective. Each process's row carries
+its wait inside the previous boundary's gather beside its code, so every
+process also learns the fleet's arrival skew and which process the others
+waited on: the ``boundary_skew_seconds``, ``boundary_straggler`` and
+``process_count`` gauges the supervisor's straggler tracker reads
+(``supervise/observe.py``), and the ``boundary_skew`` event on the fleet
+track.
 """
 
 from __future__ import annotations
@@ -187,6 +193,9 @@ class TelemetrySession:
         # wedged collective or device rather than ordinary slowness
         self._watchdog = watchdog
         self._gauges = gauges
+        # this process's wait (ms) inside the previous boundary's gather,
+        # sent with the next one; -1 until a gather has been timed
+        self._last_wait_ms = -1
 
     def init_buffer(self, device=None):
         return self.ring.init_buffer(device)
@@ -300,32 +309,59 @@ class TelemetrySession:
         boundary depends on scheduling, so a lone process raising out of
         the loop while its peers dispatch the next window's collectives
         would deadlock them. Every process calls this at every boundary;
-        the failure codes meet in one all-reduce (MAX), and if any process
-        has a failure, every process drains and raises here through the
-        type the code names: a health abort (3) outranks a flush failure
-        (2), which outranks a non-finite loss (1). A process whose own
-        windows were clean raises the type the code names too. Without a
-        process group of more than one process there is no collective.
+        the rows ``[code, previous wait in ms]`` of the processes meet in
+        one all-gather, and if any process has a failure, every process
+        drains and raises here through the type the largest code names: a
+        health abort (3) outranks a flush failure (2), which outranks a
+        non-finite loss (1). A process whose own windows were clean raises
+        the type the code names too. Without a process group of more than
+        one process there is no collective.
+
+        The waits are one boundary stale by construction: for a
+        synchronous collective each process's wait is about the last
+        arrival's time less its own, so their spread is the fleet's arrival
+        skew and the process that waited least arrived last, the straggler
+        (JAX ``utils/telemetry.py:418-473``). The exchange widens the one
+        collective the boundary already had; it adds none.
         """
         from simclr_pytorch_distributed_tpu_torch.parallel import mesh
 
         code = self._failure_code()
-        if mesh.world_size() > 1:
+        world = mesh.world_size()
+        if world > 1:
             import torch
             import torch.distributed as dist
 
+            device = mesh.collective_device()
             t_arrive = time.monotonic()
-            with tracing.span("failure_code_allreduce", track="main:collective",
+            with tracing.span("failure_code_allgather", track="main:collective",
                               step=step_hint, local_code=code):
-                flag = torch.tensor([code], dtype=torch.int32,
-                                    device=mesh.collective_device())
-                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
-                code = int(flag.item())
+                row = torch.tensor([code, self._last_wait_ms], dtype=torch.int32, device=device)
+                gathered = torch.empty(world * 2, dtype=torch.int32, device=device)
+                dist.all_gather_into_tensor(gathered, row)
+                rows = gathered.view(world, 2).tolist()
+            wait_s = time.monotonic() - t_arrive
+            self._last_wait_ms = min(int(round(wait_s * 1e3)), 2**31 - 1)
+            code = max(r[0] for r in rows)
+            waits = [r[1] for r in rows]
             if self._gauges is not None:
-                self._gauges.set(collective_wait_seconds=time.monotonic() - t_arrive,
-                                 process_count=float(mesh.world_size()))
+                self._gauges.set(collective_wait_seconds=wait_s)
+            if min(waits) >= 0:
+                skew_s = (max(waits) - min(waits)) / 1e3
+                straggler = waits.index(min(waits))
+                if self._gauges is not None:
+                    # who is slow and out of how many: the supervisor's
+                    # rebalance and exclusion rungs need both
+                    self._gauges.set(boundary_skew_seconds=skew_s,
+                                     boundary_straggler=float(straggler),
+                                     process_count=float(world))
+                tracing.event("boundary_skew", track=tracing.FLEET_TRACK, step=step_hint,
+                              skew_s=round(skew_s, 6), straggler=straggler)
         elif self._gauges is not None:
-            self._gauges.set(collective_wait_seconds=0.0, process_count=1.0)
+            # one process: nobody to wait on; the keys read 0, not absent,
+            # and straggler -1 names nobody (the tracker's benign case)
+            self._gauges.set(collective_wait_seconds=0.0, boundary_skew_seconds=0.0,
+                             boundary_straggler=-1.0, process_count=1.0)
         # the matched instant every process just left: the fleet timelines'
         # alignment ruler
         tracing.clock_anchor("flush_boundary", step=step_hint)

@@ -34,10 +34,11 @@ import faulthandler
 import json
 import logging
 import os
+import re
 import threading
 import time
 from collections import deque
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
@@ -123,7 +124,7 @@ class FlightRecorder:
         """Record a fleet clock anchor and return its sequence number.
 
         Anchors are stamped at already-matched collective points (each
-        flush boundary's failure-code all-reduce) right after the
+        flush boundary's failure-code all-gather) right after the
         collective releases: every process leaves it at about the same real
         instant, so anchor ``seq`` k is the same physical moment observed
         through each process's unaligned monotonic clock, and the
@@ -259,6 +260,83 @@ def chrome_trace_from_events(events: Iterable[dict], process_index: int = 0) -> 
 
 EVENTS_FILE = "events.jsonl"
 TRACE_FILE = "trace.json"
+
+# events[_pN][_rK].jsonl: process N (absent = 0), session K (absent = 1), the
+# names run_paths gives
+EVENTS_FILE_RE = re.compile(r"^(events(?:_p(\d+))?)(?:_r(\d+))?\.jsonl$")
+
+
+def parse_jsonl(text: str) -> Tuple[List[dict], int]:
+    """Recorder jsonl text as ``(records, consumed)`` (JAX
+    ``utils/tracing.py:283``).
+
+    The one reader behind :func:`load_events_jsonl`, the trace report
+    (``utils/trace_report.py``) and the supervisor's ``RunDirWatcher``:
+    only complete lines, through the last newline, are read, so the
+    half-written last line a SIGKILL (or a reader racing the writer) leaves
+    never breaks the reader; a complete line that does not parse is
+    skipped. ``consumed`` is the offset just past the last newline, where
+    an incremental reader resumes."""
+    consumed = text.rfind("\n") + 1
+    records: List[dict] = []
+    for line in text[:consumed].splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(rec, dict):
+            records.append(rec)
+    return records, consumed
+
+
+def load_events_jsonl(path: str) -> List[dict]:
+    """Every complete record of one recorder jsonl."""
+    with open(path) as f:
+        return parse_jsonl(f.read())[0]
+
+
+def session_files_for(events_path: str) -> List[str]:
+    """Every session file of the process ``events_path`` belongs to, in
+    session order: ``events.jsonl``, ``events_r2.jsonl``, ... (or the
+    ``events_pN*`` family). A resumed run opens a new ``_rK`` file each
+    session (:func:`run_paths`), so a reader that stops at the first file
+    loses the timeline after the first preemption. A name outside the
+    pattern returns itself."""
+    d, fname = os.path.split(events_path)
+    m = EVENTS_FILE_RE.match(fname)
+    if not m:
+        return [events_path]
+    base = m.group(1)
+    out = []
+    k = 1
+    while True:
+        name = f"{base}.jsonl" if k == 1 else f"{base}_r{k}.jsonl"
+        path = os.path.join(d, name)
+        if not os.path.exists(path):
+            break
+        out.append(path)
+        k += 1
+    return out or [events_path]
+
+
+def discover_fleet_sessions(run_dir: str) -> Dict[str, Dict[int, str]]:
+    """Every recorder session of a run folder, grouped for the fleet view:
+    ``{"r1": {0: ".../events.jsonl", 1: ".../events_p1.jsonl"}, "r2":
+    ...}``, process index to its events file. Timestamps restart each
+    session, so a session aligns only with itself."""
+    sessions: Dict[int, Dict[int, str]] = {}
+    for fname in sorted(os.listdir(run_dir)):
+        m = EVENTS_FILE_RE.match(fname)
+        if not m:
+            continue
+        pidx = int(m.group(2) or 0)
+        k = int(m.group(3) or 1)
+        sessions.setdefault(k, {})[pidx] = os.path.join(run_dir, fname)
+    return {f"r{k}": files for k, files in sorted(sessions.items())}
+
 
 def run_paths(run_dir: str, process_index: int = 0):
     """Per-process, per-SESSION recorder file names inside one (shared)

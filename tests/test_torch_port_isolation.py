@@ -9,6 +9,7 @@ fails.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -140,3 +141,38 @@ def test_the_native_gather_source_is_the_ports_own():
     assert source.is_file()
     text = (PACKAGE / "data" / "native_gather.py").read_text()
     assert '"csrc" / "gather.cpp"' in text and "simclr_pytorch_distributed_tpu/" not in text
+
+
+# the training supervisor, its torchrun launcher and the trace report: the
+# JAX package's supervise/ and scripts/trace_report.py, ported
+SUPERVISE_MODULES = (
+    "supervise/__init__.py", "supervise/__main__.py", "supervise/policy.py",
+    "supervise/observe.py", "supervise/launch.py", "supervise/supervisor.py",
+    "parallel/torchrun.py", "utils/trace_report.py",
+)
+
+
+@pytest.mark.parametrize("module", SUPERVISE_MODULES)
+def test_the_scan_covers_the_supervise_modules(module):
+    path = PACKAGE / module
+    assert path in _sources()
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+
+
+# the port's scripts that drive it (the victim, the fleet launcher, the
+# report's CLI): the JAX linter scans scripts/, and these import no JAX
+PORT_SCRIPTS = ("port_supervisor_victim.py", "port_fleet_launcher.py", "port_trace_report.py")
+
+
+@pytest.mark.parametrize("script", PORT_SCRIPTS)
+def test_the_port_scripts_import_no_jax(script):
+    path = REPO / "scripts" / script
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+
+
+@pytest.mark.parametrize("launcher", ["run_supcon.sh", "run_linear.sh"])
+def test_the_port_launchers_name_no_jax_module(launcher):
+    text = (PACKAGE / launcher).read_text()
+    modules = set(re.findall(r"-m\s+([\w.]+)", text))
+    assert modules and all(m.startswith("simclr_pytorch_distributed_tpu_torch") for m in modules)
+    assert not re.search(r"simclr_pytorch_distributed_tpu(?!_torch)|main_\w+\.py|\bjax\b", text)

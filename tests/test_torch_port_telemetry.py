@@ -17,12 +17,19 @@ the CPU at a small size.
   history under ``--telemetry async`` and ``sync``, and a TensorBoard
   write that fails exits 2 (not the NaN path: no crash save);
 - at P = 2 over gloo (``tests/torch_parallel_child.py`` suite
-  ``telemetry``) the failure codes meet in one all-reduce: every rank
-  raises the same type, with health 3 > flush 2 > NaN 1; and the health
+  ``telemetry``) the failure codes meet in the boundary's one all-gather:
+  every rank raises the same type, with health 3 > flush 2 > NaN 1; and the health
   and online-probe columns of two data-parallel steps (fused and ring
   loss, cross-replica BN) match one process's on the global batch
   (``HEALTH_RTOL``, ``GRAD_NORM_RTOL``; the probe's weights at
-  ``PROBE_RTOL``).
+  ``PROBE_RTOL``);
+- the boundary exchange's skew gauges: at P = 2 (suite ``skew``), with the
+  last rank late by ``SKEW_PACE_S`` at every boundary, each boundary after
+  the first publishes ``boundary_skew_seconds`` near the pace,
+  ``boundary_straggler`` naming the late rank and ``process_count`` 2, and
+  records a ``boundary_skew`` event naming it, from one all-gather a
+  boundary and no other collective; one process publishes the JAX
+  package's zeros with straggler -1.
 """
 
 import glob
@@ -257,6 +264,9 @@ def world2(tmp_path_factory):
     ("health_beats_flush", "RepresentationHealthError"),
 ])
 def test_failure_codes_meet_in_one_all_reduce(world2, case, want):
+    """The codes meet in the boundary's one collective, now the all-gather
+    of ``[code, wait]`` rows (span ``failure_code_allgather``): every
+    process raises the highest code."""
     assert [r["failures"][case] for r in world2] == [want, want]
 
 
@@ -277,3 +287,47 @@ def test_health_and_probe_columns_at_two_processes_match_one(world2, case):
         for key, value in single["probe"].items():
             torch.testing.assert_close(r["health"][case]["probe"][key], value,
                                        rtol=PROBE_RTOL, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def skew2(tmp_path_factory):
+    return child.spawn(2, tmp_path_factory.mktemp("skew2"), "skew")
+
+
+def test_the_exchange_names_the_paced_process(skew2):
+    late = 1  # the suite paces the last rank
+    for rank, r in enumerate(skew2):
+        first, *rest = r["gauges"]
+        # the first boundary carries no previous wait: no skew yet
+        assert "boundary_skew_seconds" not in first and first["collective_wait_seconds"] >= 0
+        assert len(rest) == child.SKEW_BOUNDARIES - 1
+        for g in rest:
+            assert g["boundary_straggler"] == late and g["process_count"] == 2
+            assert 0.5 * child.SKEW_PACE_S <= g["boundary_skew_seconds"] <= 2 * child.SKEW_PACE_S
+        assert [e["args"]["straggler"] for e in r["events"]] == [late] * len(rest)
+        assert [e["args"]["step"] for e in r["events"]] == list(range(1, child.SKEW_BOUNDARIES))
+        assert {e["track"] for e in r["events"]} == {"fleet"}
+    # the paced rank waits least: its own wait is far below its peer's
+    waits = [r["gauges"][-1]["collective_wait_seconds"] for r in skew2]
+    assert waits[late] < waits[0]
+
+
+def test_the_exchange_is_one_all_gather_a_boundary(skew2):
+    for r in skew2:
+        assert r["calls"] == {"all_gather_into_tensor": child.SKEW_BOUNDARIES}
+
+
+def test_one_process_publishes_zero_skew_and_no_straggler():
+    from simclr_pytorch_distributed_tpu_torch.utils.prom import TrainerGauges
+
+    gauges = TrainerGauges()
+    session = TelemetrySession(4, ("loss",), "async", gauges=gauges)
+    try:
+        session.check_failures_global(step_hint=3)
+    finally:
+        session.close()
+    got = gauges.collect()
+    assert {k: got[k] for k in ("collective_wait_seconds", "boundary_skew_seconds",
+                                "boundary_straggler", "process_count")} == {
+        "collective_wait_seconds": 0.0, "boundary_skew_seconds": 0.0,
+        "boundary_straggler": -1.0, "process_count": 1.0}

@@ -29,14 +29,27 @@ here from numpy seeds, by functions the tests import too. The suites:
   then the driver with ``--print_freq 3`` and a signal on the last rank
   after step 1, the votes counted, and its resume against the straight
   run.
+- ``skew``, for ``tests/test_torch_port_telemetry.py``: boundary exchanges
+  with the last rank paced by ``SKEW_PACE_S`` before each, the gauges and
+  ``boundary_skew`` events after each, and the collectives counted.
+- ``fleet``, for ``scripts/port_fleet_launcher.py``: the driver at ``--size 8
+  --print_freq 1`` with ARG a JSON object (``workdir``, ``epochs``, ``resume``), the
+  sidecar on ``CHILD_METRICS_PORT`` where that is set, and the rank
+  ``FLEET_STRAGGLER_PID`` late by ``FLEET_STRAGGLER_MS`` at every boundary
+  where that is set. It prints ``DRIVER step=<n> digest=<sha256 of the
+  model state> save_folder=<path>`` and exits with the driver's code (75
+  when preempted), writing no result file.
 """
 
 import contextlib
 import datetime
 import glob
+import hashlib
+import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -688,6 +701,80 @@ def placement_suite(rank, world, outdir):
     return out
 
 
+SKEW_PACE_S, SKEW_BOUNDARIES = 0.15, 4
+
+
+def skew_suite(rank, world, outdir):
+    """Boundary exchanges with the last rank paced, as ``skew`` says: for
+    each boundary the gauges after it, the ``boundary_skew`` events, and
+    the calls of each collective during all of them."""
+    from simclr_pytorch_distributed_tpu_torch.utils import tracing
+    from simclr_pytorch_distributed_tpu_torch.utils.prom import TrainerGauges
+    import torch.distributed as dist
+
+    calls = {}
+    originals = {name: getattr(dist, name) for name in
+                 ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast")}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return run
+
+    recorder = tracing.FlightRecorder()
+    tracing.install(recorder)
+    gauges = TrainerGauges()
+    session = TelemetrySession(4, ("loss",), "async", gauges=gauges)
+    after = []
+    for name, fn in originals.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        for b in range(SKEW_BOUNDARIES):
+            if rank == world - 1:
+                time.sleep(SKEW_PACE_S)
+            session.check_failures_global(step_hint=b)
+            after.append(gauges.collect())
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+        session.close()
+        tracing.uninstall()
+    events = [r for r in recorder.snapshot() if r["name"] == "boundary_skew"]
+    return {"gauges": after, "events": events, "calls": calls}
+
+
+def fleet_main(rank, world, outdir, arg):
+    """The ``fleet`` suite (module docstring); exits with the driver's code."""
+    spec = json.loads(arg)
+    pace_ms = float(os.environ.get("FLEET_STRAGGLER_MS", "0") or 0)
+    if pace_ms and rank == int(os.environ.get("FLEET_STRAGGLER_PID", "1")):
+        exchange = TelemetrySession.check_failures_global
+
+        def late(self, step_hint=0):
+            time.sleep(pace_ms / 1e3)
+            return exchange(self, step_hint)
+
+        TelemetrySession.check_failures_global = late
+    extra = ["--epochs", str(spec["epochs"]), "--size", "8", "--print_freq", "1",
+             "--save_freq", "1", "--trial", "fleet"]
+    port = os.environ.get("CHILD_METRICS_PORT", "")
+    if port:
+        extra += ["--metrics_port", port]
+    if spec.get("resume"):
+        extra += ["--resume", spec["resume"]]
+    code, result = driver_run(spec["workdir"], *extra)
+    if result is not None:
+        digest = hashlib.sha256()
+        for key, t in result.state.model.state_dict().items():
+            digest.update(key.encode())
+            digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+        print(f"DRIVER step={result.state.step} digest={digest.hexdigest()} "
+              f"save_folder={result.save_folder}", flush=True)
+    mesh.teardown_distributed()
+    sys.exit(code or 0)
+
+
 def spawn(world, outdir, suite, arg="", wall_limit=300):
     """Run ``world`` processes of ``suite`` to the end (one thread each) and
     return their results, rank by rank; a failed or overrunning process
@@ -720,6 +807,8 @@ def main(rank, world, outdir, suite="parallel", arg=""):
     writes = count_writes()
     mesh.setup_distributed("cpu", init_method=f"file://{os.path.join(outdir, 'store')}",
                            rank=rank, world_size=world, timeout=TIMEOUT)
+    if suite == "fleet":
+        fleet_main(rank, world, outdir, arg)
     if suite == "parallel":
         results = parallel_suite(rank, world, outdir)
     elif suite == "ring":
@@ -735,6 +824,8 @@ def main(rank, world, outdir, suite="parallel", arg=""):
     elif suite == "recipes":
         results = {name: recipe_case(name, rank, world, True) for name in RECIPE_STEP_CASES}
         results["preempt_boundary"] = boundary_preempt_case(rank, world, outdir)
+    elif suite == "skew":
+        results = skew_suite(rank, world, outdir)
     else:
         raise ValueError(f"unknown suite {suite!r}")
     results["writes"] = list(writes)
