@@ -102,9 +102,25 @@ SIGTERM resumed without backoff, bitwise the straight run; (f) the skew
 gauges at world size 1 over NCCL with no host sync between boundaries;
 with each scenario's decisions, launches, recovery time and each child's
 kernel launches.
+Then the serving stack (``serve``), from the train phase's ResNet-50 fp32
+``last.pth`` at buckets 1, 8, 32, 128: (a) ``EmbeddingEngine`` features
+and projections against the port's CPU engine, bf16 against fp32, padded
+batches bitwise the exact ones, buckets against buckets, a 300-image
+request chunked, the cache-hit path, every dispatch under
+``torch.cuda.set_sync_debug_mode("error")``, and each bucket's time in
+fp32 and bf16; (b) ``serve.server.build_stack`` at ``--max_inflight`` 1
+and 2 under 16 client threads' 256 requests, each reply bitwise the
+engine's rows at a bucket the request could use, ``/stats``,
+``/metrics`` and a 400; (c) the fleet frontend: ``/neighbors`` against a
+numpy oracle, IVF's recall@10, a tenant over quota refused with 503, a
+promote to the resume phase's ResNet-18 ``last.pth`` under load; with
+every fused launch counter 0 and every served state dict bitwise its
+checkpoint's; (d) ``ReplicaFleetSupervisor`` over two fleet replicas on
+the card, their spawn-to-healthy times, a ``kill -9`` restarted on its
+port.
 Phases: device, build, kernel_parity, train, probe, resume, distributed,
-large_batch, observability, ce, placement, recipes, supervise, timing. Any
-failure raises and the script exits non-zero.
+large_batch, observability, ce, placement, recipes, supervise, serve,
+timing. Any failure raises and the script exits non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
@@ -4157,6 +4173,582 @@ def supervise_phase(workdir, rn18_bf16_expected, where):
         raise AssertionError("supervise:\n" + "\n".join(failures))
 
 
+# -- serve: the serving stack on the card ---------------------------------------
+
+SERVE_DEVICE = "cuda"
+SERVE_BUCKETS = (1, 8, 32, 128)
+SERVE_BUCKETS_ARG = ",".join(map(str, SERVE_BUCKETS))
+# across buckets cuDNN may take another algorithm, so another summation
+# order: the JAX engine's cross-program pin (test_serve_engine.py:59-67)
+SERVE_CROSS_BUCKET_TOL = 1e-5
+# bf16 against fp32 serving: the JAX engine's pin (test_serve_engine.py:151-169)
+SERVE_BF16_ATOL = 0.05
+SERVE_BF16_COS = 0.995
+SERVE_ROWS = 64  # the card-vs-CPU rows
+SERVE_HTTP_REQUESTS = 256
+SERVE_HTTP_CLIENTS = 16
+SERVE_HTTP_MAX_ROWS = 64
+SERVE_INDEX_CAPACITY = 4096
+SERVE_CORPUS = 2048
+SERVE_QUERIES = 32
+SERVE_K = 10
+SERVE_SCORE_ATOL = 1e-5  # cosine scores: the card's fp32 product against numpy's
+SERVE_QUOTA_ROWS = 64
+SERVE_REPLICAS = 2
+SERVE_REPLICA_TIMEOUT_S = 240
+
+
+def serve_images(n, seed, size=32):
+    """``n`` uint8 ``[size, size, 3]`` images drawn from ``seed``."""
+    import numpy as np
+    return np.random.default_rng(seed).integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+
+
+class NoHostSync:
+    """Calls ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    host sync inside it raises; ``calls`` counts the guarded calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, fn, *args):
+        self.calls += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def post_json(base, path, obj, timeout=120):
+    """``(status, body, headers)`` of a JSON POST, an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"{base}{path}", data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def get_text(base, path, timeout=60):
+    import urllib.request
+    with urllib.request.urlopen(f"{base}{path}", timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def b64_payload(images, **extra):
+    import base64
+    return {"images_b64": base64.b64encode(images.tobytes()).decode(),
+            "shape": list(images.shape), **extra}
+
+
+def at_bucket(engine, images, bucket):
+    """``engine``'s rows of ``images`` computed at ``bucket`` (whole buckets,
+    the last padded with zero images; within one bucket rows are
+    independent bitwise)."""
+    import numpy as np
+    out = []
+    for lo in range(0, len(images), bucket):
+        chunk = images[lo:lo + bucket]
+        padded = np.zeros((bucket,) + chunk.shape[1:], np.uint8)
+        padded[:len(chunk)] = chunk
+        out.append(engine.embed(padded)[:len(chunk)])
+    return np.concatenate(out)
+
+
+def scaled_excess(a, b, tol):
+    """max |a - b| / (tol + tol |b|): above 1 breaks allclose(rtol = atol = tol)."""
+    import numpy as np
+    return float(np.max(np.abs(a - b) / (tol + tol * np.abs(b))))
+
+
+def serve_engine_checks(ckpt, failures, where):
+    """(a): ``EmbeddingEngine`` on the card from ``ckpt`` (the train phase's
+    rn50 fp32 fused ``last.pth``) at ``SERVE_BUCKETS``, features and
+    projections in fp32 and bf16: card against the CPU engine, bf16 against
+    fp32, padded against exact batches, bucket against bucket, a 300-image
+    request, the cache-hit path, every dispatch with host syncs raising,
+    and the time of each bucket. Returns the engines and the times."""
+    import numpy as np
+    from simclr_pytorch_distributed_tpu_torch.ops.augment import eval_batch
+    from simclr_pytorch_distributed_tpu_torch.serve.cache import EmbeddingCache
+    from simclr_pytorch_distributed_tpu_torch.serve.engine import EmbeddingEngine
+
+    guard = NoHostSync()
+    engines = {(output, dtype): EmbeddingEngine.from_checkpoint(
+        ckpt, device=SERVE_DEVICE, buckets=SERVE_BUCKETS, output=output, dtype=dtype)
+        for output in ("features", "projection") for dtype in ("fp32", "bf16")}
+    eng = engines[("features", "fp32")]
+    print(f"serve (a): {eng.model_name} from {os.path.basename(ckpt)}, img_size "
+          f"{eng.img_size}, buckets {list(eng.buckets)}, feature dims {eng.feat_dim} and "
+          f"{engines[('projection', 'fp32')].feat_dim}")
+
+    def embed(engine, images):  # dispatch with host syncs raising, result outside
+        return guard(engine.dispatch, images).result()
+
+    x = serve_images(300, seed=11)
+    got = {key: embed(engine, x[:SERVE_ROWS]) for key, engine in engines.items()}
+    for output in ("features", "projection"):
+        host = EmbeddingEngine.from_checkpoint(ckpt, device="cpu", buckets=SERVE_BUCKETS,
+                                               output=output).embed(x[:SERVE_ROWS])
+        card = got[(output, "fp32")]
+        rel = float(np.linalg.norm(card - host) / np.linalg.norm(host))
+        print(f"serve (a): {SERVE_ROWS} rows' {output}, card vs the port on the CPU: relative "
+              f"L2 {rel:.3e} (bound {PROBE_LOGITS_REL_L2[False]}), max |ref| "
+              f"{np.abs(host).max():.3e}")
+        if not rel <= PROBE_LOGITS_REL_L2[False]:
+            failures.append(f"serve (a): card vs CPU {output} relative L2 {rel:.3e}")
+        a, b = card, got[(output, "bf16")]
+        worst = float(np.max(np.abs(b - a) - SERVE_BF16_ATOL * np.abs(a)))
+        cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+        print(f"serve (a): bf16 vs fp32 {output}: max |diff| {np.abs(b - a).max():.3e}, "
+              f"max(|diff| - {SERVE_BF16_ATOL} |fp32|) {worst:.3e} (bound {SERVE_BF16_ATOL}), "
+              f"lowest cosine {cos.min():.6f} (bound > {SERVE_BF16_COS}), {b.dtype}")
+        if not (b.dtype == np.float32 and worst <= SERVE_BF16_ATOL
+                and cos.min() > SERVE_BF16_COS):
+            failures.append(f"serve (a): bf16 vs fp32 {output} outside the pin")
+
+    # padded = exact within one bucket, bitwise; across buckets, the pin
+    peers = serve_images(128, seed=12)
+    for n, bucket in ((5, 8), (20, 32), (100, 128)):
+        padded = embed(eng, x[:n])
+        exact = embed(eng, np.concatenate([x[:n], peers[:bucket - n]]))[:n]
+        same = np.array_equal(padded, exact)
+        print(f"serve (a): {n} rows padded to bucket {bucket} vs an exact bucket-{bucket} "
+              f"batch: {'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"serve (a): padded bucket {bucket} differs from the exact batch")
+    rows = {b: embed(eng, x[:b]) for b in SERVE_BUCKETS}
+    top = SERVE_BUCKETS[-1]
+    for b in SERVE_BUCKETS[:-1]:
+        ref = rows[top][:b]
+        excess = scaled_excess(rows[b], ref, SERVE_CROSS_BUCKET_TOL)
+        print(f"serve (a): rows 0-{b - 1} at bucket {b} vs bucket {top}: max |diff| "
+              f"{np.abs(rows[b] - ref).max():.3e}, scaled {excess:.3e} (allclose rtol = atol = "
+              f"{SERVE_CROSS_BUCKET_TOL}: <= 1), "
+              f"{'bitwise equal' if np.array_equal(rows[b], ref) else 'not bitwise equal'}")
+        if not excess <= 1.0:
+            failures.append(f"serve (a): bucket {b} vs {top} outside the pin")
+    before = eng.stats()["bucket_dispatches"][top]
+    chunked = embed(eng, x)
+    delta = eng.stats()["bucket_dispatches"][top] - before
+    pieces = all(np.array_equal(chunked[lo:lo + top], embed(eng, x[lo:lo + top]))
+                 for lo in range(0, len(x), top))
+    print(f"serve (a): a {len(x)}-image request: {delta} bucket-{top} dispatches (want 3), the "
+          f"chunks {'bitwise equal to' if pieces else 'DIFFER from'} the pieces embedded alone")
+    if delta != 3 or not pieces or chunked.shape != (len(x), eng.feat_dim):
+        failures.append(f"serve (a): the {len(x)}-image request was not chunked")
+    cached = EmbeddingEngine.from_checkpoint(ckpt, device=SERVE_DEVICE, buckets=SERVE_BUCKETS,
+                                             cache=EmbeddingCache(1024))
+    first = embed(cached, x[:SERVE_ROWS])
+    dispatched = sum(cached.stats()["bucket_dispatches"].values())
+    second = embed(cached, x[:SERVE_ROWS])
+    s = cached.stats()
+    extra = sum(s["bucket_dispatches"].values()) - dispatched
+    hit_ok = (extra == 0 and s["cache_hit_rows"] == SERVE_ROWS
+              and np.array_equal(first, second) and np.array_equal(first, got[("features",
+                                                                                "fp32")]))
+    print(f"serve (a): a repeated {SERVE_ROWS}-image request: {s['cache_hit_rows']} cache-hit "
+          f"rows, {extra} dispatches, {'bitwise equal' if hit_ok else 'NOT equal'}; cache "
+          f"{s['cache']}")
+    if not hit_ok:
+        failures.append("serve (a): the cache-hit path dispatched or changed rows")
+    traces = {key: e.stats()["traces"] for key, e in engines.items()}
+    print(f"serve (a): {guard.calls} dispatches under sync debug mode 'error' (no host sync); "
+          f"first forwards per bucket {traces[('features', 'fp32')]}")
+    if any(set(t.values()) != {1} for t in traces.values()):
+        failures.append(f"serve (a): a bucket counted more than one first forward: {traces}")
+
+    # times by CUDA events: one embed (the host stages, H2D, forward, D2H, the
+    # wait on its event) per bucket, and the forward alone on resident inputs
+    times = {}
+    for dtype in ("fp32", "bf16"):
+        engine = engines[("features", dtype)]
+        for b in SERVE_BUCKETS:
+            xd = torch.from_numpy(x[:b]).to(engine.device)
+
+            def forward(engine=engine, xd=xd):
+                with torch.inference_mode():
+                    engine.model.encode(eval_batch(xd, engine._aug_cfg))
+
+            times[(dtype, b)] = (
+                cuda_time_ms(lambda: engine.embed(x[:b]), reps=10, rounds=3, warmup=3),
+                cuda_time_ms(forward, reps=10, rounds=3, warmup=3))
+        line = ", ".join(f"bucket {b} {times[(dtype, b)][0]:.3f} ms (forward alone "
+                         f"{times[(dtype, b)][1]:.3f})" for b in SERVE_BUCKETS)
+        print(f"serve (a): {eng.model_name} features {dtype}, one embed by CUDA events: {line}; bucket "
+              f"{top} {top / times[(dtype, top)][0] * 1e3:.1f} images/s {where}")
+    return list(engines.values()) + [cached], times
+
+
+def http_load(base, requests, clients):
+    """POST each of ``requests`` (uint8 image arrays) to ``base``/embed from
+    ``clients`` threads; returns ``(replies, seconds, wall)``: each reply's
+    ``(status, body)`` in order, each request's seconds, the load's wall
+    seconds."""
+    import threading
+    replies, seconds = [None] * len(requests), [0.0] * len(requests)
+    cursor = iter(range(len(requests)))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                k = next(cursor, None)
+            if k is None:
+                return
+            t = time.perf_counter()
+            status, body, _ = post_json(base, "/embed", b64_payload(requests[k]))
+            seconds[k] = time.perf_counter() - t
+            replies[k] = (status, body)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return replies, seconds, time.perf_counter() - t0
+
+
+def serve_http_checks(ckpt, failures, where):
+    """(b): ``serve.server.build_stack`` (projections, no cache,
+    ``SERVE_BUCKETS``) at ``--max_inflight`` 1 and 2, under 16 client
+    threads POSTing 256 requests of 1-64 images: every reply bitwise the
+    stack's engine on the same images at one of the buckets the request
+    could have been batched into, ``/stats`` and ``/metrics`` parsed, a
+    wrong geometry answered 400. Returns the engines and the numbers."""
+    import numpy as np
+    from simclr_pytorch_distributed_tpu_torch.serve import server as serve_server
+    from simclr_pytorch_distributed_tpu_torch.supervise.observe import parse_prometheus_text
+
+    sizes = np.random.default_rng(13).integers(1, SERVE_HTTP_MAX_ROWS + 1, SERVE_HTTP_REQUESTS)
+    requests = [serve_images(int(n), seed=1000 + k) for k, n in enumerate(sizes)]
+    rows_total = int(sizes.sum())
+    engines, numbers = [], {}
+    for inflight in (1, 2):
+        args = serve_server.build_parser().parse_args([
+            "--ckpt", ckpt, "--device", SERVE_DEVICE, "--buckets", SERVE_BUCKETS_ARG, "--port", "0",
+            "--output", "projection", "--cache_capacity", "0", "--max_wait_ms", "2",
+            "--max_inflight", str(inflight)])
+        engine, batcher, server = serve_server.build_stack(args)
+        engines.append(engine)
+        serve_server.start_in_thread(server)
+        base = "http://%s:%d" % server.server_address[:2]
+        try:
+            replies, seconds, wall = http_load(base, requests, SERVE_HTTP_CLIENTS)
+            stats = json.loads(get_text(base, "/stats")[1])
+            metrics = parse_prometheus_text(get_text(base, "/metrics")[1])
+            bad_status = post_json(base, "/embed", b64_payload(serve_images(2, 3, size=16)))[0]
+        finally:
+            server.shutdown()
+            server.server_close()
+            batcher.close()
+        label = f"serve (b) --max_inflight {inflight}"
+        codes = sorted({status for status, _ in replies})
+        if codes != [200]:
+            failures.append(f"{label}: reply codes {codes}")
+            continue
+        # each reply against the engine's rows at every bucket it could use
+        refs = {}
+        for b in SERVE_BUCKETS:
+            ks = [k for k, n in enumerate(sizes) if n <= b]
+            if ks:
+                rows = at_bucket(engine, np.concatenate([requests[k] for k in ks]), b)
+                offsets = np.cumsum([0] + [int(sizes[k]) for k in ks])
+                for i, k in enumerate(ks):
+                    refs[(k, b)] = rows[offsets[i]:offsets[i + 1]]
+        matched = {b: 0 for b in SERVE_BUCKETS}
+        for k, (_, body) in enumerate(replies):
+            emb = np.asarray(body["embeddings"], np.float32)
+            hit = next((b for b in SERVE_BUCKETS
+                        if (k, b) in refs and np.array_equal(emb, refs[(k, b)])), None)
+            matched[hit] = matched.get(hit, 0) + 1
+        unmatched = matched.pop(None, 0)
+        bs = stats["batcher"]
+        ms = np.asarray(seconds) * 1e3
+        numbers[inflight] = {"p50_ms": float(np.percentile(ms, 50)),
+                             "p99_ms": float(np.percentile(ms, 99)),
+                             "rows_per_s": rows_total / wall}
+        print(f"{label}: {SERVE_HTTP_REQUESTS} requests ({rows_total} rows) from "
+              f"{SERVE_HTTP_CLIENTS} clients in {wall:.3f} s: {rows_total / wall:.1f} rows/s, "
+              f"request latency p50 {numbers[inflight]['p50_ms']:.2f} ms p99 "
+              f"{numbers[inflight]['p99_ms']:.2f} ms (client clock); {bs['batches']} batches "
+              f"of {bs.get('avg_batch_images', 0):.1f} rows on average, at most "
+              f"{bs['max_inflight_observed']} in flight, pipeline occupancy "
+              f"{bs['pipeline_occupancy']:.3f} {where}")
+        print(f"{label}: replies bitwise equal to the engine, by the first bucket that "
+              f"matches {matched}, unmatched "
+              f"{unmatched}; /stats errors {bs['errors']}, latency buckets "
+              f"{sorted(stats.get('latency', {}))}; /metrics serve_batcher_batches "
+              f"{metrics.get('serve_batcher_batches')} serve_engine_images_total "
+              f"{metrics.get('serve_engine_images_total')}; a 16x16 request got {bad_status}")
+        if (unmatched or bs["errors"] or bad_status != 400 or not stats.get("latency")
+                or metrics.get("serve_batcher_batches") != bs["batches"]
+                or metrics.get("serve_engine_images_total") != rows_total
+                or bs["max_inflight_observed"] > inflight):
+            failures.append(f"{label}: the replies, /stats, /metrics or the 400 check failed")
+    return engines, numbers
+
+
+def serve_fleet_checks(rn50_ckpt, rn18_ckpt, failures, where):
+    """(c): the fleet frontend (``build_fleet_stack``: projections, brute
+    retrieval at ``--index_capacity 4096``, ``--tenant_quota_rows 64``) on
+    rn50: ``/neighbors`` over a corpus served through ``/embed`` against a
+    numpy oracle, and IVF's recall@10 against it; a tenant over its quota
+    refused with 503 and ``Retry-After``; a promote to the rn18
+    ``last.pth`` under load with zero failed requests, the requests after it
+    served by the rn18 engine. Returns the serving engine."""
+    import threading
+
+    import numpy as np
+    from simclr_pytorch_distributed_tpu_torch.serve.fleet import IVFIndex, frontend
+    from simclr_pytorch_distributed_tpu_torch.serve.server import start_in_thread
+
+    args = frontend.build_parser().parse_args([
+        "--ckpt", rn50_ckpt, "--name", "prod", "--device", SERVE_DEVICE, "--buckets",
+        SERVE_BUCKETS_ARG, "--output", "projection", "--index_capacity",
+        str(SERVE_INDEX_CAPACITY), "--retrieval_impl", "brute", "--tenant_quota_rows",
+        str(SERVE_QUOTA_ROWS), "--port", "0", "--max_wait_ms", "2"])
+    registry, server = frontend.build_fleet_stack(args)
+    start_in_thread(server)
+    base = "http://%s:%d" % server.server_address[:2]
+    try:
+        # /neighbors over a corpus served through /embed into the empty index
+        corpus_imgs = serve_images(SERVE_CORPUS, seed=24)
+        corpus = np.concatenate([
+            np.asarray(post_json(base, "/embed", b64_payload(corpus_imgs[lo:lo + 64]))[1]
+                       ["embeddings"], np.float32) for lo in range(0, SERVE_CORPUS, 64)])
+        keys = [registry.content_id(img) for img in corpus_imgs]
+        queries = serve_images(SERVE_QUERIES, seed=25)
+        status, body, _ = post_json(base, "/neighbors", b64_payload(queries, k=SERVE_K))
+        q = registry._serving("prod").embed(queries)  # the bucket /neighbors used
+        index_stats = registry.stats()["models"]["prod"]["index"]
+        unit = lambda m: m / np.maximum(np.linalg.norm(m, axis=1, keepdims=True), 1e-12)  # noqa
+        scores = unit(q) @ unit(corpus).T
+        oracle = np.argsort(-scores, axis=1, kind="stable")[:, :SERVE_K]
+        ids_ok = status == 200 and all(
+            [h["id"] for h in hits] == [keys[j] for j in oracle[i]]
+            for i, hits in enumerate(body["neighbors"]))
+        score_err = max(abs(h["score"] - scores[i, oracle[i, r]])
+                        for i, hits in enumerate(body["neighbors"]) for r, h in enumerate(hits))
+        print(f"serve (c): /neighbors k={SERVE_K} for {SERVE_QUERIES} queries over "
+              f"{index_stats['entries']} served rows (capacity {index_stats['capacity']}): ids "
+              f"{'equal to' if ids_ok else 'DIFFER from'} the numpy oracle, max |score diff| "
+              f"{score_err:.3e} (bound {SERVE_SCORE_ATOL})")
+        if not ids_ok or not score_err <= SERVE_SCORE_ATOL:
+            failures.append("serve (c): /neighbors does not match the numpy oracle")
+        ivf = IVFIndex(q.shape[1], capacity=SERVE_INDEX_CAPACITY)
+        for lo in range(0, SERVE_CORPUS, 64):
+            ivf.add(keys[lo:lo + 64], corpus[lo:lo + 64])
+        t0 = time.perf_counter()
+        approx = ivf.query(q, SERVE_K)
+        ivf_ms = (time.perf_counter() - t0) * 1e3
+        recall = float(np.mean([len({key for key, _ in approx[i]}
+                                    & {keys[j] for j in oracle[i]}) / SERVE_K
+                                for i in range(SERVE_QUERIES)]))
+        s = ivf.stats()
+        print(f"serve (c): IVF ({s['nlist']} lists, nprobe {s['nprobe']}, {s['retrains']} "
+              f"trains) recall@{SERVE_K} against brute {recall:.4f} over {SERVE_QUERIES} "
+              f"queries, {ivf_ms:.2f} ms of host time for them")
+        if not (0.0 < recall <= 1.0 and s["retrains"] >= 1):
+            failures.append(f"serve (c): IVF recall@{SERVE_K} {recall}")
+
+        over, body, headers = post_json(base, "/embed", b64_payload(
+            serve_images(SERVE_QUOTA_ROWS + 1, seed=22), tenant="greedy"))
+        within = post_json(base, "/embed", b64_payload(
+            serve_images(SERVE_QUOTA_ROWS, seed=23), tenant="modest"))[0]
+        print(f"serve (c): a tenant over its {SERVE_QUOTA_ROWS}-row quota got {over}, "
+              f"Retry-After {headers.get('Retry-After')!r} ({body.get('error')}); a tenant at "
+              f"its quota got {within}")
+        if over != 503 or headers.get("Retry-After") != "1" or within != 200:
+            failures.append("serve (c): the tenant quota did not answer 503 with Retry-After")
+
+        stop = threading.Event()
+        codes = []
+        lock = threading.Lock()
+
+        def load(client):
+            k = 0
+            while not stop.is_set():
+                status = post_json(base, "/embed", b64_payload(
+                    serve_images(8, seed=100000 * (client + 1) + k), tenant=f"c{client}"))[0]
+                k += 1
+                with lock:
+                    codes.append(status)
+
+        def until_served(n):
+            deadline = time.time() + 60
+            while len(codes) < n and time.time() < deadline:
+                time.sleep(0.01)
+
+        threads = [threading.Thread(target=load, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        until_served(20)
+        t0 = time.perf_counter()
+        status, reply, _ = post_json(base, "/models/promote",
+                                     {"model": "prod", "ckpt": rn18_ckpt})
+        promote_s = time.perf_counter() - t0
+        until_served(len(codes) + 20)
+        stop.set()
+        for t in threads:
+            t.join()
+        drained = registry.wait_drained("prod", 1, timeout=60)
+        states = [v["state"] for v in json.loads(get_text(base, "/models")[1])
+                  ["models"]["prod"]["versions"]]
+        print(f"serve (c): promote prod rn50 -> rn18 under 4 loading clients: {status} "
+              f"{reply} in {promote_s:.3f} s; {len(codes)} requests, codes "
+              f"{sorted(set(codes))}; v1 drained {drained}; versions {states} {where}")
+        if (status != 200 or set(codes) != {200} or not drained
+                or states != ["retired", "serving"]):
+            failures.append("serve (c): the promote under load failed requests or did not drain")
+        engine = registry._serving("prod")
+        probe = serve_images(8, seed=21)
+        body = post_json(base, "/embed", b64_payload(probe))[1]
+        routed = np.array_equal(np.asarray(body["embeddings"], np.float32), engine.embed(probe))
+        print(f"serve (c): after the promote a request is served by {engine.model_name}: "
+              f"{'bitwise its engine' if routed else 'NOT its engine'}")
+        if not routed or engine.model_name != "resnet18":
+            failures.append("serve (c): requests after the promote did not reach the rn18 engine")
+    finally:
+        server.shutdown()
+        server.server_close()
+        registry.close()
+    return engine
+
+
+def answers_healthz(port, timeout=0.5):
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=timeout) as r:
+            return r.status == 200
+    except OSError:
+        return False
+
+
+def serve_replica_checks(rn18_ckpt, workdir, failures, where):
+    """(d): ``ReplicaFleetSupervisor`` over 2 replicas of the port's fleet
+    frontend on the card (two processes, two CUDA contexts) with each
+    replica's spawn-to-healthy time; ``kill -9`` of replica 0 restarted on
+    its port, the decisions in the supervisor's events. Stops every replica.
+    Returns the spawn-to-healthy seconds and the kill-to-healthy seconds."""
+    from simclr_pytorch_distributed_tpu_torch.supervise.replica import ReplicaPolicy
+    from simclr_pytorch_distributed_tpu_torch.supervise.replica_fleet import (
+        ReplicaFleetConfig,
+        ReplicaFleetSupervisor,
+        fleet_command,
+    )
+    from simclr_pytorch_distributed_tpu_torch.utils import tracing
+
+    events = os.path.join(workdir, "replica_fleet_events.jsonl")
+    recorder = tracing.FlightRecorder(events)
+    tracing.install(recorder)
+    config = ReplicaFleetConfig(
+        command=fleet_command("--ckpt", rn18_ckpt, "--device", SERVE_DEVICE, "--buckets",
+                              SERVE_BUCKETS_ARG, "--output", "projection"),
+        min_replicas=SERVE_REPLICAS, max_replicas=SERVE_REPLICAS, poll_interval_s=0.5,
+        grace_s=10.0)
+    path = [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    sup = ReplicaFleetSupervisor(
+        config, ReplicaPolicy(SERVE_REPLICAS, SERVE_REPLICAS, startup_grace_s=120.0),
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(path)))
+
+    def until_healthy(since):
+        """Step the supervisor until each replica of ``since`` (id -> start
+        time) answers ``/healthz``; each one's seconds from its start."""
+        took = {}
+        deadline = time.time() + SERVE_REPLICA_TIMEOUT_S
+        while len(took) < len(since):
+            if time.time() > deadline:
+                raise AssertionError(f"serve (d): replicas {sorted(since)} not healthy in "
+                                     f"{SERVE_REPLICA_TIMEOUT_S} s: {sup.replicas()}")
+            sup.step()
+            for rid, info in sup.replicas().items():
+                if rid in since and rid not in took and answers_healthz(info["port"]):
+                    took[rid] = time.time() - since[rid]
+            time.sleep(0.2)
+        return took
+
+    try:
+        t0 = time.time()
+        for _ in range(SERVE_REPLICAS):  # the policy spawns one a tick up to the floor
+            sup.step()
+        reps = sup.replicas()
+        first = until_healthy({rid: t0 for rid in reps})
+        codes = [post_json(f"http://127.0.0.1:{info['port']}", "/embed",
+                           b64_payload(serve_images(4, seed=31))) for info in reps.values()]
+        codes = [(status, body.get("dim")) for status, body, _ in codes]
+        print(f"serve (d): {len(reps)} replicas of the fleet frontend on the card, ports "
+              f"{[r['port'] for r in reps.values()]}: spawn to first answered /healthz "
+              f"{ {rid: round(s, 2) for rid, s in first.items()} } s; /embed replies {codes} "
+              f"{where}")
+        victim = min(reps)
+        port = reps[victim]["port"]
+        os.kill(reps[victim]["pid"], signal.SIGKILL)
+        t_kill = time.time()
+        decision = None
+        while decision is None:
+            if time.time() - t_kill > 60:
+                raise AssertionError("serve (d): no decision on the killed replica in 60 s")
+            decision = next((d for d in sup.step() if d["replica"] == victim), None)
+            time.sleep(0.1)
+        back = until_healthy({victim: t_kill})[victim]
+        print(f"serve (d): kill -9 of replica {victim} (port {port}) -> {decision['action']} "
+              f"on port {decision.get('port')} (old return code "
+              f"{decision.get('old_returncode')}), answering /healthz {back:.2f} s after the "
+              f"kill; replicas {sup.replicas()}")
+        if (any(c != (200, 128) for c in codes) or decision["action"] != "restart_replica"
+                or decision.get("port") != port or sup.replicas()[victim]["restarts"] != 1):
+            failures.append("serve (d): the killed replica was not restarted on its port")
+    finally:
+        sup.stop_all()
+        tracing.uninstall()
+        recorder.close()
+    names = [e.get("name") for e in tracing.load_events_jsonl(events)]
+    seen = {n: names.count(n) for n in ("replica_spawn", "replica_restart")}
+    print(f"serve (d): supervisor events {seen}; every replica stopped")
+    if seen != {"replica_spawn": SERVE_REPLICAS, "replica_restart": 1}:
+        failures.append(f"serve (d): the supervisor's events hold {seen}")
+    return first, back
+
+
+def serve_phase(workdir, rn50_ckpt, rn18_ckpt, where):
+    """The serving stack on the card: (a) the engine, (b) the HTTP stack,
+    (c) the fleet frontend, (d) the replica fleet; every fused launch
+    counter 0 through (a)-(c) and every served state dict bitwise its
+    checkpoint's. Raises on any failure; returns the numbers."""
+    from simclr_pytorch_distributed_tpu_torch.utils.checkpoint import load_model_state
+    counters = kernel_counters()
+    for mod, name in counters:
+        setattr(mod, name, 0)
+    failures = []
+    engines, times = serve_engine_checks(rn50_ckpt, failures, where)
+    http_engines, http = serve_http_checks(rn50_ckpt, failures, where)
+    engines += http_engines + [serve_fleet_checks(rn50_ckpt, rn18_ckpt, failures, where)]
+    launches = {name: getattr(mod, name) for mod, name in counters}
+    print(f"serve: fused kernel launches through (a)-(c): "
+          f"{'every counter 0' if not any(launches.values()) else launches}")
+    if any(launches.values()):
+        failures.append(f"serve: fused kernels launched: {launches}")
+    changed = 0
+    for engine in engines:
+        want = load_model_state(rn50_ckpt if engine.model_name == "resnet50" else rn18_ckpt)
+        got = engine.model.state_dict()
+        changed += sum(not torch.equal(got[k].cpu(), v) for k, v in want.items())
+    print(f"serve: state-dict tensors changed by serving, over {len(engines)} engines: "
+          f"{changed}")
+    if changed:
+        failures.append(f"serve: serving changed {changed} state-dict tensors")
+    spawn_s, restart_s = serve_replica_checks(rn18_ckpt, workdir, failures, where)
+    if failures:
+        raise AssertionError("serve:\n" + "\n".join(failures))
+    return {"times": times, "http": http, "spawn_s": spawn_s, "restart_s": restart_s}
+
+
 def split_only() -> int:
     """The ``--split-only`` run: the build, the loss split
     (:func:`loss_split`) and the per-kernel splits of ``SPLITS`` (the
@@ -4377,6 +4969,7 @@ def main(argv=None) -> int:
     t0 = phase("placement")
     placement_phase(workdir, result, rn50_expected, resume_ref, probe_refs[0], ce_ref,
                     f"on {card}")
+    rn18_last = os.path.join(resume_ref.save_folder, "last.pth")
     del resume_ref, probe_refs, ce_ref
     done("placement", t0)
 
@@ -4390,6 +4983,11 @@ def main(argv=None) -> int:
     t0 = phase("supervise")
     supervise_phase(workdir, rn18_bf16_expected, f"on {card}")
     done("supervise", t0)
+
+    # -- serve: the engine, the HTTP stack, the fleet, the replica fleet ---
+    t0 = phase("serve")
+    serve_phase(workdir, os.path.join(result.save_folder, "last.pth"), rn18_last, f"on {card}")
+    done("serve", t0)
 
     # -- timing ------------------------------------------------------------
     t0 = phase("timing")

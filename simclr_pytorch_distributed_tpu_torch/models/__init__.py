@@ -3,9 +3,10 @@ from simclr_pytorch_distributed_tpu_torch.models.heads import (
     PredictorHead,
     SupCEResNet,
     SupConResNet,
+    infer_architecture,
     projection_head,
 )
 from simclr_pytorch_distributed_tpu_torch.models.resnet import MODEL_DICT, ResNet
 
 __all__ = ["MODEL_DICT", "LinearClassifier", "PredictorHead", "ResNet", "SupCEResNet",
-           "SupConResNet", "projection_head"]
+           "SupConResNet", "infer_architecture", "projection_head"]

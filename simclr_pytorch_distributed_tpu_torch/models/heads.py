@@ -1,7 +1,9 @@
 """Projection head, the SupCon encoder+head model (reference
 resnet_big.py:159-181), the supervised CE model (resnet_big.py:184-193),
 the probe's linear classifier (resnet_big.py:196-204) and the BYOL/SimSiam
-predictor (JAX ``models/heads.py:69-102``).
+predictor (JAX ``models/heads.py:69-102``), and :func:`infer_architecture`,
+which reads a ``SupConResNet``'s architecture off its state dict (the
+serving engine's ``from_checkpoint``).
 
 ``SupConResNet`` returns the UNNORMALIZED embedding; L2 normalization happens
 in the train step, as in the JAX package and the reference driver. Linear
@@ -16,13 +18,18 @@ train step casts the embedding to fp32 before the loss.
 from __future__ import annotations
 
 import math
+import re
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from simclr_pytorch_distributed_tpu_torch.models.resnet import MODEL_DICT
+from simclr_pytorch_distributed_tpu_torch.models.resnet import (
+    MODEL_DICT,
+    STAGE_PLANS,
+    Bottleneck,
+)
 
 
 def projection_head(head: str, dim_in: int, feat_dim: int) -> nn.Module:
@@ -76,6 +83,43 @@ class SupConResNet(nn.Module):
         """``(projection, encoder_features)`` from one backbone forward."""
         h = self.encoder(x)
         return head_forward(self.head, h, self.encoder.compute_dtype), h
+
+
+def infer_architecture(state_dict) -> Tuple[str, str, int]:
+    """``(model_name, head, feat_dim)`` of a ``SupConResNet`` state dict in
+    the reference layout (``'module.'`` stripped), read off its keys and
+    shapes: the blocks of each stage, a Bottleneck's ``conv3``, and
+    ``head.0``/``head.2`` (mlp) or ``head`` (linear). The port's
+    counterpart of JAX ``infer_architecture_from_variables``
+    (``models/heads.py:156-201``); raises ``ValueError`` on a state dict
+    that is not a ``SupConResNet``'s."""
+    if not any(k.startswith("encoder.") for k in state_dict) or not any(
+            k.startswith("head.") for k in state_dict):
+        raise ValueError(
+            "state dict has no encoder/head keys: not a SupConResNet checkpoint "
+            f"(top-level names: {sorted({k.split('.')[0] for k in state_dict})})"
+        )
+    stages = [0, 0, 0, 0]
+    for key in state_dict:
+        if m := re.match(r"encoder\.layer(\d)\.(\d+)\.", key):
+            layer, block = int(m.group(1)), int(m.group(2))
+            stages[layer - 1] = max(stages[layer - 1], block + 1)
+    bottleneck = any(k.startswith("encoder.layer1.0.conv3.") for k in state_dict)
+    name = next((n for n, (block_cls, sizes) in STAGE_PLANS.items()
+                 if tuple(sizes) == tuple(stages) and (block_cls is Bottleneck) == bottleneck),
+                None)
+    if name is None:
+        raise ValueError(
+            f"unrecognized encoder geometry: stages={tuple(stages)}, bottleneck={bottleneck}"
+        )
+    if "head.0.weight" in state_dict:
+        head, feat_dim = "mlp", int(state_dict["head.2.weight"].shape[0])
+    elif "head.weight" in state_dict:
+        head, feat_dim = "linear", int(state_dict["head.weight"].shape[0])
+    else:
+        raise ValueError(f"unrecognized projection head keys: "
+                         f"{sorted(k for k in state_dict if k.startswith('head.'))}")
+    return name, head, feat_dim
 
 
 class PredictorHead(nn.Module):

@@ -1,6 +1,5 @@
-"""supervise/: the elastic, self-healing training supervisor (the port's
-copy of JAX ``supervise/``, without the serving replicas, which wait for
-the port's ``serve/``).
+"""supervise/: the elastic, self-healing training supervisor and the
+serving replica fleet (the port's copy of JAX ``supervise/``).
 
 The observability layer produces every signal an automated operator needs:
 the ``/metrics`` liveness gauge ``train_last_boundary_age_seconds`` and the
@@ -26,13 +25,28 @@ One concern a module:
   process-count and share hooks, graceful terminate-then-kill;
 - :mod:`supervisor`: the loop tying them together;
 - :mod:`__main__`: the CLI, ``python -m
-  simclr_pytorch_distributed_tpu_torch.supervise [flags] -- <command>``.
+  simclr_pytorch_distributed_tpu_torch.supervise [flags] -- <command>``;
+- :mod:`replica` / :mod:`replica_fleet`: the same discipline from one
+  trainer to N serving replicas: the pure ``ReplicaPolicy`` decision table
+  (liveness from the ``serve_batcher_last_completion_age_s`` gauge,
+  saturation from occupancy and queue depth, per-replica restart budgets)
+  and the ``ReplicaFleetSupervisor`` loop that spawns, restarts and drains
+  ``serve.fleet`` replicas off their scraped ``/metrics``.
 """
 
 from simclr_pytorch_distributed_tpu_torch.supervise.policy import (  # noqa: F401
     Decision,
     DecisionPolicy,
     ExitObservation,
+)
+from simclr_pytorch_distributed_tpu_torch.supervise.replica import (  # noqa: F401
+    ReplicaDecision,
+    ReplicaObservation,
+    ReplicaPolicy,
+)
+from simclr_pytorch_distributed_tpu_torch.supervise.replica_fleet import (  # noqa: F401
+    ReplicaFleetConfig,
+    ReplicaFleetSupervisor,
 )
 from simclr_pytorch_distributed_tpu_torch.supervise.supervisor import (  # noqa: F401
     SuperviseConfig,

@@ -297,9 +297,34 @@ def load_model_state(path: str) -> Dict[str, torch.Tensor]:
         path = os.path.join(path, "last.pth")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
-    ckpt = _load(path)
+    return _model_of(_load(path))
+
+
+def _model_of(ckpt) -> Dict[str, torch.Tensor]:
     state_dict = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
     return _strip_module(state_dict)
+
+
+def load_model_payload(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """``(state_dict, meta)`` of any ``--ckpt`` spelling, for a consumer
+    that infers the architecture from the state dict
+    (``models.heads.infer_architecture``): a ``.pth`` in the reference
+    layout (a trainer's ``last.pth``, ``ckpt_epoch_N.pth`` or
+    ``preempt_*``, the reference's own, or the JAX package's
+    ``torch_convert --export``) or a run folder, resolved to its latest
+    complete checkpoint (:func:`resolve_resume_path`). ``state_dict`` is
+    :func:`load_model_state`'s; ``meta`` is the checkpoint's ``'opt'``
+    (``{}`` without one). The port's counterpart of JAX
+    ``load_model_payload`` (``utils/checkpoint.py:644-669``), which reads
+    orbax directories; the port reads none: ``torch_convert --export``
+    turns one into a ``.pth``."""
+    if os.path.isdir(path):
+        path = resolve_resume_path(path)
+    elif not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    ckpt = _load(path)
+    opt = ckpt.get("opt") if isinstance(ckpt, dict) else None
+    return _model_of(ckpt), dict(opt) if isinstance(opt, dict) else {}
 
 
 def resume_position(meta: dict, steps_per_epoch: int) -> Tuple[int, int]:

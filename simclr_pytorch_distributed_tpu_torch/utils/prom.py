@@ -6,10 +6,14 @@ optional metrics sidecar (``--metrics_port``) serves the
 :class:`TrainerGauges`: the step counter, the last flush boundary's age,
 the telemetry windows in flight, the health window means and the terminal
 exit code, the signal an external watchdog needs to tell "training" from
-"wedged" without touching the device.
+"wedged" without touching the device. The serving stack (``serve/``)
+exposes its engine and batcher counters and the per-bucket
+:class:`LatencyHistogram` on ``GET /metrics``, and reads the same
+histogram's quantiles into ``/stats``, so the two views cannot drift.
 
 Exposition format: the Prometheus text format (``name{label="v"} value``
-lines).
+lines). Histograms follow the native convention (cumulative ``_bucket``
+series with an ``le`` label, plus ``_sum``/``_count``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 Sample = Tuple[str, Optional[dict], float]
 
@@ -50,6 +54,108 @@ def render_prometheus(samples: Iterable[Sample]) -> str:
         else:
             lines.append(f"{name} {_fmt_value(value)}")
     return "\n".join(lines) + "\n"
+
+
+# default request-latency bounds (ms): log-spaced from sub-batch-window to
+# the server's 30 s result timeout; an overflow bucket catches the rest
+DEFAULT_BOUNDS_MS = (
+    1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0,
+    1000.0, 2000.0, 5000.0, 10000.0, 30000.0,
+)
+
+
+class LatencyHistogram:
+    """Per-key fixed-bound latency histograms with interpolated quantiles.
+
+    ``observe(key, ms)`` is O(buckets) under one lock — cheap enough for
+    the serve completion path. Quantiles interpolate linearly inside the
+    bucket that crosses the rank (overflow observations clamp to the top
+    bound), which is the standard histogram-quantile tradeoff: bounded
+    memory, no reservoir bias, accuracy set by the bound spacing. Values
+    come from the CALLER'S clock (the batcher's injectable ``clock``), so
+    the whole latency story is fake-clock-testable.
+    """
+
+    def __init__(self, bounds_ms: Sequence[float] = DEFAULT_BOUNDS_MS):
+        bounds = tuple(float(b) for b in bounds_ms)
+        if not bounds or list(bounds) != sorted(set(bounds)):
+            raise ValueError(f"bounds must be strictly increasing, got {bounds}")
+        self.bounds = bounds
+        self._lock = threading.Lock()
+        self._counts: Dict[str, list] = {}  # key -> [len(bounds)+1 counts]
+        self._sums: Dict[str, float] = {}
+
+    def observe(self, key, ms: float) -> None:
+        key = str(key)
+        with self._lock:
+            counts = self._counts.get(key)
+            if counts is None:
+                counts = self._counts[key] = [0] * (len(self.bounds) + 1)
+                self._sums[key] = 0.0
+            i = 0
+            while i < len(self.bounds) and ms > self.bounds[i]:
+                i += 1
+            counts[i] += 1
+            self._sums[key] += float(ms)
+
+    def _quantile_locked(self, counts, q: float) -> float:
+        total = sum(counts)
+        if total == 0:
+            return 0.0
+        rank = q * total
+        cum = 0.0
+        for i, c in enumerate(counts):
+            prev_cum = cum
+            cum += c
+            if cum >= rank and c:
+                if i >= len(self.bounds):  # overflow: clamp to the top bound
+                    return self.bounds[-1]
+                lo = 0.0 if i == 0 else self.bounds[i - 1]
+                hi = self.bounds[i]
+                return lo + (hi - lo) * (rank - prev_cum) / c
+        return self.bounds[-1]
+
+    def quantile(self, key, q: float) -> float:
+        with self._lock:
+            counts = self._counts.get(str(key))
+            if counts is None:
+                return 0.0
+            return self._quantile_locked(counts, q)
+
+    def summary(self) -> dict:
+        """``{key: {count, mean_ms, p50_ms, p95_ms, p99_ms}}`` — the
+        ``/stats`` latency section."""
+        out = {}
+        with self._lock:
+            for key, counts in self._counts.items():
+                n = sum(counts)
+                out[key] = {
+                    "count": n,
+                    "mean_ms": (self._sums[key] / n) if n else 0.0,
+                    "p50_ms": self._quantile_locked(counts, 0.50),
+                    "p95_ms": self._quantile_locked(counts, 0.95),
+                    "p99_ms": self._quantile_locked(counts, 0.99),
+                }
+        return out
+
+    def samples(self, name: str, key_label: str = "bucket") -> list:
+        """Prometheus-native cumulative ``_bucket``/``_sum``/``_count``
+        series, one set per key."""
+        out = []
+        with self._lock:
+            for key, counts in sorted(self._counts.items()):
+                cum = 0
+                for bound, c in zip(self.bounds, counts):
+                    cum += c
+                    out.append((
+                        f"{name}_bucket",
+                        {key_label: key, "le": f"{bound:g}"}, cum,
+                    ))
+                cum += counts[-1]
+                out.append((f"{name}_bucket", {key_label: key, "le": "+Inf"}, cum))
+                out.append((f"{name}_sum", {key_label: key}, self._sums[key]))
+                out.append((f"{name}_count", {key_label: key}, cum))
+        return out
 
 
 class TrainerGauges:

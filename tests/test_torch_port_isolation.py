@@ -64,11 +64,15 @@ def test_forbidden_import_is_detected(tmp_path):
     assert not _forbidden("simclr_pytorch_distributed_tpu_torch.ops")
 
 
-def test_package_imports_with_jax_blocked():
-    modules = sorted(
+def _package_modules():
+    return sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PACKAGE.rglob("*.py")
     )
+
+
+def test_package_imports_with_jax_blocked():
+    modules = _package_modules()
     code = (
         "import sys, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'simclr_pytorch_distributed_tpu'):\n"
@@ -176,3 +180,43 @@ def test_the_port_launchers_name_no_jax_module(launcher):
     modules = set(re.findall(r"-m\s+([\w.]+)", text))
     assert modules and all(m.startswith("simclr_pytorch_distributed_tpu_torch") for m in modules)
     assert not re.search(r"simclr_pytorch_distributed_tpu(?!_torch)|main_\w+\.py|\bjax\b", text)
+
+
+# the serving stack and the replica fleet: the JAX package's serve/ and
+# supervise/replica*.py, ported, with the modules they extend
+SERVE_MODULES = (
+    "utils/prom.py", "models/heads.py", "utils/checkpoint.py", "serve/__init__.py",
+    "serve/cache.py", "serve/engine.py", "serve/batcher.py", "serve/server.py",
+    "serve/fleet/__init__.py", "serve/fleet/__main__.py", "serve/fleet/retrieval.py",
+    "serve/fleet/ivf.py", "serve/fleet/registry.py", "serve/fleet/frontend.py",
+    "supervise/replica.py", "supervise/replica_fleet.py",
+)
+
+
+@pytest.mark.parametrize("module", SERVE_MODULES)
+def test_the_scan_covers_the_serve_modules(module):
+    path = PACKAGE / module
+    assert path in _sources()
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+    dotted = ".".join(path.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    assert dotted in _package_modules()
+
+
+# the serving tests hold each module against the JAX package's: each names
+# the port modules it covers (they import JAX by design; the scan above
+# keeps the package itself free of it)
+SERVE_TESTS = {
+    "test_torch_port_serve_engine.py": ("serve.engine", "serve.cache", "models"),
+    "test_torch_port_serve_batcher.py": ("serve", "serve.engine"),
+    "test_torch_port_serve_server.py": ("serve", "utils"),
+    "test_torch_port_serve_fleet.py": ("serve", "serve.fleet"),
+    "test_torch_port_replica_fleet.py": ("supervise",),
+}
+
+
+@pytest.mark.parametrize("test_file", sorted(SERVE_TESTS))
+def test_the_serve_tests_cover_their_modules(test_file):
+    path = REPO / "tests" / test_file
+    imported = {name for _, name in _imported_modules(path)}
+    for module in SERVE_TESTS[test_file]:
+        assert f"simclr_pytorch_distributed_tpu_torch.{module}" in imported, module
