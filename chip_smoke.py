@@ -118,9 +118,22 @@ every fused launch counter 0 and every served state dict bitwise its
 checkpoint's; (d) ``ReplicaFleetSupervisor`` over two fleet replicas on
 the card, their spawn-to-healthy times, a ``kill -9`` restarted on its
 port.
+Before serve, tensor parallelism (``tensor_parallel``, ``--model_parallel``,
+gloo over CUDA tensors on the one card): (a) one ResNet-50 step at the
+recipe's width, batch 128, on 2 processes of one model group (the fused
+loss's single-device form launched once a step on each) against the
+one-process step and a float64 step, with each rank's state bytes, the
+step's time and its collectives by group; (b) one ResNet-18 step at data 2
+x model 2 with ``--syncBN`` through the sharded fused loss over the data
+group; (c) ``train.supcon.main --model_parallel 2`` for two ResNet-18
+epochs, its whole-tensor ``last.pth`` read by ``train.linear.main`` and its
+first-epoch save resumed at ``--model_parallel 1``; and the health
+gradient norm of (a) and (b) free of host syncs under
+``torch.cuda.set_sync_debug_mode("error")``.
 Phases: device, build, kernel_parity, train, probe, resume, distributed,
-large_batch, observability, ce, placement, recipes, supervise, serve,
-timing. Any failure raises and the script exits non-zero.
+large_batch, observability, ce, placement, recipes, supervise,
+tensor_parallel, serve, timing. Any failure raises and the script exits
+non-zero.
 
     python3 chip_smoke.py --split-only --root <checkout>
 
@@ -2105,6 +2118,402 @@ def distributed_phase(workdir, result, expected, model, views, labels, where):
         raise AssertionError("distributed (b):\n" + "\n".join(failures))
 
 
+# The tensor_parallel phase (``--model_parallel``): gloo over CUDA tensors on
+# the one card (NCCL takes one process a card), lines ``tensor_parallel (a)``
+# to ``(c)``.
+TP_N = 2
+TP_BATCH = 128  # (a), (b): global batch; gloo moves rn50 activations via the host
+TP_STEP_LOSS_RTOL, TP_PARAM_RTOL, TP_PARAM_ATOL = 2e-5, 1e-3, 2e-5  # JAX's TP pins
+TP_DRIVER_BATCH = 512  # (c): 3 steps an epoch of the 1792 synthetic images
+
+
+def tp_state_bytes(model, optimizer) -> int:
+    """This process's training state: parameters, buffers and momentum."""
+    tensors = list(model.state_dict().values()) + [
+        t for st in optimizer.state.values() for t in st.values() if torch.is_tensor(t)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tp_step_run(model_name, world, rank, outdir, sync_bn):
+    """One tensor-parallel step of ``model_name`` at the recipe's width on
+    this process's data slice and shards of the global batch of
+    :data:`TP_BATCH`: eager convs, the fused loss (its single-device form at
+    data 1, the sharded form over the data group above). Then a second step
+    with its collectives counted. Saves the shards and returns a summary."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_loss
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    from simclr_pytorch_distributed_tpu_torch.train import supcon_step
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.utils import profiling
+    dev = torch.device("cuda", 0)
+    mesh.setup_grid(TP_N)
+    _, labels, _, views = recipe_batch(dev, TP_BATCH)
+    d, n_data = mesh.data_index(), mesh.data_parallel()
+    b = TP_BATCH // n_data
+    mine = (views[d * b:(d + 1) * b], labels[d * b:(d + 1) * b])
+    torch.manual_seed(0)
+    model = SupConResNet(model_name).to(dev, memory_format=torch.channels_last)
+    model.encoder.set_conv_impl("eager").set_bn_sync(mesh.data_group() if sync_bn else None)
+    replicated = 2 * sum(p.numel() * p.element_size() for p in model.parameters()) + sum(
+        t.numel() * t.element_size() for t in model.buffers())
+    layout = mesh.shard_module(model, TP_N, mesh.model_index())
+    state = TrainState(model=model, optimizer=make_optimizer(model), schedule=lambda s: 0.5)
+    cfg = supcon_step.SupConStepConfig(temperature=TEMP, loss_impl="fused", epochs=1,
+                                       steps_per_epoch=7)
+    sharded_calls = [0]
+    sharded = supcon_step.fused_sharded_supcon_loss
+
+    def counting(*args, **kwargs):
+        sharded_calls[0] += 1
+        return sharded(*args, **kwargs)
+
+    supcon_step.fused_sharded_supcon_loss = counting
+    try:
+        fused_loss.fwd_launches = fused_loss.bwd_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = supcon_step.train_step(state, cfg, *mine)["loss"].item()
+        step_s = time.perf_counter() - t0
+        launches = [fused_loss.fwd_launches, fused_loss.bwd_launches, sharded_calls[0]]
+        torch.save({"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "momentum": {n: state.optimizer.state[p]["momentum_buffer"].cpu()
+                                 for n, p in model.named_parameters()}},
+                   os.path.join(outdir, f"{model_name}_{rank}.pt"))
+        state_bytes = tp_state_bytes(model, state.optimizer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        supcon_step.train_step(state, cfg, *mine)["loss"].item()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spent = profiling.count_collectives(
+            lambda: supcon_step.train_step(state, cfg, *mine)["loss"].item())
+        counted_s = time.perf_counter() - t0
+    finally:
+        supcon_step.fused_sharded_supcon_loss = sharded
+    health_sync = tp_health_norm_sync(model)
+    del state, model
+    torch.cuda.empty_cache()
+    return {"loss": loss, "launches": launches, "step_s": step_s, "warm_s": warm_s,
+            "counted_s": counted_s,
+            "collectives": spent, "state_bytes": state_bytes, "replicated_bytes": replicated,
+            "sharded_tensors": len(layout), "rows": 2 * b, "health_sync": health_sync}
+
+
+def tp_health_norm_sync(model):
+    """The health gradient norm of a tensor-parallel step
+    (``supcon_step.global_grad_norm`` over ``mesh.whole_norms``) run a
+    second time under ``torch.cuda.set_sync_debug_mode("error")``, with the
+    model group's all-reduce stubbed (gloo stages CUDA tensors through the
+    host and waits; NCCL does not): ``None`` when nothing in it waits for
+    the card, else the error. The first call uploads the sharded-leaf
+    flags, once."""
+    import torch.distributed as dist
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    from simclr_pytorch_distributed_tpu_torch.train import supcon_step
+    supcon_step.global_grad_norm(model.parameters(), mesh.model_group())
+    torch.cuda.synchronize()
+    all_reduce = dist.all_reduce
+    dist.all_reduce = lambda tensor, group=None: None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        supcon_step.global_grad_norm(model.parameters(), mesh.model_group())
+        return None
+    except RuntimeError as e:
+        return str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        dist.all_reduce = all_reduce
+
+
+def tp_driver_argv(workdir, name, *extra):
+    return ["--dataset", "synthetic", "--model", "resnet18", "--batch_size",
+            str(TP_DRIVER_BATCH), "--epochs", "2", "--save_freq", "1", "--learning_rate", "0.5",
+            "--temp", str(TEMP), "--cosine", "--method", "SimCLR", "--syncBN",
+            "--loss_impl", "fused", "--print_freq", "3", "--data_placement", "host",
+            "--workdir", os.path.join(workdir, name), "--trial", name, *extra]
+
+
+def tp_rank(rank, world, outdir):
+    """One process of the tensor_parallel phase on the one card (gloo over
+    CUDA tensors). At world 2 (data 1 x model 2): (a) the ResNet-50 step,
+    then (c) the driver at ``--model_parallel 2`` for two epochs of
+    ResNet-18 and its first-epoch save resumed at ``--model_parallel 1``. At
+    world 4 (data 2 x model 2): (b) the ResNet-18 ``--syncBN`` step through
+    the sharded fused loss over the data group."""
+    import datetime
+    from simclr_pytorch_distributed_tpu_torch.ops import fused_loss
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.device("cuda", 0))
+    mesh.setup_distributed("cuda", init_method=f"file://{os.path.join(outdir, 'store')}",
+                           rank=rank, world_size=world, backend="gloo",
+                           timeout=datetime.timedelta(seconds=600))
+    out = {}
+    if world == 2:
+        out["a"] = tp_step_run("resnet50", world, rank, outdir, sync_bn=True)
+        fused_loss.fwd_launches = fused_loss.bwd_launches = 0
+        t0 = time.perf_counter()
+        straight = supcon.main(tp_driver_argv(outdir, "straight", "--model_parallel", "2"))
+        out["c"] = {"losses": [h["loss"] for h in straight.history],
+                    "folder": straight.save_folder, "s": time.perf_counter() - t0,
+                    "launches": [fused_loss.fwd_launches, fused_loss.bwd_launches]}
+        del straight
+        torch.cuda.empty_cache()
+        resumed = supcon.main(tp_driver_argv(
+            outdir, "resumed", "--model_parallel", "1", "--resume",
+            os.path.join(out["c"]["folder"], "ckpt_epoch_1.pth")))
+        out["c"]["resumed_losses"] = [h["loss"] for h in resumed.history]
+        out["c"]["resumed_folder"] = resumed.save_folder
+    else:
+        out["b"] = tp_step_run("resnet18", world, rank, outdir, sync_bn=True)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    mesh.teardown_distributed()
+
+
+def tp_reference(model_name, dev):
+    """The one-process eager step of :func:`tp_step_run` on the global
+    batch from the same init: fp32 with the fused loss, and float64 with the
+    dense loss (the yardstick of fp32 noise, as in :func:`step_check`).
+    Returns ``{"init", "fp32", "f64"}``: ``(loss, state, momentum)`` on the
+    host for each dtype, and the init. TF32 is off, as in the processes."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (
+        SupConStepConfig,
+        train_step,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, labels, _, views = recipe_batch(dev, TP_BATCH)
+    out = {}
+    for name, dtype, loss_impl in (("fp32", torch.float32, "fused"),
+                                   ("f64", torch.float64, "dense")):
+        torch.manual_seed(0)
+        model = SupConResNet(model_name).to(dev, memory_format=torch.channels_last)
+        out.setdefault("init", {k: v.detach().cpu().clone()
+                                for k, v in model.state_dict().items()})
+        model = model.to(dtype)
+        model.encoder.set_conv_impl("eager")
+        st = TrainState(model=model, optimizer=make_optimizer(model), schedule=lambda s: 0.5)
+        cfg = SupConStepConfig(temperature=TEMP, loss_impl=loss_impl, epochs=1,
+                               steps_per_epoch=7)
+        loss = train_step(st, cfg, views.to(dtype), labels)["loss"].item()
+        out[name] = (loss, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     {n: st.optimizer.state[p]["momentum_buffer"].cpu()
+                      for n, p in model.named_parameters()})
+        del st, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_compare(label, outdir, model_name, ranks, ref, failures):
+    """Each rank's shards against its slice of the one-process step: the
+    loss at JAX's pin (rtol 2e-5), each parameter's update and momentum in
+    relative L2 (``STEP_UPDATE_REL_L2``) and the BN buffers at
+    ``STEP_BUF_TOL``, the recipe-scale step pins of :func:`step_check`.
+    JAX's elementwise parameter pins (rtol 1e-3, atol 2e-5) are printed
+    beside, for the tensor-parallel step and for the one-process fp32 step
+    against the float64 one: at the recipe's width two fp32 orderings of a
+    step already differ beyond them (ReLU masks of values within rounding of
+    zero), so they cannot bind here. Returns the worst of each measure,
+    ``{name: (value, where)}``."""
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    init = ref["init"]
+    ref_loss, ref_state, ref_momentum = ref["fp32"]
+    f64_loss, f64_state, _ = ref["f64"]
+
+    def shard(t, m):
+        return mesh.shard_of(t, TP_N, m) if t.dim() else t
+
+    def update_err(got, want, start):
+        upd = want.double() - start.double()
+        return (((got.double() - start.double()) - upd).norm() / upd.norm().clamp_min(1e-30)).item()
+
+    def beyond_jax(got, want):
+        return ((got.double() - want.double()).abs()
+                - (TP_PARAM_ATOL + TP_PARAM_RTOL * want.double().abs())).max().item() > 0
+
+    worst = {k: (0.0, "-") for k in ("update", "momentum", "update_f64", "fp32_f64", "buffer")}
+    jax_beyond = {"tp": 0, "fp32_vs_f64": 0}
+    bad = []
+    for r, summary in enumerate(ranks):
+        got = torch.load(os.path.join(outdir, f"{model_name}_{r}.pt"), weights_only=True)
+        m = r % TP_N
+        for key, want in ref_state.items():
+            g, w = got["state"][key], shard(want, m)
+            if tuple(g.shape) != tuple(w.shape):
+                bad.append(f"rank {r} {key}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+                continue
+            if not want.is_floating_point():
+                if not torch.equal(g, w):
+                    bad.append(f"rank {r} {key}: {g} != {w}")
+                continue
+            if key not in ref_momentum:  # a BN running buffer
+                excess = ((g - w).abs() - STEP_BUF_TOL * (1 + w.abs())).max().item()
+                worst["buffer"] = max(worst["buffer"], ((g - w).abs().max().item(),
+                                                        f"rank {r} {key}"))
+                if excess > 0:
+                    bad.append(f"rank {r} buffer {key}: beyond rtol/atol {STEP_BUF_TOL}")
+                continue
+            start, w64 = shard(init[key], m), shard(f64_state[key], m)
+            tagged = lambda e: (e, f"rank {r} {key}")  # noqa: E731
+            err = update_err(g, w, start)
+            worst["update"] = max(worst["update"], tagged(err))
+            worst["update_f64"] = max(worst["update_f64"], tagged(update_err(g, w64, start)))
+            worst["fp32_f64"] = max(worst["fp32_f64"], tagged(update_err(w, w64, start)))
+            merr = relative_l2(got["momentum"][key], shard(ref_momentum[key], m))
+            worst["momentum"] = max(worst["momentum"], tagged(merr))
+            jax_beyond["tp"] += beyond_jax(g, w)
+            jax_beyond["fp32_vs_f64"] += beyond_jax(w, w64)
+            if err > STEP_UPDATE_REL_L2 or merr > STEP_UPDATE_REL_L2:
+                bad.append(f"rank {r} {key}: update relative L2 {err:.3e}, momentum {merr:.3e}")
+        rel = abs(summary["loss"] - ref_loss) / abs(ref_loss)
+        worst["loss"] = max(worst.get("loss", (0.0, "-")), (rel, f"rank {r}"))
+        if rel > TP_STEP_LOSS_RTOL:
+            bad.append(f"rank {r} loss {summary['loss']!r} vs {ref_loss!r}: rel {rel:.3e}")
+    n_params = len(ref_momentum) * len(ranks)
+    print(f"{label} vs the one-process step on the card: losses "
+          f"{[s['loss'] for s in ranks]} vs {ref_loss!r} (JAX's rtol {TP_STEP_LOSS_RTOL}; "
+          f"float64 dense {f64_loss!r}); each rank's shards against their slices: update "
+          f"relative L2 worst {worst['update'][0]:.3e} at {worst['update'][1]}, momentum "
+          f"worst {worst['momentum'][0]:.3e} at {worst['momentum'][1]} (bound "
+          f"{STEP_UPDATE_REL_L2}), BN buffers max abs diff {worst['buffer'][0]:.3e} at "
+          f"{worst['buffer'][1]} (bound rtol/atol {STEP_BUF_TOL})")
+    print(f"{label} beside the float64 step: update relative L2 worst, tensor-parallel vs "
+          f"float64 {worst['update_f64'][0]:.3e} at {worst['update_f64'][1]}, one-process "
+          f"fp32 vs float64 {worst['fp32_f64'][0]:.3e} at {worst['fp32_f64'][1]}; parameter "
+          f"shards beyond JAX's elementwise pins (rtol {TP_PARAM_RTOL}, atol "
+          f"{TP_PARAM_ATOL}): tensor-parallel vs one-process fp32 {jax_beyond['tp']} of "
+          f"{n_params}, one-process fp32 vs float64 {jax_beyond['fp32_vs_f64']} of {n_params}")
+    failures.extend(f"{label}: {b}" for b in bad[:20])
+    return worst
+
+
+def tp_report(label, ranks, where, rows_at=512):
+    """The step's launches, state bytes, wall times and collectives, rank by
+    rank; the model group's bytes also scaled to ``rows_at`` rows (the
+    recipe's batch 256: every gathered tensor has one row per encoder row)."""
+    for r, s in enumerate(ranks):
+        groups = {}
+        for key, (calls, nbytes, sec) in sorted(s["collectives"].items()):
+            groups.setdefault(key, []).append(f"{calls} calls {nbytes / 2**20:.1f} MiB "
+                                              f"{sec * 1e3:.1f} ms")
+        print(f"{label} rank {r}: fused loss launches fwd/bwd {s['launches'][0]}/"
+              f"{s['launches'][1]}, sharded-form calls {s['launches'][2]}; state "
+              f"{s['state_bytes'] / 2**20:.2f} MiB (parameters, buffers, momentum; "
+              f"{s['sharded_tensors']} tensors sharded) against the replicated "
+              f"{s['replicated_bytes'] / 2**20:.2f} MiB = "
+              f"{s['state_bytes'] / s['replicated_bytes']:.3f}; first step "
+              f"{s['step_s'] * 1e3:.1f} ms, second {s['warm_s'] * 1e3:.1f} ms, a third with "
+              f"every collective synchronized and counted {s['counted_s'] * 1e3:.1f} ms "
+              f"{where}; collectives by name@group: " + "; ".join(f"{k}: {', '.join(v)}" for k, v in groups.items()))
+    s = ranks[0]
+    model_bytes = sum(nbytes for key, (calls, nbytes, sec) in s["collectives"].items()
+                      if key.endswith("@model"))
+    print(f"{label}: the model group's collective bytes a step "
+          f"{model_bytes / 2**20:.1f} MiB at {s['rows']} encoder rows a process, "
+          f"{model_bytes / s['rows'] * rows_at / 2**30:.3f} GiB scaled to {rows_at} rows")
+
+
+def tensor_parallel_phase(workdir, where):
+    """``--model_parallel`` on the card, two and four processes over gloo.
+
+    (a) ResNet-50 at the recipe's width (CIFAR stem, 32 px, fp32, TF32 off),
+    global batch :data:`TP_BATCH`, ``--model_parallel 2`` on 2 processes:
+    one step against the one-process step (:func:`tp_compare`: JAX's loss
+    pin, the recipe-scale update pins, a float64 step beside), the fused loss's
+    single-device form launched once a step on each rank, each rank's state
+    bytes against the replicated state's, the step's wall time and its
+    collectives by group. (b) ResNet-18 at world 4, data 2 x model 2,
+    ``--syncBN``: the sharded fused loss over the data group, against the
+    one-process step. (c) ``train.supcon.main --model_parallel 2`` for two
+    epochs of ResNet-18 on ``synthetic``: its ``last.pth`` holds whole
+    tensors and loads in ``train.linear.main``, and its first-epoch save
+    resumed at ``--model_parallel 1`` ends near the straight run."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.train import linear
+    dev = torch.device("cuda", 0)
+    failures = []
+    t0 = time.time()
+    out2 = tempfile.mkdtemp(prefix="tp2_", dir=workdir)
+    ranks2 = run_gloo_ranks(out2, world=2, timeout=900, target="tp_rank",
+                            label="tensor_parallel (a)/(c)")
+    t2 = time.time() - t0
+    out4 = tempfile.mkdtemp(prefix="tp4_", dir=workdir)
+    ranks4 = run_gloo_ranks(out4, world=4, timeout=600, target="tp_rank",
+                            label="tensor_parallel (b)")
+    t4 = time.time() - t0 - t2
+    print(f"tensor_parallel: the 2-process launch ((a) and (c)) {t2:.1f} s, the 4-process "
+          f"launch ((b)) {t4:.1f} s of wall time, imports and rendezvous included")
+
+    a = [r["a"] for r in ranks2]
+    tp_report("tensor_parallel (a) resnet50 N=2 world 2", a, where)
+    tp_compare("tensor_parallel (a)", out2, "resnet50", a, tp_reference("resnet50", dev),
+               failures)
+    if any(s["launches"][:2] != [1, 1] or s["launches"][2] != 0 for s in a):
+        failures.append(f"tensor_parallel (a): expected the single-device fused loss once "
+                        f"forward and backward on each rank, got {[s['launches'] for s in a]}")
+    b = [r["b"] for r in ranks4]
+    tp_report("tensor_parallel (b) resnet18 data 2 x model 2 --syncBN", b, where, rows_at=512)
+    tp_compare("tensor_parallel (b)", out4, "resnet18", b, tp_reference("resnet18", dev),
+               failures)
+    if any(s["launches"] != [1, 1, 1] for s in b):
+        failures.append(f"tensor_parallel (b): expected the sharded fused loss once forward "
+                        f"and backward on each rank, got {[s['launches'] for s in b]}")
+    syncs = [s["health_sync"] for s in a + b]
+    print(f"tensor_parallel (a)/(b): the health gradient norm under "
+          f"set_sync_debug_mode('error'), its all-reduce stubbed, rank by rank: "
+          f"{['no sync' if e is None else e for e in syncs]}")
+    if any(e is not None for e in syncs):
+        failures.append(f"tensor_parallel: the health gradient norm waits for the card: {syncs}")
+
+    c = ranks2[0]["c"]
+    steps = len(c["losses"])
+    print(f"tensor_parallel (c): train.supcon.main --model_parallel 2, resnet18 batch "
+          f"{TP_DRIVER_BATCH}, 2 epochs: {steps} steps in {c['s']:.1f} s, fused loss launches "
+          f"fwd/bwd {c['launches']} on rank 0, losses {[round(x, 4) for x in c['losses']]}")
+    if c["launches"] != [steps, steps]:
+        failures.append(f"tensor_parallel (c): loss launches {c['launches']} for {steps} steps")
+    last = torch.load(os.path.join(c["folder"], "last.pth"), map_location="cpu",
+                      weights_only=True)
+    whole = {k: tuple(v.shape) for k, v in SupConResNet("resnet18").state_dict().items()}
+    saved = {k.removeprefix("module."): tuple(v.shape) for k, v in last["model"].items()}
+    print(f"tensor_parallel (c): last.pth holds {len(saved)} tensors, whole: "
+          f"{saved == whole}; opt model_parallel {last['opt']['model_parallel']}, world_size "
+          f"{last['world_size']}")
+    if saved != whole:
+        failures.append("tensor_parallel (c): last.pth does not hold whole tensors")
+    probe = linear.main(["--model", "resnet18", "--dataset", "synthetic", "--epochs", "1",
+                         "--batch_size", "512", "--ckpt", os.path.join(c["folder"], "last.pth"),
+                         "--print_freq", "1", "--data_placement", "host", "--workdir",
+                         os.path.join(workdir, "tp_probe")])
+    print(f"tensor_parallel (c): train.linear.main from that last.pth: "
+          f"{len(probe.history)} steps, top-1 {probe.best_acc:.2f}")
+    resumed = torch.load(os.path.join(c["resumed_folder"], "last.pth"), map_location="cpu",
+                         weights_only=True)
+    tail = c["losses"][-len(c["resumed_losses"]):]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(c["resumed_losses"], tail))
+    num = sum(float(((resumed["model"][k].double() - v.double()) ** 2).sum())
+              for k, v in last["model"].items() if v.is_floating_point())
+    den = sum(float((v.double() ** 2).sum()) for v in last["model"].values()
+              if v.is_floating_point())
+    rel = (num / den) ** 0.5
+    print(f"tensor_parallel (c): the epoch-1 save resumed at --model_parallel 1 (2 processes, "
+          f"data parallel): epoch-2 losses {[round(x, 4) for x in c['resumed_losses']]} vs "
+          f"the straight run's, worst rel {loss_rel:.3e} (bound 1e-4); last.pth relative L2 "
+          f"{rel:.3e} (bound {STEP_UPDATE_REL_L2})")
+    if not (loss_rel <= 1e-4 and rel <= STEP_UPDATE_REL_L2):
+        failures.append(f"tensor_parallel (c): the N = 1 resume differs: losses {loss_rel}, "
+                        f"state {rel}")
+    if failures:
+        raise AssertionError("tensor_parallel:\n" + "\n".join(failures))
+
+
 # The large-batch phase: the ring loss, LARS, the probe over processes,
 # elastic resume and NaN rollback (lines ``large_batch (a)`` to ``(f)``).
 RING_BATCH = 4096  # the BASELINE bs = 4096 geometry: N = 8192 rows, D = 128
@@ -2626,11 +3035,11 @@ def capture_health_inputs(store):
     from simclr_pytorch_distributed_tpu_torch.train import supcon_step
     health, grad_norm = supcon_step.contrastive_health_metrics, supcon_step.global_grad_norm
 
-    def norm(params):
+    def norm(params, *args):
         params = list(params)
         if "grads" not in store:
             store["grads"] = [p.grad.detach().cpu() for p in params if p.grad is not None]
-        return grad_norm(params)
+        return grad_norm(params, *args)
 
     def metrics(emb, gn):
         out = health(emb, gn)
@@ -4983,6 +5392,11 @@ def main(argv=None) -> int:
     t0 = phase("supervise")
     supervise_phase(workdir, rn18_bf16_expected, f"on {card}")
     done("supervise", t0)
+
+    # -- tensor_parallel: --model_parallel over two and four processes ----
+    t0 = phase("tensor_parallel")
+    tensor_parallel_phase(workdir, f"on {card}")
+    done("tensor_parallel", t0)
 
     # -- serve: the engine, the HTTP stack, the fleet, the replica fleet ---
     t0 = phase("serve")

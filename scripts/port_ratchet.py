@@ -24,6 +24,17 @@ A ``ce_*`` configuration trains the supervised CE baseline instead
 ``--cosine``, ``--bf16``, 30 epochs, seed 0) and records its best
 validation top-1 against the JAX bar 98.2 (the JAX package measured 99.0,
 ``RATCHET_r05.json``); ``--epochs`` overrides its epochs too.
+
+    python3 scripts/port_ratchet.py --configs invariant_lint
+
+The ``invariant_lint`` gate (in the default list, as in the JAX ratchet,
+``scripts/ratchet.py:207-218, 1379-1390``) runs
+``scripts/port_invariant_lint.py --json`` over the port's tree (stdlib
+``ast``, no device, so it binds on any machine and needs no card) and
+judges the artifact with :func:`lint_gate_record`, the JAX gate's rules:
+the pinned schema, all four rule families run, every allowlisted point
+with a reason, and zero unallowlisted findings. A failed gate makes the
+script exit 1.
 """
 
 from __future__ import annotations
@@ -53,6 +64,11 @@ CONFIGS = {
 CE_CONFIGS = {
     "ce_rn50_30ep": ("resnet50", 30, 98.2),
 }
+# the static gates: name -> kind (no card, no driver)
+GATE_CONFIGS = {
+    "invariant_lint": dict(kind="invariant_lint"),
+}
+DEFAULT_CONFIGS = ["invariant_lint", "rn50_100ep", "rn18_100ep"]
 
 
 def card_line() -> str:
@@ -114,10 +130,71 @@ def run_ce_config(name: str, epochs: int, workdir: str, seed: int) -> dict:
     }
 
 
+def lint_gate_record(artifact: dict) -> dict:
+    """Gate decision for one invariant_lint artifact (pure): the JAX
+    ratchet's ``lint_gate_record`` on the port's runner. Binds on every
+    machine: the claims are properties of the source tree. Checks the
+    pinned schema, that all four rule families ran, that every allowlisted
+    point carries a reason, and zero unallowlisted findings."""
+    from simclr_pytorch_distributed_tpu_torch.analysis import runner as lint_runner
+
+    record = {
+        "metric": "port_ratchet_invariant_lint",
+        "value": artifact.get("n_findings"),
+        "files_scanned": artifact.get("files_scanned"),
+        "rules_run": artifact.get("rules_run"),
+        "allowlisted": [
+            {"key": a.get("key"), "matched": len(a.get("findings", []))}
+            for a in artifact.get("allowlisted", [])
+        ],
+    }
+
+    def fail(msg):
+        record["ok"] = False
+        record["error"] = msg
+        return record
+
+    if artifact.get("schema") != lint_runner.SCHEMA:
+        return fail(f"unexpected schema {artifact.get('schema')!r}")
+    missing = sorted(set(lint_runner.RULE_FAMILIES) - set(artifact.get("rules_run", [])))
+    if missing:
+        return fail(f"rule families did not run: {missing}")
+    for entry in artifact.get("allowlisted", []):
+        if not str(entry.get("reason", "")).strip():
+            return fail(f"allowlist entry {entry.get('key')!r} carries no reason")
+    findings = artifact.get("findings", [])
+    if findings or not artifact.get("ok"):
+        heads = "; ".join(f"{f.get('file')}:{f.get('line')} [{f.get('rule')}]"
+                          for f in findings[:5])
+        return fail(f"{len(findings)} unallowlisted invariant finding(s): {heads}")
+    record["ok"] = True
+    return record
+
+
+def run_lint_gate(workdir: str) -> dict:
+    """``scripts/port_invariant_lint.py --json`` in a child process, judged
+    by :func:`lint_gate_record`. The linter exits 1 on findings and still
+    writes its artifact, which the record then carries."""
+    os.makedirs(workdir, exist_ok=True)
+    out = os.path.join(workdir, "port_invariant_lint.json")
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "port_invariant_lint.py"),
+         "--json", out], capture_output=True, text=True, timeout=600,
+    )
+    if not os.path.exists(out):
+        return {"metric": "port_ratchet_invariant_lint", "ok": False,
+                "error": f"the linter wrote no artifact (exit {proc.returncode}): "
+                         f"{proc.stderr.strip()[-400:]}"}
+    with open(out) as fh:
+        return lint_gate_record(json.load(fh))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--configs", nargs="+", default=["rn50_100ep", "rn18_100ep"],
-                    choices=sorted(CONFIGS) + sorted(CE_CONFIGS))
+    ap.add_argument("--configs", nargs="+", default=DEFAULT_CONFIGS,
+                    choices=sorted(CONFIGS) + sorted(CE_CONFIGS) + sorted(GATE_CONFIGS))
     ap.add_argument("--epochs", type=int, default=0,
                     help="pretrain epochs (default 100), or a CE configuration's epochs "
                          "(default its own)")
@@ -125,12 +202,23 @@ def main(argv=None) -> int:
     ap.add_argument("--workdir", default=os.path.join(REPO, "work_space", "port_ratchet"))
     ap.add_argument("--json", default="", help="also append the records to this file")
     args = ap.parse_args(argv)
+    gates_ok = True
+    for name in [n for n in args.configs if n in GATE_CONFIGS]:
+        record = run_lint_gate(args.workdir)
+        gates_ok = gates_ok and record["ok"]
+        print(json.dumps(record), flush=True)
+        if args.json:
+            with open(args.json, "a") as fh:
+                fh.write(json.dumps(record) + "\n")
+    runs = [n for n in args.configs if n not in GATE_CONFIGS]
+    if not runs:
+        return 0 if gates_ok else 1
     if not torch.cuda.is_available():
         print("port_ratchet: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
     print(f"nvidia-smi name, power.limit: {card}", flush=True)
-    for name in args.configs:
+    for name in runs:
         if name in CE_CONFIGS:
             record = run_ce_config(name, args.epochs, args.workdir, args.seed)
         else:
@@ -144,7 +232,7 @@ def main(argv=None) -> int:
         if args.json:
             with open(args.json, "a") as fh:
                 fh.write(json.dumps(record) + "\n")
-    return 0
+    return 0 if gates_ok else 1
 
 
 if __name__ == "__main__":

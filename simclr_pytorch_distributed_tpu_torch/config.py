@@ -41,7 +41,13 @@ reference's command lines pass it, and the augmentation runs on the device.
 
 Flags the port does not take are absent, so argparse rejects them:
 ``--compile_cache``, a cache of XLA programs that the port does not
-compile, and ``--model_parallel``, which is not ported yet.
+compile. ``--model_parallel N`` (default 1) is the JAX package's
+(``config.py:87, 350``), on the pretraining parser only, as there: the
+world forms a grid of ``W // N`` data slices by ``N`` model shards
+(``parallel/mesh.setup_grid``; ``W % N != 0`` raises at start-up), and the
+probe and CE parsers reject it. Under it the byol, simsiam and vicreg
+recipes and the MoCo queue are refused at parse time
+(:func:`validate_model_parallel`; ROADMAP Queue 1 records the gap).
 Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
 {dense,fused,ring,auto}`` (``ring`` only when asked for, as in JAX
 ``config.py:92-96``) and ``--conv_impl {eager,fused,auto}`` (the JAX
@@ -54,9 +60,10 @@ statistics and loss. ``--ckpt`` (a warm start of the model's weights and
 BN buffers), ``--resume`` (the full training state) and ``--nan_guard``
 are the JAX package's pretrain flags (``config.py:342, 349, 370``).
 ``--syncBN`` is the reference's and the JAX package's (``config.py:64``):
-cross-replica BN over every process of a ``torchrun`` launch; without it
-each process normalizes over its own slice of the batch. ``--ngpu auto``
-is the launch's world size.
+cross-replica BN over every process of a ``torchrun`` launch (over the
+data group under ``--model_parallel``); without it each process normalizes
+over its own slice of the batch. ``--ngpu auto`` is the launch's world
+size, the data-parallel size ``W // N`` under ``--model_parallel``.
 """
 
 from __future__ import annotations
@@ -117,6 +124,8 @@ class SupConConfig:
     bf16: bool = False
     ckpt: str = ""
     resume: str = ""
+    # channel-wise tensor parallelism over a data x model process grid
+    model_parallel: int = 1
     nan_guard: bool = True
     nan_policy: str = "abort"
     optimizer: str = "sgd"
@@ -356,6 +365,12 @@ def supcon_parser() -> argparse.ArgumentParser:
                    help="a full-state .pth, or a run folder (its latest complete "
                         "checkpoint): model, SGD buffers, step, record_norm_mean and "
                         "the augmentation generator; the run continues where it stopped")
+    p.add_argument("--model_parallel", type=positive_int_arg("model_parallel"),
+                   default=d.model_parallel,
+                   help="tensor parallelism: the launch's processes form a grid of "
+                        "world/N data slices by N model shards; parameters, BN statistics "
+                        "and momentum of 64+ output channels are sharded on that dim over "
+                        "each model group")
     p.add_argument("--nan_guard", type=parse_bool, default=d.nan_guard,
                    help="on a non-finite loss, save crash_epoch_N.pth from the epoch-top "
                         "state, then act by --nan_policy")
@@ -505,11 +520,26 @@ def validate_recipe(cfg: SupConConfig) -> None:
             )
 
 
+def validate_model_parallel(cfg: SupConConfig) -> None:
+    """Parse-time check of ``--model_parallel`` against the recipe (after
+    :func:`validate_recipe`): the port runs the contrastive recipes under
+    tensor parallelism; the JAX package takes the others too, and their
+    port is an open item (ROADMAP Queue 1, "tensor-parallel recipes")."""
+    if cfg.model_parallel > 1 and (cfg.recipe not in ("supcon", "simclr") or cfg.moco_queue):
+        what = "--moco_queue" if cfg.moco_queue else f"--recipe {cfg.recipe}"
+        raise ValueError(
+            f"{what} is not ported under --model_parallel {cfg.model_parallel}: the "
+            "port runs supcon and simclr without the queue under tensor parallelism "
+            "(ROADMAP.md Queue 1, \"tensor-parallel recipes\"); use --model_parallel 1"
+        )
+
+
 def finalize_supcon(cfg: SupConConfig) -> SupConConfig:
     """Derived fields, replicating main_supcon.py:92-150. The save folder
     is named here and created by the driver."""
     validate_data_placement(cfg.dataset, cfg.data_placement)
     validate_recipe(cfg)
+    validate_model_parallel(cfg)
     if cfg.dataset == "path" and (cfg.data_folder is None or cfg.mean is None
                                   or cfg.std is None):
         raise ValueError("--dataset path needs --data_folder, --mean and --std")

@@ -13,6 +13,13 @@ Under the encoder's bf16 compute dtype the head runs in bf16 as
 ``TorchDense(dtype=bf16)`` does (``heads.py:45-46``): input, weight and
 bias cast to bf16, the product and then the bias add rounded to bf16; the
 train step casts the embedding to fp32 before the loss.
+
+Under tensor parallelism (``--model_parallel N``) the encoder hands the
+head its channel slice of the features (``ResNet.forward_local``); each
+linear gathers its input (``models/resnet.tp_input``) and computes its own
+slice of the output features, and the head's output is gathered whole for
+the loss (``tp_whole``). ``encode`` and the features of
+``forward_with_features`` are whole.
 """
 
 from __future__ import annotations
@@ -29,7 +36,10 @@ from simclr_pytorch_distributed_tpu_torch.models.resnet import (
     MODEL_DICT,
     STAGE_PLANS,
     Bottleneck,
+    tp_input,
+    tp_whole,
 )
+from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_tp_sharded
 
 
 def projection_head(head: str, dim_in: int, feat_dim: int) -> nn.Module:
@@ -46,15 +56,25 @@ def projection_head(head: str, dim_in: int, feat_dim: int) -> nn.Module:
 
 def head_forward(head: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``head`` (a ``projection_head``) on ``x`` in compute dtype ``dtype``;
-    fp32 is the modules' own call."""
-    if dtype == torch.float32:
+    fp32 is the modules' own call. A channel slice of ``x``, or a sharded
+    linear, takes the tensor-parallel path: each linear reads its input
+    whole, and the output comes back whole."""
+    layers = list(head) if isinstance(head, nn.Sequential) else [head]
+    linears = [layer for layer in layers if isinstance(layer, nn.Linear)]
+    sharded = x.shape[1] != linears[0].in_features or any(
+        is_tp_sharded(layer.weight) for layer in linears)
+    if dtype == torch.float32 and not sharded:
         return head(x)
-    for layer in head if isinstance(head, nn.Sequential) else (head,):
+    for layer in layers:
         if isinstance(layer, nn.Linear):
-            x = F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+            x = tp_input(layer, x)
+            if dtype == torch.float32:
+                x = layer(x)
+            else:
+                x = F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
         else:
             x = layer(x)
-    return x
+    return tp_whole(x, linears[-1].out_features)
 
 
 class SupConResNet(nn.Module):
@@ -73,7 +93,8 @@ class SupConResNet(nn.Module):
         self.arch = (model_name, head, feat_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return head_forward(self.head, self.encoder(x), self.encoder.compute_dtype)
+        return head_forward(self.head, self.encoder.forward_local(x),
+                            self.encoder.compute_dtype)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Encoder features only (the probe's frozen feature extractor)."""
@@ -81,8 +102,9 @@ class SupConResNet(nn.Module):
 
     def forward_with_features(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(projection, encoder_features)`` from one backbone forward."""
-        h = self.encoder(x)
-        return head_forward(self.head, h, self.encoder.compute_dtype), h
+        h = self.encoder.forward_local(x)
+        return (head_forward(self.head, h, self.encoder.compute_dtype),
+                tp_whole(h, self.encoder.out_features))
 
 
 def infer_architecture(state_dict) -> Tuple[str, str, int]:

@@ -52,11 +52,27 @@ train mode (``models/norm.batch_norm``, ``--syncBN``); ``None`` (the
 default) keeps each process's BN over its own batch. The fused sites
 compute whole-batch statistics inside their kernels, so the driver runs
 them on one process only (``train/supcon.resolve_conv_impl``).
+
+Tensor parallelism (``--model_parallel N``, ``parallel/mesh.shard_module``):
+a sharded conv, BN or linear holds its model index's slice of the output
+channels, so it computes that slice of its output from the WHOLE input
+(every channel). Activations therefore flow through the encoder as channel
+slices: :func:`conv` all-gathers a slice over the model group before a
+layer that reads every channel (:func:`tp_input`, whose backward sums the
+shares of a sharded reader, as it does for a whole input that a sharded
+layer reads after a replicated one), BN normalizes its own channels (statistics
+are per channel, so BN adds no model-group traffic), and a residual add
+lines up the shortcut's slice with the block's, since both hold the same
+channels of the same width. A projection shortcut reads the same gathered
+input as the block's first conv (one gather, not two). ``forward`` returns
+whole features (:func:`tp_whole`); :meth:`ResNet.forward_local` the slice,
+for the projection head to gather as its own reader. At ``N = 1`` no shape
+differs, nothing is gathered, and every forward is the one it was.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple, Type, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type, Union
 
 import torch
 import torch.nn.functional as F
@@ -68,13 +84,53 @@ from simclr_pytorch_distributed_tpu_torch.models.norm import (
     sync_active,
 )
 from simclr_pytorch_distributed_tpu_torch.ops import fused_conv
+from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh
 
 CONV_IMPLS = ("eager", "fused")
 
 
+def _width_in(module: nn.Module) -> int:
+    """The whole input channels of a conv or linear."""
+    return module.in_channels if isinstance(module, nn.Conv2d) else module.in_features
+
+
+def tp_input(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as ``module`` (a conv or linear) reads it: whole. A channel
+    slice (narrower than the module's input) is all-gathered over the model
+    group; when the module itself is sharded (``mesh.is_tp_sharded``), the
+    backward sums the gradient's shares over the group, through the
+    gather's reduce-scatter for a slice or :func:`collectives.reduce_grad`
+    for a whole input that carries a gradient."""
+    width_in = _width_in(module)
+    sharded = mesh.is_tp_sharded(module.weight)
+    if x.shape[1] == width_in:
+        if sharded and x.requires_grad:
+            return collectives.reduce_grad(x, mesh.model_group())
+        return x
+    if x.shape[1] * mesh.model_parallel() != width_in:
+        raise ValueError(f"input of {x.shape[1]} channels for a layer of {width_in}: neither "
+                         f"whole nor a 1/{mesh.model_parallel()} slice")
+    return collectives.gather_channels(x, mesh.model_group(), partial=sharded)
+
+
+def tp_whole(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with its ``width`` channels whole, for a replicated reader (the
+    loss, a probe): a slice is all-gathered, each rank keeping its own
+    channels of the gradient."""
+    if x.shape[1] == width:
+        return x
+    return collectives.gather_channels(x, mesh.model_group(), partial=False)
+
+
 def conv(module: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``module`` applied to ``x``, its weight cast to ``x.dtype`` when the
-    two differ (an fp32 weight under bf16 compute)."""
+    two differ (an fp32 weight under bf16 compute); ``x`` is read through
+    :func:`tp_input` first."""
+    return _conv_read(module, tp_input(module, x))
+
+
+def _conv_read(module: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """:func:`conv` of an input that :func:`tp_input` already gave."""
     if module.weight.dtype == x.dtype:
         return module(x)
     return F.conv2d(x, module.weight.to(x.dtype), None, module.stride, module.padding,
@@ -108,9 +164,11 @@ class BasicBlock(nn.Module):
             )
         ):
             return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        out = torch.relu(batch_norm(self.bn1, conv(self.conv1, x), bn_group))
+        x_in = tp_input(self.conv1, x)
+        out = torch.relu(batch_norm(self.bn1, _conv_read(self.conv1, x_in), bn_group))
         out = batch_norm(self.bn2, conv(self.conv2, out), bn_group)
-        return torch.relu(out + _shortcut_forward(self.shortcut, x, bn_group))
+        return torch.relu(out + _shortcut_forward(self.shortcut, x, bn_group,
+                                                  _shared_input(self, x_in)))
 
     def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC train-mode forward through ``fused_basic_block`` (identity
@@ -168,10 +226,12 @@ class Bottleneck(nn.Module):
             )
         ):
             return self._fused_forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        out = torch.relu(batch_norm(self.bn1, conv(self.conv1, x), bn_group))
+        x_in = tp_input(self.conv1, x)
+        out = torch.relu(batch_norm(self.bn1, _conv_read(self.conv1, x_in), bn_group))
         out = torch.relu(batch_norm(self.bn2, conv(self.conv2, out), bn_group))
         out = batch_norm(self.bn3, conv(self.conv3, out), bn_group)
-        return torch.relu(out + _shortcut_forward(self.shortcut, x, bn_group))
+        return torch.relu(out + _shortcut_forward(self.shortcut, x, bn_group,
+                                                  _shared_input(self, x_in)))
 
     def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC train-mode forward through ``fused_bottleneck_block``, then
@@ -209,12 +269,26 @@ def _shortcut(in_planes: int, out_planes: int, stride: int) -> nn.Sequential:
     )
 
 
-def _shortcut_forward(shortcut: nn.Sequential, x: torch.Tensor, bn_group=None) -> torch.Tensor:
-    """The eager shortcut: ``x`` itself, or its 1x1/s conv + BN."""
+def _shared_input(block: nn.Module, x_in: torch.Tensor) -> Optional[torch.Tensor]:
+    """The block's input as its first conv reads it, ``x_in``, for a
+    projection shortcut's conv sharded as that conv is (the gather's or
+    :func:`collectives.reduce_grad`'s backward then sums both readers'
+    shares at once); ``None`` otherwise (the shortcut reads for itself)."""
+    if not len(block.shortcut):
+        return None
+    sharded = mesh.is_tp_sharded
+    return x_in if sharded(block.shortcut[0].weight) == sharded(block.conv1.weight) else None
+
+
+def _shortcut_forward(shortcut: nn.Sequential, x: torch.Tensor, bn_group=None,
+                      read: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The eager shortcut: ``x`` itself, or the 1x1/s conv + BN of ``x``
+    (of ``read``, ``x`` as :func:`tp_input` gave it, when given)."""
     if not len(shortcut):
         return x
     conv_s, bn_s = shortcut
-    return batch_norm(bn_s, conv(conv_s, x), bn_group)
+    x_in = tp_input(conv_s, x) if read is None else read
+    return batch_norm(bn_s, _conv_read(conv_s, x_in), bn_group)
 
 
 Block = Union[Type[BasicBlock], Type[Bottleneck]]
@@ -236,6 +310,7 @@ class ResNet(nn.Module):
                 blocks.append(block(in_planes, width, stride if i == 0 else 1))
                 in_planes = width * block.expansion
             self.add_module(f"layer{stage}", nn.Sequential(*blocks))
+        self.out_features = in_planes
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
@@ -268,6 +343,12 @@ class ResNet(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> ``[N, out_features]`` pooled features, whole."""
+        return tp_whole(self.forward_local(x), self.out_features)
+
+    def forward_local(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward`, with the features left as this model index's
+        channel slice under tensor parallelism (whole otherwise)."""
         if self.conv_impl == "fused" and self.training and sync_active(self.bn_group):
             raise ValueError("cross-replica BN runs on the eager path only: the fused "
                              "kernels normalize over this process's batch")

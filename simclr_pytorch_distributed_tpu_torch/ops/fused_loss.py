@@ -40,7 +40,6 @@ import torch
 
 from simclr_pytorch_distributed_tpu_torch.ops import native
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives
-from simclr_pytorch_distributed_tpu_torch.parallel.mesh import world_size
 
 fwd_launches = 0
 bwd_launches = 0
@@ -211,17 +210,17 @@ class FusedShardedSupConLoss(torch.autograd.Function):
     of that value with respect to this process's rows."""
 
     @staticmethod
-    def forward(ctx, feats, ids, grow, views, temperature, base_temperature):
-        cols = collectives.view_major(collectives.all_gather(feats), views)
+    def forward(ctx, feats, ids, grow, views, temperature, base_temperature, group):
+        cols = collectives.view_major(collectives.all_gather(feats, group), views)
         gcol = torch.arange(cols.shape[0], dtype=torch.int32, device=feats.device)
         idr = ids[grow.long()]
         loss_row, lse, cnt = fused_rows(
             feats, cols, idr, ids, grow, gcol, temperature, base_temperature
         )
         n_procs = cols.shape[0] // feats.shape[0]
-        loss = collectives.rank_ordered_sum(loss_row.mean()) / n_procs
+        loss = collectives.rank_ordered_sum(loss_row.mean(), group) / n_procs
         ctx.save_for_backward(feats, cols, idr, ids, grow, gcol, lse, cnt)
-        ctx.views = views
+        ctx.views, ctx.group = views, group
         ctx.temperature = temperature
         ctx.base_temperature = base_temperature
         return loss
@@ -231,7 +230,7 @@ class FusedShardedSupConLoss(torch.autograd.Function):
         feats, cols, idr, ids, grow, gcol, lse, cnt = ctx.saved_tensors
         # the column statistics: every process's (lse, cnt), one gather
         stats = collectives.view_major(
-            collectives.all_gather(torch.stack([lse, cnt], dim=1)), ctx.views
+            collectives.all_gather(torch.stack([lse, cnt], dim=1), ctx.group), ctx.views
         )
         lse_c, cnt_c = stats[:, 0].contiguous(), stats[:, 1].contiguous()
         coeff = (ctx.temperature / ctx.base_temperature) / cols.shape[0]
@@ -239,7 +238,7 @@ class FusedShardedSupConLoss(torch.autograd.Function):
             feats, cols, idr, ids, grow, gcol, lse, lse_c, cnt, cnt_c,
             ctx.temperature, coeff,
         )
-        return g * dfeats, None, None, None, None, None
+        return g * dfeats, None, None, None, None, None, None
 
 
 def fused_sharded_supcon_loss(
@@ -248,6 +247,7 @@ def fused_sharded_supcon_loss(
     *,
     temperature: float = 0.07,
     base_temperature: float = 0.07,
+    group=None,
 ) -> torch.Tensor:
     """:func:`fused_supcon_loss` over the process group: ``features``
     ``[b, V, D]`` are this process's ``b`` samples of the global batch of
@@ -257,10 +257,12 @@ def fused_sharded_supcon_loss(
     on every process, differentiable with respect to ``features``.
 
     This process's rows are two slabs of the global view-major matrix
-    (ids ``v * B + r * b + i``); the kernels take them as they are."""
+    (ids ``v * B + r * b + i``); the kernels take them as they are. ``P``
+    and ``r`` are ``group``'s (``None``: the world; under ``--model_parallel``
+    the data group, whose ranks hold different rows)."""
     b, views = features.shape[0], features.shape[1]
     feats = features.transpose(0, 1).reshape(views * b, -1).to(torch.float32).contiguous()
-    n_samples = b * world_size()
+    n_samples = b * collectives.group_size(group)
     if labels is None:
         base = torch.arange(n_samples, dtype=torch.int32, device=features.device)
     else:
@@ -268,7 +270,8 @@ def fused_sharded_supcon_loss(
         if base.shape[0] != n_samples:
             raise ValueError(f"labels must be the global [{n_samples}] vector, "
                              f"got {tuple(labels.shape)}")
-    grow = collectives.own_row_ids(b, views, device=features.device)
+    grow = collectives.own_row_ids(b, views, device=features.device, group=group)
     return FusedShardedSupConLoss.apply(
-        feats, base.repeat(views), grow, views, float(temperature), float(base_temperature)
+        feats, base.repeat(views), grow, views, float(temperature), float(base_temperature),
+        group,
     )

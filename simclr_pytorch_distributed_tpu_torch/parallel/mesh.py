@@ -18,6 +18,20 @@ answers as the one process of a world of one.
 - :func:`sync_processes`: a barrier before exit paths (JAX ``mesh.py:106``).
 - :func:`is_main_process`: rank-0 gating of logging and checkpoint writes
   (JAX ``mesh.py:122``).
+- :func:`setup_grid` (``--model_parallel N``, JAX ``create_mesh``,
+  ``mesh.py:64-77``): the world of ``W`` processes as a grid of ``D = W //
+  N`` data slices by ``N`` model shards. Model groups are consecutive
+  ranks, as in JAX's ``reshape(n // mp, mp)``: rank ``r`` has data index
+  ``r // N`` and model index ``r % N``; a data group is the ranks that
+  share a model index. :func:`data_group` and :func:`model_group` are
+  their process groups (``None``, the world or nothing, at ``N = 1``, so
+  every collective is today's there).
+- :func:`tp_shard_dim` and :func:`state_sharding` (JAX ``tp_leaf_spec``
+  and ``state_sharding``, ``mesh.py:183-213``): which state leaves a model
+  group shards, on PyTorch's output-channel dim 0 (JAX's trailing axis);
+  :func:`shard_module` keeps a module's own slices, :func:`shard_state_dict`
+  slices a whole state dict and :func:`reshard_like` fits a saved one to a
+  module's shapes.
 
 A failed collective raises (``torch.distributed``'s own error, or its
 ``timeout``); nothing here catches it.
@@ -25,13 +39,16 @@ A failed collective raises (``torch.distributed``'s own error, or its
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import functools
 import logging
 import os
-from typing import Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 # how long a collective may wait for its peers before it raises
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
@@ -87,7 +104,8 @@ def setup_distributed(
 
 
 def teardown_distributed() -> None:
-    """Leave the process group, if there is one."""
+    """Leave the process group, if there is one (and the grid with it)."""
+    reset_grid()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -143,3 +161,242 @@ def sync_processes(tag: str) -> None:
         return
     logging.debug("sync_processes: %s", tag)
     dist.all_reduce(torch.zeros(1, device=collective_device()))
+
+
+# -- the data x model grid (--model_parallel) --------------------------------
+
+# JAX's rule (mesh.py:183-201): a leaf narrower than this is not worth splitting
+TP_MIN_OUT = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This process's place in the ``data x model`` grid and its groups."""
+
+    data_parallel: int
+    model_parallel: int
+    data_index: int
+    model_index: int
+    data_group: object
+    model_group: object
+
+
+_GRID: Optional[Grid] = None
+
+
+def grid_layout(world: int, model_parallel: int) -> Tuple[List[List[int]], List[List[int]]]:
+    """``(model_groups, data_groups)``: the ranks of each model group
+    (consecutive, ``[d * N .. d * N + N - 1]`` for data index ``d``) and of
+    each data group (``[m, m + N, ...]`` for model index ``m``). Raises
+    JAX's ``ValueError`` (``mesh.py:74-75``) when ``N`` does not divide
+    ``world``."""
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
+    if world % model_parallel != 0:
+        raise ValueError(f"{world} processes not divisible by model_parallel={model_parallel}")
+    d = world // model_parallel
+    model_groups = [[i * model_parallel + m for m in range(model_parallel)] for i in range(d)]
+    data_groups = [[i * model_parallel + m for i in range(d)] for m in range(model_parallel)]
+    return model_groups, data_groups
+
+
+def setup_grid(model_parallel: int = 1) -> Grid:
+    """Lay the world out as ``D x N`` (:func:`grid_layout`) and make the
+    groups. Every process calls it with the same ``N``: each
+    ``new_group`` is collective over the world. At ``N = 1`` no group is
+    made: the data group is the world (``None``), and there is no model
+    group."""
+    global _GRID
+    world, r = world_size(), rank()
+    model_groups, data_groups = grid_layout(world, model_parallel)
+    data_group = model_group = None
+    if model_parallel > 1:
+        for ranks in model_groups:
+            group = dist.new_group(ranks)
+            if r in ranks:
+                model_group = group
+        for ranks in data_groups:
+            group = dist.new_group(ranks)
+            if r in ranks:
+                data_group = group
+    _GRID = Grid(world // model_parallel, model_parallel, r // model_parallel,
+                 r % model_parallel, data_group, model_group)
+    return _GRID
+
+
+def reset_grid() -> None:
+    """Forget the grid: every query answers for the whole world again (the
+    groups :func:`setup_grid` made stay with the process group)."""
+    global _GRID
+    _GRID = None
+
+
+def _grid() -> Grid:
+    return _GRID if _GRID is not None else Grid(world_size(), 1, rank(), 0, None, None)
+
+
+def model_parallel() -> int:
+    """``N``, the processes of a model group (1 without a grid)."""
+    return _grid().model_parallel
+
+
+def data_parallel() -> int:
+    """``D = W // N``, the data slices: the world size at ``N = 1``."""
+    return _grid().data_parallel
+
+
+def data_index() -> int:
+    """This process's data slice, ``rank // N``: its rank at ``N = 1``."""
+    return _grid().data_index
+
+
+def model_index() -> int:
+    """This process's shard of every sharded leaf, ``rank % N``."""
+    return _grid().model_index
+
+
+def data_group():
+    """The ranks that share this process's model index (``None``, the
+    world, at ``N = 1``)."""
+    return _grid().data_group
+
+
+def model_group():
+    """The ranks of this process's data slice (``None`` at ``N = 1``)."""
+    return _grid().model_group
+
+
+def data_distributed() -> bool:
+    """Whether the step's data-parallel collectives run: a process group
+    exists and, under a grid, its data axis holds more than one slice. At
+    ``N > 1, D = 1`` the step is the one-process step but for the model
+    group's collectives."""
+    return is_distributed() and (model_parallel() == 1 or data_parallel() > 1)
+
+
+def tp_shard_dim(shape: Sequence[int], model_size: int, min_out: int = TP_MIN_OUT
+                 ) -> Optional[int]:
+    """0 when a leaf of ``shape`` is sharded over a model group of
+    ``model_size`` on its output-channel dim (conv OIHW weights, Linear
+    ``[out, in]`` weights and 1-D leaves: dim 0), else ``None``
+    (replicated). JAX's ``tp_leaf_spec`` rule on its trailing axis: the dim
+    divides evenly and is at least ``min_out``."""
+    if model_size > 1 and len(shape) > 0 and shape[0] % model_size == 0 and shape[0] >= min_out:
+        return 0
+    return None
+
+
+def state_sharding(state_dict: Mapping[str, torch.Tensor], model_size: int
+                   ) -> Dict[str, Optional[int]]:
+    """``{name: tp_shard_dim}`` of every entry of a whole state dict (JAX
+    ``state_sharding``): parameters, BN running statistics and momentum
+    alike, since their shapes mirror the parameters'."""
+    return {k: tp_shard_dim(tuple(v.shape), model_size) for k, v in state_dict.items()}
+
+
+def shard_of(t: torch.Tensor, model_size: int, index: int) -> torch.Tensor:
+    """Model index ``index``'s slice of a whole tensor, or the tensor
+    itself when :func:`tp_shard_dim` replicates it."""
+    if tp_shard_dim(tuple(t.shape), model_size) is None:
+        return t
+    n = t.shape[0] // model_size
+    return t[index * n:(index + 1) * n]
+
+
+def shard_state_dict(state_dict: Mapping[str, torch.Tensor], model_size: int, index: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Model index ``index``'s shards of a whole state dict (copies)."""
+    return {k: shard_of(v, model_size, index).clone() for k, v in state_dict.items()}
+
+
+def is_tp_sharded(t) -> bool:
+    """Whether ``t`` is a shard that :func:`shard_module` made."""
+    return bool(getattr(t, "tp_sharded", False))
+
+
+@functools.lru_cache(maxsize=16)
+def _flags_on(flags: Tuple[bool, ...], device: torch.device) -> torch.Tensor:
+    """``flags`` as a bool tensor on ``device``: uploaded once, since a
+    host list sent to the card is a blocking copy every time."""
+    return torch.tensor(flags, device=device)
+
+
+def whole_norms(norms: torch.Tensor, tensors: Sequence[torch.Tensor], group) -> torch.Tensor:
+    """``norms[..., i]``, the norm of this process's ``tensors[i]``, as the
+    norm of the whole leaf: a shard's (:func:`is_tp_sharded`) squared norm
+    summed over the model ``group`` (one all-reduce of every shard's at
+    once), a replicated tensor's kept. ``norms`` itself at ``group``
+    ``None``. LARS's trust ratio and the step's health gradient norm read
+    it."""
+    if group is None:
+        return norms
+    sharded = _flags_on(tuple(is_tp_sharded(t) for t in tensors), norms.device)
+    squares = norms.square()
+    summed = torch.where(sharded, squares, 0.0)
+    dist.all_reduce(summed, group=group)
+    return torch.where(sharded, summed, squares).sqrt()
+
+
+@torch.no_grad()
+def shard_module(module: nn.Module, model_size: int, index: int) -> Dict[str, tuple]:
+    """Keep model index ``index``'s slice of every sharded parameter and
+    buffer of ``module``'s convs, linears and BNs, in place; returns the
+    layout ``{state-dict name: whole shape}`` of the sharded entries, which
+    is also set as ``module.tp_layout``. Conv and Linear modules keep their
+    whole ``in_channels``/``out_channels``; each shard is marked
+    (:func:`is_tp_sharded`), which is how the forward
+    (``models/resnet.tp_input``, ``models/heads.head_forward``), LARS, the
+    health norm and the checkpoint tell a sharded leaf. Call before the
+    optimizer is built."""
+    layout: Dict[str, tuple] = {}
+    if model_size == 1:
+        module.tp_layout = layout
+        return layout
+    for prefix, sub in module.named_modules():
+        if not isinstance(sub, (nn.Conv2d, nn.Linear, nn.BatchNorm2d)):
+            continue
+        for name, t in list(sub.named_parameters(recurse=False)) + list(
+                sub.named_buffers(recurse=False)):
+            if t is None or tp_shard_dim(tuple(t.shape), model_size) is None:
+                continue
+            shard = shard_of(t.detach(), model_size, index).clone()
+            if isinstance(t, nn.Parameter):
+                shard = nn.Parameter(shard, requires_grad=t.requires_grad)
+                setattr(sub, name, shard)
+            else:
+                sub.register_buffer(name, shard)
+            shard.tp_sharded = True
+            layout[f"{prefix}.{name}" if prefix else name] = tuple(t.shape)
+        if isinstance(sub, nn.BatchNorm2d) and getattr(sub, "weight", None) is not None \
+                and is_tp_sharded(sub.weight):
+            sub.num_features = sub.weight.shape[0]
+    module.tp_layout = layout
+    return layout
+
+
+def reshard_like(saved: Mapping[str, torch.Tensor], current: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """``saved`` fitted to ``current``'s shapes: an entry whose dim 0 is
+    ``N`` times the current one's becomes this process's model-index slice
+    (a whole checkpoint restored under ``--model_parallel N``); an entry of
+    the current shape is kept as it is. Keys outside ``current`` pass
+    through for ``load_state_dict`` to judge."""
+    n, index = model_parallel(), model_index()
+    out = {}
+    for k, v in saved.items():
+        cur = current.get(k)
+        if (cur is not None and n > 1 and isinstance(v, torch.Tensor) and v.dim() > 0
+                and tuple(v.shape) != tuple(cur.shape)
+                and v.shape[0] == cur.shape[0] * n and v.shape[1:] == cur.shape[1:]):
+            v = v[index * cur.shape[0]:(index + 1) * cur.shape[0]]
+        out[k] = v
+    return out
+
+
+def grid_banner() -> str:
+    """The startup line naming the grid (JAX's ``mesh: {...}`` log line,
+    ``train/supcon.py:696``)."""
+    g = _grid()
+    return (f"mesh: {{'data': {g.data_parallel}, 'model': {g.model_parallel}}} over "
+            f"{world_size()} process(es); this process: data index {g.data_index}, "
+            f"model index {g.model_index}")

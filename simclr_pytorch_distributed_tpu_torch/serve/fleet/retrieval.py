@@ -131,11 +131,14 @@ class NeighborIndex:
     def query(
         self, rows: np.ndarray, k: int
     ) -> List[List[Tuple[str, float]]]:
-        """Top-``k`` ``(key, cosine)`` per query row, best first.
+        """Top-``k`` ``(key, cosine)`` per query row, best first; equal
+        scores in slot order (the insertion order until an eviction), so a
+        query's answer repeats whatever the tie.
 
         The O(capacity * dim) scoring runs on the device against the
         resident snapshot; top-k selection over ``capacity`` scalars runs
-        on the host (``argpartition``, whatever ``k``)."""
+        on the host (``argpartition``, whatever ``k``, then every slot tied
+        with the k-th score sorted stably)."""
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         rows = _normalize(np.atleast_2d(rows))
@@ -162,7 +165,10 @@ class NeighborIndex:
                 scores = scores.cpu().numpy()
             for row_scores in scores[: chunk.shape[0]]:
                 top = np.argpartition(-row_scores, k_eff - 1)[:k_eff]
-                top = top[np.argsort(-row_scores[top], kind="stable")]
+                # argpartition picks among ties arbitrarily: take every slot
+                # at or above the k-th score, in slot order, and sort stably
+                top = np.flatnonzero(row_scores >= row_scores[top].min())
+                top = top[np.argsort(-row_scores[top], kind="stable")][:k_eff]
                 out.append([
                     (slot_key[slot], float(row_scores[slot])) for slot in top
                 ])

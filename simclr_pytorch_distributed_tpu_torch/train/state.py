@@ -27,6 +27,14 @@ choice (``train/state.py:60-97``, ``optax.lars``), chain for chain:
 Momentum comes after the learning rate here, unlike ``torch.optim.SGD``,
 and biases and BN scales and shifts (1-D) get neither weight decay nor the
 trust ratio.
+
+Tensor parallelism (``--model_parallel N``): the model's sharded
+parameters are its model index's slices (``parallel/mesh.shard_module``),
+so either optimizer's momentum buffers are the same slices of the
+replicated run's. SGD is elementwise and needs nothing more. LARS's trust
+ratio reads the norms of whole leaves: given the ``model_group``, the
+squared norms of the sharded kernels (and of their updates) are summed over
+it, one all-reduce a step, while a replicated kernel keeps its own norm.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+
+from simclr_pytorch_distributed_tpu_torch.parallel.mesh import whole_norms
 
 
 # optax.lars's default trust coefficient
@@ -49,8 +59,9 @@ class LARS(torch.optim.Optimizer):
     ``--resume``."""
 
     def __init__(self, params, lr: float = 0.0, momentum: float = 0.9,
-                 weight_decay: float = 1e-4):
+                 weight_decay: float = 1e-4, model_group=None):
         super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay))
+        self.model_group = model_group
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -74,6 +85,9 @@ class LARS(torch.optim.Optimizer):
                                          alpha=group["weight_decay"])
                 p_norm = torch.stack(torch._foreach_norm(kernels))
                 u_norm = torch.stack(torch._foreach_norm(u_k))
+                if self.model_group is not None:
+                    p_norm, u_norm = whole_norms(torch.stack([p_norm, u_norm]), kernels,
+                                                 self.model_group).unbind()
                 trust = LARS_TRUST_COEFFICIENT * p_norm / u_norm
                 trust = torch.where((p_norm == 0) | (u_norm == 0), 1.0, trust)
                 torch._foreach_mul_(u_k, list(trust.unbind()))
@@ -87,12 +101,14 @@ class LARS(torch.optim.Optimizer):
 
 def make_optimizer(
     model: nn.Module, momentum: float = 0.9, weight_decay: float = 1e-4,
-    optimizer: str = "sgd",
+    optimizer: str = "sgd", model_group=None,
 ) -> torch.optim.Optimizer:
     """SGD over every parameter (the reference's), or :class:`LARS`; the
-    learning rate is set per step."""
+    learning rate is set per step. ``model_group``: the tensor-parallel
+    group whose shards LARS's norms sum over (``None`` without one)."""
     if optimizer == "lars":
-        return LARS(model.parameters(), momentum=momentum, weight_decay=weight_decay)
+        return LARS(model.parameters(), momentum=momentum, weight_decay=weight_decay,
+                    model_group=model_group)
     if optimizer != "sgd":
         raise ValueError(f"optimizer must be 'sgd' or 'lars', got {optimizer!r}")
     return torch.optim.SGD(

@@ -21,6 +21,16 @@ from rank 0's weights; rank 0 alone logs and writes checkpoints into its
 run folder, which every process adopts. The fused conv kernels stay
 single-process (:func:`resolve_conv_impl`).
 
+``--model_parallel N`` (JAX ``train/supcon.py:135, 278, 695``): the
+processes form a grid of ``D = W // N`` data slices by ``N`` model shards
+(``parallel/mesh.setup_grid``, named in the ``mesh: {...}`` banner). The
+loader and the view draws slice the global batch by data index over ``D``
+(the ranks of a model group see the same rows); the model is sharded after
+rank 0's weights reach every process (``mesh.shard_module``); the loss and
+conv ladders, ``--ngpu auto`` and ``--syncBN``'s group read ``D``; the
+boundary exchange, the preemption vote and the failure-code exchange stay
+world-wide. Saves hold whole tensors (``utils/checkpoint.py``).
+
 Loop: the step's uint8 batch -> two-crop augmentation on the device -> the train step (forward, loss, backward,
 SGD) -> the step's metrics written into a row of the device-side metric
 ring, with no readback -> at each ``--print_freq`` boundary one snapshot of
@@ -371,10 +381,12 @@ def step_batches(loader: EpochLoader, store, epoch: int, start_step: int,
 def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.device):
     """``(TrainState, SupConStepConfig)``: the model from ``cfg.seed``
     (built on the CPU, so an init is the same on every device; under data
-    parallelism every process then takes rank 0's) with the resolved conv
-    path, the compute dtype (``--bf16``) and ``--syncBN``, SGD, the
+    parallelism every process then takes rank 0's, and under
+    ``--model_parallel`` keeps its model index's shards) with the resolved
+    conv path, the compute dtype (``--bf16``) and ``--syncBN``, SGD, the
     schedule, and the step configuration with the resolved loss path."""
-    world, distributed = mesh.world_size(), mesh.is_distributed()
+    world, distributed = mesh.world_size(), mesh.data_distributed()
+    data_parallel = mesh.data_parallel()
     conv_impl, conv_reason = resolve_conv_impl(
         cfg.conv_impl, cfg.model, cfg.batch_size, cfg.size, device, bf16=cfg.bf16,
         world_size=world,
@@ -386,14 +398,18 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
     torch.manual_seed(cfg.seed)
     model = SupConResNet(cfg.model, cfg.head, cfg.feat_dim)
     model.encoder.set_conv_impl(conv_impl).set_compute_dtype(compute_dtype(cfg.bf16))
-    model.encoder.set_bn_sync(torch.distributed.group.WORLD if cfg.syncBN and distributed
-                              else None)
+    model.encoder.set_bn_sync((mesh.data_group() or torch.distributed.group.WORLD)
+                              if cfg.syncBN and distributed else None)
     model = model.to(device=device, memory_format=torch.channels_last)
     collectives.broadcast_from_rank0(model)
-    grad_div = config_lib.resolve_ngpu(cfg.ngpu, world)
-    if grad_div != world:
+    if mesh.model_parallel() > 1:
+        layout = mesh.shard_module(model, mesh.model_parallel(), mesh.model_index())
+        logging.info("tensor parallel: %d of %d state tensors sharded over a model group "
+                     "of %d", len(layout), len(model.state_dict()), mesh.model_parallel())
+    grad_div = config_lib.resolve_ngpu(cfg.ngpu, data_parallel)
+    if grad_div != data_parallel:
         logging.warning(
-            "%s", config_lib.ngpu_mismatch_banner(grad_div, world, cfg.learning_rate)
+            "%s", config_lib.ngpu_mismatch_banner(grad_div, data_parallel, cfg.learning_rate)
         )
     schedule = make_lr_schedule(
         learning_rate=cfg.learning_rate, epochs=cfg.epochs,
@@ -402,11 +418,12 @@ def build(cfg: config_lib.SupConConfig, steps_per_epoch: int, device: torch.devi
         warm=cfg.warm, warm_epochs=cfg.warm_epochs, warmup_from=cfg.warmup_from,
     )
     optimizer = make_optimizer(model, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
-                               optimizer=cfg.optimizer)
+                               optimizer=cfg.optimizer, model_group=mesh.model_group())
     logging.info("%s", config_lib.impl_resolution_banner(
         "optimizer", cfg.optimizer, cfg.optimizer, OPTIMIZER_REASONS[cfg.optimizer]))
     loss_impl, reason = resolve_loss_impl_reasoned(
-        cfg.loss_impl, device, world if distributed else None, moco_queue=cfg.moco_queue
+        cfg.loss_impl, device, data_parallel if distributed else None,
+        moco_queue=cfg.moco_queue
     )
     logging.info(
         "%s", config_lib.impl_resolution_banner("loss_impl", cfg.loss_impl, loss_impl, reason)
@@ -518,8 +535,8 @@ def train_one_epoch(
                 # named ranges for a profiler window (utils/profiling.StepTracer)
                 with record_function("augment"):
                     views = two_crop_batch(generator, images, aug_cfg,
-                                           process_index=mesh.rank(),
-                                           process_count=mesh.world_size())
+                                           process_index=mesh.data_index(),
+                                           process_count=mesh.data_parallel())
                 with record_function("train_step"):
                     metrics = train_step(state, step_cfg, views, labels_d)
             with record_function("metric_ring"):
@@ -576,11 +593,14 @@ class RunResult:
 
 def run(cfg: config_lib.SupConConfig) -> RunResult:
     """The run, inside the process group when ``torchrun`` launched it (the
-    group is left at the end if this call joined it)."""
+    group is left at the end if this call joined it), on the grid of
+    ``--model_parallel`` (forgotten at the end)."""
     joined = mesh.setup_distributed(cfg.device)
     try:
+        mesh.setup_grid(cfg.model_parallel)
         return _train(cfg)
     finally:
+        mesh.reset_grid()
         if joined:
             mesh.teardown_distributed()
 
@@ -597,6 +617,7 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
         torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU",
         mesh.rank(), mesh.world_size(),
     )
+    logging.info("%s", mesh.grid_banner())
     # the flight recorder, watchdog, sidecar and health monitor
     # (utils/obs.py); closed last, with the run's exit code
     obs = RunObservability(cfg, name="supcon")
@@ -609,7 +630,7 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
         train_data, _, _ = load_dataset(cfg.dataset, cfg.data_folder, **dataset_options(cfg))
         loader = EpochLoader(
             train_data["images"], train_data["labels"], cfg.batch_size, base_seed=cfg.seed,
-            process_index=mesh.rank(), process_count=mesh.world_size(),
+            process_index=mesh.data_index(), process_count=mesh.data_parallel(),
         )
         # before the model, so the budget reads the device's free memory as
         # the JAX driver's does; an explicit placement that cannot be met
@@ -636,7 +657,8 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
             "nan_policy", cfg.nan_policy, cfg.nan_policy, NAN_POLICY_REASONS[cfg.nan_policy]))
         if cfg.ckpt:
             # warm start: weights and BN buffers only (main_supcon.py:216-220)
-            state.model.load_state_dict(load_model_state(cfg.ckpt))
+            state.model.load_state_dict(mesh.reshard_like(load_model_state(cfg.ckpt),
+                                                          state.model.state_dict()))
             logging.info("load model from %s ...", cfg.ckpt)
         if cfg.resume:
             resume_path = resolve_resume_path(cfg.resume)
@@ -686,9 +708,12 @@ def _train(cfg: config_lib.SupConConfig) -> RunResult:
             obs.set_epoch(epoch)
             # the step updates the state in place: the crash save needs a
             # copy of the epoch top, taken on the device (by the writer, and
-            # under rollback by every process, since every process restores)
+            # under rollback by every process, since every process restores;
+            # under tensor parallelism by every process, whose shards the
+            # crash save gathers)
             backup = (capture_state(state, generator, copy=True)
-                      if cfg.nan_guard and (main_process or policy.policy == "rollback")
+                      if cfg.nan_guard and (main_process or policy.policy == "rollback"
+                                            or mesh.model_parallel() > 1)
                       else None)
             try:
                 with tracing.span("epoch", track="main:epoch", epoch=epoch):

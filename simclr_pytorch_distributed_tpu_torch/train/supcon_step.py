@@ -76,6 +76,18 @@ batch, while the encoder's is the sum of the processes' shares as above.
 A recipe that reads the global rows (``Recipe.needs_global_rows``: BYOL,
 SimSiam, VICReg, the MoCo queue) gets them gathered under ``--loss_impl
 ring`` too: the ring shapes only the contrastive term.
+
+Tensor parallelism (``--model_parallel N``, ``parallel/mesh.setup_grid``):
+the world is ``D`` data slices by ``N`` model shards. Everything above that
+is data parallel runs over the DATA group (``P`` reads ``D``): the feature
+and label gathers, the loss (the sharded fused form and the ring over the
+data group; at ``D = 1`` the one-device forms), its ``D / grad_div``
+scale, the gradient mean and the BN buffers' broadcast. The ranks of one
+model group hold the same rows; inside the forward they trade channel
+slices over the MODEL group (``models/resnet.tp_input``), each computing
+its own channels of every sharded layer, and each takes the optimizer step
+on its own shards. ``global_grad_norm`` sums the squares of the sharded
+gradients over the model group, once each.
 """
 
 from __future__ import annotations
@@ -95,7 +107,7 @@ from simclr_pytorch_distributed_tpu_torch.ops.fused_loss import (
 from simclr_pytorch_distributed_tpu_torch.ops.losses import cross_entropy_loss, supcon_loss
 from simclr_pytorch_distributed_tpu_torch.ops.metrics import embedding_covariance, topk_correct
 from simclr_pytorch_distributed_tpu_torch.parallel import collectives
-from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_distributed, world_size
+from simclr_pytorch_distributed_tpu_torch.parallel import mesh
 from simclr_pytorch_distributed_tpu_torch.train.state import TrainState
 
 # the loss's fixed final-scale denominator, whatever the temperature
@@ -211,10 +223,14 @@ def host_metrics(row: Mapping) -> Dict[str, float]:
     return out
 
 
-def global_grad_norm(params) -> torch.Tensor:
-    """``optax.global_norm`` of the parameters' gradients."""
-    norms = [torch.linalg.vector_norm(p.grad) for p in params if p.grad is not None]
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_grad_norm(params, model_group=None) -> torch.Tensor:
+    """``optax.global_norm`` of the parameters' gradients; with a
+    ``model_group`` the whole model's, each leaf's norm made whole by
+    ``parallel/mesh.whole_norms`` (the shards' squares summed over the
+    group, the replicated leaves counted once)."""
+    params = [p for p in params if p.grad is not None]
+    norms = torch.stack([torch.linalg.vector_norm(p.grad) for p in params])
+    return torch.linalg.vector_norm(mesh.whole_norms(norms, params, model_group))
 
 
 @dataclasses.dataclass
@@ -253,11 +269,14 @@ def probe_update(probe: OnlineProbe, features: torch.Tensor, labels: torch.Tenso
     loss = cross_entropy_loss(logits, labels2)
     probe.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    collectives.mean_gradients(probe.classifier.parameters())
+    if mesh.data_distributed():
+        collectives.mean_gradients(probe.classifier.parameters(), mesh.data_group())
     probe.optimizer.step()
     correct = topk_correct(logits.detach(), labels2, ks=(1,))[1].to(torch.float32)
-    p = world_size()
-    total = collectives.rank_ordered_sum(torch.stack([loss.detach() / p, correct]))
+    p = mesh.data_parallel()
+    total = torch.stack([loss.detach() / p, correct])
+    if mesh.data_distributed():
+        total = collectives.rank_ordered_sum(total, mesh.data_group())
     return {"probe_loss": total[0], "probe_top1": 100.0 * total[1] / (labels2.shape[0] * p)}
 
 
@@ -306,10 +325,10 @@ class RecipeContext:
 def global_rows(rows: torch.Tensor) -> torch.Tensor:
     """This process's view-major rows ``[2b, ...]`` as the global batch's
     ``[2B, ...]``, without gradient (``collectives.view_major`` of an
-    all-gather); the rows themselves without a process group."""
-    if not is_distributed():
+    all-gather over the data group); the rows themselves without one."""
+    if not mesh.data_distributed():
         return rows.detach()
-    return collectives.view_major(collectives.all_gather(rows.detach()))
+    return collectives.view_major(collectives.all_gather(rows.detach(), mesh.data_group()))
 
 
 def two_view_forward(model: torch.nn.Module, images: torch.Tensor,
@@ -328,18 +347,20 @@ def contrastive_loss_terms(
     """The contrastive term over the normalized view-major ``[2B, D]`` rows
     (the global rows under a process group, this process's own rows for the
     ring); ``labels`` ``[B]`` (global) for SupCon, ``None`` for SimCLR."""
+    group = mesh.data_group()
     if cfg.loss_impl == "ring":
         b = n_fea.shape[0] // 2
         return collectives.ring_supcon_loss(
             torch.stack([n_fea[:b], n_fea[b:]], dim=1), labels,
             temperature=cfg.temperature, base_temperature=BASE_TEMPERATURE,
+            group=group,
         )
-    if cfg.loss_impl == "fused" and is_distributed():
-        mine = collectives.own_rows(n_fea)
+    if cfg.loss_impl == "fused" and mesh.data_distributed():
+        mine = collectives.own_rows(n_fea, group=group)
         b = mine.shape[0] // 2
         return fused_sharded_supcon_loss(
             torch.stack([mine[:b], mine[b:]], dim=1), labels,
-            temperature=cfg.temperature, base_temperature=BASE_TEMPERATURE,
+            temperature=cfg.temperature, base_temperature=BASE_TEMPERATURE, group=group,
         )
     b = n_fea.shape[0] // 2
     n_features = torch.stack([n_fea[:b], n_fea[b:]], dim=1)
@@ -375,7 +396,8 @@ def train_step(
                          f"{'lacks' if state.probe is None else 'carries'} a probe")
     state.model.train()
     recipe = state.recipe
-    distributed = is_distributed()
+    distributed = mesh.data_distributed()
+    data_group, procs = mesh.data_group(), mesh.data_parallel()
     # the ring keeps each process's rows unless the recipe reads the global ones
     ring = cfg.loss_impl == "ring" and (recipe is None or not recipe.needs_global_rows)
     local_labels = labels
@@ -386,14 +408,15 @@ def train_step(
         feats = two_view_forward(state.model, images).to(torch.float32)
     if distributed:
         if not ring:
-            feats = collectives.gather_features(feats)
+            feats = collectives.gather_features(feats, group=data_group)
         if cfg.method == "SupCon":
-            labels = collectives.gather_global_labels(labels)
+            labels = collectives.gather_global_labels(labels, data_group)
 
     norms = torch.linalg.norm(feats, dim=1)
     if ring:  # the global means from per-process sums (module docstring)
-        rows = norms.shape[0] * world_size()
-        sums = collectives.global_sum(torch.stack([norms.sum(), torch.square(norms).sum()]))
+        rows = norms.shape[0] * procs
+        sums = collectives.global_sum(torch.stack([norms.sum(), torch.square(norms).sum()]),
+                                      data_group)
         norm_mean, loss_l2reg = sums[0] / rows, sums[1] / rows
     else:
         norm_mean = norms.mean()
@@ -406,7 +429,8 @@ def train_step(
         )
     if ring:
         sums = collectives.global_sum(torch.stack([
-            torch.square(norms - norm_mean_sg).sum(), torch.square(norms - record).sum()]))
+            torch.square(norms - norm_mean_sg).sum(), torch.square(norms - record).sum()]),
+            data_group)
         norm_var, loss_sec = sums[0] / rows, sums[1] / rows
     else:
         norm_var = torch.square(norms - norm_mean).mean()
@@ -436,15 +460,15 @@ def train_step(
     if predictor is not None:
         state.recipe_opt_state.zero_grad(set_to_none=True)
     if distributed:
-        (loss * world_size() / cfg.grad_div).backward()
+        (loss * procs / cfg.grad_div).backward()
         params = list(state.model.parameters())
         if predictor is not None:
             # every process holds the predictor's whole gradient (module
             # docstring): 1/P of it each, so the mean is the one-process one
             pgrads = [p.grad for p in predictor.parameters() if p.grad is not None]
-            torch._foreach_div_(pgrads, float(world_size()))
+            torch._foreach_div_(pgrads, float(procs))  # sync-ok: a host int
             params += list(predictor.parameters())
-        collectives.mean_gradients(params)
+        collectives.mean_gradients(params, data_group)
     else:
         (loss / cfg.grad_div).backward()
     state.optimizer.step()
@@ -452,13 +476,14 @@ def train_step(
         # the schedule without the rollback's lr_scale, which damps the
         # encoder's optimizer only (JAX train/supcon.py:748, :821-840)
         for group in state.recipe_opt_state.param_groups:
-            group["lr"] = float(state.schedule(state.step))
+            group["lr"] = float(state.schedule(state.step))  # sync-ok: the schedule of a host int
         state.recipe_opt_state.step()
     if recipe is not None and state.recipe_state is not None:
         state.recipe_state = recipe.post_step(state.recipe_state, model=state.model,
                                               aux=recipe_aux)
     if distributed:  # BN buffers follow rank 0 (equal already under --syncBN)
-        collectives.broadcast_from_rank0(state.model, parameters=False)
+        collectives.broadcast_from_rank0(state.model, parameters=False,
+                                         group=data_group)
     metrics = {
         "learning_rate": torch.full((), lr, device=loss.device),
         "loss": loss.detach(),
@@ -474,9 +499,9 @@ def train_step(
             with torch.no_grad():
                 emb = n_fea.detach()
                 if ring and distributed:
-                    emb = collectives.view_major(collectives.all_gather(emb))
+                    emb = collectives.view_major(collectives.all_gather(emb, data_group))
                 metrics.update(contrastive_health_metrics(
-                    emb, global_grad_norm(state.model.parameters())))
+                    emb, global_grad_norm(state.model.parameters(), mesh.model_group())))
         else:
             sentinel = torch.full((len(DEVICE_HEALTH_KEYS),), float("nan"), device=loss.device)
             metrics.update(zip(DEVICE_HEALTH_KEYS, sentinel.unbind()))

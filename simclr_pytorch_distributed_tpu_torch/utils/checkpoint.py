@@ -43,7 +43,16 @@ mid-write never leaves a truncated file under a checkpoint's name. In a
 data-parallel run rank 0 writes and every process reads: each process holds
 the same state (the same initial weights, averaged gradients, and an
 augmentation generator in the same state), so rank 0's file resumes all of
-them. The
+them.
+
+Tensor parallelism (``--model_parallel N``): each process holds its model
+index's shards of the sharded leaves (``parallel/mesh.shard_module``), and
+:func:`capture_state` records which entries those are. A save gathers them
+over the model group first (every process calls :func:`save_checkpoint`),
+so a checkpoint holds whole tensors whatever ``N`` wrote it, and the probe,
+the server and a resume at another ``N`` read it as any other. A restore
+fits each tensor to the model's own shape (``mesh.reshard_like``): a whole
+tensor becomes this process's shard. The
 JAX counterparts: ``resume_position`` ``utils/checkpoint.py:96``,
 ``resolve_resume_path :372``, ``restore_checkpoint :428``,
 ``save_classifier :567``, ``load_classifier :577``.
@@ -60,6 +69,7 @@ import torch
 from torch import nn
 
 from simclr_pytorch_distributed_tpu_torch.config import config_dict
+from simclr_pytorch_distributed_tpu_torch.parallel import collectives, mesh
 from simclr_pytorch_distributed_tpu_torch.parallel.mesh import is_main_process, world_size
 
 CLASSIFIER_FILE = "classifier_best.pth"
@@ -176,7 +186,54 @@ def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict
     if slots:
         queue = getattr(state.recipe, "moco_queue", 0)
         snapshot["recipe"] = {"name": state.recipe.name, "moco_queue": int(queue), **slots}
+    layout = getattr(state.model, "tp_layout", None)
+    if layout:
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        snapshot["tp_layout"] = {
+            "model": sorted(layout),
+            "optimizer": [i for i, p in enumerate(params) if mesh.is_tp_sharded(p)],
+        }
     return snapshot
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A shard gathered over the model group into the whole tensor."""
+    return torch.cat(collectives.all_gather(t, mesh.model_group()))
+
+
+def whole_snapshot(snapshot: dict) -> dict:
+    """``snapshot`` with its sharded entries (its ``tp_layout``) gathered
+    whole over the model group, and the layout dropped: what a checkpoint
+    holds. Collective over the model group; a snapshot without a layout (or
+    the ``None`` that a process holding no backup passes) is returned as it
+    is."""
+    tp = snapshot.get("tp_layout") if snapshot else None
+    if not tp:
+        return snapshot
+    out = {k: v for k, v in snapshot.items() if k != "tp_layout"}
+    out["model"] = {k: _whole(v) if k in tp["model"] else v
+                    for k, v in snapshot["model"].items()}
+    opt = dict(snapshot["optimizer"])
+    opt["state"] = {i: ({k: _whole(v) if isinstance(v, torch.Tensor) and v.dim() else v
+                         for k, v in entry.items()} if i in tp["optimizer"] else entry)
+                    for i, entry in snapshot["optimizer"]["state"].items()}
+    out["optimizer"] = opt
+    return out
+
+
+def _reshard_optimizer(saved: dict, optimizer: torch.optim.Optimizer) -> dict:
+    """An optimizer state dict fitted to ``optimizer``'s parameter shapes
+    (``mesh.reshard_like``): whole momentum buffers become this process's
+    shards."""
+    if mesh.model_parallel() == 1:
+        return saved
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    state = {}
+    for i, entry in saved["state"].items():
+        shape = {k: params[int(i)] for k, v in entry.items() if isinstance(v, torch.Tensor)}
+        state[i] = {**entry, **mesh.reshard_like(
+            {k: v for k, v in entry.items() if k in shape}, shape)}
+    return {**saved, "state": state}
 
 
 def restore_snapshot(snapshot: dict, state, generator: torch.Generator) -> None:
@@ -187,8 +244,9 @@ def restore_snapshot(snapshot: dict, state, generator: torch.Generator) -> None:
     slots where the snapshot holds them (a snapshot of the same run: a
     checkpoint of another run goes through :func:`restore_checkpoint`'s
     checks first)."""
-    state.model.load_state_dict(_strip_module(snapshot["model"]))
-    state.optimizer.load_state_dict(snapshot["optimizer"])
+    state.model.load_state_dict(
+        mesh.reshard_like(_strip_module(snapshot["model"]), state.model.state_dict()))
+    state.optimizer.load_state_dict(_reshard_optimizer(snapshot["optimizer"], state.optimizer))
     state.step = int(snapshot["step"])
     record = snapshot["record_norm_mean"]
     device = next(state.model.parameters()).device
@@ -259,7 +317,10 @@ def save_checkpoint(path: str, snapshot: dict, cfg, epoch: int, step_in_epoch: i
     the NaN-rollback state, ``run_meta`` other run state of plain types
     (the CE trainer's best accuracy), saved under ``'run_meta'`` when
     given. Returns the absolute path. Only rank 0 writes; the other
-    processes return the path it writes."""
+    processes return the path it writes. Under tensor parallelism every
+    process calls it: the shards are gathered whole first
+    (:func:`whole_snapshot`)."""
+    snapshot = whole_snapshot(snapshot)
     if not is_main_process():
         return os.path.abspath(path)
     cpu = lambda t: t.detach().cpu()  # noqa: E731

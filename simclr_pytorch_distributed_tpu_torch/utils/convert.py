@@ -26,7 +26,11 @@ copy of that mapping (the port imports nothing of the JAX package):
   ``PredictorHead`` params ``fc1``/``fc2`` (``kernel [in, out]``) and
   ``bn_scale``/``bn_bias`` <-> its state dict, BYOL's ``target_params`` and
   the queue's ``key_params`` <-> the EMA network's parameters (as above),
-  ``queue_emb`` and ``queue_ptr`` <-> a tensor and an int.
+  ``queue_emb`` and ``queue_ptr`` <-> a tensor and an int;
+- under tensor parallelism (:func:`variables_to_shard_state_dict`), a
+  tree's leaves as one model index's shards: the state dict above, each
+  leaf that ``parallel/mesh.tp_shard_dim`` shards sliced on its
+  output-channel dim 0 (JAX's trailing axis, where ``tp_leaf_spec`` cuts).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from simclr_pytorch_distributed_tpu_torch.parallel.mesh import shard_state_dict
 
 
 def _conv_to_torch(w) -> np.ndarray:
@@ -116,6 +122,15 @@ def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     else:
         raise ValueError(f"unrecognized proj_head tree: {sorted(head)}")
     return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def variables_to_shard_state_dict(variables: dict, model_size: int, model_index: int
+                                  ) -> Dict[str, torch.Tensor]:
+    """``{'params', 'batch_stats'}`` -> model index ``model_index``'s shards
+    of the port's state dict under ``--model_parallel model_size``: what
+    ``parallel/mesh.shard_module`` leaves in a model built from the same
+    tree."""
+    return shard_state_dict(variables_to_state_dict(variables), model_size, model_index)
 
 
 def _set(tree: dict, path: Tuple[str, ...], value: np.ndarray) -> None:

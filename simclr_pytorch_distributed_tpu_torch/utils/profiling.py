@@ -15,6 +15,13 @@ run.
 device: a CUDA event is recorded on the compute stream at each step
 boundary and the events are read after the epoch; on the CPU it reads the
 host's clock.
+
+:func:`count_collectives` runs a function with the ``torch.distributed``
+collectives of the tensor-parallel step counted by group (``model``,
+``data`` or ``world``, ``parallel/mesh.py``): calls, payload bytes and
+host seconds, the device synchronized around each call so that the
+seconds are the collective's. It is an instrument for measurement
+scripts; the trainers do not call it.
 """
 
 from __future__ import annotations
@@ -115,3 +122,50 @@ class StepClock:
         for k, seconds in enumerate(self.seconds()):
             if first_step + k in entries:
                 entries[first_step + k]["step_time"] = seconds
+
+
+COUNTED_COLLECTIVES = ("all_gather", "all_reduce", "reduce_scatter", "broadcast")
+
+
+def count_collectives(fn) -> Dict[str, list]:
+    """``fn()`` with each collective of :data:`COUNTED_COLLECTIVES` counted
+    by group: ``{"name@group": [calls, bytes, seconds]}``. Bytes are the
+    payload: an all-gather's gathered output, a reduce-scatter's input, an
+    all-reduce's or a broadcast's tensor. On CUDA the device is
+    synchronized before and after each call."""
+    import torch.distributed as dist
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    spent: Dict[str, list] = {}
+    originals = {name: getattr(dist, name) for name in COUNTED_COLLECTIVES}
+
+    def sync():
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    def wrap(name, call):
+        def run(*args, **kwargs):
+            group = kwargs.get("group")
+            tag = ("model" if group is not None and group is mesh.model_group() else
+                   "data" if group is not None and group is mesh.data_group() else "world")
+            tensors = (args[0] if name == "all_gather" else
+                       args[1] if name == "reduce_scatter" else [args[0]])
+            nbytes = sum(t.numel() * t.element_size() for t in tensors)
+            sync()
+            t0 = time.perf_counter()
+            out = call(*args, **kwargs)
+            sync()
+            entry = spent.setdefault(f"{name}@{tag}", [0, 0, 0.0])
+            entry[0] += 1
+            entry[1] += nbytes
+            entry[2] += time.perf_counter() - t0
+            return out
+        return run
+
+    for name, call in originals.items():
+        setattr(dist, name, wrap(name, call))
+    try:
+        fn()
+    finally:
+        for name, call in originals.items():
+            setattr(dist, name, call)
+    return spent

@@ -88,9 +88,11 @@ def test_cuda_default_raises_without_a_card(tmp_path):
     assert not any(tmp_path.rglob("log-ing"))
 
 
-@pytest.mark.parametrize("flag", [["--compile_cache", "auto"], ["--model_parallel", "2"]])
+@pytest.mark.parametrize("flag", [["--compile_cache", "auto"], ["--model_parallel", "0"]])
 def test_unimplemented_flags_are_rejected(tmp_path, flag):
-    # JAX flags the port does not take: argparse refuses them before any run
+    # a JAX flag the port does not take, and a model-parallel size below 1:
+    # argparse refuses them before any run (--model_parallel N >= 1 is
+    # ported; tests/test_torch_port_tensor_parallel.py holds it)
     with pytest.raises(SystemExit):
         supcon.main(ARGV + ["--workdir", str(tmp_path)] + flag)
     assert not any(tmp_path.rglob("log-ing"))

@@ -285,7 +285,7 @@ def test_health_abort_exits_3_without_a_crash_save(tmp_path, monkeypatch):
         pretrain(tmp_path, "--epochs", "1", "--health_freq", "1", "--health_policy", "abort")
     assert exc.value.code == guard.EXIT_HEALTH == 3
     assert isinstance(exc.value.__cause__, guard.RepresentationHealthError)
-    folder = glob.glob(str(tmp_path / "*" / "*"))[0]
+    folder = glob.glob(str(tmp_path / "*_models" / "*"))[0]
     assert not glob.glob(os.path.join(folder, "crash_epoch_*.pth"))
     names = [json.loads(line)["name"] for line in open(os.path.join(folder, "events.jsonl"))]
     assert "health_alarm" in names and names[-1] == "run_exit"

@@ -220,3 +220,37 @@ def test_the_serve_tests_cover_their_modules(test_file):
     imported = {name for _, name in _imported_modules(path)}
     for module in SERVE_TESTS[test_file]:
         assert f"simclr_pytorch_distributed_tpu_torch.{module}" in imported, module
+
+
+# tensor parallelism (the grid, the channel gathers, the sharded state) and
+# the port's invariant linter, whose analysis/ imports neither torch nor jax
+TP_AND_ANALYSIS_MODULES = (
+    "parallel/mesh.py", "parallel/collectives.py", "models/resnet.py", "models/heads.py",
+    "ops/fused_loss.py", "train/state.py", "train/supcon_step.py", "train/supcon.py",
+    "utils/checkpoint.py", "utils/convert.py", "config.py",
+    "analysis/__init__.py", "analysis/core.py", "analysis/callgraph.py",
+    "analysis/allowlist.py", "analysis/rule_collectives.py", "analysis/rule_donation.py",
+    "analysis/rule_hotloop.py", "analysis/rule_registry.py", "analysis/runner.py",
+)
+
+
+@pytest.mark.parametrize("module", TP_AND_ANALYSIS_MODULES)
+def test_the_scan_covers_the_tensor_parallel_and_analysis_modules(module):
+    path = PACKAGE / module
+    assert path in _sources()
+    names = [name for _, name in _imported_modules(path)]
+    assert not [name for name in names if _forbidden(name)]
+    if module.startswith("analysis/"):
+        assert not [name for name in names if name.split(".")[0] in ("torch", "numpy")]
+
+
+@pytest.mark.parametrize("script", ["port_invariant_lint.py", "port_ratchet.py"])
+def test_the_port_lint_scripts_import_no_jax(script):
+    path = REPO / "scripts" / script
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+
+
+@pytest.mark.parametrize("script", ["port_tp_nccl.py", "port_tp_fault_margin.py"])
+def test_the_port_tensor_parallel_scripts_import_no_jax(script):
+    path = REPO / "scripts" / script
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]

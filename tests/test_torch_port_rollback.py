@@ -121,7 +121,7 @@ def runs(tmp_path_factory):
             _, out["preempt1_losses"] = child.preempted_after(
                 2, 0, 1, lambda: child.driver_run(str(root / "preempt1"), "--print_freq", "2",
                                                   base=child.ELASTIC_ARGV))
-            out["preempt1"] = glob.glob(str(root / "preempt1" / "*" / "*"))[0]
+            out["preempt1"] = glob.glob(str(root / "preempt1" / "*_models" / "*"))[0]
             os.makedirs(root / "world2")
             out["ranks"] = _spawn(root / "world2", out["preempt1"])
             out["resumed1"] = run(root / "resumed1", "--resume", out["ranks"][0]["preempt"]["folder"],
@@ -143,7 +143,7 @@ def runs(tmp_path_factory):
                 root / "rollback_resumed", "--epochs", "3", "--resume",
                 out["rollback"]["save_folder"])
             out["four"] = run(root / "four", "--epochs", "4", poison={0, 4, 8, 12})
-            out["four_folder"] = glob.glob(str(root / "four" / "*" / "*"))[0]
+            out["four_folder"] = glob.glob(str(root / "four" / "*_models" / "*"))[0]
             out["abort"] = run(root / "abort", "--nan_policy", "abort", poison={0})
             out["jax_rollback"] = jax_rollback_run(root / "jax_rollback")
     finally:

@@ -350,6 +350,23 @@ def test_neighbor_index_matches_jax_and_the_numpy_oracle():
         assert [k for k, _ in hits_p] == [keys[j] for j in oracle]
 
 
+def test_port_neighbor_index_breaks_ties_by_slot():
+    """Equal scores come back in slot (insertion) order, the numpy stable
+    oracle's, whatever argpartition picks among them: chip_smoke.py's
+    serve (c) compares the ids with that oracle. 48 copies of one row and
+    16 of another leave every query full of ties."""
+    rows = np.repeat(np.eye(4, dtype=np.float32)[:2], [48, 16], axis=0)
+    keys = [f"k{i}" for i in range(len(rows))]
+    index = port_fleet.NeighborIndex(4, capacity=64, device="cpu")
+    index.add(keys, rows)
+    queries = np.array([[1, 0, 0, 0], [0.6, 0.8, 0, 0], [0, 1, 0, 0]], np.float32)
+    scores = queries @ rows.T / np.linalg.norm(queries, axis=1, keepdims=True)
+    for k in (1, 5, 20, 50):
+        for qi, hits in enumerate(index.query(queries, k=k)):
+            oracle = np.argsort(-scores[qi], kind="stable")[:k]
+            assert [key for key, _ in hits] == [keys[j] for j in oracle], (k, qi)
+
+
 def test_neighbor_index_lru_eviction_and_update_refresh(pkg):
     rng = np.random.default_rng(1)
     rows = rng.normal(size=(6, 4)).astype(np.float32)

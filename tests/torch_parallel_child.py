@@ -32,6 +32,14 @@ here from numpy seeds, by functions the tests import too. The suites:
 - ``skew``, for ``tests/test_torch_port_telemetry.py``: boundary exchanges
   with the last rank paced by ``SKEW_PACE_S`` before each, the gauges and
   ``boundary_skew`` events after each, and the collectives counted.
+- ``tp``, for ``tests/test_torch_port_tensor_parallel.py``: the grid of
+  WORLD processes at ``--model_parallel 2`` (``TP``; at WORLD = 3 one model
+  group of 3 with a 96-wide head, ``TP_MIXED``), its groups, the step
+  cases of ``TP_STEP_CASES`` on this process's shards (losses, shards,
+  momentum, the health gradient norm), one case's collectives counted by
+  group (``utils/profiling.count_collectives``); at WORLD = 2 also a data-parallel
+  step before and after a grid of ``N = 1`` (bitwise the same), and the
+  driver at ``N = 2`` and ``N = 1`` with a resume from each into the other.
 - ``fleet``, for ``scripts/port_fleet_launcher.py``: the driver at ``--size 8
   --print_freq 1`` with ARG a JSON object (``workdir``, ``epochs``, ``resume``), the
   sidecar on ``CHILD_METRICS_PORT`` where that is set, and the rank
@@ -47,6 +55,7 @@ import glob
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -82,7 +91,7 @@ from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (  # noqa: E4
     build_online_probe,
     train_step,
 )
-from simclr_pytorch_distributed_tpu_torch.utils import checkpoint, preempt  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.utils import checkpoint, preempt, profiling  # noqa: E402
 from simclr_pytorch_distributed_tpu_torch.utils.guard import (  # noqa: E402
     NonFiniteLossError,
     RepresentationHealthError,
@@ -163,10 +172,10 @@ def step_inputs():
     return torch.from_numpy(views), torch.from_numpy(rng.integers(0, 4, B).astype(np.int32))
 
 
-def init_model():
+def init_model(feat=FEAT):
     """The rn10 of every step case, BN running buffers away from their init."""
     torch.manual_seed(5)
-    model = SupConResNet("resnet10", "mlp", FEAT)
+    model = SupConResNet("resnet10", "mlp", feat)
     rng = np.random.default_rng(5)
     with torch.no_grad():
         for m in model.modules():
@@ -332,7 +341,7 @@ def driver_cases(rank, world, outdir):
             2, rank, world, lambda: driver_run(os.path.join(outdir, "work_preempt"),
                                                "--print_freq", "2"))
         # every rank resumes from rank 0's preemption save
-        folder = glob.glob(os.path.join(outdir, "work_preempt", "*", "*"))[0]
+        folder = glob.glob(os.path.join(outdir, "work_preempt", "*_models", "*"))[0]
         code, result = driver_run(os.path.join(outdir, "work_resume"), "--resume", folder)
         out["resumed"] = dict(driver_summary(result), code=code)
         out["resumed"]["losses"] = losses + out["resumed"]["losses"]
@@ -462,7 +471,7 @@ def resilience_suite(rank, world, outdir, other_folder):
         lambda: driver_run(os.path.join(outdir, "preempt"), "--print_freq", "2",
                            base=ELASTIC_ARGV))
     out["preempt"] = {"code": code, "losses": losses,
-                      "folder": glob.glob(os.path.join(outdir, "preempt", "*", "*"))[0]}
+                      "folder": glob.glob(os.path.join(outdir, "preempt", "*_models", "*"))[0]}
     if other_folder:
         code, result = driver_run(os.path.join(outdir, "resumed"), "--resume", other_folder,
                                   base=ELASTIC_ARGV)
@@ -539,7 +548,7 @@ def boundary_preempt_case(rank, world, outdir):
         preempt_votes = len(votes)
     finally:
         preempt.requested_global = vote
-    folder = glob.glob(os.path.join(outdir, "b_preempt", "*", "*"))[0]
+    folder = glob.glob(os.path.join(outdir, "b_preempt", "*_models", "*"))[0]
     _, resumed = driver_run(os.path.join(outdir, "b_resume"), *argv, "--resume", folder)
     want, got = straight.state.model.state_dict(), resumed.state.model.state_dict()
     return {
@@ -549,6 +558,129 @@ def boundary_preempt_case(rank, world, outdir):
         "resumed_losses": losses + [h["loss"] for h in resumed.history],
         "resumed_equal": all(torch.equal(got[k], want[k]) for k in want),
     }
+
+
+# the tp suite: model shards, and name -> (--syncBN, loss_impl, method,
+# optimizer); the ring cases run at WORLD = 4 only (a data axis of 2)
+TP = 2
+TP_STEP_CASES = {
+    "sync_fused_simclr": (True, "fused", "SimCLR", "sgd"),
+    "sync_dense_supcon": (True, "dense", "SupCon", "sgd"),
+    "local_fused_simclr": (False, "fused", "SimCLR", "sgd"),
+    "local_dense_simclr": (False, "dense", "SimCLR", "sgd"),
+    "sync_dense_lars_simclr": (True, "dense", "SimCLR", "lars"),
+    "sync_ring_simclr": (True, "ring", "SimCLR", "sgd"),
+    "local_ring_simclr": (False, "ring", "SimCLR", "sgd"),
+}
+TP_RING_CASES = ("sync_ring_simclr", "local_ring_simclr")
+# at WORLD = 3 the grid is one model group of 3 and the head's output is 96
+# wide: every rn10 width fails % 3 and is replicated, and the head's last
+# linear, sharded, reads the whole replicated hidden layer
+TP_MIXED, TP_MIXED_FEAT = 3, 96
+TP_MIXED_CASES = ("sync_dense_supcon", "sync_dense_lars_simclr")
+# the tp driver: two 4-step epochs, a save after each
+TP_DRIVER_ARGV = DRIVER_ARGV + ["--epochs", "2", "--save_freq", "1", "--print_freq", "4"]
+
+
+def tp_layout(world):
+    """``(--model_parallel, feat_dim)`` of the tp suite at ``world``."""
+    return (TP_MIXED, TP_MIXED_FEAT) if world == TP_MIXED else (TP, FEAT)
+
+
+def tp_cases(world):
+    if world == TP_MIXED:
+        return list(TP_MIXED_CASES)
+    return [n for n in TP_STEP_CASES if world == 4 or n not in TP_RING_CASES]
+
+
+def tp_step_case(name, distributed, feat=FEAT):
+    """``STEPS`` steps of a tp case: under the grid on this process's data
+    slice and shards (``distributed``), or the global batch and the whole
+    model without a process group. Returns the losses, the state dict,
+    the momentum buffers by parameter name and the health gradient norms."""
+    sync, loss_impl, method, optimizer = TP_STEP_CASES[name]
+    views, labels = step_inputs()
+    model = init_model(feat)
+    if distributed:
+        if sync:
+            model.encoder.set_bn_sync(mesh.data_group())
+        mesh.shard_module(model, mesh.model_parallel(), mesh.model_index())
+    opt = make_optimizer(model, optimizer=optimizer,
+                         model_group=mesh.model_group() if distributed else None)
+    state = TrainState(model, opt, make_lr_schedule(**SCHED))
+    cfg = SupConStepConfig(method=method, loss_impl=loss_impl, health_freq=1, **STEP_KW)
+    losses, grad_norms = [], []
+    for i in range(STEPS):
+        imgs, labs = views[i], labels
+        if distributed:
+            d, n_data = mesh.data_index(), mesh.data_parallel()
+            imgs, labs = local_slice(imgs, d, n_data), local_slice(labs, d, n_data)
+        metrics = train_step(state, cfg, imgs, labs)
+        losses.append(metrics["loss"].item())
+        grad_norms.append(metrics["health_grad_norm"].item())
+    momentum = {n: opt.state[p]["momentum_buffer"].clone()
+                for n, p in model.named_parameters()}
+    return {"losses": losses, "grad_norms": grad_norms, "momentum": momentum,
+            "state": {k: v.clone() for k, v in model.state_dict().items()}}
+
+
+def tp_driver_cases(outdir):
+    """The driver at ``--model_parallel`` 2 and 1, then each resumed from
+    the other's first-epoch save; rank 0 returns each run's losses and
+    ``last.pth``."""
+    out, ckpt = {}, {}
+
+    def report(key, code, result):
+        out[key] = {"code": code}
+        if result is not None and mesh.is_main_process():
+            saved = torch.load(os.path.join(result.save_folder, "last.pth"), weights_only=True)
+            out[key].update(losses=[h["loss"] for h in result.history], last=saved)
+        if result is not None:
+            ckpt[key] = os.path.join(result.save_folder, "ckpt_epoch_1.pth")
+
+    for n in (2, 1):
+        report(f"n{n}", *driver_run(os.path.join(outdir, f"tp_n{n}"), "--model_parallel",
+                                    str(n), base=TP_DRIVER_ARGV))
+    for src, dst in ((2, 1), (1, 2)):
+        report(f"resume_{src}_{dst}", *driver_run(
+            os.path.join(outdir, f"tp_resume_{src}_{dst}"), "--model_parallel", str(dst),
+            "--resume", ckpt[f"n{src}"], base=TP_DRIVER_ARGV))
+    # the runs' saves are read: leave no checkpoint behind
+    mesh.sync_processes("tp driver saves read")
+    if mesh.is_main_process():
+        for name in ("tp_n2", "tp_n1", "tp_resume_2_1", "tp_resume_1_2"):
+            shutil.rmtree(os.path.join(outdir, name), ignore_errors=True)
+    return out
+
+
+def tp_suite(rank, world, outdir):
+    out = {}
+    if world == 2:
+        # the data-parallel step without a grid, then under a grid of N = 1
+        before = step_case("sync_fused_simclr", rank, world, True)
+        mesh.setup_grid(1)
+        out["n1"] = {"before": before,
+                     "after": step_case("sync_fused_simclr", rank, world, True)}
+    n, feat = tp_layout(world)
+    mesh.setup_grid(n)
+    ranks = lambda g: torch.distributed.get_process_group_ranks(g)  # noqa: E731
+    out["grid"] = {"data_index": mesh.data_index(), "model_index": mesh.model_index(),
+                   "data_parallel": mesh.data_parallel(),
+                   "model_parallel": mesh.model_parallel(),
+                   "data_group": ranks(mesh.data_group()),
+                   "model_group": ranks(mesh.model_group())}
+    # one case with its collectives counted by group (counting changes no value)
+    counted = "sync_dense_supcon" if world == TP_MIXED else "sync_fused_simclr"
+    out["step"] = {}
+    for name in tp_cases(world):
+        run = lambda: out["step"].__setitem__(name, tp_step_case(name, True, feat))  # noqa: E731
+        if name == counted:
+            out["collectives"] = profiling.count_collectives(run)
+        else:
+            run()
+    if world == 2:
+        out["driver"] = tp_driver_cases(outdir)
+    return out
 
 
 def parallel_suite(rank, world, outdir):
@@ -826,6 +958,8 @@ def main(rank, world, outdir, suite="parallel", arg=""):
         results["preempt_boundary"] = boundary_preempt_case(rank, world, outdir)
     elif suite == "skew":
         results = skew_suite(rank, world, outdir)
+    elif suite == "tp":
+        results = tp_suite(rank, world, outdir)
     else:
         raise ValueError(f"unknown suite {suite!r}")
     results["writes"] = list(writes)
