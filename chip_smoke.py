@@ -62,7 +62,10 @@ Then the run-observability stack (``observability``): ResNet-50 fp32 and
 ``--bf16`` fused epochs with the health diagnostics and the online probe,
 under ``--telemetry async`` (no host sync between flush boundaries, one
 transfer a window) and ``sync`` (bitwise the same history; the health
-columns against the CPU's), a run with the sidecar scraped and a stall
+columns against the CPU's; the fp32 async run's ``events.jsonl`` through
+``scripts/port_health_report.py``, its consistency bound and the
+``health_report`` gate's record on it printed), a run with the sidecar
+scraped and a stall
 the watchdog dumps, and ``torch.profiler`` windows of the ResNet-18 bf16
 fused step and the ResNet-50 fp32 LARS step, summarized; and the CE
 trainer (``ce``): ResNet-50 ``SupCEResNet`` in fp32 and ``--bf16`` through
@@ -88,9 +91,10 @@ second forward, the loss kernels only for the contrastive recipes), no host
 sync, simclr bitwise the train phase's run and the step's inline path, one
 fused-vs-eager step of each at the train phase's pins, ResNet-18 byol and
 queue runs SIGTERM'd and resumed bitwise, a two-process byol step against
-one process, the accuracy arms of the JAX package's ``recipes_eval.py``
-and the collapse arm's exit 3, and the native host gather on the card's
-host.
+one process, the accuracy arms and the supcon bit-identity through
+``scripts/port_recipes_eval.py`` with the ``recipes`` gate's record, the
+``health_report`` gate on its own rn10 smoke, the collapse arm's exit 3,
+and the native host gather on the card's host.
 Then the port's supervisor (``supervise``) on the trainer, through
 ``scripts/port_supervisor_victim.py`` in child processes: (a) ``kill -9``
 in epoch 2 of a ResNet-50 fp32 fused run, relaunched bitwise to a straight
@@ -127,9 +131,12 @@ step's time and its collectives by group; (b) one ResNet-18 step at data 2
 x model 2 with ``--syncBN`` through the sharded fused loss over the data
 group; (c) ``train.supcon.main --model_parallel 2`` for two ResNet-18
 epochs, its whole-tensor ``last.pth`` read by ``train.linear.main`` and its
-first-epoch save resumed at ``--model_parallel 1``; and the health
+first-epoch save resumed at ``--model_parallel 1``; the health
 gradient norm of (a) and (b) free of host syncs under
-``torch.cuda.set_sync_debug_mode("error")``.
+``torch.cuda.set_sync_debug_mode("error")``; and (d) one ResNet-18 step of
+each of byol, simsiam, vicreg and the MoCo queue at data 1 x model 2
+against the one-process recipe step, and ``--recipe byol --model_parallel
+2`` through the driver, its whole save resumed at ``--model_parallel 1``.
 Phases: device, build, kernel_parity, train, probe, resume, distributed,
 large_batch, observability, ce, placement, recipes, supervise,
 tensor_parallel, serve, timing. Any failure raises and the script exits
@@ -2125,6 +2132,18 @@ TP_N = 2
 TP_BATCH = 128  # (a), (b): global batch; gloo moves rn50 activations via the host
 TP_STEP_LOSS_RTOL, TP_PARAM_RTOL, TP_PARAM_ATOL = 2e-5, 1e-3, 2e-5  # JAX's TP pins
 TP_DRIVER_BATCH = 512  # (c): 3 steps an epoch of the 1792 synthetic images
+# (d): the recipes at data 1 x model 2, ResNet-18 at the recipe's width and
+# the global batch TP_BATCH: label -> the SupConConfig overrides
+# (attach_recipe); the queue's K a multiple of 2 x 256. The default
+# predictor (hidden 512) shards fc1, its normalization and fc2 at N = 2
+TP_RECIPE_QUEUE = 512
+TP_RECIPES = {
+    "byol": {"recipe": "byol"}, "simsiam": {"recipe": "simsiam"},
+    "vicreg": {"recipe": "vicreg"},
+    "simclr+queue": {"recipe": "simclr", "moco_queue": TP_RECIPE_QUEUE},
+}
+TP_RECIPE_MODEL = "resnet18"
+TP_QUEUE_REL_L2 = 1e-4  # the keys written: a forward of the same weights
 
 
 def tp_state_bytes(model, optimizer) -> int:
@@ -2239,7 +2258,9 @@ def tp_rank(rank, world, outdir):
     """One process of the tensor_parallel phase on the one card (gloo over
     CUDA tensors). At world 2 (data 1 x model 2): (a) the ResNet-50 step,
     then (c) the driver at ``--model_parallel 2`` for two epochs of
-    ResNet-18 and its first-epoch save resumed at ``--model_parallel 1``. At
+    ResNet-18 and its first-epoch save resumed at ``--model_parallel 1``,
+    then (d) a step of each of ``TP_RECIPES`` and the byol driver at
+    ``--model_parallel 2`` with its first-epoch save resumed at 1. At
     world 4 (data 2 x model 2): (b) the ResNet-18 ``--syncBN`` step through
     the sharded fused loss over the data group."""
     import datetime
@@ -2268,6 +2289,10 @@ def tp_rank(rank, world, outdir):
             os.path.join(out["c"]["folder"], "ckpt_epoch_1.pth")))
         out["c"]["resumed_losses"] = [h["loss"] for h in resumed.history]
         out["c"]["resumed_folder"] = resumed.save_folder
+        del resumed
+        torch.cuda.empty_cache()
+        out["d"] = {label: tp_recipe_step_run(label, rank, outdir) for label in TP_RECIPES}
+        out["d_driver"] = tp_recipe_driver_run(outdir)
     else:
         out["b"] = tp_step_run("resnet18", world, rank, outdir, sync_bn=True)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
@@ -2353,7 +2378,8 @@ def tp_compare(label, outdir, model_name, ranks, ref, failures):
                 if not torch.equal(g, w):
                     bad.append(f"rank {r} {key}: {g} != {w}")
                 continue
-            if key not in ref_momentum:  # a BN running buffer
+            ema = key.startswith(("target.", "key."))  # updated, but without momentum
+            if key not in ref_momentum and not ema:  # a BN running buffer
                 excess = ((g - w).abs() - STEP_BUF_TOL * (1 + w.abs())).max().item()
                 worst["buffer"] = max(worst["buffer"], ((g - w).abs().max().item(),
                                                         f"rank {r} {key}"))
@@ -2366,7 +2392,7 @@ def tp_compare(label, outdir, model_name, ranks, ref, failures):
             worst["update"] = max(worst["update"], tagged(err))
             worst["update_f64"] = max(worst["update_f64"], tagged(update_err(g, w64, start)))
             worst["fp32_f64"] = max(worst["fp32_f64"], tagged(update_err(w, w64, start)))
-            merr = relative_l2(got["momentum"][key], shard(ref_momentum[key], m))
+            merr = 0.0 if ema else relative_l2(got["momentum"][key], shard(ref_momentum[key], m))
             worst["momentum"] = max(worst["momentum"], tagged(merr))
             jax_beyond["tp"] += beyond_jax(g, w)
             jax_beyond["fp32_vs_f64"] += beyond_jax(w, w64)
@@ -2376,7 +2402,8 @@ def tp_compare(label, outdir, model_name, ranks, ref, failures):
         worst["loss"] = max(worst.get("loss", (0.0, "-")), (rel, f"rank {r}"))
         if rel > TP_STEP_LOSS_RTOL:
             bad.append(f"rank {r} loss {summary['loss']!r} vs {ref_loss!r}: rel {rel:.3e}")
-    n_params = len(ref_momentum) * len(ranks)
+    n_params = sum(k in ref_momentum or k.startswith(("target.", "key."))
+                   for k in ref_state) * len(ranks)
     print(f"{label} vs the one-process step on the card: losses "
           f"{[s['loss'] for s in ranks]} vs {ref_loss!r} (JAX's rtol {TP_STEP_LOSS_RTOL}; "
           f"float64 dense {f64_loss!r}); each rank's shards against their slices: update "
@@ -2420,6 +2447,213 @@ def tp_report(label, ranks, where, rows_at=512):
           f"{model_bytes / s['rows'] * rows_at / 2**30:.3f} GiB scaled to {rows_at} rows")
 
 
+def tp_recipe_tensors(state):
+    """A recipe step's state on the host: ``(tensors, momentum, queue)``;
+    ``tensors`` the model's state dict with the predictor's and the EMA
+    network's parameters beside it (``predictor.*``, ``target.*``,
+    ``key.*``), ``momentum`` the model's and the predictor's momentum
+    buffers by those names, ``queue`` the MoCo queue and its pointer (whole
+    on every rank: no sharding rule reads it)."""
+    tensors = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    named = [(n, p, state.optimizer) for n, p in state.model.named_parameters()]
+    if state.recipe_params is not None:
+        for n, p in state.recipe_params.named_parameters():
+            tensors[f"predictor.{n}"] = p.detach().cpu()
+            named.append((f"predictor.{n}", p, state.recipe_opt_state))
+    # the buffers a step made (none before the first)
+    momentum = {n: opt.state[p]["momentum_buffer"].cpu() for n, p, opt in named
+                if p in opt.state}
+    queue = {}
+    for key, value in (state.recipe_state or {}).items():
+        if isinstance(value, torch.nn.Module):
+            tensors.update({f"{key}.{n}": p.detach().cpu() for n, p in value.named_parameters()})
+        elif torch.is_tensor(value):
+            queue[key] = value.detach().cpu()
+        else:
+            queue[key] = torch.tensor(value)
+    return tensors, momentum, queue
+
+
+def tp_recipe_state(over, dev, dtype=torch.float32, shard=False):
+    """The (d) state of one recipe: ResNet-18 from seed 0, eager convs, the
+    recipe's slots attached as the driver does (:func:`attach_recipe`), the
+    model sharded first under ``shard``. Returns ``(state, step config)``."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    from simclr_pytorch_distributed_tpu_torch.train.state import TrainState, make_optimizer
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import SupConStepConfig
+    torch.manual_seed(0)
+    model = SupConResNet(TP_RECIPE_MODEL).to(dev, memory_format=torch.channels_last)
+    model = model.to(dtype)
+    model.encoder.set_conv_impl("eager")
+    group = None
+    if shard:
+        mesh.shard_module(model, TP_N, mesh.model_index())
+        group = mesh.model_group()
+    state = TrainState(model=model, optimizer=make_optimizer(model, model_group=group),
+                       schedule=lambda s: 0.5)
+    method, loss_impl = attach_recipe(state, over)
+    cfg = SupConStepConfig(method=method, temperature=TEMP,
+                           loss_impl="dense" if dtype == torch.float64 else loss_impl,
+                           epochs=1, steps_per_epoch=7)
+    return state, cfg
+
+
+def tp_recipe_step_run(label, rank, outdir):
+    """(d) on this process: one step of recipe ``label`` at data 1 x model
+    2 on the global batch, from the one-process init sharded. Saves the
+    shards as :func:`tp_compare` reads them (``{label}_{rank}.pt``) and
+    returns the loss, the step's wall time and the sharded slot tensors."""
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import train_step
+    dev = torch.device("cuda", 0)
+    mesh.setup_grid(TP_N)
+    _, labels, _, views = recipe_batch(dev, TP_BATCH)
+    state, cfg = tp_recipe_state(TP_RECIPES[label], dev, shard=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = train_step(state, cfg, views, labels)["loss"].item()
+    step_s = time.perf_counter() - t0
+    tensors, momentum, queue = tp_recipe_tensors(state)
+    torch.save({"state": tensors, "momentum": momentum, "queue": queue},
+               os.path.join(outdir, f"{tp_label_file(label)}_{rank}.pt"))
+    sharded = sorted(k for k in tensors if k.startswith(("predictor.", "target.", "key."))
+                     and mesh.is_tp_sharded(tp_live_tensor(state, k)))
+    del state
+    torch.cuda.empty_cache()
+    return {"loss": loss, "step_s": step_s, "sharded_slots": sharded}
+
+
+def tp_label_file(label):
+    return label.replace("+", "_")
+
+
+def tp_live_tensor(state, key):
+    """The live slot parameter of a :func:`tp_recipe_tensors` name."""
+    owner, name = key.split(".", 1)
+    module = state.recipe_params if owner == "predictor" else state.recipe_state[owner]
+    return dict(module.named_parameters())[name]
+
+
+def tp_recipe_reference(label, dev):
+    """The one-process step of :func:`tp_recipe_step_run` on the card from the
+    same init, fp32 and float64 (dense), in :func:`tp_reference`'s form."""
+    from simclr_pytorch_distributed_tpu_torch.train.supcon_step import train_step
+    _, labels, _, views = recipe_batch(dev, TP_BATCH)
+    out = {}
+    for name, dtype in (("fp32", torch.float32), ("f64", torch.float64)):
+        state, cfg = tp_recipe_state(TP_RECIPES[label], dev, dtype)
+        if "init" not in out:
+            out["init"] = {k: v.clone() for k, v in tp_recipe_tensors(state)[0].items()}
+        loss = train_step(state, cfg, views.to(dtype), labels)["loss"].item()
+        tensors, momentum, queue = tp_recipe_tensors(state)
+        out[name] = (loss, tensors, momentum)
+        out[f"{name}_queue"] = queue
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_recipe_driver_argv(outdir, name, n, *extra):
+    return tp_driver_argv(outdir, name, "--model_parallel", str(n), "--recipe", "byol", *extra)
+
+
+def tp_recipe_driver_run(outdir):
+    """(d)'s driver: ``--recipe byol --model_parallel 2`` for two epochs of
+    ResNet-18 (:func:`tp_driver_argv`), then its first-epoch save resumed at
+    ``--model_parallel 1``."""
+    from simclr_pytorch_distributed_tpu_torch.train import supcon
+    t0 = time.perf_counter()
+    straight = supcon.main(tp_recipe_driver_argv(outdir, "byol_straight", 2))
+    out = {"losses": [h["loss"] for h in straight.history], "folder": straight.save_folder,
+           "s": time.perf_counter() - t0}
+    del straight
+    torch.cuda.empty_cache()
+    resumed = supcon.main(tp_recipe_driver_argv(
+        outdir, "byol_resumed", 1, "--resume", os.path.join(out["folder"], "ckpt_epoch_1.pth")))
+    out.update(resumed_losses=[h["loss"] for h in resumed.history],
+               resumed_folder=resumed.save_folder)
+    return out
+
+
+def tp_recipe_checks(outdir, ranks, dev, where, failures):
+    """(d) on the host: each recipe's shards against the one-process step
+    (:func:`tp_compare`, the EMA network's parameters held by their update
+    as the model's are), its queue whole and equal on both ranks and near
+    the one-process queue, and the byol driver's whole save and its
+    resume at ``--model_parallel 1``."""
+    from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+    for label in TP_RECIPES:
+        steps = [r["d"][label] for r in ranks]
+        ref = tp_recipe_reference(label, dev)
+        tp_compare(f"tensor_parallel (d) {TP_RECIPE_MODEL} {label}", outdir,
+                   tp_label_file(label), steps, ref, failures)
+        predictor = [k for k in steps[0]["sharded_slots"] if k.startswith("predictor.")]
+        print(f"tensor_parallel (d) {label}: step wall time rank by rank "
+              f"{[round(s['step_s'] * 1e3, 1) for s in steps]} ms {where}; sharded slot "
+              f"tensors: the predictor's {len(predictor)} ({', '.join(predictor)}), the EMA "
+              f"network's {len(steps[0]['sharded_slots']) - len(predictor)}")
+        if label != "vicreg" and not steps[0]["sharded_slots"]:
+            failures.append(f"tensor_parallel (d) {label}: no recipe slot is sharded")
+        queues = [torch.load(os.path.join(outdir, f"{tp_label_file(label)}_{r}.pt"),
+                             weights_only=True)["queue"] for r in range(len(ranks))]
+        if queues[0]:
+            want = ref["fp32_queue"]
+            rel = relative_l2(queues[0]["queue_emb"], want["queue_emb"])
+            same = all(torch.equal(q[k], queues[0][k]) for q in queues for k in q)
+            shape = tuple(queues[0]["queue_emb"].shape)
+            print(f"tensor_parallel (d) {label}: queue {shape} whole on every rank and equal "
+                  f"across the model group: {same}; pointer {int(queues[0]['queue_ptr'])} "
+                  f"(one process {int(want['queue_ptr'])}); relative L2 to the one-process "
+                  f"queue {rel:.3e} (bound {TP_QUEUE_REL_L2})")
+            if not (same and shape == tuple(want["queue_emb"].shape) and rel <= TP_QUEUE_REL_L2
+                    and int(queues[0]["queue_ptr"]) == int(want["queue_ptr"])):
+                failures.append(f"tensor_parallel (d) {label}: the queue differs: {shape}, "
+                                f"same {same}, rel {rel}")
+        torch.cuda.empty_cache()
+
+    d = ranks[0]["d_driver"]
+    last = torch.load(os.path.join(d["folder"], "last.pth"), map_location="cpu",
+                      weights_only=True)
+    resumed = torch.load(os.path.join(d["resumed_folder"], "last.pth"), map_location="cpu",
+                         weights_only=True)
+    whole = {k: tuple(v.shape) for k, v in SupConResNet(TP_RECIPE_MODEL).state_dict().items()}
+    saved = {k.removeprefix("module."): tuple(v.shape) for k, v in last["model"].items()}
+    predictor = {k: tuple(v.shape) for k, v in last["recipe"]["recipe_params"].items()}
+    target = {k: tuple(v.shape) for k, v in last["recipe"]["recipe_state"]["target"].items()}
+    whole_target = {k: v for k, v in whole.items() if k in target}
+    momentum = [tuple(e["momentum_buffer"].shape)
+                for e in last["recipe"]["recipe_opt_state"]["state"].values()]
+    ok_whole = (saved == whole and target == whole_target
+                and predictor["fc1.weight"] == (512, 128) and predictor["bn_scale"] == (512,)
+                and predictor["fc2.weight"] == (128, 512)
+                and momentum == [predictor[k] for k in predictor])
+    tail = d["losses"][-len(d["resumed_losses"]):]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(d["resumed_losses"], tail))
+
+    def flat(ckpt):
+        out = {f"model.{k}": v for k, v in ckpt["model"].items() if v.is_floating_point()}
+        out.update({f"predictor.{k}": v for k, v in ckpt["recipe"]["recipe_params"].items()})
+        out.update({f"target.{k}": v for k, v in ckpt["recipe"]["recipe_state"]["target"].items()})
+        return out
+
+    a, b = flat(resumed), flat(last)
+    rel = relative_l2(torch.cat([a[k].double().flatten() for k in b]),
+                      torch.cat([b[k].double().flatten() for k in b]))
+    with open(os.path.join(d["resumed_folder"], "log-ing")) as fh:
+        fresh = [ln.strip() for ln in fh if "start fresh" in ln or "recipe slots" in ln]
+    print(f"tensor_parallel (d) driver: --recipe byol --model_parallel 2, {TP_RECIPE_MODEL} "
+          f"batch {TP_DRIVER_BATCH}, 2 epochs: {len(d['losses'])} steps in {d['s']:.1f} s, "
+          f"losses {[round(x, 4) for x in d['losses']]}; last.pth whole (model, predictor, "
+          f"its momentum, target): {ok_whole}; the epoch-1 save resumed at --model_parallel "
+          f"1: epoch-2 losses worst rel {loss_rel:.3e} (bound 1e-4), last.pth (model, "
+          f"predictor, target) relative L2 {rel:.3e} (bound {STEP_UPDATE_REL_L2}), slots "
+          f"restored: {not fresh}")
+    if not (ok_whole and loss_rel <= 1e-4 and rel <= STEP_UPDATE_REL_L2 and not fresh):
+        failures.append(f"tensor_parallel (d) driver: whole {ok_whole}, losses {loss_rel}, "
+                        f"state {rel}, {fresh}")
+
+
 def tensor_parallel_phase(workdir, where):
     """``--model_parallel`` on the card, two and four processes over gloo.
 
@@ -2434,7 +2668,15 @@ def tensor_parallel_phase(workdir, where):
     one-process step. (c) ``train.supcon.main --model_parallel 2`` for two
     epochs of ResNet-18 on ``synthetic``: its ``last.pth`` holds whole
     tensors and loads in ``train.linear.main``, and its first-epoch save
-    resumed at ``--model_parallel 1`` ends near the straight run."""
+    resumed at ``--model_parallel 1`` ends near the straight run. (d) In the
+    2-process launch, ResNet-18 at data 1 x model 2: one step of each of
+    byol, simsiam, vicreg and simclr with the MoCo queue against the
+    one-process recipe step from the same init (:func:`tp_recipe_checks`:
+    the model, the predictor and the EMA network by :func:`tp_compare`'s
+    pins, the queue whole and equal on both ranks), then the byol driver at
+    ``--model_parallel 2``: its ``last.pth`` whole, recipe payload
+    included, and its first-epoch save resumed at ``--model_parallel 1``
+    with the slots restored."""
     from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
     from simclr_pytorch_distributed_tpu_torch.train import linear
     dev = torch.device("cuda", 0)
@@ -2510,6 +2752,7 @@ def tensor_parallel_phase(workdir, where):
     if not (loss_rel <= 1e-4 and rel <= STEP_UPDATE_REL_L2):
         failures.append(f"tensor_parallel (c): the N = 1 resume differs: losses {loss_rel}, "
                         f"state {rel}")
+    tp_recipe_checks(out2, ranks2, dev, where, failures)
     if failures:
         raise AssertionError("tensor_parallel:\n" + "\n".join(failures))
 
@@ -3014,6 +3257,46 @@ def obs_argv(model, workdir, bf16, *extra):
     return argv + ["--health_freq", "2", "--online_probe", "on"] + list(extra)
 
 
+def load_script(name):
+    """``scripts/<name>.py`` as a module (``scripts/`` is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts",
+                                                                     f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def health_report_run(folder, label, windows, failures):
+    """``scripts/port_health_report.py`` over a run's ``events.jsonl`` (its
+    CLI, as a user runs it after a run), then the ``health_report`` gate's
+    record (``scripts/port_ratchet.health_report_gate_record``) on its
+    artifact, printed. Fails unless the stream is consistent with
+    ``windows`` windows. The record is printed, not bound: the gate's
+    healthy smoke is its own run (:func:`recipe_accuracy`), and a 7-step
+    ResNet-50 from its init sits below the detector's effective-rank bar
+    (1.76-1.77 against 2 on an H100), which its alarms say."""
+    out = os.path.join(folder, "health_report.json")
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "port_health_report.py"),
+                           "--events", os.path.join(folder, "events.jsonl"), "--json", out,
+                           "--device", "cuda"], capture_output=True, text=True, timeout=300)
+    table = [ln for ln in proc.stdout.splitlines() if ln.startswith(("health_", "probe_",
+                                                                     "FINDING", "online"))]
+    print(f"{label}: scripts/port_health_report.py exit {proc.returncode}: " + " | ".join(
+        " ".join(ln.split()) for ln in table))
+    if not os.path.exists(out):
+        failures.append(f"{label}: the health report wrote no artifact: {proc.stderr[-600:]}")
+        return
+    with open(out) as fh:
+        artifact = json.load(fh)
+    record = load_script("port_ratchet").health_report_gate_record(artifact)
+    print(f"{label}: health_report gate record on this stream {json.dumps(record)}")
+    n = artifact["report"]["consistency"]["n_windows"]
+    if proc.returncode != 0 or n != windows:
+        failures.append(f"{label}: health report exit {proc.returncode}, {n} windows, "
+                        f"expected {windows}")
+
+
 def history_equal(a, b):
     """Two drivers' histories equal bitwise, every column but
     ``step_time`` (NaN sentinels equal where both are NaN)."""
@@ -3226,6 +3509,9 @@ def observability_phase(workdir, rn50_expected, rn50_bf16_expected, where):
                 if guard.fetches != OBS_WINDOWS or guard.guarded_steps != OBS_WINDOWS:
                     failures.append(f"{name}: {guard.fetches} transfers, "
                                     f"{guard.guarded_steps} guarded windows")
+                if not bf16:
+                    health_report_run(result.save_folder, f"observability {name}", OBS_WINDOWS,
+                                      failures)
                 continue
             if mode == "sync":
                 health_against_cpu(name, store, failures)
@@ -3800,26 +4086,15 @@ RECIPE_STEP_OVERRIDES = {
     "vicreg": {"recipe": "vicreg"},
     "simclr+queue": {"recipe": "simclr", "moco_queue": RECIPE_QUEUE},
 }
-# The accuracy arms of the JAX package's scripts/recipes_eval.py (rn10,
-# synthetic, batch 64, 16 px, 2 epochs, lr 0.05 cosine, temp 0.5,
-# --predictor_hidden 128, --print_freq 5, the health stream every 2nd step
-# and the online probe on), with
-# the JAX package's CPU figures (docs/evidence/recipes_r12.json: the best
-# windowed probe top-1) and its bar (scripts/ratchet.py:286-292).
-RECIPE_ACCURACY_ARMS = (
-    ("supcon", ["--recipe", "supcon"], 50.585938),
-    ("byol", ["--recipe", "byol"], 46.09375),
-    ("simsiam", ["--recipe", "simsiam"], 45.410156),
-    ("vicreg", ["--recipe", "vicreg"], 49.121094),
-    ("simclr_queue", ["--recipe", "simclr", "--moco_queue", "256"], 47.753906),
-)
+# The accuracy arms run through scripts/port_recipes_eval.py (its PROBE_ARMS
+# and full configuration: rn10, synthetic, batch 64, 16 px, 2 epochs, lr 0.05
+# cosine, temp 0.5, --predictor_hidden 128, --print_freq 5, the health stream
+# every 2nd step and the online probe on), beside the JAX package's CPU
+# figures (docs/evidence/recipes_r12.json: the best windowed probe top-1)
+# and its bar (scripts/ratchet.py:286-292).
+RECIPE_JAX_CPU_TOP1 = {"supcon": 50.585938, "byol": 46.09375, "simsiam": 45.410156,
+                       "vicreg": 49.121094, "simclr_queue": 47.753906}
 RECIPE_PROBE_BAR = 20.0
-ACCURACY_ARGV = [
-    "--device", "cuda", "--dataset", "synthetic", "--model", "resnet10", "--batch_size", "64",
-    "--size", "16", "--epochs", "2", "--learning_rate", "0.05", "--cosine", "--temp", "0.5",
-    "--method", "SimCLR", "--print_freq", "5", "--save_freq", "2", "--telemetry", "sync",
-    "--predictor_hidden", "128", "--online_probe", "on", "--health_freq", "2",
-]
 
 
 def recipe_expected(expected, extra):
@@ -4089,26 +4364,47 @@ def recipe_data_parallel(workdir, model, views, labels, failures):
 
 
 def recipe_accuracy(workdir, failures, where):
-    """The recipes phase's (e): the accuracy arms and the collapse arm."""
+    """The recipes phase's (e): the accuracy arms and the supcon
+    bit-identity through ``scripts/port_recipes_eval.py``'s functions, the
+    ``recipes`` gate's record on their artifact, the ``health_report``
+    gate on its own smoke, and the collapse arm."""
     from simclr_pytorch_distributed_tpu_torch.train import supcon
-    for arm, extra, jax_cpu in RECIPE_ACCURACY_ARMS:
-        argv = ACCURACY_ARGV + ["--workdir", tempfile.mkdtemp(prefix=f"acc_{arm}_", dir=workdir)]
-        run = supcon.main(argv + extra)
-        _, events = run_log(run)
-        windows = [e["args"] for e in events if e.get("name") == "health_window"]
-        top1 = [w["probe_top1"] for w in windows if "probe_top1" in w]
-        alarms = sum(e.get("name") == "health_alarm" for e in events)
-        best = max(top1) if top1 else float("nan")
+    ev = load_script("port_recipes_eval")
+    args = ev.parse_args(["--device", "cuda", "--workdir",
+                          tempfile.mkdtemp(prefix="recipes_eval_", dir=workdir)])
+    recipes = {}
+    for arm, extra in ev.PROBE_ARMS:
+        rec = recipes[arm] = ev.probe_arm(args, arm, extra)
+        best = rec["probe_best_top1"] if rec["probe_best_top1"] is not None else float("nan")
         print(f"recipes (e) accuracy {arm}: best windowed probe top-1 {best:.2f} over "
-              f"{len(top1)} windows (first {top1[0] if top1 else None}, last "
-              f"{top1[-1] if top1 else None}), {alarms} collapse alarms; the JAX package's CPU "
-              f"figure {jax_cpu:.2f}; bar {RECIPE_PROBE_BAR} {where}")
-        if not best > RECIPE_PROBE_BAR or alarms:
-            failures.append(f"(e) {arm}: best probe top-1 {best}, {alarms} alarms")
-        del run
-    argv = ACCURACY_ARGV + ["--workdir", tempfile.mkdtemp(prefix="acc_collapse_", dir=workdir),
-                            "--recipe", "byol", "--byol_predictor", "none",
-                            "--health_policy", "abort"]
+              f"{rec['windows']} windows (first {rec['probe_first_top1']}, last "
+              f"{rec['probe_last_top1']}), {rec['alarms']} collapse alarms, health stream "
+              f"consistent {rec['consistency_ok']}; the JAX package's CPU figure "
+              f"{RECIPE_JAX_CPU_TOP1[arm]:.2f}; bar {RECIPE_PROBE_BAR} {where}")
+        if not best > RECIPE_PROBE_BAR or rec["alarms"] or not rec["consistency_ok"]:
+            failures.append(f"(e) {arm}: best probe top-1 {best}, {rec['alarms']} alarms")
+    bit = ev.bit_identity_check(args)
+    print(f"recipes (e) bit-identity: --recipe supcon through the interface against the "
+          f"inline step, {bit['steps']} steps over {bit['epochs']} epochs, bitwise equal by "
+          f"--data_placement: {bit['placements']}")
+    artifact = ev.build_output("cuda", False, ev.config_of(args), bit, recipes)
+    ratchet = load_script("port_ratchet")
+    record = ratchet.recipe_gate_record(artifact)
+    print(f"recipes (e) recipes gate record {json.dumps(record)}")
+    if not (bit["ok"] and record["ok"]):
+        failures.append(f"(e) bit-identity {bit}, gate {record}")
+    # the health_report gate on its own smoke: one rn10 epoch, the trainer
+    # and the report's CLI in child processes, as scripts/port_ratchet.py runs it
+    t0 = time.time()
+    record = ratchet.run_health_report_gate(
+        tempfile.mkdtemp(prefix="health_gate_", dir=workdir), "cuda", 0)
+    print(f"recipes (e) health_report gate record ({time.time() - t0:.1f} s) "
+          f"{json.dumps(record)}")
+    if not record["ok"]:
+        failures.append(f"(e) the health_report gate: {record}")
+    argv = ev.run_argv(args, "byol_none", [
+        "--recipe", "byol", "--byol_predictor", "none", "--online_probe", "on",
+        "--health_freq", "2", "--health_policy", "abort"])
     try:
         supcon.main(argv)
         code = 0
@@ -4169,10 +4465,13 @@ def recipes_phase(workdir, result, rn50_expected, rn50_bf16_expected, model, vie
         with ``--syncBN`` and eager convs, against one process on the
         global batch at the step pins (the predictor's gradient and the
         gathered target rows);
-    (e) the accuracy arms (``RECIPE_ACCURACY_ARMS``): each arm's best
-        windowed online-probe top-1 above ``RECIPE_PROBE_BAR`` with no
-        collapse alarm, beside the JAX package's CPU figures; and byol
-        with ``--byol_predictor none --health_policy abort`` exits 3;
+    (e) the accuracy arms of ``scripts/port_recipes_eval.py``: each arm's
+        best windowed online-probe top-1 (read through the health report)
+        above ``RECIPE_PROBE_BAR`` with no collapse alarm, beside the JAX
+        package's CPU figures; the supcon bit-identity under host and
+        device placement; the ``recipes`` gate's record; the
+        ``health_report`` gate (``scripts/port_ratchet.py``); and byol with
+        ``--byol_predictor none --health_policy abort`` exits 3;
     (f) the native host gather loaded, and taken by the host and window
         placements' runs (its counter above 0), with their data waits."""
     failures = []

@@ -35,6 +35,22 @@ judges the artifact with :func:`lint_gate_record`, the JAX gate's rules:
 the pinned schema, all four rule families run, every allowlisted point
 with a reason, and zero unallowlisted findings. A failed gate makes the
 script exit 1.
+
+    python3 scripts/port_ratchet.py --configs health_report recipes [--device cpu]
+
+The ``health_report`` and ``recipes`` gates (in the default list, as in
+the JAX ratchet, ``scripts/ratchet.py:144, 173, 1265-1348``) run the
+port's trainer on ``--device`` (default the card): ``health_report`` one
+rn10 epoch at batch 64 with ``--health_freq 2 --online_probe on``, then
+``scripts/port_health_report.py`` over its ``events.jsonl``;
+``recipes`` ``scripts/port_recipes_eval.py --smoke``. Their records
+(:func:`health_report_gate_record`, :func:`recipe_gate_record`) are the
+JAX gates' rules: the health stream's consistency, zero ``health_alarm``
+events and, for ``recipes``, the supcon bit-identity under host and device
+placement bind on every device; the online-probe bars
+(:data:`HEALTH_PROBE_CPU_BAR`, :data:`RECIPE_PROBE_CPU_BARS`, calibrated by
+the JAX package on the CPU) bind on the CPU only and pass-skip on the card
+with the reason on the record.
 """
 
 from __future__ import annotations
@@ -64,11 +80,28 @@ CONFIGS = {
 CE_CONFIGS = {
     "ce_rn50_30ep": ("resnet50", 30, 98.2),
 }
-# the static gates: name -> kind (no card, no driver)
+# the gates: name -> its kind, and whether it runs the trainer on --device
+# (the lint gate reads the source tree only)
 GATE_CONFIGS = {
-    "invariant_lint": dict(kind="invariant_lint"),
+    "invariant_lint": dict(kind="invariant_lint", driver=False),
+    "health_report": dict(kind="health_report", driver=True),
+    "recipes": dict(kind="recipes", driver=True),
 }
-DEFAULT_CONFIGS = ["invariant_lint", "rn50_100ep", "rn18_100ep"]
+DEFAULT_CONFIGS = ["invariant_lint", "health_report", "recipes", "rn50_100ep", "rn18_100ep"]
+
+# The JAX ratchet's CPU-calibrated probe bars (scripts/ratchet.py:269-292):
+# the best windowed online-probe top-1 of the health_report smoke (chance 10%
+# on the 10-class synthetic set; the JAX package measured 35.5 at one epoch)
+# and of each recipes_eval --smoke arm (it measured 46.8-47.1). Beat-random
+# with a wide margin: the claim is that the live probe learns.
+HEALTH_PROBE_CPU_BAR = 20.0
+RECIPE_PROBE_CPU_BARS = {
+    "supcon": 20.0,
+    "byol": 20.0,
+    "simsiam": 20.0,
+    "vicreg": 20.0,
+    "simclr_queue": 20.0,
+}
 
 
 def card_line() -> str:
@@ -171,24 +204,197 @@ def lint_gate_record(artifact: dict) -> dict:
     return record
 
 
+def health_report_gate_record(artifact: dict, probe_bar: float = None) -> dict:
+    """Gate decision for one health-report artifact (pure; JAX
+    ``scripts/ratchet.py:516``). Binds on every device: the stream's
+    consistency (non-empty, monotone, the full column set in every window)
+    and zero ``health_alarm`` events, since the detector firing on the
+    healthy smoke is the false positive that would abort real runs under
+    ``--health_policy abort``. The probe's best windowed top-1 over
+    ``probe_bar`` binds on the CPU only, where the bar was calibrated; on
+    the card it pass-skips with the reason on the record."""
+    if probe_bar is None:
+        probe_bar = HEALTH_PROBE_CPU_BAR
+    rep = artifact["report"]
+    cons = rep["consistency"]
+    probe = rep.get("probe") or {}
+    record = {
+        "metric": "port_ratchet_health_report",
+        "value": probe.get("best_top1"),
+        "bar": probe_bar,
+        "n_windows": cons["n_windows"],
+        "alarms": len(rep["alarms"]),
+        "findings": [f["flag"] for f in rep["findings"]],
+        "device": artifact.get("device"),
+    }
+
+    def fail(msg):
+        record["ok"] = False
+        record["error"] = msg
+        return record
+
+    if not cons["ok"]:
+        return fail("health stream inconsistent: empty/non-monotone timeline or missing "
+                    f"columns {cons['missing_keys']}")
+    if rep["alarms"]:
+        return fail(f"collapse detector fired {len(rep['alarms'])}x on the healthy smoke "
+                    "(false positive)")
+    if not probe:
+        return fail("no online-probe columns in the health stream")
+    if artifact.get("device") != "cpu":
+        record["ok"] = True
+        record["skipped"] = (f"device {artifact.get('device')!r}: probe-accuracy bar "
+                             "calibrated for the CPU smoke only; stream consistency and "
+                             "zero-alarm checks still enforced")
+        return record
+    if probe["best_top1"] < probe_bar:
+        return fail(f"online probe best top-1 {probe['best_top1']:.2f} < {probe_bar:g}: the "
+                    "live probe did not learn")
+    record["ok"] = True
+    return record
+
+
+def recipe_gate_record(artifact: dict, bars: dict = None) -> dict:
+    """Gate decision for one ``port_recipes_eval.py`` artifact (pure; JAX
+    ``scripts/ratchet.py:580``). Binds on every device: the supcon
+    bit-identity under host and device placement, a consistent health
+    stream and zero collapse alarms per arm, and every arm present with
+    probe columns. The per-arm probe bars bind on the CPU only; on the card
+    they pass-skip with the reason on the record."""
+    if bars is None:
+        bars = RECIPE_PROBE_CPU_BARS
+    bit = artifact.get("bit_identity", {})
+    recipes = artifact.get("recipes", {})
+    record = {
+        "metric": "port_ratchet_recipes",
+        "value": {name: (rec or {}).get("probe_best_top1") for name, rec in recipes.items()},
+        "bars": bars,
+        "bit_identity": bit.get("placements"),
+        "alarms": {n: (r or {}).get("alarms") for n, r in recipes.items()},
+        "device": artifact.get("device"),
+    }
+
+    def fail(msg):
+        record["ok"] = False
+        record["error"] = msg
+        return record
+
+    if not bit.get("ok") or set(bit.get("placements", {})) != {"host", "device"}:
+        return fail(f"supcon bit-identity failed or incomplete: {bit.get('placements')}")
+    missing = sorted(set(bars) - set(recipes))
+    if missing:
+        return fail(f"recipe arms missing from the artifact: {missing}")
+    for name in sorted(bars):
+        rec = recipes[name] or {}
+        if not rec.get("consistency_ok"):
+            return fail(f"recipe {name!r}: inconsistent health stream")
+        if rec.get("alarms"):
+            return fail(f"recipe {name!r}: collapse detector fired {rec['alarms']}x on the "
+                        "healthy run (false positive)")
+        if rec.get("probe_best_top1") is None:
+            return fail(f"recipe {name!r}: no online-probe columns")
+    if artifact.get("device") != "cpu":
+        record["ok"] = True
+        record["skipped"] = (f"device {artifact.get('device')!r}: probe bars calibrated for "
+                             "the CPU smoke only; bit-identity and zero-alarm checks still "
+                             "enforced")
+        return record
+    for name, bar in sorted(bars.items()):
+        best = recipes[name]["probe_best_top1"]
+        if best < bar:
+            return fail(f"recipe {name!r}: online probe best top-1 {best:.2f} < {bar:g}: the "
+                        "recipe did not learn")
+    record["ok"] = True
+    return record
+
+
+def _child(argv, log: str, timeout: int = 3000) -> int:
+    """``argv`` under this interpreter from the repository's root, its
+    output into ``log``; returns the exit code."""
+    with open(log, "w") as fh:
+        return subprocess.run([sys.executable] + argv, cwd=REPO, stdout=fh,
+                              stderr=subprocess.STDOUT, timeout=timeout).returncode
+
+
+def _artifact(path: str):
+    """The JSON artifact a child wrote (it exits non-zero on a failed claim
+    and still writes one, which the record then judges), or ``None``."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _fresh(path: str) -> str:
+    """``path`` with no file left there from an earlier run."""
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def run_health_report_gate(workdir: str, device: str, seed: int) -> dict:
+    """One rn10 pretrain epoch with the health stream and the online probe
+    (the JAX gate's argv), then ``scripts/port_health_report.py`` over its
+    ``events.jsonl``, judged by :func:`health_report_gate_record`."""
+    os.makedirs(workdir, exist_ok=True)
+    trial = "health_report_gate"
+    log = os.path.join(workdir, "health_report_pretrain.log")
+    code = _child([
+        "-m", "simclr_pytorch_distributed_tpu_torch.train.supcon", "--device", device,
+        "--dataset", "synthetic", "--model", "resnet10", "--epochs", "1", "--batch_size", "64",
+        "--learning_rate", "0.05", "--print_freq", "4", "--save_freq", "1",
+        "--health_freq", "2", "--online_probe", "on", "--health_policy", "warn",
+        "--workdir", workdir, "--seed", str(seed), "--trial", trial], log)
+    models = os.path.join(workdir, "synthetic_models")
+    runs = [os.path.join(models, d) for d in (os.listdir(models) if os.path.isdir(models) else ())
+            if d.endswith(f"trial_{trial}")]
+    if code != 0 or not runs:
+        return {"metric": "port_ratchet_health_report", "ok": False,
+                "error": f"the pretrain exited {code} (log {log})"}
+    events = os.path.join(max(runs, key=os.path.getmtime), "events.jsonl")
+    out = _fresh(os.path.join(workdir, "health_report.json"))
+    report_log = os.path.join(workdir, "health_report.log")
+    code = _child([os.path.join("scripts", "port_health_report.py"), "--events", events,
+                   "--json", out, "--device", device], report_log)
+    artifact = _artifact(out)
+    if artifact is None:
+        return {"metric": "port_ratchet_health_report", "ok": False,
+                "error": f"the health report wrote no artifact (exit {code}, log {report_log})"}
+    return dict(health_report_gate_record(artifact), log=report_log)
+
+
+def run_recipes_gate(workdir: str, device: str, seed: int) -> dict:
+    """``scripts/port_recipes_eval.py --smoke`` on ``device``, judged by
+    :func:`recipe_gate_record`."""
+    os.makedirs(workdir, exist_ok=True)
+    out = _fresh(os.path.join(workdir, "recipes_eval.json"))
+    log = os.path.join(workdir, "recipes_eval.log")
+    code = _child([os.path.join("scripts", "port_recipes_eval.py"), "--smoke", "--json", out,
+                   "--seed", str(seed), "--device", device, "--trial", "recipes_gate",
+                   "--workdir", os.path.join(workdir, "recipes_gate")], log)
+    artifact = _artifact(out)
+    if artifact is None:
+        return {"metric": "port_ratchet_recipes", "ok": False,
+                "error": f"the recipes eval wrote no artifact (exit {code}, log {log})"}
+    return dict(recipe_gate_record(artifact), log=log)
+
+
 def run_lint_gate(workdir: str) -> dict:
     """``scripts/port_invariant_lint.py --json`` in a child process, judged
     by :func:`lint_gate_record`. The linter exits 1 on findings and still
     writes its artifact, which the record then carries."""
     os.makedirs(workdir, exist_ok=True)
-    out = os.path.join(workdir, "port_invariant_lint.json")
-    if os.path.exists(out):
-        os.remove(out)
+    out = _fresh(os.path.join(workdir, "port_invariant_lint.json"))
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "port_invariant_lint.py"),
          "--json", out], capture_output=True, text=True, timeout=600,
     )
-    if not os.path.exists(out):
+    artifact = _artifact(out)
+    if artifact is None:
         return {"metric": "port_ratchet_invariant_lint", "ok": False,
                 "error": f"the linter wrote no artifact (exit {proc.returncode}): "
                          f"{proc.stderr.strip()[-400:]}"}
-    with open(out) as fh:
-        return lint_gate_record(json.load(fh))
+    return lint_gate_record(artifact)
 
 
 def main(argv=None) -> int:
@@ -199,25 +405,43 @@ def main(argv=None) -> int:
                     help="pretrain epochs (default 100), or a CE configuration's epochs "
                          "(default its own)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the health_report and recipes gates train (the accuracy "
+                         "configurations need the card)")
     ap.add_argument("--workdir", default=os.path.join(REPO, "work_space", "port_ratchet"))
     ap.add_argument("--json", default="", help="also append the records to this file")
     args = ap.parse_args(argv)
     gates_ok = True
-    for name in [n for n in args.configs if n in GATE_CONFIGS]:
-        record = run_lint_gate(args.workdir)
-        gates_ok = gates_ok and record["ok"]
+
+    def emit(record):
         print(json.dumps(record), flush=True)
         if args.json:
             with open(args.json, "a") as fh:
                 fh.write(json.dumps(record) + "\n")
+
+    for name in [n for n in args.configs if n in GATE_CONFIGS and
+                 not GATE_CONFIGS[n]["driver"]]:
+        record = run_lint_gate(args.workdir)
+        gates_ok = gates_ok and record["ok"]
+        emit(record)
+    driver_gates = [n for n in args.configs if n in GATE_CONFIGS and GATE_CONFIGS[n]["driver"]]
     runs = [n for n in args.configs if n not in GATE_CONFIGS]
-    if not runs:
+    if not runs and not driver_gates:
         return 0 if gates_ok else 1
-    if not torch.cuda.is_available():
+    if (runs or args.device == "cuda") and not torch.cuda.is_available():
         print("port_ratchet: no CUDA device", file=sys.stderr)
         return 2
-    card = card_line()
-    print(f"nvidia-smi name, power.limit: {card}", flush=True)
+    card = card_line() if torch.cuda.is_available() else None
+    if card is not None:
+        print(f"nvidia-smi name, power.limit: {card}", flush=True)
+    for name in driver_gates:
+        gate = {"health_report": run_health_report_gate,
+                "recipes": run_recipes_gate}[GATE_CONFIGS[name]["kind"]]
+        record = gate(os.path.join(args.workdir, name), args.device, args.seed)
+        if args.device == "cuda":
+            record["card"] = card
+        gates_ok = gates_ok and record["ok"]
+        emit(record)
     for name in runs:
         if name in CE_CONFIGS:
             record = run_ce_config(name, args.epochs, args.workdir, args.seed)
@@ -228,10 +452,7 @@ def main(argv=None) -> int:
         for handler in [h for h in root.handlers if isinstance(h, logging.FileHandler)]:
             root.removeHandler(handler)  # each run's log-ing holds its own lines only
             handler.close()
-        print(json.dumps(record), flush=True)
-        if args.json:
-            with open(args.json, "a") as fh:
-                fh.write(json.dumps(record) + "\n")
+        emit(record)
     return 0 if gates_ok else 1
 
 

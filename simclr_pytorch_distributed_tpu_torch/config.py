@@ -45,9 +45,8 @@ compile. ``--model_parallel N`` (default 1) is the JAX package's
 (``config.py:87, 350``), on the pretraining parser only, as there: the
 world forms a grid of ``W // N`` data slices by ``N`` model shards
 (``parallel/mesh.setup_grid``; ``W % N != 0`` raises at start-up), and the
-probe and CE parsers reject it. Under it the byol, simsiam and vicreg
-recipes and the MoCo queue are refused at parse time
-(:func:`validate_model_parallel`; ROADMAP Queue 1 records the gap).
+probe and CE parsers reject it. Every recipe runs under it, the MoCo
+queue included, as in the JAX package.
 Added here: ``--device {cuda,cpu}`` (default ``cuda``), ``--loss_impl
 {dense,fused,ring,auto}`` (``ring`` only when asked for, as in JAX
 ``config.py:92-96``) and ``--conv_impl {eager,fused,auto}`` (the JAX
@@ -520,26 +519,11 @@ def validate_recipe(cfg: SupConConfig) -> None:
             )
 
 
-def validate_model_parallel(cfg: SupConConfig) -> None:
-    """Parse-time check of ``--model_parallel`` against the recipe (after
-    :func:`validate_recipe`): the port runs the contrastive recipes under
-    tensor parallelism; the JAX package takes the others too, and their
-    port is an open item (ROADMAP Queue 1, "tensor-parallel recipes")."""
-    if cfg.model_parallel > 1 and (cfg.recipe not in ("supcon", "simclr") or cfg.moco_queue):
-        what = "--moco_queue" if cfg.moco_queue else f"--recipe {cfg.recipe}"
-        raise ValueError(
-            f"{what} is not ported under --model_parallel {cfg.model_parallel}: the "
-            "port runs supcon and simclr without the queue under tensor parallelism "
-            "(ROADMAP.md Queue 1, \"tensor-parallel recipes\"); use --model_parallel 1"
-        )
-
-
 def finalize_supcon(cfg: SupConConfig) -> SupConConfig:
     """Derived fields, replicating main_supcon.py:92-150. The save folder
     is named here and created by the driver."""
     validate_data_placement(cfg.dataset, cfg.data_placement)
     validate_recipe(cfg)
-    validate_model_parallel(cfg)
     if cfg.dataset == "path" and (cfg.data_folder is None or cfg.mean is None
                                   or cfg.std is None):
         raise ValueError("--dataset path needs --data_folder, --mean and --std")

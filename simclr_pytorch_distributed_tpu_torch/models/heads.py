@@ -19,7 +19,9 @@ head its channel slice of the features (``ResNet.forward_local``); each
 linear gathers its input (``models/resnet.tp_input``) and computes its own
 slice of the output features, and the head's output is gathered whole for
 the loss (``tp_whole``). ``encode`` and the features of
-``forward_with_features`` are whole.
+``forward_with_features`` are whole. The predictor routes its two linears
+the same way, and its normalization's parameters are sharded with its
+hidden layer (:class:`PredictorHead`).
 """
 
 from __future__ import annotations
@@ -154,7 +156,18 @@ class PredictorHead(nn.Module):
     them one to one (a ``TorchDense`` kernel ``[in, out]`` is the
     ``weight [out, in]`` here). fp32; the init is torch's ``nn.Linear``
     default, U(±1/sqrt(fan_in)) for weight and bias, drawn from the
-    ``generator`` given (:meth:`reset_parameters`)."""
+    ``generator`` given (:meth:`reset_parameters`).
+
+    Under tensor parallelism (``parallel/mesh.shard_module``) ``bn_scale``
+    and ``bn_bias`` (:attr:`tp_channel_params`) are sharded by the rule of
+    ``fc1``'s output, whose channels they scale: a shard normalizes its own
+    channels exactly, since the statistics are per channel. The whole
+    input reaches a sharded ``fc1`` through ``models/resnet.tp_input``
+    (its gradient summed over the model group), a sharded hidden layer is
+    gathered before ``fc2`` reads it, and the output comes back whole."""
+
+    # the parameters outside a conv, linear or BN that shard_module shards
+    tp_channel_params = ("bn_scale", "bn_bias")
 
     def __init__(self, dim_hidden: int = 512, dim_out: int = 128,
                  generator: Optional[torch.Generator] = None):
@@ -177,12 +190,12 @@ class PredictorHead(nn.Module):
         self.bn_bias.zero_()
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.fc1(z)
+        h = self.fc1(tp_input(self.fc1, z))
         mean = h.mean(dim=0, keepdim=True)
         var = h.var(dim=0, unbiased=False, keepdim=True)
         h = (h - mean) / torch.sqrt(var + 1e-5)
         h = torch.relu(h * self.bn_scale + self.bn_bias)
-        return self.fc2(h)
+        return tp_whole(self.fc2(tp_input(self.fc2, h)), self.fc2.out_features)
 
 
 class SupCEResNet(nn.Module):

@@ -337,26 +337,37 @@ def whole_norms(norms: torch.Tensor, tensors: Sequence[torch.Tensor], group) -> 
     return torch.where(sharded, summed, squares).sqrt()
 
 
+def _shardable(sub: nn.Module):
+    """The ``(name, tensor)`` pairs of ``sub``'s own that :func:`shard_module`
+    judges: every parameter and buffer of a conv, linear or BN, and the
+    parameters a module names in ``tp_channel_params`` (the predictor's
+    normalization, ``models/heads.PredictorHead``)."""
+    if isinstance(sub, (nn.Conv2d, nn.Linear, nn.BatchNorm2d)):
+        return list(sub.named_parameters(recurse=False)) + list(sub.named_buffers(recurse=False))
+    return [(name, getattr(sub, name)) for name in getattr(sub, "tp_channel_params", ())]
+
+
 @torch.no_grad()
 def shard_module(module: nn.Module, model_size: int, index: int) -> Dict[str, tuple]:
     """Keep model index ``index``'s slice of every sharded parameter and
-    buffer of ``module``'s convs, linears and BNs, in place; returns the
+    buffer of ``module``'s convs, linears and BNs (and of the parameters a
+    submodule names in ``tp_channel_params``), in place; returns the
     layout ``{state-dict name: whole shape}`` of the sharded entries, which
-    is also set as ``module.tp_layout``. Conv and Linear modules keep their
+    is also set as ``module.tp_layout``, and ``(model_size, index)`` as
+    ``module.tp_shard`` (what a second network built like it is sharded
+    by, ``recipes/base.ema_network``). Conv and Linear modules keep their
     whole ``in_channels``/``out_channels``; each shard is marked
     (:func:`is_tp_sharded`), which is how the forward
     (``models/resnet.tp_input``, ``models/heads.head_forward``), LARS, the
     health norm and the checkpoint tell a sharded leaf. Call before the
     optimizer is built."""
     layout: Dict[str, tuple] = {}
+    module.tp_shard = (model_size, index)
     if model_size == 1:
         module.tp_layout = layout
         return layout
     for prefix, sub in module.named_modules():
-        if not isinstance(sub, (nn.Conv2d, nn.Linear, nn.BatchNorm2d)):
-            continue
-        for name, t in list(sub.named_parameters(recurse=False)) + list(
-                sub.named_buffers(recurse=False)):
+        for name, t in _shardable(sub):
             if t is None or tp_shard_dim(tuple(t.shape), model_size) is None:
                 continue
             shard = shard_of(t.detach(), model_size, index).clone()

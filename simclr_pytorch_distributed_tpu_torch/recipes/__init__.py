@@ -59,7 +59,10 @@ def build_recipe(cfg) -> Recipe:
     """The recipe of a finalized ``SupConConfig``. A trainable recipe's
     predictor optimizer is ``train/state.make_optimizer``: the encoder's
     momentum, weight decay and ``sgd``/``lars``, its learning rate set each
-    step from the run's schedule (``train/supcon_step.py``)."""
+    step from the run's schedule (``train/supcon_step.py``), and the
+    encoder's model group, over which LARS sums a sharded predictor leaf's
+    norms (``None`` without a grid)."""
+    from simclr_pytorch_distributed_tpu_torch.parallel import mesh
     from simclr_pytorch_distributed_tpu_torch.train.state import make_optimizer
 
     name = cfg.recipe
@@ -74,7 +77,7 @@ def build_recipe(cfg) -> Recipe:
                             cov_coeff=cfg.vicreg_cov_coeff)
     predictor_optimizer = functools.partial(
         make_optimizer, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
-        optimizer=cfg.optimizer)
+        optimizer=cfg.optimizer, model_group=mesh.model_group())
     if name == "byol":
         ablated = cfg.byol_predictor == "none"
         return BYOLRecipe(predictor_hidden=None if ablated else cfg.predictor_hidden,

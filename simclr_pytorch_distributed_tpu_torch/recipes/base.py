@@ -31,6 +31,16 @@ statistics and updates their own BN buffers, which nothing reads, so the
 online model's buffers never move with the second forward (JAX discards
 that forward's batch-statistics mutation). Only their parameters are
 checkpointed, as in the JAX package.
+
+Under tensor parallelism (``--model_parallel N``) the online model holds
+its model index's shards (``parallel/mesh.shard_module``), and so does
+every network built beside it (:func:`shard_like`): an EMA network is
+built whole, sharded as the online model is, then loaded, so it carries
+the same shard marks and its forward takes the same model-group
+collectives; the predictor is drawn whole from the slot generator (every
+rank draws the same values, the init of one process), then sharded before
+its optimizer is built. The EMA update is elementwise, so it runs shard by
+shard.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from simclr_pytorch_distributed_tpu_torch.parallel import mesh
 # re-exported: the context lives beside the step that builds it, so the
 # step never imports recipes/
 from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (  # noqa: F401
@@ -85,12 +96,24 @@ class Recipe:
         return recipe_state
 
 
+def shard_like(module: nn.Module, model: nn.Module) -> nn.Module:
+    """``module`` (whole) sharded in place as ``model`` is: over its model
+    group's ``N`` at its model index (``model.tp_shard``, which
+    ``parallel/mesh.shard_module`` sets); nothing changes for an unsharded
+    ``model``. Returns ``module``."""
+    model_size, index = getattr(model, "tp_shard", (1, 0))
+    if model_size > 1:
+        mesh.shard_module(module, model_size, index)
+    return module
+
+
 def ema_network(model: nn.Module) -> nn.Module:
     """A second ``SupConResNet`` equal to ``model``: built fresh (never a
     deep copy of a module that may hold a process group) with its conv
     path, compute dtype and BN group, on its device in its parameter dtype,
-    loaded from its state dict, frozen (no gradient) and in train mode. The
-    global generator is left as it was."""
+    sharded as ``model`` is (:func:`shard_like`), loaded from its state
+    dict, frozen (no gradient) and in train mode. The global generator is
+    left as it was."""
     from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
 
     device, dtype = next(model.parameters()).device, next(model.parameters()).dtype
@@ -100,6 +123,7 @@ def ema_network(model: nn.Module) -> nn.Module:
     net.encoder.set_conv_impl(enc.conv_impl).set_compute_dtype(enc.compute_dtype)
     net.encoder.set_bn_sync(enc.bn_group)
     net = net.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+    shard_like(net, model)
     net.load_state_dict(model.state_dict())
     net.requires_grad_(False)
     return net.train()

@@ -29,6 +29,7 @@ from simclr_pytorch_distributed_tpu_torch.recipes.base import (
     RecipeContext,
     ema_network,
     ema_update_,
+    shard_like,
     slow_forward,
 )
 
@@ -51,6 +52,7 @@ class BYOLRecipe(Recipe):
             with torch.random.fork_rng(devices=[]):
                 predictor = PredictorHead(self.predictor_hidden, self.feat_dim,
                                           generator=generator).to(device)
+            shard_like(predictor, model)
             optimizer = self.make_optimizer(predictor)
         return predictor, optimizer, {"target": ema_network(model)}
 

@@ -14,7 +14,7 @@ import torch
 
 from simclr_pytorch_distributed_tpu_torch.models.heads import PredictorHead
 from simclr_pytorch_distributed_tpu_torch.ops.losses import simsiam_loss
-from simclr_pytorch_distributed_tpu_torch.recipes.base import Recipe, RecipeContext
+from simclr_pytorch_distributed_tpu_torch.recipes.base import Recipe, RecipeContext, shard_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +29,7 @@ class SimSiamRecipe(Recipe):
         with torch.random.fork_rng(devices=[]):
             predictor = PredictorHead(self.predictor_hidden, self.feat_dim,
                                       generator=generator).to(device)
+        shard_like(predictor, model)
         return predictor, self.make_optimizer(predictor), None
 
     def loss(self, cfg, ctx: RecipeContext):

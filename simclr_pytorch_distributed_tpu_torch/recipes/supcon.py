@@ -19,6 +19,16 @@ the pointer and EMA-advances the key encoder. Under a process group the
 keys are gathered into the global view-major order, so the queue is the
 same on every process. The queue starts as L2-normalized Gaussian rows
 from the recipe generator (seed + 2).
+
+Under tensor parallelism the key encoder is sharded as the online model is
+(``recipes/base.ema_network``), and its output comes back whole, so every
+rank of a model group writes the same keys at the same host-int pointer:
+the queue stays whole and replicated over the model group. The JAX package
+shards the queue's feature axis instead; that is a layout, not a result,
+and sharding it here would cost a model-group collective every step for
+the same numbers. No sharding rule reads the queue (``shard_module`` walks
+modules only, and a checkpoint restores it as it was saved), so the
+port's dim-0 rule never splits its rows.
 """
 
 from __future__ import annotations

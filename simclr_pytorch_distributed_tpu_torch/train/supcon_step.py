@@ -87,7 +87,11 @@ model group hold the same rows; inside the forward they trade channel
 slices over the MODEL group (``models/resnet.tp_input``), each computing
 its own channels of every sharded layer, and each takes the optimizer step
 on its own shards. ``global_grad_norm`` sums the squares of the sharded
-gradients over the model group, once each.
+gradients over the model group, once each. A trainable recipe's predictor
+reads the gathered rows whole and trades channels over the model group as
+the head does (``models/heads.PredictorHead``); its shard's gradient is
+its own, divided by ``D`` and averaged over the data group like the
+encoder's; ``post_step`` moves an EMA network shard by shard.
 """
 
 from __future__ import annotations

@@ -50,9 +50,11 @@ index's shards of the sharded leaves (``parallel/mesh.shard_module``), and
 :func:`capture_state` records which entries those are. A save gathers them
 over the model group first (every process calls :func:`save_checkpoint`),
 so a checkpoint holds whole tensors whatever ``N`` wrote it, and the probe,
-the server and a resume at another ``N`` read it as any other. A restore
-fits each tensor to the model's own shape (``mesh.reshard_like``): a whole
-tensor becomes this process's shard. The
+the server and a resume at another ``N`` read it as any other. The recipe
+payload's shards (the predictor, its momentum, an EMA network) are
+gathered alike; the MoCo queue is whole on every rank and saved as it is.
+A restore fits each tensor to the model's or the slot's own shape
+(``mesh.reshard_like``): a whole tensor becomes this process's shard. The
 JAX counterparts: ``resume_position`` ``utils/checkpoint.py:96``,
 ``resolve_resume_path :372``, ``restore_checkpoint :428``,
 ``save_classifier :567``, ``load_classifier :577``.
@@ -115,22 +117,42 @@ def _slot_snapshot(value, clone):
     return clone(value) if isinstance(value, torch.Tensor) else value
 
 
+def _sharded_slot_paths(value) -> list:
+    """The paths, in a slot's :func:`_slot_snapshot`, of the entries that
+    hold shards (``parallel/mesh.is_tp_sharded``): a module's sharded
+    parameters by name, an optimizer's state entries of sharded parameters
+    (``('state', i)``), a dict's entries' own. A plain tensor (the queue)
+    is never one."""
+    if isinstance(value, nn.Module):
+        return [(k,) for k, p in value.named_parameters() if mesh.is_tp_sharded(p)]
+    if isinstance(value, torch.optim.Optimizer):
+        params = [p for group in value.param_groups for p in group["params"]]
+        return [("state", i) for i, p in enumerate(params) if mesh.is_tp_sharded(p)]
+    if isinstance(value, dict):
+        return [(k, *path) for k, v in value.items() for path in _sharded_slot_paths(v)]
+    return []
+
+
 @torch.no_grad()
 def _restore_slot(current, saved):
     """Put a :func:`_slot_snapshot` back into the live slot ``current``;
-    returns the slot (a new value for a plain entry). Raises on a name or
-    shape that does not match."""
+    returns the slot (a new value for a plain entry). A module's parameters
+    and an optimizer's buffers are fitted to the slot's shards first
+    (``mesh.reshard_like``: a whole save restores under any
+    ``--model_parallel``); a plain tensor is restored as it was saved.
+    Raises on a name or shape that does not match."""
     if isinstance(current, nn.Module):
         params = dict(current.named_parameters())
         if params.keys() != saved.keys():
             raise ValueError(f"parameters {sorted(set(params) ^ set(saved))[:4]} differ")
+        saved = mesh.reshard_like(saved, params)
         for k, p in params.items():
             if p.shape != saved[k].shape:
                 raise ValueError(f"{k}: shape {tuple(saved[k].shape)} != {tuple(p.shape)}")
             p.copy_(saved[k])
         return current
     if isinstance(current, torch.optim.Optimizer):
-        current.load_state_dict(saved)
+        current.load_state_dict(_reshard_optimizer(saved, current))
         return current
     if isinstance(current, dict):
         if current.keys() != saved.keys():
@@ -187,11 +209,15 @@ def capture_state(state, generator: torch.Generator, copy: bool = False) -> dict
         queue = getattr(state.recipe, "moco_queue", 0)
         snapshot["recipe"] = {"name": state.recipe.name, "moco_queue": int(queue), **slots}
     layout = getattr(state.model, "tp_layout", None)
-    if layout:
+    recipe_paths = [(slot, *path) for slot in RECIPE_SLOTS
+                    if (value := getattr(state, slot, None)) is not None
+                    for path in _sharded_slot_paths(value)]
+    if layout or recipe_paths:
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
         snapshot["tp_layout"] = {
-            "model": sorted(layout),
+            "model": sorted(layout or ()),
             "optimizer": [i for i, p in enumerate(params) if mesh.is_tp_sharded(p)],
+            "recipe": recipe_paths,
         }
     return snapshot
 
@@ -201,10 +227,29 @@ def _whole(t: torch.Tensor) -> torch.Tensor:
     return torch.cat(collectives.all_gather(t, mesh.model_group()))
 
 
+def _whole_entry(entry):
+    """A sharded entry made whole: a shard, or an optimizer state entry's
+    buffers (its 0-dim step count kept)."""
+    if isinstance(entry, torch.Tensor):
+        return _whole(entry)
+    return {k: _whole(v) if isinstance(v, torch.Tensor) and v.dim() else v
+            for k, v in entry.items()}
+
+
+def _whole_at(tree: dict, path: tuple) -> dict:
+    """``tree`` with its entry at ``path`` gathered whole (:func:`_whole_entry`),
+    the dicts along the path copied; an entry the tree does not hold yet
+    (an optimizer state before the first step) is left out."""
+    head, rest = path[0], path[1:]
+    if head not in tree:
+        return tree
+    return {**tree, head: _whole_at(tree[head], rest) if rest else _whole_entry(tree[head])}
+
+
 def whole_snapshot(snapshot: dict) -> dict:
-    """``snapshot`` with its sharded entries (its ``tp_layout``) gathered
-    whole over the model group, and the layout dropped: what a checkpoint
-    holds. Collective over the model group; a snapshot without a layout (or
+    """``snapshot`` with its sharded entries (its ``tp_layout``: the model,
+    the optimizer and the recipe payload) gathered whole over the model
+    group, and the layout dropped: what a checkpoint holds. Collective over the model group; a snapshot without a layout (or
     the ``None`` that a process holding no backup passes) is returned as it
     is."""
     tp = snapshot.get("tp_layout") if snapshot else None
@@ -214,10 +259,11 @@ def whole_snapshot(snapshot: dict) -> dict:
     out["model"] = {k: _whole(v) if k in tp["model"] else v
                     for k, v in snapshot["model"].items()}
     opt = dict(snapshot["optimizer"])
-    opt["state"] = {i: ({k: _whole(v) if isinstance(v, torch.Tensor) and v.dim() else v
-                         for k, v in entry.items()} if i in tp["optimizer"] else entry)
+    opt["state"] = {i: _whole_entry(entry) if i in tp["optimizer"] else entry
                     for i, entry in snapshot["optimizer"]["state"].items()}
     out["optimizer"] = opt
+    for path in tp["recipe"]:
+        out["recipe"] = _whole_at(out["recipe"], path)
     return out
 
 

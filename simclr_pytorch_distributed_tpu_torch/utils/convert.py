@@ -30,7 +30,9 @@ copy of that mapping (the port imports nothing of the JAX package):
 - under tensor parallelism (:func:`variables_to_shard_state_dict`), a
   tree's leaves as one model index's shards: the state dict above, each
   leaf that ``parallel/mesh.tp_shard_dim`` shards sliced on its
-  output-channel dim 0 (JAX's trailing axis, where ``tp_leaf_spec`` cuts).
+  output-channel dim 0 (JAX's trailing axis, where ``tp_leaf_spec`` cuts),
+  and the recipe slots likewise (:func:`recipe_slots_to_shard_torch`), the
+  MoCo queue whole on every rank.
 """
 
 from __future__ import annotations
@@ -287,6 +289,23 @@ def recipe_slots_to_torch(recipe_params=None, recipe_state=None) -> dict:
             else:
                 raise ValueError(f"cannot place recipe_state/{key}")
         out["recipe_state"] = state
+    return out
+
+
+def recipe_slots_to_shard_torch(model_size: int, model_index: int, recipe_params=None,
+                                recipe_state=None) -> dict:
+    """:func:`recipe_slots_to_torch`'s snapshot as model index
+    ``model_index`` holds it under ``--model_parallel model_size``: the
+    predictor's and the EMA networks' shards (``parallel/mesh.shard_state_dict``,
+    what ``recipes/base.shard_like`` leaves in slots built from the same
+    trees); the queue whole and the pointer as they are, on every rank."""
+    out = recipe_slots_to_torch(recipe_params, recipe_state)
+    if "recipe_params" in out:
+        out["recipe_params"] = shard_state_dict(out["recipe_params"], model_size, model_index)
+    for key in _EMA_SLOTS.values():
+        if key in out.get("recipe_state", {}):
+            out["recipe_state"][key] = shard_state_dict(out["recipe_state"][key], model_size,
+                                                        model_index)
     return out
 
 

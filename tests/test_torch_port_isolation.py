@@ -254,3 +254,29 @@ def test_the_port_lint_scripts_import_no_jax(script):
 def test_the_port_tensor_parallel_scripts_import_no_jax(script):
     path = REPO / "scripts" / script
     assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+
+
+# the recipes' offline readers: the health report (plain Python and json,
+# the JAX package's scripts/health_report.py) and the scripts that run it
+# and the recipes' evidence
+RECIPE_READER_MODULES = ("utils/health_report.py", "utils/guard.py", "utils/tracing.py")
+
+
+@pytest.mark.parametrize("module", RECIPE_READER_MODULES)
+def test_the_scan_covers_the_recipe_readers(module):
+    path = PACKAGE / module
+    assert path in _sources()
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+    # the report reads json with the standard library: nothing at import
+    # time needs torch or numpy
+    top_level = [alias.name if isinstance(node, ast.Import) else node.module
+                 for node in ast.parse(path.read_text()).body
+                 if isinstance(node, (ast.Import, ast.ImportFrom))
+                 for alias in (node.names if isinstance(node, ast.Import) else [None])]
+    assert not [name for name in top_level if name.split(".")[0] in ("torch", "numpy")]
+
+
+@pytest.mark.parametrize("script", ["port_health_report.py", "port_recipes_eval.py"])
+def test_the_recipe_reader_scripts_import_no_jax(script):
+    path = REPO / "scripts" / script
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]

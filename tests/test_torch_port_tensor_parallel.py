@@ -40,6 +40,8 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 import torch_parallel_child as child
+from simclr_pytorch_distributed_tpu import config as jax_config
+from simclr_pytorch_distributed_tpu import recipes as jax_recipes
 from simclr_pytorch_distributed_tpu.models import SupConResNet as JaxSupConResNet
 from simclr_pytorch_distributed_tpu.ops.schedules import (
     make_lr_schedule as jax_make_lr_schedule,
@@ -49,7 +51,9 @@ from simclr_pytorch_distributed_tpu.train import state as jax_state
 from simclr_pytorch_distributed_tpu.train import supcon_step as jax_step
 from simclr_pytorch_distributed_tpu_torch import config as config_lib
 from simclr_pytorch_distributed_tpu_torch.models import SupConResNet
+from simclr_pytorch_distributed_tpu_torch.models.heads import PredictorHead
 from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+from simclr_pytorch_distributed_tpu_torch.utils import checkpoint, convert
 from simclr_pytorch_distributed_tpu_torch.utils.convert import (
     state_dict_to_variables,
     variables_to_shard_state_dict,
@@ -75,15 +79,35 @@ RESUME_REL_L2 = 1e-4  # a resume against the straight run it continues
 MOMENTUM_REL_L2 = 5e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def started(request, tmp_path_factory):
+    """The three spawns, started together as the module begins when any of
+    its selected tests reads them, so they overlap each other and the
+    in-process tests: ``{W: (processes, outdir)}``."""
+    wanted = any("results" in item.fixturenames for item in request.session.items
+                 if item.module is request.module)
+    procs = {}
+    if wanted:
+        for world, _, _ in LAYOUTS:
+            outdir = tmp_path_factory.mktemp(f"tp{world}")
+            procs[world] = (child.start(world, outdir, "tp"), outdir)
+    yield procs
+    for group, _ in procs.values():
+        for proc in group:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 @pytest.fixture(scope="module")
-def results(tmp_path_factory):
-    """``results(W)``: the W processes' tp-suite results, one spawn each."""
+def results(started):
+    """``results(W)``: the W processes' tp-suite results."""
     spawned = {}
 
     def get(world):
         if world not in spawned:
-            outdir = tmp_path_factory.mktemp(f"tp{world}")
-            spawned[world] = child.spawn(world, outdir, "tp")
+            group, outdir = started[world]
+            spawned[world] = child.collect(group, outdir)
             for r in range(world):  # read: ~0.1-0.3 GB a rank on disk
                 (outdir / f"rank{r}.pt").unlink()
         return spawned[world]
@@ -255,11 +279,19 @@ def test_pretrain_parser_takes_model_parallel():
 
 @pytest.mark.parametrize("extra", [["--recipe", "byol"], ["--recipe", "simsiam"],
                                    ["--recipe", "vicreg"], ["--moco_queue", "512"]])
-def test_recipes_without_a_tp_port_are_refused_by_name(extra):
-    argv = ["--dataset", "synthetic", "--model_parallel", "2"] + extra
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
-        config_lib.parse_supcon(argv)
-    config_lib.parse_supcon(argv[:2] + extra)  # accepted at --model_parallel 1
+def test_pretrain_parser_takes_every_recipe_under_model_parallel(extra):
+    cfg = config_lib.parse_supcon(["--dataset", "synthetic", "--model_parallel", "2"] + extra)
+    assert cfg.model_parallel == 2
+    assert (cfg.recipe, cfg.moco_queue) == ((extra[1], 0) if extra[0] == "--recipe"
+                                            else ("simclr", 512))
+
+
+@pytest.mark.parametrize("loss_impl", ["fused", "ring"])
+def test_moco_queue_takes_the_dense_loss_only_under_model_parallel(loss_impl):
+    argv = ["--dataset", "synthetic", "--model_parallel", "2", "--moco_queue", "512"]
+    with pytest.raises(ValueError, match="--loss_impl dense"):
+        config_lib.parse_supcon(argv + ["--loss_impl", loss_impl])
+    assert config_lib.parse_supcon(argv + ["--loss_impl", "auto"]).loss_impl == "auto"
 
 
 @pytest.mark.parametrize("index", range(N))
@@ -511,3 +543,348 @@ def test_tp_driver_resumes_across_model_parallel(results, src, dst):
     np.testing.assert_allclose(resumed["losses"], straight["losses"][-steps:],
                                rtol=STEP_LOSS_RTOL)
     assert rel_l2(resumed["last"]["model"], straight["last"]["model"]) < RESUME_REL_L2
+
+
+# -- the recipes under --model_parallel -------------------------------------
+
+RECIPE_METRIC_RTOL = 1e-4  # test_torch_port_recipe_step.py's pins
+RECIPE_RTOL, RECIPE_ATOL = 1e-3, 1e-5
+RECIPE_WORLDS = [(w, name) for w in WORLDS for name in child.TP_RECIPE_CASES]
+# the one documented exception to the sharding rule: the MoCo queue is
+# whole and replicated over the model group (JAX shards its feature axis)
+WHOLE_SLOTS = ("queue_emb", "queue_ptr")
+RECIPE_DRIVER_EPOCH = 4  # steps: the 64-image set at batch 16
+
+
+def jax_recipe_steps(name, feat=child.FEAT):
+    """The JAX package's one-device ``make_train_step(recipe=...)`` over the
+    global batches from the recipe case's converted init (``--syncBN``):
+    ``(history, final state dict, final slots by the children's names)``."""
+    variables, slots = child.tp_recipe_init(name, feat)
+    over = dict(child.TP_RECIPE_CASES[name], feat_dim=feat, batch_size=child.B,
+                predictor_hidden=child.TP_RECIPE_HIDDEN, ema_momentum=child.TP_RECIPE_EMA)
+    jcfg = jax_config.SupConConfig(**over)
+    jax_config.validate_recipe(jcfg)
+    schedule = jax_make_lr_schedule(**child.SCHED)
+    jrecipe = jax_recipes.build_recipe(jcfg, schedule=schedule)
+    tx = jax_state.make_optimizer(schedule, momentum=0.9, weight_decay=1e-4)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    jslots = jax.tree.map(jnp.asarray, slots)
+    jstate = jax_state.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
+        opt_state=tx.init(params), record_norm_mean=jnp.zeros((), jnp.float32),
+        recipe_params=jslots.get("recipe_params"),
+        recipe_opt_state=(jrecipe.tx.init(jslots["recipe_params"])
+                          if "recipe_params" in jslots else None),
+        recipe_state=jslots.get("recipe_state"),
+    )
+    jmodel = JaxSupConResNet(model_name="resnet10", head="mlp", feat_dim=feat, sync_bn=True,
+                             bn_local_groups=1, bn_group_views=2)
+    step = jax.jit(jax_step.make_train_step(
+        jmodel, tx, schedule,
+        jax_step.SupConStepConfig(method="SimCLR", loss_impl="dense", **child.STEP_KW),
+        recipe=jrecipe))
+    views, labels = child.step_inputs()
+    history = []
+    for i in range(child.STEPS):
+        jstate, m = step(jstate, jnp.asarray(views[i].numpy()), jnp.asarray(labels.numpy()))
+        history.append({k: float(v) for k, v in m.items() if np.ndim(v) == 0})
+    final = variables_to_state_dict({"params": jstate.params,
+                                     "batch_stats": jstate.batch_stats})
+    got = convert.recipe_slots_to_torch(
+        *jax.device_get((jstate.recipe_params, jstate.recipe_state)))
+    flat = {f"predictor.{k}": v for k, v in got.get("recipe_params", {}).items()}
+    for key, value in got.get("recipe_state", {}).items():
+        if isinstance(value, dict):
+            flat.update({f"{key}.{k}": v for k, v in value.items()})
+        else:
+            flat[key] = torch.as_tensor(value)
+    return history, final, flat
+
+
+@pytest.fixture(scope="module")
+def jax_recipe_reference():
+    done = {}
+
+    def get(name, feat=child.FEAT):
+        if (name, feat) not in done:
+            done[(name, feat)] = jax_recipe_steps(name, feat)
+        return done[(name, feat)]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def recipe_reference():
+    """``recipe_reference(name)``: the one-process port recipe case on one
+    thread, as each child runs."""
+    done = {}
+
+    def get(name, feat=child.FEAT):
+        if (name, feat) not in done:
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                done[(name, feat)] = child.tp_recipe_case(name, False, feat)
+            finally:
+                torch.set_num_threads(threads)
+        return done[(name, feat)]
+
+    return get
+
+
+def assemble_whole(ranks, name, whole, key, n):
+    """A recipe case's whole tensors from data slice 0's ``n`` ranks: a
+    tensor of its whole shape (``whole``) as rank 0 holds it, a shard
+    concatenated over the model group."""
+    out = {}
+    for k, ref in whole.items():
+        parts = [r["recipe"][name][key][k] for r in ranks[:n]]
+        out[k] = parts[0] if tuple(parts[0].shape) == tuple(ref.shape) else torch.cat(parts)
+    return out
+
+
+def expected_shard(k, v, n, index):
+    return v if k in WHOLE_SLOTS or not v.dim() else mesh.shard_of(v, n, index)
+
+
+def check_recipe_against_jax(ranks, name, jax_ref, one_process, n, feat):
+    history, final, slots = jax_ref
+    recipe_keys = child.recipes.recipe_metric_keys(child.TP_RECIPE_CASES[name]["recipe"])
+    for r, out in enumerate(ranks):
+        for step, (got, want) in enumerate(zip(out["recipe"][name]["history"], history)):
+            for key in ("loss", "record_norm_mean", "loss_sec", *recipe_keys):
+                np.testing.assert_allclose(got[key], want[key], rtol=RECIPE_METRIC_RTOL,
+                                           err_msg=f"{name} rank {r} step {step} {key}")
+    state = assemble_whole(ranks, name, one_process["state"], "state", n)
+    assert_close_state(state, final, atol=RECIPE_ATOL, rtol=RECIPE_RTOL)
+    got = assemble_whole(ranks, name, one_process["slots"], "slots", n)
+    assert {k for k in got if not k.startswith("predictor_momentum.")} == set(slots)
+    for k, want in slots.items():
+        np.testing.assert_allclose(got[k].numpy(), want.numpy(), rtol=RECIPE_RTOL,
+                                   atol=RECIPE_ATOL, err_msg=f"{name} {k}")
+
+
+@pytest.mark.parametrize("world,name", RECIPE_WORLDS)
+def test_tp_recipe_step_matches_the_jax_recipe_step(results, jax_recipe_reference,
+                                                    recipe_reference, world, name):
+    check_recipe_against_jax(results(world), name, jax_recipe_reference(name),
+                             recipe_reference(name), N, child.FEAT)
+
+
+@pytest.mark.parametrize("world,name", RECIPE_WORLDS)
+def test_each_rank_holds_its_slice_of_the_one_process_recipe_step(results, recipe_reference,
+                                                                  world, name):
+    ref = recipe_reference(name)
+    for r, out in enumerate(results(world)):
+        case = out["recipe"][name]
+        assert case["init_is_converted"], r
+        np.testing.assert_allclose([h["loss"] for h in case["history"]],
+                                   [h["loss"] for h in ref["history"]], rtol=STEP_LOSS_RTOL)
+        for key in ("state", "slots"):
+            sliced = {k: expected_shard(k, v, N, r % N) for k, v in ref[key].items()}
+            got = case[key]
+            assert set(got) == set(sliced), key
+            for k, v in sliced.items():
+                assert tuple(got[k].shape) == tuple(v.shape), k
+            if key == "state":
+                assert_close_state(got, sliced)
+                continue
+            for k, v in sliced.items():
+                if k.startswith("predictor_momentum."):
+                    assert rel_l2({k: got[k]}, {k: v}) < MOMENTUM_REL_L2, k
+                else:
+                    np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=PARAM_RTOL,
+                                               atol=PARAM_ATOL, err_msg=f"{name} rank {r} {k}")
+        sharded = {k for k, v in case["slots"].items() if v.shape != ref["slots"][k].shape}
+        # the predictor (fc1, its normalization) and the EMA network are
+        # really sharded; vicreg has no slot
+        assert bool(sharded) == (name != "vicreg") and not sharded & set(WHOLE_SLOTS), name
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_the_queue_is_whole_and_the_same_on_every_rank(results, world):
+    """K = 64 at N = 2 passes the dim-0 rule, which would split the queue by
+    rows: nothing reads the rule for it, and every rank holds it whole."""
+    k = child.TP_RECIPE_CASES["simclr_queue"]["moco_queue"]
+    assert mesh.tp_shard_dim((k, child.FEAT), N) == 0
+    ranks = results(world)
+    first = ranks[0]["recipe"]["simclr_queue"]["slots"]
+    assert tuple(first["queue_emb"].shape) == (k, child.FEAT)
+    for out in ranks:
+        slots = out["recipe"]["simclr_queue"]["slots"]
+        for key in WHOLE_SLOTS:
+            assert torch.equal(slots[key], first[key]), key
+
+
+def test_mixed_layout_byol_matches_jax(results, jax_recipe_reference, recipe_reference):
+    """N = 3 with the 96-wide head: the predictor's 128-wide hidden layer
+    fails % 3 and stays replicated, and its sharded fc2 reads that whole
+    hidden layer, which carries a gradient (``collectives.reduce_grad``)."""
+    name = "byol"
+    ranks = results(MIXED_WORLD)
+    one = recipe_reference(name, MIXED_FEAT)
+    # the replicated leaves (the encoder, the predictor's fc1 and norm) stay
+    # bitwise equal over the model group: without the summed gradient each
+    # rank's would take its own share
+    for key in ("state", "slots"):
+        first = ranks[0]["recipe"][name][key]
+        for r in range(1, MIXED_N):
+            for k, v in ranks[r]["recipe"][name][key].items():
+                if v.shape == one[key][k].shape and k not in WHOLE_SLOTS:
+                    assert torch.equal(v, first[k]), (key, r, k)
+    check_recipe_against_jax(ranks, name, jax_recipe_reference(name, MIXED_FEAT), one,
+                             MIXED_N, MIXED_FEAT)
+    shapes = {k: tuple(v.shape) for k, v in ranks[0]["recipe"][name]["slots"].items()}
+    assert shapes["predictor.fc2.weight"] == (MIXED_FEAT // MIXED_N, child.TP_RECIPE_HIDDEN)
+    assert shapes["predictor.fc1.weight"] == (child.TP_RECIPE_HIDDEN, MIXED_FEAT)
+    assert shapes["predictor.bn_scale"] == (child.TP_RECIPE_HIDDEN,)
+    for r, out in enumerate(ranks):
+        got = out["recipe"][name]["slots"]
+        for k, v in one["slots"].items():
+            want = expected_shard(k, v, MIXED_N, r)
+            if not k.startswith("predictor_momentum."):
+                np.testing.assert_allclose(got[k].numpy(), want.numpy(), rtol=PARAM_RTOL,
+                                           atol=PARAM_ATOL, err_msg=f"rank {r} {k}")
+
+
+def slot_leaf_shapes(hidden, feat):
+    """Each port recipe-slot tensor's shape beside the shape of the JAX slot
+    leaf the bridge maps it to: a BYOL predictor and target, and a queue's
+    key encoder (filled with each tensor's index, as :func:`leaf_shapes`)."""
+    torch.manual_seed(3)
+    model = SupConResNet("resnet10", "mlp", feat)
+    state = child.TrainState(model, child.make_optimizer(model),
+                             child.make_lr_schedule(**child.SCHED))
+    pairs = {}
+    for over in (dict(recipe="byol"), dict(recipe="simclr", moco_queue=64)):
+        offset = len(pairs)
+        cfg = config_lib.SupConConfig(**over, feat_dim=feat, predictor_hidden=hidden,
+                                      batch_size=child.B)
+        child.recipes.attach_for_config(cfg, state)
+        mods = {"predictor": state.recipe_params} if state.recipe_params is not None else {}
+        mods.update((k, v) for k, v in state.recipe_state.items()
+                    if isinstance(v, torch.nn.Module))
+        tensors = [(f"{m}.{k}", p) for m, mod in mods.items() for k, p in mod.named_parameters()]
+        with torch.no_grad():
+            for i, (_, p) in enumerate(tensors):
+                p.fill_(float(offset + i))
+        trees = convert.recipe_slots_from_torch(state.recipe_params, {
+            k: v for k, v in state.recipe_state.items() if isinstance(v, torch.nn.Module)})
+        for leaf in jax.tree.leaves(trees):
+            leaf = np.asarray(leaf)
+            key, p = tensors[int(leaf.reshape(-1)[0]) - offset]
+            pairs[key] = (tuple(p.shape), leaf.shape)
+    return pairs
+
+
+@pytest.mark.parametrize("n", (2, 4))
+@pytest.mark.parametrize("hidden,feat", [(128, 16), (512, 128)])
+def test_tp_shard_dim_of_the_recipe_slots_matches_jax_tp_leaf_spec(hidden, feat, n):
+    pairs = slot_leaf_shapes(hidden, feat)
+    assert {k.split(".")[0] for k in pairs} == {"predictor", "target", "key"}
+    sharded = set()
+    for key, (port_shape, jax_shape) in pairs.items():
+        jax_sharded = tp_leaf_spec(jax_shape, n) != P()
+        assert (mesh.tp_shard_dim(port_shape, n) == 0) == jax_sharded, key
+        if jax_sharded:
+            sharded.add(key)
+    assert {"predictor.fc1.weight", "predictor.bn_scale", "predictor.bn_bias"} <= sharded
+    # shard_module shards exactly those leaves of a live predictor
+    predictor = PredictorHead(hidden, feat)
+    layout = mesh.shard_module(predictor, n, 0)
+    assert {f"predictor.{k}" for k in layout} == {k for k in sharded
+                                                   if k.startswith("predictor.")}
+    # the queue is the documented exception: JAX shards a 128-wide queue's
+    # feature axis, the port keeps it whole (never a path the rule reads)
+    assert (tp_leaf_spec((64, feat), n) != P()) == (feat >= 64)
+
+
+def test_capture_state_lists_the_recipe_shards_and_never_the_queue():
+    """The checkpoint's gather list under N = 2 (no process group needed to
+    read it): the key encoder's sharded parameters, not the queue."""
+    model = init_sharded_model()
+    state = child.TrainState(model, child.make_optimizer(model),
+                             child.make_lr_schedule(**child.SCHED))
+    cfg = config_lib.SupConConfig(recipe="simclr", moco_queue=64, feat_dim=child.FEAT,
+                                  batch_size=child.B)
+    child.recipes.attach_for_config(cfg, state)
+    snap = checkpoint.capture_state(state, torch.Generator())
+    paths = snap["tp_layout"]["recipe"]
+    key = state.recipe_state["key"]
+    assert paths == [("recipe_state", "key", k) for k, p in key.named_parameters()
+                     if mesh.is_tp_sharded(p)]
+    assert paths and tuple(state.recipe_state["queue_emb"].shape) == (64, child.FEAT)
+    assert key.tp_layout == model.tp_layout
+
+
+def init_sharded_model():
+    torch.manual_seed(3)
+    model = SupConResNet("resnet10", "mlp", child.FEAT)
+    mesh.shard_module(model, N, 1)
+    return model
+
+
+@pytest.mark.parametrize("name", child.TP_RECIPE_DRIVER_CASES)
+def test_tp_recipe_driver_saves_whole_tensors_and_resumes_across_n(results, name):
+    """Every save, the N = 2 runs' included, holds whole tensors, the recipe
+    payload too; each resume's first epoch (4 steps at the other N) against
+    the same epoch of the run it continues, with the slots restored."""
+    runs = results(2)[0]["recipe_driver"][name]
+    assert {k: r["code"] for k, r in runs.items()} == {k: 0 for k in runs}
+    whole = {k: tuple(v.shape) for k, v in checkpoint_payload_shapes(name).items()}
+    for run in runs.values():
+        for save in child.TP_RECIPE_DRIVER_SAVES:
+            if save in run:  # the last resume starts after the second epoch
+                assert {k: tuple(v.shape) for k, v in flat_payload(run[save]["recipe"]).items()
+                        } == whole
+    for key, src, straight, save in (("resume_2_1", 1, runs["n2"], "ckpt_epoch_2.pth"),
+                                     ("resume_1_2", 2, runs["resume_2_1"], "last.pth")):
+        resumed = runs[key]
+        assert f"ckpt_epoch_{src}.pth at epoch {src + 1} step 0" in resumed["log"]
+        assert "start fresh" not in resumed["log"] and "recipe slots" not in resumed["log"]
+        first = resumed["losses"][:RECIPE_DRIVER_EPOCH]
+        np.testing.assert_allclose(first, straight["losses"][-len(resumed["losses"]):][:len(first)],
+                                   rtol=STEP_LOSS_RTOL)
+        assert rel_l2(resumed[save]["model"], straight[save]["model"]) < RESUME_REL_L2
+        mine, want = flat_payload(resumed[save]["recipe"]), flat_payload(straight[save]["recipe"])
+        assert rel_l2({k: v for k, v in mine.items() if k != "queue_ptr"},
+                      {k: v for k, v in want.items() if k != "queue_ptr"}) < RESUME_REL_L2
+        assert int(mine.get("queue_ptr", 0)) == int(want.get("queue_ptr", 0))
+
+
+def flat_payload(payload):
+    """A checkpoint's recipe payload as ``{path: tensor}`` (the predictor,
+    its momentum buffers, the EMA network, the queue and its pointer)."""
+    out = {}
+
+    def walk(prefix, value):
+        if isinstance(value, dict):
+            for k, v in value.items():
+                walk(f"{prefix}.{k}" if prefix else str(k), v)
+        elif isinstance(value, torch.Tensor) and value.is_floating_point():
+            out[prefix] = value
+        elif prefix.endswith("queue_ptr"):
+            out["queue_ptr"] = torch.tensor(float(value))
+
+    for slot in checkpoint.RECIPE_SLOTS:
+        if slot in payload:
+            walk(slot, payload[slot] if slot != "recipe_opt_state" else payload[slot]["state"])
+    return out
+
+
+def checkpoint_payload_shapes(name):
+    """The recipe payload a one-process run of the driver case saves, by
+    :func:`flat_payload`'s paths (shapes only: the whole tensors)."""
+    argv = child.TP_RECIPE_DRIVER_ARGV + child.TP_RECIPE_DRIVER_CASES[name]
+    cfg = config_lib.parse_supcon(argv + ["--workdir", "unused"])
+    torch.manual_seed(cfg.seed)
+    model = SupConResNet(cfg.model, cfg.head, cfg.feat_dim)
+    state = child.TrainState(model, child.make_optimizer(model),
+                             child.make_lr_schedule(**child.SCHED))
+    child.recipes.attach_for_config(cfg, state)
+    if state.recipe_params is not None:  # the momentum buffers a step makes
+        for p in state.recipe_params.parameters():
+            state.recipe_opt_state.state[p]["momentum_buffer"] = torch.zeros_like(p)
+    return flat_payload(checkpoint.capture_state(state, torch.Generator())["recipe"])

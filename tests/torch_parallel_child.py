@@ -39,7 +39,10 @@ here from numpy seeds, by functions the tests import too. The suites:
   momentum, the health gradient norm), one case's collectives counted by
   group (``utils/profiling.count_collectives``); at WORLD = 2 also a data-parallel
   step before and after a grid of ``N = 1`` (bitwise the same), and the
-  driver at ``N = 2`` and ``N = 1`` with a resume from each into the other.
+  driver at ``N = 2`` and ``N = 1`` with a resume from each into the other;
+  then the recipe cases of ``TP_RECIPE_CASES`` (at WORLD = 3 byol alone)
+  from converted weights and slots, and at WORLD = 2 the recipe driver
+  (byol and the queue at ``N = 2``, resumed at ``N = 1`` and back).
 - ``fleet``, for ``scripts/port_fleet_launcher.py``: the driver at ``--size 8
   --print_freq 1`` with ARG a JSON object (``workdir``, ``epochs``, ``resume``), the
   sidecar on ``CHILD_METRICS_PORT`` where that is set, and the rank
@@ -91,7 +94,12 @@ from simclr_pytorch_distributed_tpu_torch.train.supcon_step import (  # noqa: E4
     build_online_probe,
     train_step,
 )
-from simclr_pytorch_distributed_tpu_torch.utils import checkpoint, preempt, profiling  # noqa: E402
+from simclr_pytorch_distributed_tpu_torch.utils import (  # noqa: E402
+    checkpoint,
+    convert,
+    preempt,
+    profiling,
+)
 from simclr_pytorch_distributed_tpu_torch.utils.guard import (  # noqa: E402
     NonFiniteLossError,
     RepresentationHealthError,
@@ -582,6 +590,145 @@ TP_MIXED_CASES = ("sync_dense_supcon", "sync_dense_lars_simclr")
 TP_DRIVER_ARGV = DRIVER_ARGV + ["--epochs", "2", "--save_freq", "1", "--print_freq", "4"]
 
 
+# the tp suite's recipe cases (--syncBN, the dense loss): name -> SupConConfig
+# overrides. A 128-wide predictor: at N = 2 its fc1 and normalization are
+# sharded and fc2 (16 wide) is replicated and reads the gathered hidden
+# layer; at N = 3 (TP_MIXED, the 96-wide head) fc1 and the normalization
+# are replicated and fc2 is sharded, reading the whole hidden layer, which
+# carries a gradient. The queue's K = 64 is a multiple of 2B and would pass
+# the dim-0 rule at N = 2, were the rule ever to read it
+TP_RECIPE_CASES = {
+    "byol": dict(recipe="byol"),
+    "simsiam": dict(recipe="simsiam"),
+    "vicreg": dict(recipe="vicreg"),
+    "simclr_queue": dict(recipe="simclr", moco_queue=64),
+}
+TP_RECIPE_HIDDEN, TP_RECIPE_EMA = 128, 0.9
+TP_MIXED_RECIPE_CASES = ("byol",)
+# the tp recipe driver at 8 px: three 4-step epochs; the N = 2 run, its
+# first epoch's save resumed at N = 1, and that run's second epoch's save
+# resumed at N = 2, so each resume's first epoch is held against the run it
+# continues
+TP_RECIPE_DRIVER_ARGV = DRIVER_ARGV + [
+    "--size", "8", "--epochs", "3", "--save_freq", "1", "--print_freq", "4",
+    "--predictor_hidden", str(TP_RECIPE_HIDDEN), "--loss_impl", "dense"]
+TP_RECIPE_DRIVER_SAVES = ("ckpt_epoch_2.pth", "last.pth")
+TP_RECIPE_DRIVER_CASES = {"byol": ["--recipe", "byol"],
+                          "simclr_queue": ["--recipe", "simclr", "--moco_queue", "64"]}
+
+
+def tp_recipe_config(name, feat=FEAT):
+    cfg = config_lib.SupConConfig(**TP_RECIPE_CASES[name], feat_dim=feat, batch_size=B,
+                                  predictor_hidden=TP_RECIPE_HIDDEN, ema_momentum=TP_RECIPE_EMA)
+    config_lib.validate_recipe(cfg)
+    return cfg
+
+
+def tp_recipe_init(name, feat=FEAT):
+    """The whole init of a recipe case as numpy trees, the JAX package's
+    layout: ``(variables, slots)`` of the step cases' rn10 and the recipe
+    slots that one process attaches to it (``utils/convert``)."""
+    model = init_model(feat)
+    state = TrainState(model, make_optimizer(model), make_lr_schedule(**SCHED))
+    recipes.attach_for_config(tp_recipe_config(name, feat), state)
+    return (convert.state_dict_to_variables(model.state_dict()),
+            convert.recipe_slots_from_torch(state.recipe_params, state.recipe_state))
+
+
+def recipe_slot_tensors(state):
+    """The recipe slots of ``state`` by name: the predictor's parameters
+    (``predictor.*``) and momentum (``predictor_momentum.*``), each EMA
+    network's parameters (``target.*``, ``key.*``), ``queue_emb`` and
+    ``queue_ptr`` (a 0-dim tensor)."""
+    out = {}
+    if state.recipe_params is not None:
+        out.update({f"predictor.{k}": v.detach().clone()
+                    for k, v in state.recipe_params.state_dict().items()})
+        opt = state.recipe_opt_state
+        out.update({f"predictor_momentum.{n}": opt.state[p]["momentum_buffer"].clone()
+                    for n, p in state.recipe_params.named_parameters() if p in opt.state})
+    for key, value in (state.recipe_state or {}).items():
+        if isinstance(value, nn.Module):
+            out.update({f"{key}.{k}": p.detach().clone() for k, p in value.named_parameters()})
+        else:
+            out[key] = torch.as_tensor(value).clone()
+    return out
+
+
+def tp_recipe_case(name, distributed, feat=FEAT):
+    """``STEPS`` steps of recipe case ``name`` from the converted whole init
+    (:func:`tp_recipe_init`): under the grid on this process's data slice,
+    with this process's shards of the weights and the slots
+    (``convert.variables_to_shard_state_dict``,
+    ``recipe_slots_to_shard_torch``), or the global batch on one process.
+    Returns the history, the state dict, the slots, and whether the slots
+    the recipe attached under the grid were the converted ones bitwise."""
+    variables, slots = tp_recipe_init(name, feat)
+    views, labels = step_inputs()
+    model = init_model(feat)
+    n, index = (mesh.model_parallel(), mesh.model_index()) if distributed else (1, 0)
+    if distributed:
+        model.encoder.set_bn_sync(mesh.data_group())
+        mesh.shard_module(model, n, index)
+    model.load_state_dict(convert.variables_to_shard_state_dict(variables, n, index))
+    opt = make_optimizer(model, model_group=mesh.model_group() if distributed else None)
+    state = TrainState(model, opt, make_lr_schedule(**SCHED))
+    recipes.attach_for_config(tp_recipe_config(name, feat), state)
+    attached = recipe_slot_tensors(state)
+    checkpoint.restore_recipe_slots(convert.recipe_slots_to_shard_torch(n, index, **slots), state)
+    restored = recipe_slot_tensors(state)
+    cfg = SupConStepConfig(method="SimCLR", loss_impl="dense", **STEP_KW)
+    history = []
+    for i in range(STEPS):
+        imgs, labs = views[i], labels
+        if distributed:
+            d, n_data = mesh.data_index(), mesh.data_parallel()
+            imgs, labs = local_slice(imgs, d, n_data), local_slice(labs, d, n_data)
+        metrics = train_step(state, cfg, imgs, labs)
+        history.append({k: v.item() for k, v in metrics.items()})
+    return {"history": history, "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "slots": recipe_slot_tensors(state),
+            "init_is_converted": attached.keys() == restored.keys() and all(
+                torch.equal(attached[k], restored[k]) for k in attached)}
+
+
+def tp_recipe_driver_cases(outdir):
+    """Each of ``TP_RECIPE_DRIVER_CASES`` through the driver: straight at N
+    = 2, its first epoch's save resumed at N = 1, and that run's second
+    epoch's save resumed at N = 2; rank 0 returns each run's losses, the
+    model and recipe payload of those of its saves of
+    ``TP_RECIPE_DRIVER_SAVES`` that it wrote, and its log."""
+    out = {}
+    for name, extra in TP_RECIPE_DRIVER_CASES.items():
+        runs, folder = {}, {}
+        plan = (("n2", 2, None), ("resume_2_1", 1, ("n2", 1)), ("resume_1_2", 2, ("resume_2_1", 2)))
+        for key, n, src in plan:
+            resume = [] if src is None else [
+                "--resume", os.path.join(folder[src[0]], f"ckpt_epoch_{src[1]}.pth")]
+            code, result = driver_run(os.path.join(outdir, f"tpr_{name}_{key}"),
+                                      "--model_parallel", str(n), *extra, *resume,
+                                      base=TP_RECIPE_DRIVER_ARGV)
+            runs[key] = {"code": code}
+            if result is not None:
+                folder[key] = result.save_folder
+                if mesh.is_main_process():
+                    with open(os.path.join(result.save_folder, "log-ing")) as fh:
+                        log = fh.read()
+                    runs[key].update(losses=[h["loss"] for h in result.history], log=log)
+                    for save in TP_RECIPE_DRIVER_SAVES:
+                        path = os.path.join(result.save_folder, save)
+                        if os.path.exists(path):
+                            saved = torch.load(path, weights_only=True)
+                            runs[key][save] = {k: saved[k] for k in ("model", "recipe")}
+        out[name] = runs
+        # the runs' saves are read: leave none behind
+        mesh.sync_processes("tp recipe driver saves read")
+        if mesh.is_main_process():
+            for path in glob.glob(os.path.join(outdir, f"tpr_{name}_*")):
+                shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
 def tp_layout(world):
     """``(--model_parallel, feat_dim)`` of the tp suite at ``world``."""
     return (TP_MIXED, TP_MIXED_FEAT) if world == TP_MIXED else (TP, FEAT)
@@ -678,8 +825,11 @@ def tp_suite(rank, world, outdir):
             out["collectives"] = profiling.count_collectives(run)
         else:
             run()
+    out["recipe"] = {name: tp_recipe_case(name, True, feat) for name in
+                     (TP_MIXED_RECIPE_CASES if world == TP_MIXED else TP_RECIPE_CASES)}
     if world == 2:
         out["driver"] = tp_driver_cases(outdir)
+        out["recipe_driver"] = tp_recipe_driver_cases(outdir)
     return out
 
 
@@ -911,17 +1061,39 @@ def spawn(world, outdir, suite, arg="", wall_limit=300):
     """Run ``world`` processes of ``suite`` to the end (one thread each) and
     return their results, rank by rank; a failed or overrunning process
     kills its peers."""
+    return collect(start(world, outdir, suite, arg), outdir, wall_limit)
+
+
+def start(world, outdir, suite, arg=""):
+    """Start ``world`` processes of ``suite`` (one thread each) and return
+    them, for :func:`collect`."""
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     os.makedirs(outdir, exist_ok=True)
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(world), str(outdir), suite]
-                              + ([arg] if arg else []), env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    procs = []
+    for r in range(world):
+        # the output goes to a file: a pipe nobody reads while the test waits
+        # on another spawn would fill and stall the process
+        with open(os.path.join(outdir, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, str(r), str(world), str(outdir), suite]
+                + ([arg] if arg else []), env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def collect(procs, outdir, wall_limit=300):
+    """Wait for processes :func:`start` started and return their results,
+    rank by rank; a failed or overrunning process kills its peers."""
+    world = len(procs)
+    deadline = time.monotonic() + wall_limit
     try:
         for r, proc in enumerate(procs):
-            out, _ = proc.communicate(timeout=wall_limit)
-            assert proc.returncode == 0, f"rank {r} of {world} exited {proc.returncode}:\n{out}"
+            proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+            if proc.returncode != 0:
+                with open(os.path.join(outdir, f"rank{r}.log")) as fh:
+                    out = fh.read()
+                raise AssertionError(f"rank {r} of {world} exited {proc.returncode}:\n{out}")
     finally:
         for proc in procs:
             if proc.poll() is None:
