@@ -30,14 +30,27 @@ when it fires, so the supervisor's relaunch of the same command runs clean:
   process has no peers to wait on; the real two-process exchange is
   ``scripts/port_fleet_launcher.py``'s).
 
+Under a launcher that sets torchrun's environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``;
+``scripts/port_fleet_launcher.py --trainer``) the victim is one process of
+a data-parallel fleet: ``--dist_backend gloo`` joins the process group over
+gloo before the run (two processes that share one card, where NCCL refuses
+two ranks), and the process whose ``RANK`` is ``FLEET_STRAGGLER_PID``
+arrives ``FLEET_STRAGGLER_MS`` late at every boundary exchange (the real
+skew the supervisor scrapes off rank 0's sidecar). ``--deterministic``
+sets cuDNN's deterministic algorithms, so two runs of the eager convs a
+world above 1 takes are bitwise the same (a digest comparison needs it).
+
 ``--images N`` cuts the synthetic set to its first N images (the CPU
 tests' size). Prints ``START wall=<s>`` on entry, ``SAVE_FOLDER <path>``,
 ``RUN wall=<s>`` (with the seconds torch's and torch._dynamo's imports
 took) when the run is called, ``STEP_BEGIN wall=<s>`` when this process's
 first step is called and ``FIRST_STEP wall=<s>`` when it has finished (the
 wall clock, for the start-up's split), ``KERNELS <json>`` (the fused kernels this process
-launched, at each epoch end and at the exit), and ``DONE step=<n>`` on a
-completed run.
+launched, at each epoch end and at the exit; with ``--kernels_log F`` also
+appended to ``F`` with the pid), and on a completed run
+``DRIVER step=<n> digest=<sha256 of the model state> save_folder=<path>``
+and ``DONE step=<n>``.
 """
 
 import argparse
@@ -64,7 +77,25 @@ def parse_args(argv=None):
                    help="one-shot gate for --straggler_ms")
     p.add_argument("--images", type=int, default=0,
                    help="cut the synthetic set to its first N images (0 = all)")
+    p.add_argument("--dist_backend", default="auto", choices=["auto", "gloo"],
+                   help="gloo: join the launcher's process group over gloo before the run "
+                        "(auto: the trainer's own choice, NCCL on the card)")
+    p.add_argument("--deterministic", action="store_true",
+                   help="cuDNN's deterministic algorithms")
+    p.add_argument("--kernels_log", default="",
+                   help="also append each KERNELS report, with this process's pid, to this "
+                        "JSON-lines file")
     return p.parse_known_args(argv)
+
+
+def model_digest(model) -> str:
+    """sha256 over the model state's names and bytes."""
+    import hashlib
+    digest = hashlib.sha256()
+    for key, t in model.state_dict().items():
+        digest.update(key.encode())
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
 
 
 def kernel_launches():
@@ -134,13 +165,20 @@ def main(argv=None):
 
     supcon.train_step = watched_step
 
+    def report_kernels():
+        launches = kernel_launches()
+        print(f"KERNELS {json.dumps(launches)}", flush=True)
+        if args.kernels_log:
+            with open(args.kernels_log, "a") as fh:
+                fh.write(json.dumps({"pid": os.getpid(), "kernels": launches}) + "\n")
+
     epoch_fn = supcon.train_one_epoch
 
     def reporting_epoch(*a, **kw):
         try:
             return epoch_fn(*a, **kw)
         finally:
-            print(f"KERNELS {json.dumps(kernel_launches())}", flush=True)
+            report_kernels()
 
     supcon.train_one_epoch = reporting_epoch
 
@@ -176,6 +214,22 @@ def main(argv=None):
         trip(args.fault_marker, "collapse")
         print("FAULT collapse: impossible health thresholds", flush=True)
 
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    pace_ms = float(os.environ.get("FLEET_STRAGGLER_MS", "0") or 0)
+    if pace_ms and os.environ.get("RANK") == os.environ.get("FLEET_STRAGGLER_PID", "1"):
+        paced = telemetry.TelemetrySession.check_failures_global
+
+        def late(self, step_hint=0):
+            time.sleep(pace_ms / 1e3)
+            return paced(self, step_hint)
+
+        telemetry.TelemetrySession.check_failures_global = late
+        print(f"FAULT straggler: this process arrives {pace_ms} ms late at each boundary",
+              flush=True)
+
     if args.straggler_ms > 0 and not marked(args.straggler_marker):
         exchange = telemetry.TelemetrySession.check_failures_global
         skew_s = args.straggler_ms / 1e3
@@ -198,11 +252,20 @@ def main(argv=None):
     print(f"RUN wall={time.time():.6f} import_torch_s={torch_s:.3f} "
           f"import_dynamo_s={dynamo_s:.3f}", flush=True)
 
+    joined = False
+    if args.dist_backend == "gloo" and "WORLD_SIZE" in os.environ:
+        from simclr_pytorch_distributed_tpu_torch.parallel import mesh
+        joined = mesh.setup_distributed(cfg.device, backend="gloo")
+
     def run():
         try:
             result = supcon.run(cfg)
         finally:
-            print(f"KERNELS {json.dumps(kernel_launches())}", flush=True)
+            report_kernels()
+            if joined:
+                mesh.teardown_distributed()
+        print(f"DRIVER step={result.state.step} digest={model_digest(result.state.model)} "
+              f"save_folder={result.save_folder}", flush=True)
         print(f"DONE step={result.state.step}", flush=True)
 
     guard.exit_with_code(run)

@@ -280,3 +280,35 @@ def test_the_scan_covers_the_recipe_readers(module):
 def test_the_recipe_reader_scripts_import_no_jax(script):
     path = REPO / "scripts" / script
     assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+
+
+# the scenario and evidence layer: the supervisor matrix, the serve-fleet
+# scenario, and the scripts they drive or judge with (the victim, the fleet
+# launcher's trainer mode, the ratchet's artifact gates)
+EVIDENCE_SCRIPTS = ("port_supervisor_matrix.py", "port_serve_fleet_scenario.py",
+                    "port_supervisor_victim.py", "port_fleet_launcher.py", "port_ratchet.py")
+
+
+@pytest.mark.parametrize("script", EVIDENCE_SCRIPTS)
+def test_the_evidence_scripts_import_no_jax(script):
+    path = REPO / "scripts" / script
+    assert not [name for _, name in _imported_modules(path) if _forbidden(name)]
+
+
+@pytest.mark.parametrize("script", EVIDENCE_SCRIPTS)
+def test_the_port_linter_scans_the_evidence_scripts(script):
+    from simclr_pytorch_distributed_tpu_torch.analysis.core import iter_source_files
+    assert str(REPO / "scripts" / script) in set(iter_source_files(str(REPO)))
+
+
+def test_the_fleet_launchers_trainer_mode_runs_no_test_child():
+    """``--trainer`` starts the port's trainer through the victim; the
+    tests' gloo child (``tests/torch_parallel_child.py``) is the CPU mode's
+    only."""
+    text = (REPO / "scripts" / "port_fleet_launcher.py").read_text()
+    tree = ast.parse(text)
+    layout = next(n for n in tree.body
+                  if isinstance(n, ast.FunctionDef) and n.name == "process_commands")
+    trainer_part = ast.get_source_segment(text, layout).split("if not args.trainer:")[1]
+    trainer_part = trainer_part.split("return out", 1)[1]
+    assert "CHILD" not in trainer_part and "VICTIM" in trainer_part
